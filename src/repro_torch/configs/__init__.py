@@ -1,0 +1,19 @@
+"""Config registry of the port: the paper's BERT-base.  The other model
+families join as their slices are ported."""
+from __future__ import annotations
+
+from repro_torch.configs import bert_base
+from repro_torch.configs.base import LoRAConfig, ModelConfig, MoEConfig, SSMConfig, reduced
+
+REGISTRY: dict[str, ModelConfig] = {m.CONFIG.name: m.CONFIG for m in (bert_base,)}
+
+
+def get_config(name: str) -> ModelConfig:
+    try:
+        return REGISTRY[name]
+    except KeyError:
+        raise KeyError(f"unknown arch {name!r}; known: {sorted(REGISTRY)}") from None
+
+
+__all__ = ["LoRAConfig", "ModelConfig", "MoEConfig", "REGISTRY", "SSMConfig",
+           "get_config", "reduced"]

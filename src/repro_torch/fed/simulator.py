@@ -1,0 +1,326 @@
+"""End-to-end federated simulation of the paper's schemes (§V), on PyTorch.
+Port of ``src/repro/fed/simulator.py`` for the paper's own experiment:
+
+  ours : memory-efficient SFL — parallel clients, ONE full server model,
+         sequential per-client server LoRA updates, Alg. 2 scheduling,
+         Eq. 5-9 aggregation every I rounds.
+  sfl  : FedBERT-style SFL — the same updates; only the round time differs.
+
+Model math runs for real (client forward, server resume-at-cut,
+activation-gradient backprop, LoRA/AdamW updates, FedAvg aggregation);
+simulated wall-clock comes from the §IV analytical model, exactly as in the
+reference.  The slice covers the analytic engine with sync FedAvg over
+constant links and one client per server dispatch.  Every knob outside it
+raises ``NotImplementedError`` naming the ROADMAP item that brings it.
+
+State updates are functional: every optimizer step and every aggregation
+returns new tensors, so state the reference shares between clients (one
+head for all after a commit, the frozen base weights inside each client's
+truncated view) is never written through.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core import aggregation as agg_lib
+from repro_torch.core import lora as lora_lib
+from repro_torch.core import splitfl
+from repro_torch.core.cost_model import (DeviceProfile, LinkProfile, StepTimes,
+                                         client_step_times, lora_upload_bytes,
+                                         makespan)
+from repro_torch.core.scheduling import resolve_order
+from repro_torch.data import ClassificationLoader, EmotionDataset, dirichlet_partition
+from repro_torch.device import resolve_device
+from repro_torch.fed import metrics as M
+from repro_torch.fed.config import FedRunConfig, validate_run_config
+from repro_torch.fed.devices import LINK, SERVER
+from repro_torch.models import build_model
+from repro_torch.optim import AdamW
+from repro_torch.tree import tree_map
+
+SFL_FRAGMENTATION = 1.04   # multi-model GPU contention overhead (paper §V-B)
+
+
+@dataclasses.dataclass
+class RoundRecord:
+    round: int
+    sim_time_s: float
+    mean_loss: float
+    accuracy: Optional[float] = None
+    f1: Optional[float] = None
+
+
+def _not_in_slice(knob: str, item: str) -> NotImplementedError:
+    return NotImplementedError(f"{knob} is not ported yet (ROADMAP Queue A, "
+                               f"item {item})")
+
+
+def check_slice(run: FedRunConfig) -> None:
+    """Raise for every knob the port does not cover yet — none is ignored."""
+    if run.scheme == "sl":
+        raise _not_in_slice("scheme='sl'", "5")
+    if run.engine.mode != "analytic":
+        raise _not_in_slice("engine mode='event'", "8")
+    if run.engine.cohort_chunk != 1:
+        raise _not_in_slice("engine cohort_chunk > 1", "6")
+    if run.engine.cohort_impl != "vmap":
+        raise _not_in_slice("engine cohort_impl='ragged'", "6")
+    if run.agg.policy != "sync":
+        raise _not_in_slice(f"agg policy={run.agg.policy!r}", "8")
+    if run.agg.transport != "nominal":
+        raise _not_in_slice("agg transport='plane'", "8")
+    if run.net.link_model != "constant" or run.net.shared:
+        raise _not_in_slice("the network plane (non-constant or shared links)",
+                            "8")
+    if run.net.quantize:
+        raise _not_in_slice("net quantize=True", "7")
+    if run.control.policy != "static":
+        raise _not_in_slice(f"control policy={run.control.policy!r}", "8")
+    if run.obs.enabled:
+        raise _not_in_slice("observability (obs)", "8")
+    if (run.snapshot_every is not None or run.resume_from is not None
+            or run.preempt_at is not None):
+        raise _not_in_slice("snapshots, resume and preemption", "8")
+    if run.fleet.sampling != "full":
+        raise _not_in_slice(f"fleet sampling={run.fleet.sampling!r}", "9")
+    if run.fleet.edge_cells > 1:
+        raise _not_in_slice("fleet edge_cells > 1", "9")
+    if run.fleet.straggler_prob > 0:
+        raise _not_in_slice("fleet straggler_prob > 0", "9")
+
+
+class Simulator:
+    def __init__(self, cfg: ModelConfig, devices: Optional[Sequence[DeviceProfile]] = None,
+                 cuts: Optional[Sequence[int]] = None,
+                 train: EmotionDataset = None,
+                 test: EmotionDataset = None, run: FedRunConfig = None,
+                 link: LinkProfile = LINK, server: DeviceProfile = SERVER,
+                 links=None, fleet=None, *, device="cuda"):
+        if links is not None:
+            raise _not_in_slice("per-client LinkModels (links=)", "8")
+        if fleet is not None:
+            raise _not_in_slice("FleetSpec fleets (fleet=)", "9")
+        if devices is None or cuts is None or run is None:
+            raise TypeError("Simulator needs devices+cuts and run=")
+        if len(devices) != len(cuts):
+            raise ValueError("one cut per device required")
+        validate_run_config(run, len(devices))
+        check_slice(run)
+        self.device = resolve_device(device)
+        if run.engine.fused_lora:
+            # thread the kernel choice through config, as the reference does
+            cfg = cfg.with_(lora=dataclasses.replace(cfg.lora, impl="fused"))
+        self.cfg, self.run = cfg, run
+        self.devices, self.cuts = list(devices), [int(c) for c in cuts]
+        self.link, self.server_dev = link, server
+        self.u = len(devices)
+        self.model = build_model(cfg, self.device)
+        gen = torch.Generator(device=self.device)
+        self.params = self.model.init_params(gen.manual_seed(run.seed))
+
+        # non-IID data
+        parts = dirichlet_partition(train.labels, self.u, run.alpha, run.seed)
+        self.data_sizes = [len(p) for p in parts]
+        self.loaders = [ClassificationLoader(train.subset(p), run.batch_size,
+                                             seed=run.seed + i)
+                        for i, p in enumerate(parts)]
+        self.test = test
+
+        # per-client state
+        base_lora = self.model.init_lora(gen.manual_seed(run.seed + 1))
+        self.lora_spec = tree_map(torch.zeros_like, base_lora)
+        self.opt = AdamW(run.lr)
+        self.client_params: List = []
+        self.client_lora: List = []
+        self.server_lora: List = []
+        self.heads: List = []
+        self.client_opt: List = []
+        self.server_opt: List = []
+        head0 = self.params.get("cls_head")
+        for cut in self.cuts:
+            pc = dict(self.params)
+            pc["layers"] = lora_lib.slice_stack(self.params["layers"], 0, cut)
+            self.client_params.append(pc)
+            c, s = lora_lib.split_lora(base_lora, cut)
+            full_shape = lora_lib.embed_in_full_shape(s, self.lora_spec, cut, "server")
+            self.client_lora.append(c)
+            self.server_lora.append(full_shape)
+            self.heads.append(head0)
+            self.client_opt.append(self.opt.init(c))
+            self.server_opt.append(self.opt.init({"lora": full_shape, "head": head0}))
+
+        # steps per distinct cut
+        self._srv_steps = {}
+        self._cli_steps = {}
+        for cut in sorted(set(self.cuts)):
+            self._srv_steps[cut] = splitfl.make_server_step_cls(
+                self.model, self.opt, static_cut=cut)
+            self._cli_steps[cut] = splitfl.make_client_step(self.model, self.opt, cut)
+
+        # analytic per-step Eq.10 terms (fixed per client), at the nominal
+        # constant link rate
+        self.times: List[StepTimes] = [
+            client_step_times(cfg, cut, dev, server, LinkProfile(self.link.rate_mbps),
+                              run.batch_size, run.seq_len)
+            for cut, dev in zip(self.cuts, self.devices)]
+        self.history: List[RoundRecord] = []
+        self.sim_clock = 0.0
+
+    # ------------------------------------------------------------------ time
+    def _service_plan(self) -> List[List[int]]:
+        """This round's server dispatch order, one client per dispatch."""
+        tfl = [d.tflops for d in self.devices]
+        order = resolve_order(self.run.engine.scheduler, self.times, self.cuts, tfl)
+        return [[u] for u in order]
+
+    def _round_time(self, order: Sequence[int]) -> float:
+        t = self.times
+        if self.run.scheme == "ours":
+            span, _, _ = makespan(t, order)
+            return span
+        if self.run.scheme == "sfl":
+            # all server submodels train concurrently on one GPU: fair-share
+            # finish at max(arrival) + contended total work
+            start = max(st.ready for st in t)
+            busy = sum(st.t_s for st in t) * SFL_FRAGMENTATION
+            return start + busy + max(st.t_bc + st.t_b for st in t)
+        raise KeyError(self.run.scheme)
+
+    # ------------------------------------------------------------------ round
+    def run_round(self, rnd: int) -> RoundRecord:
+        """One closed-form (analytic-engine) barrier round."""
+        losses, order = self._round_parallel()
+        self.sim_clock += self._round_time(order)
+        if (rnd + 1) % self.run.agg.interval == 0:
+            self.sim_clock += self._commit_sync()
+        mean_loss = float(np.mean(losses)) if losses else float("nan")
+        rec = RoundRecord(rnd, self.sim_clock, mean_loss)
+        self.history.append(rec)
+        return rec
+
+    def _round_parallel(self):
+        """Parallel client forwards, then scheduled server updates on the
+        single full model — one sequential dispatch per client."""
+        losses, order = [], []
+        for grp in self._service_plan():
+            order.extend(grp)
+            losses.extend(self._serve_group(grp))
+        return losses, order
+
+    def _batch(self, u: int) -> dict:
+        return {k: torch.as_tensor(v).to(self.device)
+                for k, v in self.loaders[u].next_batch().items()}
+
+    def _serve_group(self, grp: List[int]) -> List[float]:
+        """The real math of one server dispatch: the client's batch draw and
+        forward, the server step at its cut, then the client's backward."""
+        if len(grp) != 1:
+            raise _not_in_slice("batched cohort dispatch", "6")
+        u = grp[0]
+        cut = self.cuts[u]
+        batch = self._batch(u)
+        fwd, _ = self._cli_steps[cut]
+        v, tape = fwd(self.client_params[u], self.client_lora[u], batch)
+        loss, new_lora, new_head, new_opt, dv = self._srv_steps[cut](
+            self.params, self.server_lora[u], self.heads[u],
+            self.server_opt[u], v, batch)
+        self.server_lora[u] = new_lora
+        self.heads[u] = new_head
+        self.server_opt[u] = new_opt
+        self._client_backward(u, tape, dv)
+        return [float(loss)]
+
+    def _client_backward(self, u: int, tape, dv) -> None:
+        _, bwd = self._cli_steps[self.cuts[u]]
+        self.client_lora[u], self.client_opt[u] = bwd(tape, self.client_opt[u], dv)
+
+    def _fedavg_head(self):
+        """Dataset-weighted FedAvg of the heads, summed from Python 0 in
+        client order as the reference does."""
+        w = np.array(self.data_sizes, np.float64)
+        w /= w.sum()
+        return sum(float(wi) * h for wi, h in zip(w, self.heads))
+
+    def _commit_sync(self) -> float:
+        """Barrier aggregation (Alg. 1 l.17-30, Eqs. 5-9) over the whole
+        fleet; returns the adapter upload + download time at the nominal
+        link."""
+        servers_split = [lora_lib.split_lora(self.server_lora[u], self.cuts[u])[1]
+                         for u in range(self.u)]
+        new_c, new_s, _ = agg_lib.aggregation_round(
+            self.client_lora, servers_split, self.cuts, self.data_sizes)
+        up = max(self.link.transfer_s(lora_upload_bytes(self.cfg, cut))
+                 for cut in self.cuts)
+        self.client_lora = new_c
+        self.server_lora = [
+            lora_lib.embed_in_full_shape(s, self.lora_spec, cut, "server")
+            for s, cut in zip(new_s, self.cuts)]
+        head = self._fedavg_head()
+        self.heads = [head] * self.u
+        # optimizer states reset to match redistributed adapters
+        self.client_opt = [self.opt.init(c) for c in self.client_lora]
+        self.server_opt = [self.opt.init({"lora": s, "head": self.heads[u]})
+                           for u, s in enumerate(self.server_lora)]
+        return 2 * up
+
+    def _maybe_eval(self, rnd: int, rec: RoundRecord, verbose: bool) -> bool:
+        """Per-round eval/early-stop; True means stop training."""
+        run = self.run
+        if (rnd + 1) % run.eval_every == 0 or rnd == run.rounds - 1:
+            rec.accuracy, rec.f1 = self.evaluate()
+            if verbose:
+                print(f"[{run.scheme}/{run.engine.scheduler}] round {rnd+1:4d} "
+                      f"t={rec.sim_time_s:9.1f}s loss={rec.mean_loss:.4f} "
+                      f"acc={rec.accuracy:.4f} f1={rec.f1:.4f}")
+            if (run.target_accuracy is not None
+                    and rec.accuracy >= run.target_accuracy):
+                return True
+        return False
+
+    # ------------------------------------------------------------------ eval
+    @torch.no_grad()
+    def evaluate(self, max_batches: int = 32):
+        """Global model = aggregate of the current full adapters, evaluated
+        centrally on the held-out set."""
+        fulls = [lora_lib.assemble_full(
+                     self.client_lora[u],
+                     lora_lib.split_lora(self.server_lora[u], self.cuts[u])[1],
+                     self.cuts[u])
+                 for u in range(self.u)]
+        full = agg_lib.aggregate_full(fulls, self.data_sizes)
+        params = dict(self.params)
+        params["cls_head"] = self._fedavg_head()
+
+        preds, golds = [], []
+        loader = ClassificationLoader(self.test, self.run.batch_size, seed=0)
+        for i, batch in enumerate(loader.all_batches()):
+            if i >= max_batches:
+                break
+            bt = {k: torch.as_tensor(v).to(self.device) for k, v in batch.items()}
+            logits = self.model.loss(params, full, bt)[1]
+            preds.append(np.argmax(logits.cpu().numpy(), -1))
+            golds.append(batch["label"])
+        pred = np.concatenate(preds)
+        gold = np.concatenate(golds)
+        return M.accuracy(pred, gold), M.macro_f1(pred, gold)
+
+    # ------------------------------------------------------------ training loop
+    def run_training(self, verbose: bool = False, on_round=None):
+        """Run the configured rounds; ``on_round(rec)`` is called after each
+        round and its evaluation (a hook for per-round measurements)."""
+        for rnd in range(self.run.rounds):
+            rec = self.run_round(rnd)
+            stop = self._maybe_eval(rnd, rec, verbose)
+            if on_round is not None:
+                on_round(rec)
+            if stop:
+                break
+        return self.history
+
+    def server_memory_report(self):
+        raise _not_in_slice("server_memory_report (the memory model)", "5")

@@ -1,0 +1,84 @@
+"""ctypes binding of the fused base+LoRA CUDA kernel
+(``csrc/lora_matmul.cu``), with its launch counter.
+
+    y = x @ w + scale * (x @ a.T) @ b.T     x (M,K) w (K,N) a (r,K) b (N,r)
+
+A CUDA tensor launches the kernel on the current stream or raises; a CPU
+tensor takes the plain version (``ref.lora_matmul_ref``).  The counter
+``lora_matmul.launches`` grows by one per kernel launch and by nothing else,
+so a run can show that its path went through the kernel.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.kernels.ref import lora_matmul_ref
+
+MAX_RANK = 64   # the kernel's shared tiles hold r <= 64
+
+_launch = None
+
+
+def _kernel():
+    global _launch
+    if _launch is None:
+        lib = build.load("lora_matmul")
+        fn = lib.lora_matmul_f32
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [
+            ctypes.c_float, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        lib.lora_matmul_max_rank.argtypes = []
+        lib.lora_matmul_max_rank.restype = ctypes.c_int
+        if lib.lora_matmul_max_rank() != MAX_RANK:
+            raise RuntimeError("lora_matmul library and binding disagree on "
+                               "the largest rank")
+        _launch = fn
+    return _launch
+
+
+def _check(x, w, a, b) -> None:
+    ts = (x, w, a, b)
+    if any(t.dim() != 2 for t in ts):
+        raise ValueError("lora_matmul takes 2-D x, w, a, b")
+    (m, k), (k2, n), (r, k3), (n2, r2) = (t.shape for t in ts)
+    if not (k == k2 == k3 and n == n2 and r == r2):
+        raise ValueError(f"lora_matmul shape mismatch: x {tuple(x.shape)}, "
+                         f"w {tuple(w.shape)}, a {tuple(a.shape)}, "
+                         f"b {tuple(b.shape)}")
+    if r > MAX_RANK:
+        raise ValueError(f"lora_matmul supports rank <= {MAX_RANK}, got {r}")
+    if any(t.dtype != torch.float32 for t in ts):
+        raise TypeError("lora_matmul takes float32 tensors")
+    if any(not t.is_contiguous() for t in ts):
+        raise ValueError("lora_matmul takes contiguous tensors")
+    if any(t.device != x.device for t in ts):
+        raise ValueError("lora_matmul inputs must share one device")
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"lora_matmul runs on cuda or cpu, not {x.device}")
+
+
+def lora_matmul(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
+                b: torch.Tensor, *, scale: float) -> torch.Tensor:
+    _check(x, w, a, b)
+    if x.device.type == "cpu":
+        return lora_matmul_ref(x, w, a, b, scale)
+    m, k = x.shape
+    n, r = b.shape
+    y = torch.empty((m, n), dtype=torch.float32, device=x.device)
+    if m == 0 or n == 0:
+        return y
+    fn = _kernel()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = fn(x.data_ptr(), w.data_ptr(), a.data_ptr(), b.data_ptr(),
+                y.data_ptr(), m, n, k, r, float(scale), stream)
+    if rc != 0:
+        raise RuntimeError(f"lora_matmul kernel launch failed: CUDA error {rc}")
+    lora_matmul.launches += 1
+    return y
+
+
+lora_matmul.launches = 0

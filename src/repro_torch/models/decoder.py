@@ -1,0 +1,134 @@
+"""Single-stack model with the paper's split execution built in — the
+encoder family (BERT).  Port of ``src/repro/models/decoder.py``.
+
+``side="full" | "client" | "server"`` with a static ``cut`` selects which
+layers run; the port runs the reference's ``sliced`` path, a Python loop
+over exactly the owned layers.  The masked-scan path (one compiled program
+for every cut) has no counterpart here: the reference's own tests pin it
+equal to the sliced path, and PyTorch runs eagerly.
+
+Params layout (as in the reference, layers stacked on a leading axis):
+    {"embed": (V,d), "pos_embed": (P,d), "layers": <stacked (L,...)>,
+     "final_norm": {...}, "cls_head": (d,n_classes)}
+"""
+from __future__ import annotations
+
+from typing import Any
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.lora import stack_trees
+from repro_torch.device import resolve_device
+from repro_torch.models import blocks as B
+from repro_torch.models import layers as L
+from repro_torch.tree import tree_leaves, tree_map
+
+PyTree = Any
+
+
+def build_lora_tree(gen: torch.Generator, params_one_layer: PyTree, targets,
+                    rank: int, device) -> PyTree:
+    """Mirror 2-D (in,out) leaves whose key is in ``targets`` with {a,b} pairs."""
+    out: dict = {}
+    for key, val in params_one_layer.items():
+        if isinstance(val, dict):
+            child = build_lora_tree(gen, val, targets, rank, device)
+            if child:
+                out[key] = child
+        elif key in targets and val.dim() == 2:
+            out[key] = L.lora_init(gen, val.shape[0], val.shape[1], rank, device)
+    return out
+
+
+class DecoderModel:
+    """Functional model namespace; every method is a pure function of its
+    arguments.  ``device`` is where init places the parameters."""
+
+    def __init__(self, cfg: ModelConfig, device="cuda"):
+        if cfg.family != "encoder":
+            raise NotImplementedError(
+                f"family {cfg.family!r} comes with a later slice of the port "
+                "(ROADMAP Queue A, item 10)")
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.block = B.get_block(cfg)
+
+    # -- init ---------------------------------------------------------------
+    def init_params(self, gen: torch.Generator) -> PyTree:
+        cfg, dev = self.cfg, self.device
+        dt = L.torch_dtype(cfg.dtype)
+        p: dict = {"embed": L.embed_init(gen, cfg.vocab_size, cfg.d_model, dt, dev)}
+        if cfg.positional == "learned":
+            p["pos_embed"] = L.embed_init(gen, cfg.max_position, cfg.d_model, dt, dev)
+        p["layers"] = stack_trees([self.block["init"](gen, cfg, dev)
+                                   for _ in range(cfg.n_layers)])
+        p["final_norm"] = L.init_norm(cfg, dev)
+        if cfg.n_classes:
+            p["cls_head"] = L.dense_init(gen, cfg.d_model, cfg.n_classes,
+                                         torch.float32, dev)
+        return p
+
+    def init_lora(self, gen: torch.Generator) -> PyTree:
+        cfg = self.cfg
+        # a single-layer skeleton on the meta device gives the shapes
+        one = self.block["init"](None, cfg, "meta")
+        per_layer = [build_lora_tree(gen, one, cfg.lora.targets, cfg.lora.rank,
+                                     self.device)
+                     for _ in range(cfg.n_layers)]
+        return {"layers": stack_trees(per_layer)}
+
+    # -- embedding / head -----------------------------------------------------
+    def embed(self, params: PyTree, batch: dict) -> torch.Tensor:
+        cfg = self.cfg
+        x = params["embed"][batch["tokens"].long()]
+        if cfg.positional == "learned":
+            x = x + params["pos_embed"][torch.arange(x.shape[1], device=x.device)]
+        return x
+
+    def unembed(self, params: PyTree, x: torch.Tensor) -> torch.Tensor:
+        cfg = self.cfg
+        x = L.apply_norm(cfg, params["final_norm"], x)
+        if not cfg.n_classes:
+            raise NotImplementedError("LM heads come with the decoder-LM slice "
+                                      "(ROADMAP Queue A, item 10)")
+        return x[:, 0, :].float() @ params["cls_head"]   # CLS pool
+
+    def make_ctx(self, seq_len: int, device) -> dict:
+        cfg = self.cfg
+        return {"positions": torch.arange(seq_len, dtype=torch.int32, device=device),
+                "causal": cfg.causal, "window": cfg.sliding_window}
+
+    # -- backbone: sliced (static-cut) path -------------------------------------
+    def sliced_forward(self, params, lora, x, ctx, layer_range) -> torch.Tensor:
+        """Python loop over exactly layers [lo, hi).  ``params['layers']``
+        may hold the full stack or a client's truncated stack; indices are
+        relative to the stored stack."""
+        lora_layers = (lora or {}).get("layers", {})
+        lo, hi = layer_range
+        for i in range(lo, hi):
+            p_l = tree_map(lambda a: a[i], params["layers"])
+            lo_l = tree_map(lambda a: a[i], lora_layers)
+            x, _ = self.block["train"](self.cfg, p_l, lo_l, x, ctx)
+        return x
+
+    # -- public API ----------------------------------------------------------
+    def forward_hidden(self, params, lora, batch, *, cut: int = 0,
+                       side: str = "full", x0=None):
+        """Embedding (client/full only) + the owned layers; returns (h, aux)."""
+        x = self.embed(params, batch) if x0 is None else x0
+        ctx = self.make_ctx(x.shape[1], x.device)
+        nl = tree_leaves(params["layers"])[0].shape[0]
+        rng = {"full": (0, nl), "client": (0, int(cut)),
+               "server": (int(cut), nl)}[side]
+        h = self.sliced_forward(params, lora, x, ctx, rng)
+        return h, torch.zeros((), dtype=torch.float32, device=h.device)
+
+    def loss(self, params, lora, batch, *, cut: int = 0, side: str = "full",
+             x0=None):
+        """Full loss (side='full') or server-side loss from activations x0."""
+        h, aux = self.forward_hidden(params, lora, batch, cut=cut, side=side,
+                                     x0=x0)
+        logits = self.unembed(params, h)
+        loss = L.softmax_xent(logits[:, None, :], batch["label"][:, None])
+        return loss + aux, logits

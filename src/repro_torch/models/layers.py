@@ -1,0 +1,233 @@
+"""Shared neural-net primitives of the encoder slice: norms, LoRA-aware
+projections, full attention, MLP, cross-entropy.  Port of
+``src/repro/models/layers.py``.
+
+Pure functions over explicit parameter trees (dicts of tensors).  Weights
+keep the JAX package's (in, out) layout, so ``x @ w`` applies them.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+
+Tensor = torch.Tensor
+
+# ---------------------------------------------------------------------------
+# init helpers (explicit generator and device)
+# ---------------------------------------------------------------------------
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+           "float16": torch.float16}
+
+
+def torch_dtype(name: str) -> torch.dtype:
+    return _DTYPES[name]
+
+
+def _normal(gen: torch.Generator, shape, device) -> Tensor:
+    return torch.randn(shape, generator=gen, device=device, dtype=torch.float32)
+
+
+def dense_init(gen: torch.Generator, d_in: int, d_out: int, dtype,
+               device) -> Tensor:
+    scale = 1.0 / math.sqrt(d_in)
+    return (_normal(gen, (d_in, d_out), device) * scale).to(dtype)
+
+
+def embed_init(gen: torch.Generator, vocab: int, d: int, dtype, device) -> Tensor:
+    return (_normal(gen, (vocab, d), device) * 0.02).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# norms
+# ---------------------------------------------------------------------------
+
+def layer_norm(x: Tensor, weight: Tensor, bias: Tensor, eps: float = 1e-5) -> Tensor:
+    """LayerNorm with the population variance, computed in f32."""
+    dt = x.dtype
+    x = x.float()
+    mu = x.mean(dim=-1, keepdim=True)
+    var = x.var(dim=-1, keepdim=True, unbiased=False)
+    x = (x - mu) * torch.rsqrt(var + eps)
+    return (x * weight.float() + bias.float()).to(dt)
+
+
+def apply_norm(cfg: ModelConfig, p: dict, x: Tensor) -> Tensor:
+    if cfg.norm != "layernorm":
+        raise NotImplementedError(
+            f"norm {cfg.norm!r} comes with the decoder-LM slice "
+            "(ROADMAP Queue A, item 10)")
+    return layer_norm(x, p["scale"], p["bias"])
+
+
+def init_norm(cfg: ModelConfig, device) -> dict:
+    d = cfg.d_model
+    if cfg.norm != "layernorm":
+        raise NotImplementedError(
+            f"norm {cfg.norm!r} comes with the decoder-LM slice "
+            "(ROADMAP Queue A, item 10)")
+    return {"scale": torch.ones((d,), dtype=torch.float32, device=device),
+            "bias": torch.zeros((d,), dtype=torch.float32, device=device)}
+
+
+# ---------------------------------------------------------------------------
+# LoRA-aware projection
+# ---------------------------------------------------------------------------
+
+# how adapted projections execute (LoRAConfig.impl; the federated engine
+# sets it via EngineConfig.fused_lora):
+#   einsum — plain PyTorch products (the reference's default);
+#   fused  — the hand-written CUDA kernel (kernels/lora_matmul.py), whose
+#            wrapper takes the plain version for CPU tensors.
+LORA_IMPLS = ("einsum", "fused")
+
+
+def lora_apply(x: Tensor, w: Tensor, lora: Optional[dict], scale: float,
+               impl: Optional[str] = None) -> Tensor:
+    """y = x @ w + scale * (x @ a.T) @ b.T   with a:(r,in), b:(out,r)."""
+    if impl is None:
+        impl = "einsum"
+    elif impl not in LORA_IMPLS:
+        raise KeyError(f"unknown lora impl {impl!r}; choose from {LORA_IMPLS}")
+    if lora is not None and lora["a"].dim() == 3 and w.dim() == 2:
+        raise NotImplementedError(
+            "cohort-grouped 3-D adapters run the grouped LoRA kernel "
+            "(ROADMAP Queue B, item 2)")
+    if impl == "fused" and lora is not None and w.dim() == 2:
+        from repro_torch.kernels.ops import fused_lora_matmul
+        y = fused_lora_matmul(x.to(w.dtype), w, lora["a"].to(w.dtype),
+                              lora["b"].to(w.dtype), scale=float(scale))
+        return y.to(x.dtype)
+    y = x @ w.to(x.dtype)
+    if lora is not None:
+        lo = x @ lora["a"].to(x.dtype).t()
+        y = y + scale * (lo @ lora["b"].to(x.dtype).t())
+    return y
+
+
+def lora_init(gen: torch.Generator, d_in: int, d_out: int, rank: int,
+              device) -> dict:
+    """A ~ N(0, 1/r), B = 0 (standard LoRA init: Delta W = BA starts at zero)."""
+    return {"a": _normal(gen, (rank, d_in), device) / math.sqrt(rank),
+            "b": torch.zeros((d_out, rank), dtype=torch.float32, device=device)}
+
+
+# ---------------------------------------------------------------------------
+# attention
+# ---------------------------------------------------------------------------
+
+def attention_full(q: Tensor, k: Tensor, v: Tensor, *, causal: bool,
+                   window: Optional[int], q_pos: Tensor, k_pos: Tensor,
+                   impl: str = "naive") -> Tensor:
+    """Full-sequence attention with materialized probabilities.
+    q:(B,S,H,Dh) k,v:(B,T,K,Dh) -> (B,S,H*Dh)."""
+    if impl != "naive":
+        raise NotImplementedError(
+            f"attention impl {impl!r} comes with the decoder-LM slice "
+            "(ROADMAP Queue A, item 10)")
+    b, s, h, dh = q.shape
+    kheads = k.shape[2]
+    g = h // kheads
+    q = q.reshape(b, s, kheads, g, dh)
+    rel = q_pos[:, None] - k_pos[None, :]                        # (S, T)
+    if causal:
+        mask = rel >= 0
+    else:
+        mask = torch.ones((s, k.shape[1]), dtype=torch.bool, device=q.device)
+    if window is not None:
+        mask = mask & (rel < window)
+    scores = torch.einsum("bskgd,btkd->bkgst", q.float(), k.float()) / math.sqrt(dh)
+    scores = torch.where(mask, scores, torch.full_like(scores, -1e30))
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgst,btkd->bskgd", probs.to(v.dtype), v)
+    return out.reshape(b, s, h * dh)
+
+
+# ---------------------------------------------------------------------------
+# MLP
+# ---------------------------------------------------------------------------
+
+def mlp_init(gen: torch.Generator, cfg: ModelConfig, device) -> dict:
+    d, ff = cfg.d_model, cfg.d_ff
+    if cfg.activation != "gelu":
+        raise NotImplementedError(
+            f"activation {cfg.activation!r} comes with the decoder-LM slice "
+            "(ROADMAP Queue A, item 10)")
+    dt = torch_dtype(cfg.dtype)
+    return {"wu": dense_init(gen, d, ff, dt, device),
+            "wd": dense_init(gen, ff, d, dt, device)}
+
+
+def _act(cfg: ModelConfig, x: Tensor) -> Tensor:
+    if cfg.activation == "gelu":
+        return F.gelu(x, approximate="tanh")
+    raise NotImplementedError(
+        f"activation {cfg.activation!r} comes with the decoder-LM slice "
+        "(ROADMAP Queue A, item 10)")
+
+
+def mlp_apply(cfg: ModelConfig, p: dict, lora: Optional[dict], x: Tensor) -> Tensor:
+    scale = cfg.lora.alpha / cfg.lora.rank
+    impl = cfg.lora.impl
+    lget = (lora or {}).get
+    up = _act(cfg, lora_apply(x, p["wu"], lget("wu"), scale, impl=impl))
+    return lora_apply(up, p["wd"], lget("wd"), scale, impl=impl)
+
+
+# ---------------------------------------------------------------------------
+# attention block parameters
+# ---------------------------------------------------------------------------
+
+def attn_init(gen: torch.Generator, cfg: ModelConfig, device) -> dict:
+    d = cfg.d_model
+    dt = torch_dtype(cfg.dtype)
+    if cfg.qkv_bias:
+        raise NotImplementedError("qkv biases come with the decoder-LM slice "
+                                  "(ROADMAP Queue A, item 10)")
+    return {"wq": dense_init(gen, d, cfg.attn_dim, dt, device),
+            "wk": dense_init(gen, d, cfg.kv_dim, dt, device),
+            "wv": dense_init(gen, d, cfg.kv_dim, dt, device),
+            "wo": dense_init(gen, cfg.attn_dim, d, dt, device)}
+
+
+def qkv_project(cfg: ModelConfig, p: dict, lora: Optional[dict], x: Tensor):
+    scale = cfg.lora.alpha / cfg.lora.rank
+    impl = cfg.lora.impl
+    lget = (lora or {}).get
+    b, s, _ = x.shape
+    q = lora_apply(x, p["wq"], lget("wq"), scale, impl=impl)
+    k = lora_apply(x, p["wk"], lget("wk"), scale, impl=impl)
+    v = lora_apply(x, p["wv"], lget("wv"), scale, impl=impl)
+    q = q.reshape(b, s, cfg.n_heads, cfg.head_dim)
+    k = k.reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
+    v = v.reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
+    if cfg.positional == "rope":
+        raise NotImplementedError("rotary positions come with the decoder-LM "
+                                  "slice (ROADMAP Queue A, item 10)")
+    return q, k, v
+
+
+def attn_out(cfg: ModelConfig, p: dict, lora: Optional[dict], ctx: Tensor) -> Tensor:
+    scale = cfg.lora.alpha / cfg.lora.rank
+    return lora_apply(ctx, p["wo"], (lora or {}).get("wo"), scale,
+                      impl=cfg.lora.impl)
+
+
+# ---------------------------------------------------------------------------
+# losses
+# ---------------------------------------------------------------------------
+
+def softmax_xent(logits: Tensor, targets: Tensor, ignore_id: int = -1) -> Tensor:
+    """Mean token cross-entropy; targets == ignore_id are masked out."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1,
+                        targets.clamp(min=0).long()[..., None])[..., 0]
+    nll = logz - gold
+    mask = (targets != ignore_id).float()
+    return (nll * mask).sum() / mask.sum().clamp(min=1.0)

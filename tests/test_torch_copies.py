@@ -1,0 +1,134 @@
+"""The port's copies of the JAX package's numpy-only modules (configs, data,
+cost model, scheduling, devices, metrics, run config) stay bit-equal to
+their originals on seeded inputs."""
+import os
+
+# the JAX reference runs on the CPU in these comparisons, also where its
+# JAX could see an accelerator (there it would lower the Pallas kernels
+# for that device and take fp32 products at reduced precision)
+os.environ["JAX_PLATFORMS"] = "cpu"
+
+import dataclasses
+
+import numpy as np
+import pytest
+
+pytest.importorskip("jax")
+
+from repro import configs as j_configs  # noqa: E402
+from repro import data as j_data  # noqa: E402
+from repro.core import cost_model as j_cost  # noqa: E402
+from repro.core import scheduling as j_sched  # noqa: E402
+from repro.fed import config as j_fedcfg  # noqa: E402
+from repro.fed import devices as j_devices  # noqa: E402
+from repro.fed import metrics as j_metrics  # noqa: E402
+from repro_torch import configs as t_configs  # noqa: E402
+from repro_torch import data as t_data  # noqa: E402
+from repro_torch.core import cost_model as t_cost  # noqa: E402
+from repro_torch.core import scheduling as t_sched  # noqa: E402
+from repro_torch.fed import config as t_fedcfg  # noqa: E402
+from repro_torch.fed import devices as t_devices  # noqa: E402
+from repro_torch.fed import metrics as t_metrics  # noqa: E402
+
+
+def _same_config(a, b):
+    assert dataclasses.asdict(a) == dataclasses.asdict(b)
+
+
+@pytest.mark.parametrize("kw", [{}, {"n_layers": 2, "d_model": 128},
+                                {"n_layers": 4, "d_model": 256, "seq_cap": 64}])
+def test_bert_config_and_reduced(kw):
+    j, t = j_configs.REGISTRY["bert-base"], t_configs.REGISTRY["bert-base"]
+    _same_config(j, t)
+    if kw:
+        _same_config(j_configs.reduced(j, **kw), t_configs.reduced(t, **kw))
+    assert t.param_count() == j.param_count()
+
+
+@pytest.mark.parametrize("seed", [0, 3])
+def test_emotion_dataset_partition_and_loader(seed):
+    jd = j_data.make_emotion_dataset(500, seq_len=24, vocab_size=4096, seed=seed)
+    td = t_data.make_emotion_dataset(500, seq_len=24, vocab_size=4096, seed=seed)
+    np.testing.assert_array_equal(jd.tokens, td.tokens)
+    np.testing.assert_array_equal(jd.labels, td.labels)
+    jp = j_data.dirichlet_partition(jd.labels, 6, 0.5, seed)
+    tp = t_data.dirichlet_partition(td.labels, 6, 0.5, seed)
+    assert len(jp) == len(tp)
+    for a, b in zip(jp, tp):
+        np.testing.assert_array_equal(a, b)
+    jl = j_data.ClassificationLoader(jd.subset(jp[0]), 4, seed=seed + 1)
+    tl = t_data.ClassificationLoader(td.subset(tp[0]), 4, seed=seed + 1)
+    for _ in range(2 * len(jl) + 3):           # crosses epoch boundaries
+        jb, tb = jl.next_batch(), tl.next_batch()
+        for key in ("tokens", "label"):
+            np.testing.assert_array_equal(jb[key], tb[key])
+    for jb, tb in zip(jl.all_batches(), tl.all_batches()):
+        np.testing.assert_array_equal(jb["tokens"], tb["tokens"])
+
+
+def _times(mod, devs, cfg, cuts, server, link):
+    return [mod.client_step_times(cfg, c, d, server, link, 16, 128)
+            for c, d in zip(cuts, devs)]
+
+
+def test_cost_model_and_alg2_order_bit_equal():
+    jcfg, tcfg = j_configs.REGISTRY["bert-base"], t_configs.REGISTRY["bert-base"]
+    jt = _times(j_cost, j_devices.PAPER_CLIENTS, jcfg, j_devices.PAPER_CUTS,
+                j_devices.SERVER, j_devices.LINK)
+    tt = _times(t_cost, t_devices.PAPER_CLIENTS, tcfg, t_devices.PAPER_CUTS,
+                t_devices.SERVER, t_devices.LINK)
+    assert [dataclasses.asdict(x) for x in jt] == [dataclasses.asdict(x) for x in tt]
+    tfl = [d.tflops for d in t_devices.PAPER_CLIENTS]
+    cuts = list(t_devices.PAPER_CUTS)
+    for policy in ("ours", "fifo", "wf", "bw", "optimal"):
+        jo = j_sched.resolve_order(policy, jt, cuts, tfl)
+        to = t_sched.resolve_order(policy, tt, cuts, tfl)
+        assert jo == to
+        assert j_cost.makespan(jt, jo) == t_cost.makespan(tt, to)
+    assert j_sched.alg2_priorities(cuts, tfl) == t_sched.alg2_priorities(cuts, tfl)
+    for cut in range(13):
+        assert j_cost.lora_upload_bytes(jcfg, cut) == t_cost.lora_upload_bytes(tcfg, cut)
+
+
+def test_devices_bit_equal():
+    for name in ("PAPER_CLIENTS", "SERVER", "LINK"):
+        j, t = getattr(j_devices, name), getattr(t_devices, name)
+        if isinstance(j, tuple):
+            assert [dataclasses.asdict(x) for x in j] == [dataclasses.asdict(x) for x in t]
+        else:
+            assert dataclasses.asdict(j) == dataclasses.asdict(t)
+    assert j_devices.PAPER_CUTS == t_devices.PAPER_CUTS
+
+
+def test_metrics_bit_equal():
+    rs = np.random.default_rng(0)
+    pred, gold = rs.integers(0, 6, 300), rs.integers(0, 6, 300)
+    assert j_metrics.accuracy(pred, gold) == t_metrics.accuracy(pred, gold)
+    assert j_metrics.macro_f1(pred, gold) == t_metrics.macro_f1(pred, gold)
+
+
+@pytest.mark.parametrize("groups", [
+    {},
+    {"agg": {"interval": 2}},
+    {"agg": {"policy": "buffered", "interval": 1}},
+    {"engine": {"slots": 2}},
+    {"engine": {"mode": "event"}, "scheme": "sfl"},
+    {"fleet": {"edge_cells": 7}},
+])
+def test_run_config_validation_matches(groups):
+    def build(mod):
+        kw = {"scheme": groups.get("scheme", "ours")}
+        for group, cls in (("agg", "AggConfig"), ("engine", "EngineConfig"),
+                           ("fleet", "FleetConfig")):
+            if group in groups:
+                kw[group] = getattr(mod, cls)(**groups[group])
+        return mod.FedRunConfig(**kw)
+
+    outcomes = []
+    for mod in (j_fedcfg, t_fedcfg):
+        try:
+            mod.validate_run_config(build(mod), 6)
+            outcomes.append(None)
+        except (KeyError, ValueError) as e:
+            outcomes.append((type(e), str(e)))
+    assert outcomes[0] == outcomes[1]

@@ -1,0 +1,80 @@
+"""The port stands alone: it imports without JAX, loads nothing of the JAX
+package, never names either in its sources, and its entry points refuse to
+fall back from the card to the CPU."""
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+# tiny shapes: one intra-op thread each, so parallel test workers do not
+# oversubscribe the cores
+torch.set_num_threads(1)
+
+ROOT = Path(__file__).resolve().parents[1]
+SRC = ROOT / "src"
+
+_IMPORT_ALL = r"""
+import importlib, pkgutil, sys
+sys.modules["jax"] = None            # any `import jax` now raises
+import repro_torch
+names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")]
+for name in names:
+    importlib.import_module(name)
+leaked = sorted(k for k in sys.modules if k == "repro" or k.startswith("repro."))
+print(len(names), leaked)
+assert not leaked, leaked
+"""
+
+
+def test_imports_without_jax_and_without_reference_package():
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    proc = subprocess.run([sys.executable, "-c", _IMPORT_ALL], env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    n_modules, leaked = proc.stdout.split(" ", 1)
+    assert int(n_modules) >= 20 and leaked.strip() == "[]"
+
+
+_FORBIDDEN = re.compile(r"^\s*(import jax|from jax|import repro\.|from repro\.|"
+                        r"from repro import|import repro\s*$)", re.M)
+
+
+@pytest.mark.parametrize("path", sorted(str(p.relative_to(ROOT)) for p in
+                                        [*(SRC / "repro_torch").rglob("*.py"),
+                                         ROOT / "chip_smoke.py"]))
+def test_sources_name_neither_jax_nor_reference_package(path):
+    hits = _FORBIDDEN.findall((ROOT / path).read_text())
+    assert not hits, (path, hits)
+
+
+def test_cuda_entry_points_raise_without_a_card(monkeypatch):
+    from repro_torch.configs import REGISTRY, reduced
+    from repro_torch.device import resolve_device
+    from repro_torch.models import build_model
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = reduced(REGISTRY["bert-base"], n_layers=1, d_model=64)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build_model(cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        resolve_device("cuda")
+    with pytest.raises(ValueError):
+        resolve_device("meta")
+    assert resolve_device("cpu").type == "cpu"
+
+
+def test_simulator_defaults_to_cuda(monkeypatch):
+    from repro_torch.configs import REGISTRY, reduced
+    from repro_torch.data import make_emotion_dataset
+    from repro_torch.fed import PAPER_CLIENTS, PAPER_CUTS, FedRunConfig, Simulator
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = reduced(REGISTRY["bert-base"], n_layers=4, d_model=64).with_(vocab_size=4096)
+    ds = make_emotion_dataset(200, seq_len=16, vocab_size=4096)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Simulator(cfg, PAPER_CLIENTS, PAPER_CUTS, ds, ds,
+                  FedRunConfig(rounds=1, batch_size=4, seq_len=16))

@@ -1,0 +1,174 @@
+"""The whole slice: the port's federated Simulator against the JAX package's,
+from the reference's own initial state (``bridge.load_reference_state``),
+at reduced(bert-base, 4 layers, d 128), vocab 4096, seq 16, batch 4, the six
+paper clients at cuts (1,1,2,2,3,3), 2 rounds, aggregation every 2 — one
+aggregation and one evaluation.  Also: every knob outside the slice raises,
+and the numpy bridge round-trips.
+"""
+import os
+
+# the JAX reference runs on the CPU in these comparisons, also where its
+# JAX could see an accelerator (there it would lower the Pallas kernels
+# for that device and take fp32 products at reduced precision)
+os.environ["JAX_PLATFORMS"] = "cpu"
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+# tiny shapes: one intra-op thread each, so parallel test workers do not
+# oversubscribe the cores
+torch.set_num_threads(1)
+
+from repro_torch import bridge
+from repro_torch.configs import REGISTRY, reduced
+from repro_torch.data import make_emotion_dataset
+from repro_torch.fed import (PAPER_CLIENTS, AggConfig, EngineConfig, FedRunConfig,
+                             FleetConfig, NetConfig, Simulator)
+from repro_torch.numerics import set_fp32_policy
+from repro_torch.optim import AdamWState
+
+set_fp32_policy()
+
+CUTS = (1, 1, 2, 2, 3, 3)
+LR = 1e-3
+RUN_KW = dict(rounds=2, batch_size=4, seq_len=16, lr=LR)
+# a mean loss computed after AdamW steps: the optimizer's first step moves an
+# element with a near-zero gradient by about lr either way (ROADMAP Queue
+# C.1); measured differences are ~1e-7, far inside this bound
+LOSS_RTOL = 1e-4
+# adapters after two AdamW steps (one per round) and one aggregation
+ADAPTER_ATOL = 2 * LR * 2
+
+
+def _datasets(make):
+    return (make(600, seq_len=16, vocab_size=4096, seed=0),
+            make(120, seq_len=16, vocab_size=4096, seed=1))
+
+
+def _port_cfg():
+    return reduced(REGISTRY["bert-base"], n_layers=4, d_model=128).with_(vocab_size=4096)
+
+
+def _leaf_max_diff(got, want):
+    if isinstance(got, dict):
+        return max(_leaf_max_diff(got[k], want[k]) for k in got)
+    return float(np.abs(got.numpy() - np.asarray(want)).max())
+
+
+def test_simulator_matches_reference():
+    """Both packages route every adapted projection through their fused
+    kernel (the reference's Pallas kernel in interpret mode)."""
+    jax = pytest.importorskip("jax")
+    from repro.configs import REGISTRY as J_REGISTRY
+    from repro.configs import reduced as j_reduced
+    from repro.data import make_emotion_dataset as j_make
+    from repro.fed import AggConfig as JAgg
+    from repro.fed import EngineConfig as JEngine
+    from repro.fed import FedRunConfig as JRun
+    from repro.fed import PAPER_CLIENTS as J_CLIENTS
+    from repro.fed import Simulator as JSimulator
+
+    jcfg = j_reduced(J_REGISTRY["bert-base"], n_layers=4, d_model=128).with_(vocab_size=4096)
+    js = JSimulator(jcfg, J_CLIENTS, CUTS, *_datasets(j_make),
+                    JRun(**RUN_KW, engine=JEngine(fused_lora=True), agg=JAgg(interval=2)))
+    state = {k: jax.tree.map(np.asarray, getattr(js, k)) for k in bridge.STATE_KEYS}
+    j_hist = js.run_training()
+
+    ts = Simulator(_port_cfg(), PAPER_CLIENTS, CUTS, *_datasets(make_emotion_dataset),
+                   FedRunConfig(**RUN_KW, engine=EngineConfig(fused_lora=True),
+                                agg=AggConfig(interval=2)),
+                   device="cpu")
+    bridge.load_reference_state(ts, state)
+    t_hist = ts.run_training()
+
+    assert [r.round for r in t_hist] == [r.round for r in j_hist] == [0, 1]
+    assert ts.data_sizes == js.data_sizes
+    for t, j in zip(t_hist, j_hist):
+        assert abs(t.sim_time_s - j.sim_time_s) <= 1e-12
+        assert abs(t.mean_loss - j.mean_loss) <= LOSS_RTOL * abs(j.mean_loss)
+    # logits agree to ~1e-6, and no argmax of this seeded test set sits that
+    # close to a tie, so the evaluation counts the same hits
+    assert t_hist[-1].accuracy == j_hist[-1].accuracy
+    assert t_hist[-1].f1 == j_hist[-1].f1
+    for u in range(len(CUTS)):
+        assert _leaf_max_diff(ts.client_lora[u], js.client_lora[u]) <= ADAPTER_ATOL
+        assert _leaf_max_diff(ts.server_lora[u], js.server_lora[u]) <= ADAPTER_ATOL
+    assert _leaf_max_diff(ts.heads[0], js.heads[0]) <= ADAPTER_ATOL
+
+
+def test_heads_are_shared_after_commit_but_never_written_through():
+    ts = Simulator(_port_cfg(), PAPER_CLIENTS, CUTS, *_datasets(make_emotion_dataset),
+                   FedRunConfig(**RUN_KW, agg=AggConfig(interval=1)), device="cpu")
+    ts.run_round(0)
+    shared = ts.heads[0]
+    assert all(h is shared for h in ts.heads)
+    before = shared.clone()
+    ts._serve_group([0])                       # client 0's server step
+    assert ts.heads[0] is not shared and torch.equal(shared, before)
+    assert all(h is shared for h in ts.heads[1:])
+
+
+def _run(**groups):
+    kw = dict(RUN_KW)
+    kw.update(groups)
+    return FedRunConfig(**kw)
+
+
+@pytest.mark.parametrize("run", [
+    _run(scheme="sl"),
+    _run(engine=EngineConfig(mode="event")),
+    _run(engine=EngineConfig(cohort_chunk=2)),
+    _run(engine=EngineConfig(cohort_impl="ragged")),
+    _run(net=NetConfig(quantize=True)),
+    _run(agg=AggConfig(transport="plane")),
+    _run(fleet=FleetConfig(sampling="uniform", rate=0.5)),
+    _run(fleet=FleetConfig(straggler_prob=0.1)),
+    _run(fleet=FleetConfig(edge_cells=2)),
+], ids=["sl", "event", "cohort_chunk", "ragged", "quantize", "plane",
+        "sampling", "stragglers", "edge_cells"])
+def test_knobs_outside_the_slice_raise(run):
+    train, test = _datasets(make_emotion_dataset)
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue A"):
+        Simulator(_port_cfg(), PAPER_CLIENTS, CUTS, train, test, run, device="cpu")
+
+
+def test_memory_report_and_custom_links_raise():
+    train, test = _datasets(make_emotion_dataset)
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue A"):
+        Simulator(_port_cfg(), PAPER_CLIENTS, CUTS, train, test, _run(),
+                  links=[object()] * 6, device="cpu")
+    sim = Simulator(_port_cfg(), PAPER_CLIENTS, CUTS, train, test, _run(), device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue A"):
+        sim.server_memory_report()
+
+
+def test_bridge_round_trip_keeps_paths_and_dtypes():
+    rs = np.random.default_rng(0)
+    tree = {"layers": {"attn": {"wq": {"a": rs.standard_normal((2, 4, 8)).astype(np.float32),
+                                       "b": np.zeros((2, 8, 4), np.float32)}}},
+            "tokens": rs.integers(0, 9, (3, 5)).astype(np.int32)}
+    opt = AdamWState(np.int32(3), tree["layers"], tree["layers"])
+    back = bridge.to_numpy(bridge.to_torch({"t": tree, "opt": opt}, "cpu"))
+    assert isinstance(back["opt"], AdamWState) and back["opt"].step.dtype == np.int32
+    np.testing.assert_array_equal(back["t"]["tokens"], tree["tokens"])
+    assert back["t"]["tokens"].dtype == np.int32
+    np.testing.assert_array_equal(back["t"]["layers"]["attn"]["wq"]["a"],
+                                  tree["layers"]["attn"]["wq"]["a"])
+    with pytest.raises(KeyError):
+        bridge.load_reference_state(None, {"params": {}})
+
+
+def test_fused_and_einsum_runs_agree_on_cpu():
+    """On the CPU the fused wrapper runs the plain version, so the two
+    paths give the same history."""
+    hists = []
+    for fused in (False, True):
+        sim = Simulator(_port_cfg(), PAPER_CLIENTS, CUTS, *_datasets(make_emotion_dataset),
+                        FedRunConfig(**RUN_KW, engine=EngineConfig(fused_lora=fused),
+                                     agg=AggConfig(interval=2)), device="cpu")
+        hists.append([dataclasses.astuple(r) for r in sim.run_training()])
+    assert hists[0] == hists[1]
+    assert all(np.isfinite(r[2]) for r in hists[0])
