@@ -6,11 +6,13 @@
 Phases (any failed check raises and the script exits non-zero):
 
 1. environment: torch and CUDA versions, the card's name and power limit;
-2. build: every CUDA kernel of the main path, compiled with nvcc from the
-   sources in this checkout;
+2. build: every CUDA kernel (lora_matmul, grouped_lora, quant), compiled
+   with nvcc from the sources in this checkout, one nvcc per source, all
+   at once; ptxas's register and shared-memory lines are printed;
 3. kernel check: each kernel against its plain PyTorch version on the card,
-   forward and backward, at the main path's shape and at a ragged shape,
-   with times for the kernel, the plain version and the base product;
+   forward and backward, at its path's shape and at ragged shapes (the
+   quantize kernel bit for bit, .5 ties and a zero row included), with
+   times for the kernel, the plain version and the base product;
 4. main path: the paper's split-federated round at the full width of
    bert-base (12 layers, d 768, vocab 30522, seq 128, batch 16) across the
    six paper clients at the paper cuts, scheme "ours", analytic engine,
@@ -19,10 +21,18 @@ Phases (any failed check raises and the script exits non-zero):
    PERF.md;
 5. comparison: the same run on the reference's default einsum path; the
    per-round losses must agree;
-6. summary: one JSON line per ported kernel, then the device line last.
+6. cohort path: the same run with all six clients in one server dispatch
+   chunk (cohort_chunk=6, cohort_impl="ragged": three cut groups of two,
+   each one grouped-kernel dispatch) and int8 links with error feedback
+   (net quantize=True), fused and then einsum; the launches of every
+   kernel per round must equal the counts derived in PERF.md, the losses
+   of the two runs must agree and their simulated times be equal;
+7. summary: one JSON line per ported kernel, then the device line last.
 
-``--profile`` adds a phase before the summary: one warm round of each path
-under ``torch.profiler``, with the device time by kernel, the host time by
+Every launch counter is set to 0 just before each path runs and read just
+after it.  ``--profile`` adds a phase before the summary: one warm round of
+the main path (fused and einsum) and of the cohort path (fused) under
+``torch.profiler``, with the device time by kernel, the host time by
 operator, and the device's busy share of the round's wall time.
 
 Exits non-zero without a result when no CUDA device is available, or when
@@ -54,11 +64,16 @@ set_fp32_policy()   # TF32 off for matmuls and cuDNN: fp32 as in the reference
 from repro_torch.configs import REGISTRY  # noqa: E402
 from repro_torch.data import make_emotion_dataset  # noqa: E402
 from repro_torch.fed import (PAPER_CLIENTS, PAPER_CUTS, AggConfig,  # noqa: E402
-                             EngineConfig, FedRunConfig, Simulator)
+                             EngineConfig, FedRunConfig, NetConfig, Simulator)
 from repro_torch.kernels import build  # noqa: E402
+from repro_torch.kernels.grouped_lora import (grouped_lora,  # noqa: E402
+                                              grouped_lora_chunk,
+                                              grouped_lora_direct)
 from repro_torch.kernels.lora_matmul import lora_matmul  # noqa: E402
-from repro_torch.kernels.ops import fused_lora_matmul  # noqa: E402
-from repro_torch.kernels.ref import lora_matmul_ref  # noqa: E402
+from repro_torch.kernels.ops import fused_lora_matmul, grouped_lora_matmul  # noqa: E402
+from repro_torch.kernels.quant import quantize_rows  # noqa: E402
+from repro_torch.kernels.ref import (grouped_lora_matmul_ref,  # noqa: E402
+                                     lora_matmul_ref, quantize_rows_ref)
 
 # H100 SXM data-sheet peaks (dense): fp32 on the CUDA cores, HBM bandwidth
 PEAK_FP32_FLOPS = 67e12
@@ -77,6 +92,20 @@ LOSS_RTOL = 1e-3
 
 ROUNDS, BATCH, SEQ, LR = 2, 16, 128, 1e-3
 N_TRAIN, N_TEST = 4000, 512
+SOURCES = ("lora_matmul", "grouped_lora", "quant")
+
+# every kernel's launch counter, by the name the summary gives it
+COUNTERS = {"lora_matmul": lora_matmul, "grouped_lora_chunk": grouped_lora_chunk,
+            "grouped_lora_direct": grouped_lora_direct, "quantize_rows": quantize_rows}
+
+
+def reset_counts() -> None:
+    for fn in COUNTERS.values():
+        fn.launches = 0
+
+
+def read_counts() -> dict:
+    return {name: fn.launches for name, fn in COUNTERS.items()}
 
 
 def gpu_line() -> str:
@@ -97,6 +126,28 @@ def cuda_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, kernel: str, iters: int = 20) -> float:
+    """Device time of one launch of the kernel whose name contains
+    ``kernel``, from the profiler over ``iters`` calls.  Where a call's
+    host side (Python, ctypes, allocation) takes longer than its kernel,
+    ``cuda_ms`` measures the host and this the kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    hits = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA and kernel in e.key]
+    count = sum(e.count for e in hits)
+    if count != iters:
+        raise AssertionError(f"the profiler saw {count} launches of {kernel}, "
+                             f"not {iters}")
+    return sum(e.self_device_time_total for e in hits) / count / 1e3
 
 
 def norm_err(got: torch.Tensor, want: torch.Tensor) -> float:
@@ -146,11 +197,123 @@ def check_lora_matmul(m: int, k: int, n: int, r: int, seed: int) -> dict:
     t_ops, t_bytes = flops / PEAK_FP32_FLOPS * 1e3, nbytes / PEAK_HBM_BYTES * 1e3
     out.update(
         ms=cuda_ms(lambda: lora_matmul(x, w, a, b, scale=scale)),
+        device_ms=device_ms(lambda: lora_matmul(x, w, a, b, scale=scale),
+                            "lora_matmul_kernel"),
         plain_ms=cuda_ms(lambda: lora_matmul_ref(x, w, a, b, scale)),
         base_matmul_ms=cuda_ms(lambda: torch.matmul(x, w)),
         bound_ms=max(t_ops, t_bytes),
         bound_by="operations" if t_ops >= t_bytes else "bytes",
         gflop=flops / 1e9, mbytes=nbytes / 1e6)
+    return out
+
+
+def bound(flops: float, nbytes: float) -> dict:
+    """The least time the card could take: operations over the fp32 peak or
+    bytes over the HBM rate, whichever is larger."""
+    t_ops, t_bytes = flops / PEAK_FP32_FLOPS * 1e3, nbytes / PEAK_HBM_BYTES * 1e3
+    return {"bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "gflop": flops / 1e9, "mbytes": nbytes / 1e6}
+
+
+def check_grouped(sizes, k: int, n: int, r: int, scales, mode: str, seed: int,
+                  timed: bool = False) -> dict:
+    """Grouped kernel vs plain version, forward and backward (dx through the
+    kernel; dA, dB plain per group), at one ragged cohort shape."""
+    dev = torch.device("cuda")
+    rs = np.random.default_rng(seed)
+
+    def t(*shape, std=1.0):
+        return torch.from_numpy((rs.standard_normal(shape) * std)
+                                .astype(np.float32)).to(dev)
+
+    g_n, m = len(sizes), sum(sizes)
+    x, w = t(m, k), t(k, n, std=1 / math.sqrt(k))
+    a, b = t(g_n, r, k, std=1 / math.sqrt(r)), t(g_n, n, r, std=0.1)
+    gy = t(m, n)
+    y = grouped_lora(x, w, a, b, group_sizes=sizes, scales=scales, mode=mode)
+    y_ref = grouped_lora_matmul_ref(x, w, a, b, sizes, scales)
+    torch.cuda.synchronize()
+    out = {"mode": mode, "sizes": list(sizes), "k": k, "n": n, "r": r,
+           "scales": list(scales), "fwd_err": norm_err(y, y_ref)}
+    grads = []
+    for fn in (grouped_lora_matmul, None):
+        xs, as_, bs = (v.clone().requires_grad_(True) for v in (x, a, b))
+        if fn is None:
+            yy = grouped_lora_matmul_ref(xs, w, as_, bs, sizes, scales)
+        else:
+            yy = fn(xs, w, as_, bs, group_sizes=sizes, scales=scales, mode=mode)
+        grads.append(torch.autograd.grad(yy, (xs, as_, bs), gy))
+    torch.cuda.synchronize()
+    for label, got, want in zip(("dx", "da", "db"), *grads):
+        out[f"{label}_err"] = norm_err(got, want)
+    out["max_abs_err"] = float((y - y_ref).abs().max())
+    bad = {key: v for key, v in out.items() if key.endswith("_err")
+           and key != "max_abs_err" and not v <= KERNEL_RTOL}
+    if bad:
+        raise AssertionError(f"grouped_lora ({mode}) disagrees with its plain version "
+                             f"at {sizes}, K {k}, N {n}, r {r}: {bad} "
+                             f"(tolerance {KERNEL_RTOL})")
+    if timed:
+        tiles = -(-np.asarray(sizes) // 64)
+        out.update(
+            ms=cuda_ms(lambda: grouped_lora(x, w, a, b, group_sizes=sizes,
+                                            scales=scales, mode=mode)),
+            device_ms=device_ms(lambda: grouped_lora(x, w, a, b, group_sizes=sizes,
+                                                     scales=scales, mode=mode),
+                                "grouped_lora_kernel"),
+            plain_ms=cuda_ms(lambda: grouped_lora_matmul_ref(x, w, a, b, sizes, scales)),
+            base_matmul_ms=cuda_ms(lambda: torch.matmul(x, w)),
+            **bound(2 * m * k * n + 2 * m * k * r + 2 * m * n * r,
+                    4 * (m * k + k * n + g_n * (r * k + n * r) + m * n + g_n)
+                    + 12 * int(tiles.sum())))
+    return out
+
+
+def check_grouped_single_group(seed: int) -> dict:
+    """G = 1: the grouped kernel equals lora_matmul on the same input."""
+    dev = torch.device("cuda")
+    rs = np.random.default_rng(seed)
+    x, w = (torch.from_numpy(rs.standard_normal(s).astype(np.float32) * f).to(dev)
+            for s, f in (((300, 200), 1.0), ((200, 130), 1 / math.sqrt(200))))
+    a = torch.from_numpy(rs.standard_normal((1, 16, 200)).astype(np.float32) / 4).to(dev)
+    b = torch.from_numpy(rs.standard_normal((1, 130, 16)).astype(np.float32) / 10).to(dev)
+    y = grouped_lora(x, w, a, b, group_sizes=(300,), scales=(2.0,), mode="chunk")
+    want = lora_matmul(x, w, a[0], b[0], scale=2.0)
+    torch.cuda.synchronize()
+    err = norm_err(y, want)
+    if not err <= KERNEL_RTOL:
+        raise AssertionError(f"grouped_lora with G = 1 differs from lora_matmul: {err}")
+    return {"sizes": [300], "k": 200, "n": 130, "r": 16, "err_vs_lora_matmul": err}
+
+
+def check_quantize(n: int, d: int, seed: int) -> dict:
+    """Quantize kernel vs plain version, bit for bit: a row of exact .5
+    ties (x / scale = [127, 0.5, 1.5, 2.5, -0.5, ...]) and a zero row
+    (scale floors at 1e-12) among seeded rows."""
+    rs = np.random.default_rng(seed)
+    x = (rs.standard_normal((n, d)) * 2.0).astype(np.float32)
+    tie = np.array([254, 1, 3, 5, -1, -3, -5, 7], np.float32)
+    x[1, :] = 0.0
+    x[1, :tie.size] = tie
+    x[2, :] = 0.0
+    x = torch.from_numpy(x).cuda()
+    q, s = quantize_rows(x)
+    q_ref, s_ref = quantize_rows_ref(x)
+    torch.cuda.synchronize()
+    tie_q = q[1, :tie.size].tolist()
+    out = {"shape": [n, d], "q_mismatches": int((q != q_ref).sum()),
+           "scale_mismatches": int((s != s_ref).sum()), "tie_row_q": tie_q,
+           "zero_row_scale": float(s[2]),
+           "max_abs_err": float((q.float() - q_ref.float()).abs().max())}
+    if (out["q_mismatches"] or out["scale_mismatches"]
+            or tie_q != [127, 0, 2, 2, 0, -2, -2, 4]
+            or s[2] != torch.tensor(1e-12, dtype=torch.float32, device=s.device)):
+        raise AssertionError(f"quantize_rows is not bit-equal to its plain version: {out}")
+    out.update(ms=cuda_ms(lambda: quantize_rows(x)),
+               device_ms=device_ms(lambda: quantize_rows(x), "quantize_rows_kernel"),
+               plain_ms=cuda_ms(lambda: quantize_rows_ref(x)),
+               **bound(5 * n * d, 4 * n * d + n * d + 4 * n))
     return out
 
 
@@ -171,42 +334,74 @@ def expected_launches(cfg, cuts, n_eval_batches: int, rounds: int) -> list:
     return counts
 
 
-def run_main_path(fused: bool, train, test) -> dict:
+def expected_cohort_launches(cfg, cuts, n_eval_batches: int, rounds: int,
+                             fused: bool) -> list:
+    """Launches per round and kernel on the cohort path (derivation in
+    PERF.md).  With T adapted projections per layer and L layers:
+    lora_matmul runs only on the client side, 2*T*cut - 3 per client, plus
+    T*L per evaluation batch after the last round; the grouped kernel
+    (chunk mode, K = 768) runs forward and dx once per projection of each
+    cut group's server layers, 2*T*(L - cut) per distinct cut; the
+    quantize kernel runs twice per client (uplink activations, downlink
+    gradient), fused or not."""
+    t, nl = len(cfg.lora.targets), cfg.n_layers
+    lm = sum(2 * t * cut - 3 for cut in cuts)
+    gl = sum(2 * t * (nl - cut) for cut in sorted(set(cuts)))
+    rows = [{"lora_matmul": lm if fused else 0, "grouped_lora_chunk": gl if fused else 0,
+             "grouped_lora_direct": 0, "quantize_rows": 2 * len(cuts)}
+            for _ in range(rounds)]
+    if fused:
+        rows[-1]["lora_matmul"] += n_eval_batches * t * nl
+    return rows
+
+
+def path_run(cohort: bool, fused: bool) -> FedRunConfig:
+    """The main path, or with ``cohort`` the cohort path: the six clients in
+    one ragged dispatch chunk and int8+EF links."""
+    engine = EngineConfig(mode="analytic", fused_lora=fused)
+    if cohort:
+        engine = EngineConfig(mode="analytic", fused_lora=fused, cohort_chunk=6,
+                              cohort_impl="ragged")
+    return FedRunConfig(scheme="ours", rounds=ROUNDS, batch_size=BATCH,
+                        seq_len=SEQ, lr=LR, seed=0, engine=engine,
+                        agg=AggConfig(policy="sync", interval=2),
+                        net=NetConfig(quantize=cohort))
+
+
+def run_path(fused: bool, train, test, cohort: bool = False) -> dict:
     cfg = REGISTRY["bert-base"]
-    run = FedRunConfig(scheme="ours", rounds=ROUNDS, batch_size=BATCH,
-                       seq_len=SEQ, lr=LR, seed=0,
-                       engine=EngineConfig(mode="analytic", fused_lora=fused),
-                       agg=AggConfig(policy="sync", interval=2))
     t0 = time.perf_counter()
-    sim = Simulator(cfg, PAPER_CLIENTS, PAPER_CUTS, train, test, run,
-                    device="cuda")
+    sim = Simulator(cfg, PAPER_CLIENTS, PAPER_CUTS, train, test,
+                    path_run(cohort, fused), device="cuda")
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
     rows = []
-    mark = {"t": 0.0, "launches": 0}
+    mark = {"t": 0.0, "counts": {}}
 
     def on_round(rec):
         torch.cuda.synchronize()
         now = time.perf_counter()
+        counts = read_counts()
         rows.append({"round": rec.round, "loss": rec.mean_loss,
                      "sim_time_s": rec.sim_time_s, "accuracy": rec.accuracy,
                      "f1": rec.f1, "wall_s": now - mark["t"],
-                     "launches": lora_matmul.launches - mark["launches"],
+                     "launches": {k: v - mark["counts"][k] for k, v in counts.items()},
                      "max_mem_bytes": torch.cuda.max_memory_allocated()})
-        mark["launches"] = lora_matmul.launches
+        mark["counts"] = counts
         torch.cuda.reset_peak_memory_stats()
         mark["t"] = time.perf_counter()
 
     torch.cuda.reset_peak_memory_stats()
-    lora_matmul.launches = 0
+    reset_counts()                      # just before the path runs
+    mark["counts"] = read_counts()
     mark["t"] = time.perf_counter()
     sim.run_training(on_round=on_round)
-    total = lora_matmul.launches
-    label = "fused" if fused else "einsum"
+    total = read_counts()               # just after
+    label = ("cohort:" if cohort else "main:") + ("fused" if fused else "einsum")
     for row in rows:
-        print(f"[main:{label}] round {row['round']} loss={row['loss']:.7f} "
+        print(f"[{label}] round {row['round']} loss={row['loss']:.7f} "
               f"sim_time_s={row['sim_time_s']:.6f} accuracy={row['accuracy']} "
-              f"wall_s={row['wall_s']:.3f} launches={row['launches']} "
+              f"wall_s={row['wall_s']:.3f} launches={json.dumps(row['launches'])} "
               f"max_mem_bytes={row['max_mem_bytes']}", flush=True)
     for row in rows:
         if not math.isfinite(row["loss"]):
@@ -215,20 +410,41 @@ def run_main_path(fused: bool, train, test) -> dict:
     if acc is None or not 0.0 <= acc <= 1.0:
         raise AssertionError(f"evaluation gave accuracy {acc}")
     n_eval = min(32, len(test) // BATCH)
-    return {"rows": rows, "launches": total, "setup_s": setup_s,
-            "expected": expected_launches(sim.cfg, sim.cuts, n_eval, ROUNDS),
-            "data_sizes": sim.data_sizes}
+    if cohort:
+        expected = expected_cohort_launches(sim.cfg, sim.cuts, n_eval, ROUNDS, fused)
+    else:
+        lm = expected_launches(sim.cfg, sim.cuts, n_eval, ROUNDS)
+        expected = [{"lora_matmul": c if fused else 0, "grouped_lora_chunk": 0,
+                     "grouped_lora_direct": 0, "quantize_rows": 0} for c in lm]
+    got = [row["launches"] for row in rows]
+    print(f"[{label}] setup_s={setup_s:.3f} data_sizes={sim.data_sizes} "
+          f"launches={json.dumps(total)} expected={json.dumps(expected)}", flush=True)
+    if got != expected:
+        raise AssertionError(f"{label}: launches per round {got}, expected {expected}")
+    return {"rows": rows, "launches": total, "setup_s": setup_s}
 
 
-def profile_round(fused: bool, train, test) -> dict:
+def compare_paths(fused: dict, plain: dict, label: str) -> None:
+    """Fused and einsum runs of one path: losses within LOSS_RTOL, equal
+    simulated times."""
+    for rf, rp in zip(fused["rows"], plain["rows"]):
+        diff = abs(rf["loss"] - rp["loss"])
+        print(f"[compare:{label}] round {rf['round']} fused={rf['loss']:.7f} "
+              f"einsum={rp['loss']:.7f} |diff|={diff:.3e} "
+              f"sim_time_equal={rf['sim_time_s'] == rp['sim_time_s']}", flush=True)
+        if not diff <= LOSS_RTOL * abs(rp["loss"]):
+            raise AssertionError(f"{label}: fused and einsum losses disagree in round "
+                                 f"{rf['round']}: {diff} (rtol {LOSS_RTOL})")
+        if rf["sim_time_s"] != rp["sim_time_s"]:
+            raise AssertionError(f"{label}: simulated times differ between the paths")
+
+
+def profile_round(fused: bool, train, test, cohort: bool = False) -> dict:
     """One warm round (the second, with its aggregation) under the profiler."""
     from torch.profiler import ProfilerActivity, profile
 
-    cfg = REGISTRY["bert-base"]
-    run = FedRunConfig(rounds=ROUNDS, batch_size=BATCH, seq_len=SEQ, lr=LR,
-                       engine=EngineConfig(fused_lora=fused),
-                       agg=AggConfig(interval=2))
-    sim = Simulator(cfg, PAPER_CLIENTS, PAPER_CUTS, train, test, run, device="cuda")
+    sim = Simulator(REGISTRY["bert-base"], PAPER_CLIENTS, PAPER_CUTS, train, test,
+                    path_run(cohort, fused), device="cuda")
     sim.run_round(0)                                   # warm-up
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -236,7 +452,7 @@ def profile_round(fused: bool, train, test) -> dict:
         sim.run_round(1)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    label = "fused" if fused else "einsum"
+    label = ("cohort:" if cohort else "") + ("fused" if fused else "einsum")
     averages = prof.key_averages()
     events = [e for e in averages
               if e.device_type == torch.autograd.DeviceType.CUDA]
@@ -276,62 +492,79 @@ def main() -> None:
     print(card, flush=True)
 
     t0 = time.perf_counter()
-    build.load("lora_matmul")
-    seconds, log = build.BUILD_LOG.get("lora_matmul", (0.0, ""))
-    print(f"[build] lora_matmul ready in {time.perf_counter() - t0:.2f} s "
-          f"(nvcc {seconds:.2f} s)", flush=True)
-    for line in log.splitlines():
-        if "registers" in line or "spill" in line or "smem" in line:
-            print(f"[build] {line.strip()}", flush=True)
+    build.load_all(SOURCES)             # one nvcc per source, all at once
+    print(f"[build] {', '.join(SOURCES)} ready in {time.perf_counter() - t0:.2f} s",
+          flush=True)
+    for name in SOURCES:
+        seconds, log = build.BUILD_LOG.get(name, (0.0, ""))
+        print(f"[build] {name}: nvcc {seconds:.2f} s", flush=True)
+        for line in log.splitlines():
+            if ("registers" in line or "spill" in line or "smem" in line
+                    or "Compiling entry" in line):
+                print(f"[build] {name}: {line.strip()}", flush=True)
 
     checks = [check_lora_matmul(2048, 768, 768, 16, seed=0),
               check_lora_matmul(37, 100, 130, 5, seed=1)]
     for c in checks:
         print(f"[kernel] lora_matmul {json.dumps(c)}", flush=True)
+    grouped_path = check_grouped((2048, 2048), 768, 768, 16, (2.0, 2.0), "chunk",
+                                 seed=2, timed=True)
+    grouped_ragged = check_grouped((37, 100, 5), 130, 100, 5, (0.5, 1.0, 1.5), "chunk",
+                                   seed=3)
+    grouped_direct = check_grouped((40, 100, 17), 96, 150, 6, (0.5, 1.0, 1.5), "direct",
+                                   seed=4, timed=True)
+    grouped_one = check_grouped_single_group(seed=5)
+    quant = check_quantize(2048, 768, seed=6)
+    for label, c in (("grouped_lora chunk", grouped_path),
+                     ("grouped_lora chunk", grouped_ragged),
+                     ("grouped_lora direct", grouped_direct),
+                     ("grouped_lora G=1", grouped_one), ("quantize_rows", quant)):
+        print(f"[kernel] {label} {json.dumps(c)}", flush=True)
 
     train = make_emotion_dataset(N_TRAIN, seq_len=SEQ, vocab_size=30_522, seed=0)
     test = make_emotion_dataset(N_TEST, seq_len=SEQ, vocab_size=30_522, seed=1)
-    fused = run_main_path(True, train, test)
-    print(f"[main:fused] setup_s={fused['setup_s']:.3f} data_sizes="
-          f"{fused['data_sizes']} launches={fused['launches']} "
-          f"expected={fused['expected']}", flush=True)
-    got = [row["launches"] for row in fused["rows"]]
-    if got != fused["expected"] or fused["launches"] == 0:
-        raise AssertionError(f"lora_matmul launches per round {got}, "
-                             f"expected {fused['expected']}")
-
-    plain = run_main_path(False, train, test)
-    if plain["launches"] != 0:
-        raise AssertionError("the einsum path launched the fused kernel")
-    for rf, rp in zip(fused["rows"], plain["rows"]):
-        diff = abs(rf["loss"] - rp["loss"])
-        print(f"[compare] round {rf['round']} fused={rf['loss']:.7f} "
-              f"einsum={rp['loss']:.7f} |diff|={diff:.3e} "
-              f"sim_time_equal={rf['sim_time_s'] == rp['sim_time_s']}", flush=True)
-        if not diff <= LOSS_RTOL * abs(rp["loss"]):
-            raise AssertionError(f"fused and einsum losses disagree in round "
-                                 f"{rf['round']}: {diff} (rtol {LOSS_RTOL})")
-        if rf["sim_time_s"] != rp["sim_time_s"]:
-            raise AssertionError("simulated times differ between the paths")
+    fused = run_path(True, train, test)
+    plain = run_path(False, train, test)
+    compare_paths(fused, plain, "main")
+    cohort = run_path(True, train, test, cohort=True)
+    cohort_plain = run_path(False, train, test, cohort=True)
+    compare_paths(cohort, cohort_plain, "cohort")
 
     if args.profile:
-        for fused_path in (True, False):
-            profile_round(fused_path, train, test)
+        for fused_path, cohort_path in ((True, False), (False, False), (True, True)):
+            profile_round(fused_path, train, test, cohort=cohort_path)
 
     main_shape, ragged = checks
-    kernels = [{
-        "name": "lora_matmul", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/lora_matmul.cu",
-        "replaces": "src/repro/kernels/lora_matmul.py:62",
-        "launches": fused["launches"],
-        "max_abs_err": main_shape["max_abs_err"],
-        "ms": main_shape["ms"], "plain_ms": main_shape["plain_ms"],
-        "bound_ms": main_shape["bound_ms"], "bound_by": main_shape["bound_by"],
-        "library_ms": None,
-        "base_matmul_ms": main_shape["base_matmul_ms"],
-        "ragged_max_abs_err": ragged["max_abs_err"],
-        "ok": True,
-    }]
+
+    def entry(name, source, replaces, launches, c, **extra):
+        return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                "launches": launches, "max_abs_err": c["max_abs_err"], "ms": c["ms"],
+                "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
+                "bound_by": c["bound_by"], "library_ms": None,
+                "device_ms": c["device_ms"], **extra, "ok": True}
+
+    csrc = "src/repro_torch/kernels/csrc/"
+    kernels = [
+        entry("lora_matmul", csrc + "lora_matmul.cu", "src/repro/kernels/lora_matmul.py:62",
+              fused["launches"]["lora_matmul"], main_shape, path="main",
+              cohort_launches=cohort["launches"]["lora_matmul"],
+              base_matmul_ms=main_shape["base_matmul_ms"],
+              ragged_max_abs_err=ragged["max_abs_err"]),
+        entry("grouped_lora_chunk", csrc + "grouped_lora.cu",
+              "src/repro/kernels/grouped_lora.py:119",
+              cohort["launches"]["grouped_lora_chunk"], grouped_path, path="cohort",
+              base_matmul_ms=grouped_path["base_matmul_ms"],
+              ragged_max_abs_err=grouped_ragged["max_abs_err"],
+              single_group_err_vs_lora_matmul=grouped_one["err_vs_lora_matmul"]),
+        entry("grouped_lora_direct", csrc + "grouped_lora.cu",
+              "src/repro/kernels/grouped_lora.py:103",
+              cohort["launches"]["grouped_lora_direct"], grouped_direct, path=None,
+              shape=[grouped_direct["sizes"], grouped_direct["k"], grouped_direct["n"],
+                     grouped_direct["r"]]),
+        entry("quantize_rows", csrc + "quant.cu", "src/repro/kernels/quant.py:33",
+              cohort["launches"]["quantize_rows"], quant, path="cohort",
+              bit_equal=True),
+    ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

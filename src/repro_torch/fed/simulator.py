@@ -10,8 +10,12 @@ Model math runs for real (client forward, server resume-at-cut,
 activation-gradient backprop, LoRA/AdamW updates, FedAvg aggregation);
 simulated wall-clock comes from the §IV analytical model, exactly as in the
 reference.  The slice covers the analytic engine with sync FedAvg over
-constant links and one client per server dispatch.  Every knob outside it
-raises ``NotImplementedError`` naming the ROADMAP item that brings it.
+constant links; the server serves one client per dispatch, or cohort
+chunks of ``EngineConfig.cohort_chunk`` clients through the cut-grouped
+ragged step (``cohort_impl="ragged"``); ``NetConfig.quantize`` sends the
+activations (with error feedback) and the gradients as int8.  Every knob
+outside the slice raises ``NotImplementedError`` naming the ROADMAP item
+that brings it.
 
 State updates are functional: every optimizer step and every aggregation
 returns new tensors, so state the reference shares between clients (one
@@ -26,13 +30,14 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch.comm import dequantize, quantize, quantize_with_feedback, transport_bytes
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import aggregation as agg_lib
 from repro_torch.core import lora as lora_lib
 from repro_torch.core import splitfl
 from repro_torch.core.cost_model import (DeviceProfile, LinkProfile, StepTimes,
-                                         client_step_times, lora_upload_bytes,
-                                         makespan)
+                                         client_step_times, dtype_nbytes,
+                                         lora_upload_bytes, makespan)
 from repro_torch.core.scheduling import resolve_order
 from repro_torch.data import ClassificationLoader, EmotionDataset, dirichlet_partition
 from repro_torch.device import resolve_device
@@ -64,12 +69,17 @@ def check_slice(run: FedRunConfig) -> None:
     """Raise for every knob the port does not cover yet — none is ignored."""
     if run.scheme == "sl":
         raise _not_in_slice("scheme='sl'", "5")
+    # the control and obs planes run only under the event engine, so they
+    # are named before it
+    if run.control.policy != "static":
+        raise _not_in_slice(f"control policy={run.control.policy!r}", "8")
+    if run.obs.enabled:
+        raise _not_in_slice("observability (obs)", "8")
     if run.engine.mode != "analytic":
         raise _not_in_slice("engine mode='event'", "8")
-    if run.engine.cohort_chunk != 1:
-        raise _not_in_slice("engine cohort_chunk > 1", "6")
-    if run.engine.cohort_impl != "vmap":
-        raise _not_in_slice("engine cohort_impl='ragged'", "6")
+    if run.engine.cohort_chunk != 1 and run.engine.cohort_impl == "vmap":
+        raise _not_in_slice("engine cohort_chunk > 1 with cohort_impl='vmap' "
+                            "(the masked-scan cohort step)", "6")
     if run.agg.policy != "sync":
         raise _not_in_slice(f"agg policy={run.agg.policy!r}", "8")
     if run.agg.transport != "nominal":
@@ -77,12 +87,6 @@ def check_slice(run: FedRunConfig) -> None:
     if run.net.link_model != "constant" or run.net.shared:
         raise _not_in_slice("the network plane (non-constant or shared links)",
                             "8")
-    if run.net.quantize:
-        raise _not_in_slice("net quantize=True", "7")
-    if run.control.policy != "static":
-        raise _not_in_slice(f"control policy={run.control.policy!r}", "8")
-    if run.obs.enabled:
-        raise _not_in_slice("observability (obs)", "8")
     if (run.snapshot_every is not None or run.resume_from is not None
             or run.preempt_at is not None):
         raise _not_in_slice("snapshots, resume and preemption", "8")
@@ -161,6 +165,11 @@ class Simulator:
             self._srv_steps[cut] = splitfl.make_server_step_cls(
                 self.model, self.opt, static_cut=cut)
             self._cli_steps[cut] = splitfl.make_client_step(self.model, self.opt, cut)
+        # cohort chunks: one cut-grouped ragged dispatch per cut of a chunk
+        self._srv_step_batched = None
+        if run.engine.cohort_chunk > 1:
+            self._srv_step_batched = splitfl.make_server_step_cls_batched(
+                self.model, self.opt, impl=run.engine.cohort_impl)
 
         # analytic per-step Eq.10 terms (fixed per client), at the nominal
         # constant link rate
@@ -170,16 +179,42 @@ class Simulator:
             for cut, dev in zip(self.cuts, self.devices)]
         self.history: List[RoundRecord] = []
         self.sim_clock = 0.0
+        self._ef_residual: List[Optional[torch.Tensor]] = [None] * self.u  # uplink EF
+        self._quant_ratio: Optional[float] = None
+        self._times_this_round: List[StepTimes] = self.times
 
     # ------------------------------------------------------------------ time
+    def _transport_ratio(self) -> float:
+        """int8+EF wireless shrink factor (cached; same every round)."""
+        if self._quant_ratio is None:
+            shape = (self.run.batch_size, self.run.seq_len, self.cfg.d_model)
+            nb = dtype_nbytes(self.cfg.dtype)
+            self._quant_ratio = (transport_bytes(shape, True, nb)
+                                 / transport_bytes(shape, False, nb))
+        return self._quant_ratio
+
+    def _adjusted_times(self) -> List[StepTimes]:
+        """Per-round Eq.10 terms: int8+EF transport shrinks both wireless
+        transfers ~4x (stragglers are outside the slice)."""
+        if not self.run.net.quantize:
+            return self.times
+        ratio = self._transport_ratio()
+        return [dataclasses.replace(st, t_fc=st.t_fc * ratio, t_bc=st.t_bc * ratio,
+                                    fc_bytes=st.fc_bytes * ratio,
+                                    bc_bytes=st.bc_bytes * ratio)
+                for st in self.times]
+
     def _service_plan(self) -> List[List[int]]:
-        """This round's server dispatch order, one client per dispatch."""
+        """This round's server dispatch groups in order: chunks of
+        ``cohort_chunk`` clients of the scheduled order."""
         tfl = [d.tflops for d in self.devices]
-        order = resolve_order(self.run.engine.scheduler, self.times, self.cuts, tfl)
-        return [[u] for u in order]
+        chunk = max(1, int(self.run.engine.cohort_chunk))
+        order = resolve_order(self.run.engine.scheduler, self._times_this_round,
+                              self.cuts, tfl)
+        return [order[i:i + chunk] for i in range(0, len(order), chunk)]
 
     def _round_time(self, order: Sequence[int]) -> float:
-        t = self.times
+        t = self._times_this_round
         if self.run.scheme == "ours":
             span, _, _ = makespan(t, order)
             return span
@@ -194,6 +229,7 @@ class Simulator:
     # ------------------------------------------------------------------ round
     def run_round(self, rnd: int) -> RoundRecord:
         """One closed-form (analytic-engine) barrier round."""
+        self._times_this_round = self._adjusted_times()
         losses, order = self._round_parallel()
         self.sim_clock += self._round_time(order)
         if (rnd + 1) % self.run.agg.interval == 0:
@@ -205,7 +241,8 @@ class Simulator:
 
     def _round_parallel(self):
         """Parallel client forwards, then scheduled server updates on the
-        single full model — one sequential dispatch per client."""
+        single full model — sequential per-client dispatches or
+        cohort-chunked batched dispatches, per the service plan."""
         losses, order = [], []
         for grp in self._service_plan():
             order.extend(grp)
@@ -217,25 +254,55 @@ class Simulator:
                 for k, v in self.loaders[u].next_batch().items()}
 
     def _serve_group(self, grp: List[int]) -> List[float]:
-        """The real math of one server dispatch: the client's batch draw and
-        forward, the server step at its cut, then the client's backward."""
-        if len(grp) != 1:
-            raise _not_in_slice("batched cohort dispatch", "6")
-        u = grp[0]
-        cut = self.cuts[u]
-        batch = self._batch(u)
-        fwd, _ = self._cli_steps[cut]
-        v, tape = fwd(self.client_params[u], self.client_lora[u], batch)
-        loss, new_lora, new_head, new_opt, dv = self._srv_steps[cut](
-            self.params, self.server_lora[u], self.heads[u],
-            self.server_opt[u], v, batch)
+        """The real math of one server dispatch: each client's batch draw
+        and forward (with the int8+EF uplink under ``net.quantize``), then
+        the server step at its cut (one client) or ONE cut-grouped ragged
+        dispatch (a cohort chunk), then each client's backward.  Every
+        client keeps its forward's autograd tape until its backward, so a
+        chunk's tapes are all alive at once."""
+        batches, acts, tapes = {}, {}, {}
+        for u in grp:
+            batch = self._batch(u)
+            fwd, _ = self._cli_steps[self.cuts[u]]
+            v, tapes[u] = fwd(self.client_params[u], self.client_lora[u], batch)
+            if self.run.net.quantize:
+                qx, self._ef_residual[u] = quantize_with_feedback(
+                    v, self._ef_residual[u])
+                v = dequantize(qx, v.dtype)
+            batches[u], acts[u] = batch, v
+
+        if len(grp) == 1:
+            u = grp[0]
+            loss, new_lora, new_head, new_opt, dv = self._srv_steps[self.cuts[u]](
+                self.params, self.server_lora[u], self.heads[u],
+                self.server_opt[u], acts[u], batches[u])
+            self._apply_server_update(u, new_lora, new_head, new_opt)
+            self._client_backward(u, tapes.pop(u), dv)
+            return [float(loss)]
+        loss_g, nl, nh, no, dv_g = self._srv_step_batched(
+            self.params,
+            lora_lib.stack_trees([self.server_lora[u] for u in grp]),
+            torch.stack([self.heads[u] for u in grp]),
+            lora_lib.stack_trees([self.server_opt[u] for u in grp]),
+            torch.stack([acts[u] for u in grp]),
+            lora_lib.stack_trees([batches[u] for u in grp]),
+            [self.cuts[u] for u in grp])
+        nls, nos = lora_lib.unstack_tree(nl), lora_lib.unstack_tree(no)
+        losses = []
+        for i, u in enumerate(grp):
+            losses.append(float(loss_g[i]))
+            self._apply_server_update(u, nls[i], nh[i], nos[i])
+            self._client_backward(u, tapes.pop(u), dv_g[i])
+        return losses
+
+    def _apply_server_update(self, u: int, new_lora, new_head, new_opt) -> None:
         self.server_lora[u] = new_lora
         self.heads[u] = new_head
         self.server_opt[u] = new_opt
-        self._client_backward(u, tape, dv)
-        return [float(loss)]
 
     def _client_backward(self, u: int, tape, dv) -> None:
+        if self.run.net.quantize:
+            dv = dequantize(quantize(dv), dv.dtype)     # downlink int8
         _, bwd = self._cli_steps[self.cuts[u]]
         self.client_lora[u], self.client_opt[u] = bwd(tape, self.client_opt[u], dv)
 

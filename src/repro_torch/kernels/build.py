@@ -5,8 +5,9 @@ Each ``csrc/<name>.cu`` exposes a plain C interface and compiles on its own
 into ``build/repro_torch/lib<name>.so`` at the root of the checkout.  A
 library is rebuilt when its source or the flags change (a SHA-256 stamp
 sits beside it), and the compile writes to a temporary name first, so
-processes that build at once never load a half-written file.  Nothing here runs at import time: the CPU path never
-needs ``nvcc``.
+processes that build at once never load a half-written file.
+:func:`load_all` compiles several sources at once, one ``nvcc`` each.
+Nothing here runs at import time: the CPU path never needs ``nvcc``.
 """
 from __future__ import annotations
 
@@ -17,15 +18,17 @@ import shutil
 import subprocess
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Dict, Tuple
+from typing import Dict, Sequence, Tuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_LOCK = threading.Lock()
-_LIBS: Dict[str, ctypes.CDLL] = {}
+_LOCK = threading.Lock()                  # guards _NAME_LOCKS
+_NAME_LOCKS: Dict[str, threading.Lock] = {}   # one per source: builds of
+_LIBS: Dict[str, ctypes.CDLL] = {}           # different sources overlap
 #: name -> (seconds the compile took, nvcc's output incl. -Xptxas -v);
 #: empty for a library that was already built
 BUILD_LOG: Dict[str, Tuple[float, str]] = {}
@@ -68,6 +71,8 @@ def _compile(src: Path, out: Path) -> None:
 def load(name: str) -> ctypes.CDLL:
     """The compiled ``csrc/<name>.cu``, built first if missing or stale."""
     with _LOCK:
+        lock = _NAME_LOCKS.setdefault(name, threading.Lock())
+    with lock:
         if name in _LIBS:
             return _LIBS[name]
         src = CSRC / f"{name}.cu"
@@ -83,3 +88,10 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(out))
         _LIBS[name] = lib
         return lib
+
+
+def load_all(names: Sequence[str]) -> Dict[str, ctypes.CDLL]:
+    """Load several sources, compiling the stale ones in parallel."""
+    with ThreadPoolExecutor(max_workers=max(1, len(names))) as pool:
+        libs = list(pool.map(load, names))
+    return dict(zip(names, libs))

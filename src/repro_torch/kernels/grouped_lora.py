@@ -1,0 +1,176 @@
+"""ctypes binding of the grouped ragged-cohort base+LoRA CUDA kernel
+(``csrc/grouped_lora.cu``), with one launch counter per mode.
+
+    y_i = x_i @ w + s_i * (x_i @ a_i.T) @ b_i.T
+    x (M,K) = the groups' rows concatenated, w (K,N), a (G,r,K), b (G,N,r)
+
+Two modes, the two formulations of the reference's Pallas kernel:
+``chunk`` sweeps K in stages of 16 columns; ``direct`` stages the whole K
+slab in shared memory in one step and raises above the K that shared
+memory holds (:func:`direct_max_k`).
+
+Each block of the kernel reads its group from a tile table, one
+``(group, first row, rows)`` entry per 64-row tile, each group tiled on its
+own (:func:`tile_table`).  The table and the scales live on the device,
+cached by (group sizes, scales, device), so a launch copies nothing from
+the host once the key has been seen.
+
+A CUDA tensor launches the kernel on the current stream or raises; a CPU
+tensor takes the plain version (``ref.grouped_lora_matmul_ref``).  The
+counters ``grouped_lora_chunk.launches`` and ``grouped_lora_direct.launches``
+grow by one per kernel launch of their mode and by nothing else.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import List, Sequence, Tuple
+
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.kernels.ref import grouped_lora_matmul_ref
+
+MAX_RANK = 64          # the kernel's shared tiles hold r <= 64
+BM = 64                # rows per tile
+BN = 64                # columns of y per block
+MAX_TILES = 65535      # tiles per launch (the grid's y extent)
+MAX_SMEM = 232448      # bytes of shared memory a block may use (sm_90)
+MODES = ("chunk", "direct")
+
+_launch = None
+
+
+def _rank_tile(r: int) -> int:
+    return 16 if r <= 16 else 32 if r <= 32 else 64
+
+
+def direct_max_k(r: int) -> int:
+    """The largest K the direct mode takes at rank ``r``: its stage holds
+    the x^T, A_g^T and W slabs, (BM+1 + RP+1 + BN) floats per column of K."""
+    return (MAX_SMEM // 4) // ((BM + 1) + (_rank_tile(r) + 1) + BN)
+
+
+def _kernel():
+    global _launch
+    if _launch is None:
+        lib = build.load("grouped_lora")
+        fn = lib.grouped_lora_f32
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        lib.grouped_lora_max_rank.argtypes = []
+        lib.grouped_lora_max_rank.restype = ctypes.c_int
+        lib.grouped_lora_direct_max_k.argtypes = [ctypes.c_int]
+        lib.grouped_lora_direct_max_k.restype = ctypes.c_int
+        if lib.grouped_lora_max_rank() != MAX_RANK or any(
+                lib.grouped_lora_direct_max_k(r) != direct_max_k(r) for r in (16, 32, 64)):
+            raise RuntimeError("grouped_lora library and binding disagree on "
+                               "the largest rank or the direct mode's K")
+        _launch = fn
+    return _launch
+
+
+def tile_table(group_sizes: Sequence[int]) -> List[Tuple[int, int, int]]:
+    """(group, first row, rows) for every BM-row tile, each group tiled on
+    its own, in row order: every row lies in exactly one tile and no tile
+    straddles two groups (a group's last tile may be short)."""
+    out, row0 = [], 0
+    for g, size in enumerate(group_sizes):
+        for lo in range(0, size, BM):
+            out.append((g, row0 + lo, min(BM, size - lo)))
+        row0 += size
+    return out
+
+
+@functools.lru_cache(maxsize=64)
+def _device_tables(group_sizes: Tuple[int, ...], scales: Tuple[float, ...],
+                   device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
+    tiles = torch.tensor(tile_table(group_sizes), dtype=torch.int32).to(device)
+    return tiles, torch.tensor(scales, dtype=torch.float32).to(device)
+
+
+def _check(x, w, a, b, group_sizes, scales, mode) -> None:
+    if mode not in MODES:
+        raise KeyError(f"unknown grouped-lora mode {mode!r}; choose from {MODES}")
+    if x.dim() != 2 or w.dim() != 2 or a.dim() != 3 or b.dim() != 3:
+        raise ValueError("grouped_lora takes 2-D x, w and 3-D a, b")
+    (m, k), (k2, n), (ga, r, k3), (gb, n2, r2) = x.shape, w.shape, a.shape, b.shape
+    if not (k == k2 == k3 and n == n2 and r == r2 and ga == gb):
+        raise ValueError(f"grouped_lora shape mismatch: x {tuple(x.shape)}, "
+                         f"w {tuple(w.shape)}, a {tuple(a.shape)}, "
+                         f"b {tuple(b.shape)}")
+    if len(group_sizes) != ga or len(scales) != ga:
+        raise ValueError(f"grouped_lora needs one group size and one scale "
+                         f"per adapter pair ({ga})")
+    if not group_sizes or any(s < 1 for s in group_sizes) or sum(group_sizes) != m:
+        raise ValueError(f"group sizes {group_sizes} must be positive and "
+                         f"sum to x's {m} rows")
+    if r > MAX_RANK:
+        raise ValueError(f"grouped_lora supports rank <= {MAX_RANK}, got {r}")
+    if mode == "direct" and k > direct_max_k(r):
+        raise ValueError(f"grouped_lora direct mode holds K <= {direct_max_k(r)} "
+                         f"in shared memory at rank {r}, got {k}; use mode='chunk'")
+    if len(tile_table(group_sizes)) > MAX_TILES:
+        raise ValueError(f"grouped_lora takes at most {MAX_TILES} tiles of "
+                         f"{BM} rows")
+    if any(t.dtype != torch.float32 for t in (x, w, a, b)):
+        raise TypeError("grouped_lora takes float32 tensors")
+    if any(not t.is_contiguous() for t in (x, w, a, b)):
+        raise ValueError("grouped_lora takes contiguous tensors")
+    if any(t.device != x.device for t in (w, a, b)):
+        raise ValueError("grouped_lora inputs must share one device")
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"grouped_lora runs on cuda or cpu, not {x.device}")
+
+
+def _run(x, w, a, b, group_sizes, scales, mode, counted) -> torch.Tensor:
+    group_sizes = tuple(int(s) for s in group_sizes)
+    scales = tuple(float(s) for s in scales)
+    _check(x, w, a, b, group_sizes, scales, mode)
+    if x.device.type == "cpu":
+        return grouped_lora_matmul_ref(x, w, a, b, group_sizes, scales)
+    m, k = x.shape
+    n, r = b.shape[1], b.shape[2]
+    y = torch.empty((m, n), dtype=torch.float32, device=x.device)
+    if n == 0:
+        return y
+    tiles, scales_dev = _device_tables(group_sizes, scales, x.device)
+    fn = _kernel()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = fn(x.data_ptr(), w.data_ptr(), a.data_ptr(), b.data_ptr(),
+                scales_dev.data_ptr(), tiles.data_ptr(), y.data_ptr(),
+                tiles.shape[0], n, k, r, int(mode == "direct"), stream)
+    if rc != 0:
+        raise RuntimeError(f"grouped_lora ({mode}) kernel launch failed: "
+                           f"CUDA error {rc}")
+    counted.launches += 1
+    return y
+
+
+def grouped_lora_chunk(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
+                       b: torch.Tensor, *, group_sizes: Sequence[int],
+                       scales: Sequence[float]) -> torch.Tensor:
+    """The K-sweep mode (Pallas body ``_kernel_chunk``)."""
+    return _run(x, w, a, b, group_sizes, scales, "chunk", grouped_lora_chunk)
+
+
+def grouped_lora_direct(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
+                        b: torch.Tensor, *, group_sizes: Sequence[int],
+                        scales: Sequence[float]) -> torch.Tensor:
+    """The single-stage full-K mode (Pallas body ``_kernel_direct``)."""
+    return _run(x, w, a, b, group_sizes, scales, "direct", grouped_lora_direct)
+
+
+grouped_lora_chunk.launches = 0
+grouped_lora_direct.launches = 0
+
+
+def grouped_lora(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
+                 b: torch.Tensor, *, group_sizes: Sequence[int],
+                 scales: Sequence[float], mode: str) -> torch.Tensor:
+    """Either mode by name."""
+    if mode not in MODES:
+        raise KeyError(f"unknown grouped-lora mode {mode!r}; choose from {MODES}")
+    run = grouped_lora_chunk if mode == "chunk" else grouped_lora_direct
+    return run(x, w, a, b, group_sizes=group_sizes, scales=scales)

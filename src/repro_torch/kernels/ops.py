@@ -1,18 +1,29 @@
-"""Differentiable wrapper around the fused base+LoRA kernel — the port of
-``src/repro/kernels/ops.py: fused_lora_matmul`` and its custom VJP.
+"""Differentiable wrappers around the LoRA kernels — the port of
+``src/repro/kernels/ops.py``: ``fused_lora_matmul`` and
+``grouped_lora_matmul`` with their custom VJPs.
 
 Forward is the kernel.  The backward computes ``dx = g @ W^T + s*(g @ B) @ A``
 with the SAME kernel on (g, W^T, B^T, A^T) — the down/up projections swap
 roles — and ``dA = s*(g @ B)^T @ x``, ``dB = s*g^T @ (x @ A^T)`` as plain
 products, as the reference does.  ``dW`` and ``dx`` are formed only when
 autograd asks for them: the base weights are frozen in split-federated
-fine-tuning, so ``dW`` never is.
+fine-tuning, so ``dW`` never is.  The grouped op does the same per group:
+``dx`` through the grouped kernel on (g, W^T, B_i^T, A_i^T), ``dA_i`` and
+``dB_i`` as plain products over each group's rows.
 """
 from __future__ import annotations
 
+import itertools
+from typing import Optional, Sequence
+
 import torch
 
+from repro_torch.kernels.grouped_lora import grouped_lora
 from repro_torch.kernels.lora_matmul import lora_matmul
+
+# mode="auto" of the grouped op takes the single-stage direct form when the
+# contraction fits one of the reference's 128-wide K blocks
+DIRECT_AUTO_K = 128
 
 
 class _FusedLoRAMatmul(torch.autograd.Function):
@@ -47,3 +58,79 @@ def fused_lora_matmul(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
     y = _FusedLoRAMatmul.apply(x.reshape(-1, kdim).contiguous(), w,
                                a.contiguous(), b.contiguous(), float(scale))
     return y.reshape(*lead, w.shape[1])
+
+
+def _grouped_mode(mode: str, kdim: int) -> str:
+    if mode == "auto":
+        return "direct" if kdim <= DIRECT_AUTO_K else "chunk"
+    return mode
+
+
+class _GroupedLoRAMatmul(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x2, w, a, b, group_sizes, scales, mode):
+        ctx.save_for_backward(x2, w, a, b)
+        ctx.group_sizes, ctx.scales, ctx.mode = group_sizes, scales, mode
+        return grouped_lora(x2, w, a, b, group_sizes=group_sizes, scales=scales,
+                            mode=_grouped_mode(mode, x2.shape[1]))
+
+    @staticmethod
+    def backward(ctx, g):
+        x2, w, a, b = ctx.saved_tensors
+        sizes, scales = ctx.group_sizes, ctx.scales
+        g = g.contiguous()
+        dx = dw = da = db = None
+        if ctx.needs_input_grad[0]:
+            # the (G, r, N) down- and (G, K, r) up-projections swap roles
+            dx = grouped_lora(g, w.t().contiguous(), b.transpose(1, 2).contiguous(),
+                              a.transpose(1, 2).contiguous(), group_sizes=sizes,
+                              scales=scales, mode=_grouped_mode(ctx.mode, g.shape[1]))
+        if ctx.needs_input_grad[1]:
+            dw = x2.t() @ g
+        if ctx.needs_input_grad[2] or ctx.needs_input_grad[3]:
+            offs = [0, *itertools.accumulate(sizes)]
+            das, dbs = [], []
+            for i, s in enumerate(scales):
+                xg, gg = x2[offs[i]:offs[i + 1]], g[offs[i]:offs[i + 1]]
+                das.append(s * ((gg @ b[i]).t() @ xg))            # (r, K)
+                dbs.append(s * (gg.t() @ (xg @ a[i].t())))        # (N, r)
+            da = torch.stack(das) if ctx.needs_input_grad[2] else None
+            db = torch.stack(dbs) if ctx.needs_input_grad[3] else None
+        return dx, dw, da, db, None, None, None
+
+
+def grouped_lora_matmul(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
+                        b: torch.Tensor, *, group_sizes: Sequence[int],
+                        scale: Optional[float] = None,
+                        scales: Optional[Sequence[float]] = None,
+                        mode: str = "auto") -> torch.Tensor:
+    """y_i = x_i @ w + s_i * (x_i @ a_i.T) @ b_i.T — one launch per cohort.
+
+    x: (sum(group_sizes), K), the cohort's rows concatenated group by group;
+    w: (K, N) shared frozen base; a: (G, r, K) / b: (G, N, r) per-group
+    adapters.  Pass one ``scale`` for a uniform cohort or per-group
+    ``scales``.  mode="auto" takes "direct" when K <= 128, else "chunk".
+    Differentiable with respect to x, w, a and b; float32 only.
+    """
+    group_sizes = tuple(int(s) for s in group_sizes)
+    if not group_sizes or any(s < 1 for s in group_sizes):
+        raise ValueError(f"group_sizes must be non-empty positive ints, "
+                         f"got {group_sizes}")
+    if x.dim() != 2 or x.shape[0] != sum(group_sizes):
+        raise ValueError(f"x has shape {tuple(x.shape)}, but group_sizes sum "
+                         f"to {sum(group_sizes)} rows")
+    if a.shape[0] != len(group_sizes) or b.shape[0] != len(group_sizes):
+        raise ValueError("need one (a, b) adapter pair per group")
+    if (scales is None) == (scale is None):
+        raise ValueError("pass exactly one of scale= / scales=")
+    if scales is None:
+        scales = (float(scale),) * len(group_sizes)
+    else:
+        scales = tuple(float(s) for s in scales)
+        if len(scales) != len(group_sizes):
+            raise ValueError("need one scale per group")
+    if mode not in ("auto", "chunk", "direct"):
+        raise KeyError(f"unknown grouped-lora mode {mode!r}; "
+                       "choose from ('auto', 'chunk', 'direct')")
+    return _GroupedLoRAMatmul.apply(x.contiguous(), w.contiguous(), a.contiguous(),
+                                    b.contiguous(), group_sizes, scales, mode)

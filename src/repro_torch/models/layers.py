@@ -82,22 +82,50 @@ def init_norm(cfg: ModelConfig, device) -> dict:
 # how adapted projections execute (LoRAConfig.impl; the federated engine
 # sets it via EngineConfig.fused_lora):
 #   einsum — plain PyTorch products (the reference's default);
-#   fused  — the hand-written CUDA kernel (kernels/lora_matmul.py), whose
-#            wrapper takes the plain version for CPU tensors.
+#   fused  — the hand-written CUDA kernels (kernels/lora_matmul.py, and
+#            kernels/grouped_lora.py for cohort-grouped adapters), whose
+#            wrappers take the plain version for CPU tensors.
 LORA_IMPLS = ("einsum", "fused")
+
+
+def _lora_apply_grouped(x: Tensor, w: Tensor, lora: dict, scale: float,
+                        impl: str) -> Tensor:
+    """Cohort-grouped adapters: a (G, r, K), b (G, N, r) against a shared
+    base w (K, N).  x's leading axes flatten into G equal row segments
+    (segment g owns adapter g) — the ragged server step arranges this."""
+    a, b = lora["a"], lora["b"]
+    g = a.shape[0]
+    *lead, kdim = x.shape
+    x2 = x.reshape(-1, kdim)
+    m = x2.shape[0]
+    if m % g:
+        raise ValueError(f"grouped lora_apply: {m} rows are not divisible "
+                         f"into G={g} equal segments")
+    if impl == "fused":
+        from repro_torch.kernels.ops import grouped_lora_matmul
+        y2 = grouped_lora_matmul(x2.to(w.dtype), w, a.to(w.dtype), b.to(w.dtype),
+                                 group_sizes=(m // g,) * g, scale=float(scale))
+        return y2.reshape(*lead, w.shape[1]).to(x.dtype)
+    y = x @ w.to(x.dtype)
+    xg = x2.reshape(g, m // g, kdim)
+    lo = torch.einsum("gmi,gri->gmr", xg, a.to(x.dtype))
+    up = torch.einsum("gmr,gor->gmo", lo, b.to(x.dtype))
+    return y + scale * up.reshape(*lead, -1)
 
 
 def lora_apply(x: Tensor, w: Tensor, lora: Optional[dict], scale: float,
                impl: Optional[str] = None) -> Tensor:
-    """y = x @ w + scale * (x @ a.T) @ b.T   with a:(r,in), b:(out,r)."""
+    """y = x @ w + scale * (x @ a.T) @ b.T   with a:(r,in), b:(out,r).
+
+    A 3-D adapter (G, r, in) / (G, out, r) is a cohort-grouped stack: x's
+    rows split into G equal segments, each with its own adapter
+    (:func:`_lora_apply_grouped`)."""
     if impl is None:
         impl = "einsum"
     elif impl not in LORA_IMPLS:
         raise KeyError(f"unknown lora impl {impl!r}; choose from {LORA_IMPLS}")
     if lora is not None and lora["a"].dim() == 3 and w.dim() == 2:
-        raise NotImplementedError(
-            "cohort-grouped 3-D adapters run the grouped LoRA kernel "
-            "(ROADMAP Queue B, item 2)")
+        return _lora_apply_grouped(x, w, lora, scale, impl)
     if impl == "fused" and lora is not None and w.dim() == 2:
         from repro_torch.kernels.ops import fused_lora_matmul
         y = fused_lora_matmul(x.to(w.dtype), w, lora["a"].to(w.dtype),

@@ -4,6 +4,11 @@ f32 moments; bias correction from an int32 step counter with
 ``b1 ** step`` taken in float32, as the reference does.  The update is
 functional: it returns new parameter and state trees and never writes into
 its inputs, so trees that several clients share stay intact.
+
+A state may also be *stacked*: every leaf carries a leading lane axis (one
+lane per client of a cohort) and the step counter is a (G,) int32 vector.
+``update`` then advances each lane by exactly the per-client update — the
+reference's ``jax.vmap(opt.update)`` in the ragged cohort server step.
 """
 from __future__ import annotations
 
@@ -18,7 +23,7 @@ PyTree = Any
 
 
 class AdamWState(NamedTuple):
-    step: torch.Tensor      # 0-d int32
+    step: torch.Tensor      # 0-d int32, or (G,) int32 for a stacked state
     mu: PyTree
     nu: PyTree
 
@@ -50,16 +55,30 @@ class AdamW:
                       state.nu, grads)
         stepf = step.float()
         f32 = dict(dtype=torch.float32, device=stepf.device)
-        bc1 = 1 - torch.pow(torch.tensor(b1, **f32), stepf)
-        bc2 = 1 - torch.pow(torch.tensor(b2, **f32), stepf)
+        bc1 = _bias_correction(torch.tensor(b1, **f32), stepf)
+        bc2 = _bias_correction(torch.tensor(b2, **f32), stepf)
         lr = torch.tensor(self.learning_rate, **f32)
 
         def upd(p, m, v):
-            mhat = m / bc1
-            vhat = v / bc2
+            mhat = m / _per_lane(bc1, m)
+            vhat = v / _per_lane(bc2, v)
             delta = mhat / (torch.sqrt(vhat) + self.eps)
             return (p.float() - lr * delta).to(p.dtype)
 
         new_params = tree_map(upd, params, mu, nu)
         return new_params, AdamWState(step=step, mu=mu, nu=nu)
 
+
+
+def _bias_correction(beta: torch.Tensor, stepf: torch.Tensor) -> torch.Tensor:
+    """1 - beta ** step, for a 0-d step or one per lane.  Each lane takes
+    the 0-d power on its own: a vectorized pow may round differently from
+    the scalar one, and a lane must equal the per-client update exactly."""
+    if stepf.dim() == 0:
+        return 1 - torch.pow(beta, stepf)
+    return torch.stack([1 - torch.pow(beta, s) for s in stepf.unbind()])
+
+
+def _per_lane(bc: torch.Tensor, leaf: torch.Tensor) -> torch.Tensor:
+    """A (G,) lane vector shaped to broadcast over a (G, ...) leaf."""
+    return bc if bc.dim() == 0 else bc.reshape(bc.shape + (1,) * (leaf.dim() - 1))

@@ -1,0 +1,162 @@
+"""The port's int8 transport compression against the JAX package's.
+
+``quantize`` (through the quantize kernel's plain version on the CPU) and
+``quantize_rows_ref`` are bit-equal to the reference's ``comm.quantize``
+and to its Pallas ``quantize_rows`` in interpret mode, exact .5 ties and a
+zero row included; ``quantize_with_feedback`` carries the same residuals.
+The CUDA kernel is held against its plain version on the card (tests at
+the end, and ``chip_smoke.py``); here those tests skip.
+"""
+import os
+
+# the JAX reference runs on the CPU in these comparisons, also where its
+# JAX could see an accelerator
+os.environ["JAX_PLATFORMS"] = "cpu"
+
+import numpy as np
+import pytest
+import torch
+
+# tiny shapes: one intra-op thread each, so parallel test workers do not
+# oversubscribe the cores
+torch.set_num_threads(1)
+
+from repro_torch.comm import (Quantized, dequantize, quantize,
+                              quantize_with_feedback, transport_bytes)
+from repro_torch.kernels.quant import quantize_rows
+from repro_torch.kernels.ref import quantize_rows_ref
+
+# x / scale of this row is [127, 0.5, 1.5, 2.5, -0.5, -1.5, -2.5, 3.5]:
+# round half to even gives [127, 0, 2, 2, 0, -2, -2, 4]; half away from
+# zero would give [127, 1, 2, 3, -1, -2, -3, 4]
+TIE_ROW = np.array([254, 1, 3, 5, -1, -3, -5, 7], np.float32)
+TIE_Q = np.array([127, 0, 2, 2, 0, -2, -2, 4], np.int8)
+
+
+def _rows(n=512, d=64, seed=0):
+    """Seeded rows with a tie row and a zero row among them."""
+    rs = np.random.default_rng(seed)
+    x = (rs.standard_normal((n, d)) * 2.0).astype(np.float32)
+    x[3, :] = 0.0
+    if d >= TIE_ROW.size:
+        x[5, :] = 0.0
+        x[5, :TIE_ROW.size] = TIE_ROW
+    return x
+
+
+def test_tie_row_rounds_half_to_even_and_zero_row_floors_the_scale():
+    q, s = quantize_rows_ref(torch.from_numpy(_rows()))
+    np.testing.assert_array_equal(q[5, :TIE_ROW.size].numpy(), TIE_Q)
+    assert float(s[5]) == 2.0
+    assert float(s[3]) == np.float32(1e-12) and not q[3].any()
+
+
+def test_quantize_rows_bit_equal_to_jax_comm_and_kernel():
+    """Bit-equal to ``comm.quantize``, which the reference Simulator runs
+    eagerly.  The Pallas kernel in interpret mode runs under ``jit``, where
+    XLA's CPU compiler turns ``absmax / 127`` into ``absmax * (1/127)``, so
+    its scales differ from ``comm.quantize``'s by an ulp on some rows: its
+    payload is compared bit for bit and its scales at the reference's own
+    tolerance for that comparison (``tests/test_comm.py``, rtol 1e-6)."""
+    pytest.importorskip("jax")
+    import jax.numpy as jnp
+    from repro.comm import quantize as j_quantize
+    from repro.kernels.quant import quantize_rows as j_quantize_rows
+
+    x = _rows()
+    jc = j_quantize(jnp.asarray(x))
+    jq, js = j_quantize_rows(jnp.asarray(x), block_rows=256, interpret=True)
+    q, s = quantize_rows(torch.from_numpy(x))
+    np.testing.assert_array_equal(q.numpy(), np.asarray(jc.q))
+    np.testing.assert_array_equal(s.numpy(), np.asarray(jc.scale))
+    np.testing.assert_array_equal(q.numpy(), np.asarray(jq))
+    np.testing.assert_allclose(s.numpy(), np.asarray(js), rtol=1e-6)
+
+
+@pytest.mark.parametrize("axis", [-1, 1])
+def test_quantize_and_dequantize_bit_equal_to_jax(axis):
+    pytest.importorskip("jax")
+    import jax.numpy as jnp
+    from repro.comm import dequantize as j_dequantize
+    from repro.comm import quantize as j_quantize
+
+    x = _rows(96, 40).reshape(4, 24, 40)
+    jq = j_quantize(jnp.asarray(x), axis=axis)
+    tq = quantize(torch.from_numpy(x), axis=axis)
+    assert isinstance(tq, Quantized) and tq.q.dtype == torch.int8
+    np.testing.assert_array_equal(tq.q.numpy(), np.asarray(jq.q))
+    np.testing.assert_array_equal(tq.scale.numpy(), np.asarray(jq.scale))
+    assert tq.nbytes == jq.nbytes
+    np.testing.assert_array_equal(dequantize(tq, axis=axis).numpy(),
+                                  np.asarray(j_dequantize(jq, axis=axis)))
+
+
+def test_quantize_with_feedback_residuals_equal_jax():
+    pytest.importorskip("jax")
+    import jax.numpy as jnp
+    from repro.comm import quantize_with_feedback as j_qwf
+
+    rs = np.random.default_rng(3)
+    j_res = t_res = None
+    for _ in range(4):
+        x = rs.standard_normal((2, 16, 32)).astype(np.float32)
+        jqx, j_res = j_qwf(jnp.asarray(x), j_res)
+        tqx, t_res = quantize_with_feedback(torch.from_numpy(x), t_res)
+        np.testing.assert_array_equal(tqx.q.numpy(), np.asarray(jqx.q))
+        np.testing.assert_array_equal(tqx.scale.numpy(), np.asarray(jqx.scale))
+        np.testing.assert_array_equal(t_res.numpy(), np.asarray(j_res))
+
+
+def test_transport_bytes_ratio():
+    shape = (16, 128, 768)
+    ratio = transport_bytes(shape, True) / transport_bytes(shape, False)
+    assert 0.25 <= ratio < 0.26            # int8 + per-row scales
+
+
+def test_cpu_tensors_take_the_plain_version_without_counting():
+    x = torch.from_numpy(_rows(16, 8))
+    before = quantize_rows.launches
+    q, s = quantize_rows(x)
+    assert quantize_rows.launches == before
+    rq, rs_ = quantize_rows_ref(x)
+    assert torch.equal(q, rq) and torch.equal(s, rs_)
+
+
+@pytest.mark.parametrize("case", ["dims", "dtype", "layout", "device", "no_columns"])
+def test_wrapper_rejects_what_the_kernel_does_not_take(case):
+    x, err = torch.from_numpy(_rows(8, 6)), ValueError
+    if case == "dims":
+        x = x.reshape(2, 4, 6)
+    elif case == "dtype":
+        x, err = x.double(), TypeError
+    elif case == "layout":
+        x = x.t()
+    elif case == "device":
+        x = x.to("meta")
+    else:
+        x = torch.zeros(4, 0)
+    with pytest.raises(err):
+        quantize_rows(x)
+
+
+# ---------------------------------------------------------------- on the card
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    return torch.device("cuda")
+
+
+@pytest.mark.parametrize("shape", [(2048, 768), (6, 1000), (300, 7)])
+def test_cuda_kernel_bit_equal_to_plain_version(cuda_device, shape):
+    """Ties and a zero row included; any N and d (no padding of N)."""
+    x = torch.from_numpy(_rows(*shape)).to(cuda_device)
+    before = quantize_rows.launches
+    q, s = quantize_rows(x)
+    assert quantize_rows.launches == before + 1
+    rq, rs_ = quantize_rows_ref(x)
+    assert torch.equal(q, rq) and torch.equal(s, rs_)
+    assert not q[3].any() and float(s[3]) == np.float32(1e-12)
+    if shape[1] >= TIE_ROW.size:
+        np.testing.assert_array_equal(q[5, :TIE_ROW.size].cpu().numpy(), TIE_Q)

@@ -1,6 +1,7 @@
 """The port's copies of the JAX package's numpy-only modules (configs, data,
-cost model, scheduling, devices, metrics, run config) stay bit-equal to
-their originals on seeded inputs."""
+cost model, scheduling, devices, metrics, run config, the wire-byte count of
+the transport compression) stay bit-equal to their originals on seeded
+inputs."""
 import os
 
 # the JAX reference runs on the CPU in these comparisons, also where its
@@ -16,6 +17,7 @@ import pytest
 pytest.importorskip("jax")
 
 from repro import configs as j_configs  # noqa: E402
+from repro.comm import transport_bytes as j_transport_bytes  # noqa: E402
 from repro import data as j_data  # noqa: E402
 from repro.core import cost_model as j_cost  # noqa: E402
 from repro.core import scheduling as j_sched  # noqa: E402
@@ -23,6 +25,7 @@ from repro.fed import config as j_fedcfg  # noqa: E402
 from repro.fed import devices as j_devices  # noqa: E402
 from repro.fed import metrics as j_metrics  # noqa: E402
 from repro_torch import configs as t_configs  # noqa: E402
+from repro_torch.comm import transport_bytes as t_transport_bytes  # noqa: E402
 from repro_torch import data as t_data  # noqa: E402
 from repro_torch.core import cost_model as t_cost  # noqa: E402
 from repro_torch.core import scheduling as t_sched  # noqa: E402
@@ -98,6 +101,14 @@ def test_devices_bit_equal():
         else:
             assert dataclasses.asdict(j) == dataclasses.asdict(t)
     assert j_devices.PAPER_CUTS == t_devices.PAPER_CUTS
+
+
+@pytest.mark.parametrize("shape", [(16, 128, 768), (4, 16, 128), (7,), (3, 0, 5)])
+@pytest.mark.parametrize("dtype_bytes", [4, 2])
+def test_transport_bytes_bit_equal(shape, dtype_bytes):
+    for quantized in (False, True):
+        assert (t_transport_bytes(shape, quantized, dtype_bytes)
+                == j_transport_bytes(shape, quantized, dtype_bytes))
 
 
 def test_metrics_bit_equal():

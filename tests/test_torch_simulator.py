@@ -2,8 +2,9 @@
 from the reference's own initial state (``bridge.load_reference_state``),
 at reduced(bert-base, 4 layers, d 128), vocab 4096, seq 16, batch 4, the six
 paper clients at cuts (1,1,2,2,3,3), 2 rounds, aggregation every 2 — one
-aggregation and one evaluation.  Also: every knob outside the slice raises,
-and the numpy bridge round-trips.
+aggregation and one evaluation — on the paper's sequential server and on
+the cohort-batched ragged server with int8+EF links.  Also: every knob
+outside the slice raises, and the numpy bridge round-trips.
 """
 import os
 
@@ -13,6 +14,7 @@ import os
 os.environ["JAX_PLATFORMS"] = "cpu"
 
 import dataclasses
+import re
 
 import numpy as np
 import pytest
@@ -25,8 +27,8 @@ torch.set_num_threads(1)
 from repro_torch import bridge
 from repro_torch.configs import REGISTRY, reduced
 from repro_torch.data import make_emotion_dataset
-from repro_torch.fed import (PAPER_CLIENTS, AggConfig, EngineConfig, FedRunConfig,
-                             FleetConfig, NetConfig, Simulator)
+from repro_torch.fed import (PAPER_CLIENTS, AggConfig, ControlConfig, EngineConfig,
+                             FedRunConfig, FleetConfig, NetConfig, ObsConfig, Simulator)
 from repro_torch.numerics import set_fp32_policy
 from repro_torch.optim import AdamWState
 
@@ -99,6 +101,64 @@ def test_simulator_matches_reference():
     assert _leaf_max_diff(ts.heads[0], js.heads[0]) <= ADAPTER_ATOL
 
 
+def test_cohort_quantized_simulator_matches_reference():
+    """All six clients form one dispatch chunk, which the ragged step splits
+    into three cut groups of two; activations go up as int8 with error
+    feedback and gradients come down as int8.  Both packages route every
+    adapted projection through their grouped or fused kernel (the
+    reference's Pallas kernels in interpret mode)."""
+    jax = pytest.importorskip("jax")
+    from repro.configs import REGISTRY as J_REGISTRY
+    from repro.configs import reduced as j_reduced
+    from repro.data import make_emotion_dataset as j_make
+    from repro.fed import AggConfig as JAgg
+    from repro.fed import EngineConfig as JEngine
+    from repro.fed import FedRunConfig as JRun
+    from repro.fed import NetConfig as JNet
+    from repro.fed import PAPER_CLIENTS as J_CLIENTS
+    from repro.fed import Simulator as JSimulator
+
+    jcfg = j_reduced(J_REGISTRY["bert-base"], n_layers=4, d_model=128).with_(vocab_size=4096)
+    js = JSimulator(jcfg, J_CLIENTS, CUTS, *_datasets(j_make),
+                    JRun(**RUN_KW, engine=JEngine(cohort_chunk=6, cohort_impl="ragged",
+                                                  fused_lora=True),
+                         net=JNet(quantize=True), agg=JAgg(interval=2)))
+    state = {k: jax.tree.map(np.asarray, getattr(js, k)) for k in bridge.STATE_KEYS}
+    j_hist = js.run_training()
+
+    ts = Simulator(_port_cfg(), PAPER_CLIENTS, CUTS, *_datasets(make_emotion_dataset),
+                   FedRunConfig(**RUN_KW, engine=EngineConfig(cohort_chunk=6,
+                                                              cohort_impl="ragged",
+                                                              fused_lora=True),
+                                net=NetConfig(quantize=True), agg=AggConfig(interval=2)),
+                   device="cpu")
+    bridge.load_reference_state(ts, state)
+    assert ts._service_plan() == [list(g) for g in js._service_plan()] and \
+        len(ts._service_plan()) == 1
+    t_hist = ts.run_training()
+
+    assert [r.round for r in t_hist] == [r.round for r in j_hist] == [0, 1]
+    for t, j in zip(t_hist, j_hist):
+        assert abs(t.sim_time_s - j.sim_time_s) <= 1e-12
+        assert abs(t.mean_loss - j.mean_loss) <= LOSS_RTOL * abs(j.mean_loss)
+    assert t_hist[-1].accuracy == j_hist[-1].accuracy
+    assert t_hist[-1].f1 == j_hist[-1].f1
+    for u in range(len(CUTS)):
+        assert _leaf_max_diff(ts.client_lora[u], js.client_lora[u]) <= ADAPTER_ATOL
+        assert _leaf_max_diff(ts.server_lora[u], js.server_lora[u]) <= ADAPTER_ATOL
+        # the uplink residual is x - dequantize(quantize(x)): where round 2's
+        # activations (after AdamW, Queue C.1) land on the other side of a
+        # rounding boundary, q moves one level and the residual one step, so
+        # a few elements in a thousand may differ by a step; the rest agree
+        t_res, j_res = ts._ef_residual[u].numpy(), np.asarray(js._ef_residual[u])
+        d = np.abs(t_res - j_res)
+        assert (d > 1e-5).sum() <= 1e-3 * d.size
+        assert d.max() <= 2 * max(np.abs(t_res).max(), np.abs(j_res).max())
+    # int8 links shrink both transfers: a quicker simulated round than the
+    # sequential run's float32 links (test above: 0.0058 s for round 1)
+    assert t_hist[0].sim_time_s < 0.005
+
+
 def test_heads_are_shared_after_commit_but_never_written_through():
     ts = Simulator(_port_cfg(), PAPER_CLIENTS, CUTS, *_datasets(make_emotion_dataset),
                    FedRunConfig(**RUN_KW, agg=AggConfig(interval=1)), device="cpu")
@@ -117,21 +177,26 @@ def _run(**groups):
     return FedRunConfig(**kw)
 
 
-@pytest.mark.parametrize("run", [
-    _run(scheme="sl"),
-    _run(engine=EngineConfig(mode="event")),
-    _run(engine=EngineConfig(cohort_chunk=2)),
-    _run(engine=EngineConfig(cohort_impl="ragged")),
-    _run(net=NetConfig(quantize=True)),
-    _run(agg=AggConfig(transport="plane")),
-    _run(fleet=FleetConfig(sampling="uniform", rate=0.5)),
-    _run(fleet=FleetConfig(straggler_prob=0.1)),
-    _run(fleet=FleetConfig(edge_cells=2)),
-], ids=["sl", "event", "cohort_chunk", "ragged", "quantize", "plane",
-        "sampling", "stragglers", "edge_cells"])
-def test_knobs_outside_the_slice_raise(run):
+@pytest.mark.parametrize("run,knob", [
+    pytest.param(_run(scheme="sl"), "scheme='sl'", id="sl"),
+    pytest.param(_run(engine=EngineConfig(mode="event")), "mode='event'", id="event"),
+    pytest.param(_run(engine=EngineConfig(cohort_chunk=2)), "cohort_impl='vmap'",
+                 id="cohort_chunk"),
+    pytest.param(_run(engine=EngineConfig(mode="event"),
+                      control=ControlConfig(policy="periodic")), "control policy",
+                 id="control"),
+    pytest.param(_run(engine=EngineConfig(mode="event"), obs=ObsConfig(metrics=True)),
+                 "observability", id="obs"),
+    pytest.param(_run(agg=AggConfig(transport="plane")), "transport='plane'", id="plane"),
+    pytest.param(_run(fleet=FleetConfig(sampling="uniform", rate=0.5)), "sampling",
+                 id="sampling"),
+    pytest.param(_run(fleet=FleetConfig(straggler_prob=0.1)), "straggler_prob",
+                 id="stragglers"),
+    pytest.param(_run(fleet=FleetConfig(edge_cells=2)), "edge_cells", id="edge_cells"),
+])
+def test_knobs_outside_the_slice_raise(run, knob):
     train, test = _datasets(make_emotion_dataset)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A"):
+    with pytest.raises(NotImplementedError, match=f"{re.escape(knob)}.*ROADMAP Queue A"):
         Simulator(_port_cfg(), PAPER_CLIENTS, CUTS, train, test, run, device="cpu")
 
 

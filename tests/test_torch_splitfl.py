@@ -233,3 +233,161 @@ def test_classification_server_step(port):
     assert dv.shape == v.shape
     assert float((nh - params["cls_head"]).abs().max()) > 0     # head trains
     assert int(no.step) == 1 and not nh.requires_grad and not dv.requires_grad
+
+
+# ---------------------------------------------------------------- cohort-batched step
+
+COHORT_B = 2
+
+
+def _np_cohort(cuts, seed=1):
+    """Per-client numpy state for a ragged cohort: full-shape server adapters
+    (zero below each client's cut, as the Simulator embeds them), heads,
+    received activations and batches, each stacked on a leading lane axis."""
+    params, lora, _ = _np_state()
+    rs = np.random.default_rng(seed)
+    g = len(cuts)
+
+    def server_part(cut):
+        return tree_map(lambda a: np.concatenate(
+            [np.zeros_like(a[:cut]), (rs.standard_normal(a[cut:].shape) * 0.05)
+             .astype(np.float32)]), lora)
+
+    lora_s = tree_map(lambda *xs: np.stack(xs), *[server_part(c) for c in cuts])
+    heads = (rs.standard_normal((g,) + params["cls_head"].shape) * 0.1).astype(np.float32)
+    v = rs.standard_normal((g, COHORT_B, 16, 128)).astype(np.float32)
+    batch = {"tokens": rs.integers(0, 512, (g, COHORT_B, 16)).astype(np.int32),
+             "label": rs.integers(0, 6, (g, COHORT_B)).astype(np.int32)}
+    return params, lora_s, heads, v, batch
+
+
+def _norm_err(got, want) -> float:
+    got = np.asarray(got.detach() if torch.is_tensor(got) else got, np.float64)
+    want = np.asarray(want, np.float64)
+    return float(np.abs(got - want).max()) / max(1.0, float(np.abs(want).max()))
+
+
+def _tree_norm_err(got, want) -> float:
+    if isinstance(got, dict):
+        return max(_tree_norm_err(got[k], want[k]) for k in got)
+    return _norm_err(got, want)
+
+
+@pytest.mark.parametrize("impl,cuts", [("einsum", (1, 1, 2, 3)), ("fused", (1, 1, 2, 3)),
+                                       ("fused", (3, 1, 2, 1))])
+def test_ragged_cls_step_matches_reference(impl, cuts):
+    """Losses, dv and the adapter and head gradients (read from the first
+    moment, mu = (1 - b1) g after one step) to 1e-5 of their scale;
+    adapters and heads after the AdamW step to 2*lr (ROADMAP Queue C.1)."""
+    jax = pytest.importorskip("jax")
+    import jax.numpy as jnp
+    from repro.configs import REGISTRY as J_REGISTRY
+    from repro.configs import reduced as j_reduced
+    from repro.core import splitfl as j_splitfl
+    from repro.models import build_model as j_build
+    from repro.optim import AdamW as JAdamW
+
+    params, lora_s, heads, v, batch = _np_cohort(cuts)
+    jc = j_reduced(J_REGISTRY["bert-base"], n_layers=N_LAYERS, d_model=128)
+    jm = j_build(jc.with_(lora=dataclasses.replace(jc.lora, impl=impl)))
+    jopt = JAdamW(LR)
+    jp, jl = jax.tree.map(jnp.asarray, params), jax.tree.map(jnp.asarray, lora_s)
+    jh = jnp.asarray(heads)
+    jos = jax.tree.map(lambda *xs: jnp.stack(xs), *[
+        jopt.init({"lora": jax.tree.map(lambda a, i=i: a[i], jl), "head": jh[i]})
+        for i in range(len(cuts))])
+    jstep = j_splitfl.make_server_step_cls_batched(jm, jopt, impl="ragged")
+    jloss, jnl, jnh, jno, jdv = jstep(jp, jl, jh, jos, jnp.asarray(v),
+                                      {k: jnp.asarray(x) for k, x in batch.items()},
+                                      np.asarray(cuts))
+
+    tm = build_model(_cfg(impl), device="cpu")
+    topt = AdamW(LR)
+    tp, tl, th = to_torch(params, "cpu"), to_torch(lora_s, "cpu"), to_torch(heads, "cpu")
+    tos = lora_lib.stack_trees([
+        topt.init({"lora": lora_lib.unstack_tree(tl)[i], "head": th[i]})
+        for i in range(len(cuts))])
+    tstep = splitfl.make_server_step_cls_batched(tm, topt, impl="ragged")
+    tloss, tnl, tnh, tno, tdv = tstep(tp, tl, th, tos, to_torch(v, "cpu"),
+                                      to_torch(batch, "cpu"), list(cuts))
+
+    assert _norm_err(tloss, jloss) <= 1e-5
+    assert _norm_err(tdv, jdv) <= 1e-5
+    grad = lambda mu: tree_map(lambda m: np.asarray(m) / (1 - 0.9), mu)  # noqa: E731
+    assert _tree_norm_err(grad(tree_map(np.asarray, tno.mu)), grad(jno.mu)) <= 1e-5
+    assert tno.step.tolist() == np.asarray(jno.step).tolist() == [1] * len(cuts)
+    _close_trees(tnl, jnl, atol=2 * LR, rtol=0)
+    _close(tnh, jnh, atol=2 * LR, rtol=0)
+
+
+def test_ragged_step_equals_the_sequential_steps(port):
+    """Each lane of one ragged dispatch equals that client's own sequential
+    server step (cuts out of order, a cut shared by two clients)."""
+    tm, params, _, _ = port
+    cuts = (2, 1, 3, 1)
+    p_np, lora_s, heads, v, batch = _np_cohort(cuts, seed=4)
+    tl, th, tv, tb = (to_torch(x, "cpu") for x in (lora_s, heads, v, batch))
+    opt = AdamW(LR)
+    states = [opt.init({"lora": lo, "head": th[i]})
+              for i, lo in enumerate(lora_lib.unstack_tree(tl))]
+    step = splitfl.make_server_step_cls_batched(tm, opt, impl="ragged")
+    loss, nl, nh, no, dv = step(params, tl, th, lora_lib.stack_trees(states), tv, tb,
+                                list(cuts))
+    for i, cut in enumerate(cuts):
+        seq = splitfl.make_server_step_cls(tm, opt, static_cut=cut)
+        lane = lambda t, i=i: tree_map(lambda a: a[i], t)  # noqa: E731
+        sl, snl, snh, sno, sdv = seq(params, lane(tl), th[i], states[i], tv[i], lane(tb))
+        _close(loss[i], sl, atol=1e-6, rtol=0)
+        _close(dv[i], sdv, atol=1e-6, rtol=0)
+        _close_trees(lane(no.mu), sno.mu, atol=1e-7, rtol=0)
+        _close_trees(lane(nl), snl, atol=2 * LR, rtol=0)
+        _close(nh[i], snh, atol=2 * LR, rtol=0)
+
+
+def test_stacked_adamw_update_equals_the_per_lane_update():
+    """A stacked state at unequal steps: each lane of one update is exactly
+    that client's own update."""
+    rs = np.random.default_rng(2)
+    opt = AdamW(LR)
+    tree = lambda: {"a": torch.from_numpy(rs.standard_normal((3, 4)).astype(np.float32)),  # noqa: E731
+                    "h": torch.from_numpy(rs.standard_normal(5).astype(np.float32))}
+    params, grads = [tree() for _ in range(3)], [tree() for _ in range(3)]
+    states = [opt.init(p) for p in params]
+    for lane, n_steps in ((1, 1), (2, 7)):
+        for _ in range(n_steps):
+            states[lane] = opt.update(tree(), states[lane], params[lane])[1]
+    new_p, new_s = opt.update(lora_lib.stack_trees(grads), lora_lib.stack_trees(states),
+                              lora_lib.stack_trees(params))
+    assert new_s.step.tolist() == [1, 2, 8]
+    for i in range(3):
+        want_p, want_s = opt.update(grads[i], states[i], params[i])
+        got_p, got_s = lora_lib.unstack_tree(new_p)[i], lora_lib.unstack_tree(new_s)[i]
+        for got, want in zip(tree_leaves((got_p, got_s)), tree_leaves((want_p, want_s))):
+            assert torch.equal(got, want)
+
+
+def test_batched_steps_outside_the_slice_raise(port):
+    tm = port[0]
+    with pytest.raises(NotImplementedError, match="Queue A, item 6"):
+        splitfl.make_server_step_cls_batched(tm, AdamW(LR), impl="vmap")
+    with pytest.raises(NotImplementedError, match="item 3"):
+        splitfl.make_server_step_batched(tm, AdamW(LR), impl="ragged")
+    with pytest.raises(KeyError):
+        splitfl.make_server_step_cls_batched(tm, AdamW(LR), impl="padded")
+
+
+def test_ragged_chunking_splits_cut_groups_exactly(port):
+    """cohort_chunk=1 serves each client of a cut group in its own
+    dispatch (G = 1 groups): the same losses and dv as whole groups."""
+    tm, params, _, _ = port
+    cuts = (2, 1, 3, 1)
+    _, lora_s, heads, v, batch = _np_cohort(cuts, seed=6)
+    tl, th, tv, tb = (to_torch(x, "cpu") for x in (lora_s, heads, v, batch))
+    opt = AdamW(LR)
+    state = lora_lib.stack_trees([opt.init({"lora": lo, "head": th[i]})
+                                  for i, lo in enumerate(lora_lib.unstack_tree(tl))])
+    outs = [splitfl.make_server_step_cls_batched(tm, opt, cohort_chunk=chunk)(
+                params, tl, th, state, tv, tb, list(cuts)) for chunk in (None, 1)]
+    assert [c for _, c in splitfl._ragged_chunks(np.asarray(cuts), 1)] == [1, 1, 2, 3]
+    for whole, split in zip(outs[0][::4], outs[1][::4]):     # losses, dv
+        _close(whole, split.detach().numpy(), atol=1e-6, rtol=0)
