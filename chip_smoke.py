@@ -6,7 +6,8 @@
 Phases (any failed check raises and the script exits non-zero):
 
 1. environment: torch and CUDA versions, the card's name and power limit;
-2. build: every CUDA kernel (lora_matmul, grouped_lora, quant), compiled
+2. build: every CUDA kernel (lora_matmul, grouped_lora, quant,
+   flash_attention, wkv6), compiled
    with nvcc from the sources in this checkout, one nvcc per source, all
    at once; ptxas's register and shared-memory lines are printed;
 3. kernel check: each kernel against its plain PyTorch version on the card,
@@ -27,7 +28,29 @@ Phases (any failed check raises and the script exits non-zero):
    (net quantize=True), fused and then einsum; the launches of every
    kernel per round must equal the counts derived in PERF.md, the losses
    of the two runs must agree and their simulated times be equal;
-7. summary: one JSON line per ported kernel, then the device line last.
+7. LM kernel check: the flash-attention kernel at the gemma-2b prefill
+   shape (B 4, S = T 2048, H 8, K 1, D 256, causal) in bf16 and fp32 and
+   at a GQA shape with a ragged T (2, 1000, 32 heads, 8 kv heads, 64;
+   causal with window 256, and non-causal), beside PyTorch's
+   scaled_dot_product_attention as the yardstick; the WKV6 kernel at the
+   rwkv6-3b prefill shape (B 4, T 2048, H 40, D 64; bf16 r/k/v with an f32
+   decay, and fp32) and at a ragged T of 1000; each against its plain
+   version (normalized error <= 1e-5 in fp32, <= 1e-2 in bf16);
+8. LM prefill: gemma-2b and rwkv6-3b at full width and depth in bf16 with
+   random weights, 4 prompts of 2048 tokens, under attn_impl / wkv_impl
+   "chunked" (the kernels: 18 flash launches, 32 WKV6 launches) and under
+   "naive" / "scan" (plain PyTorch, no launch); then every layer of both
+   settings on the same input (the plain run's), so that each layer's
+   output, its cache leaves and the last-token logits are held together
+   (LM_TOL) without the depth amplifying one layer's bf16 rounding;
+9. LM serving: a ServingEngine per model with two tenants (every adapter
+   leaf ~ N(0, 0.05), as in tests/test_serving.py), six greedy requests
+   of 16-64 prompt tokens and 16 new tokens in 4 slots of a 128-token
+   cache; every request completes, the stats hold, decode launches
+   neither kernel; and for one prompt, every layer's decode, token by
+   token from its own cache, agrees with that layer's prefill on the same
+   input (LM_TOL);
+10. summary: one JSON line per ported kernel, then the device line last.
 
 Every launch counter is set to 0 just before each path runs and read just
 after it.  ``--profile`` adds a phase before the summary: one warm round of
@@ -41,6 +64,7 @@ run from a directory that does not hold the repository's ``src/``.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import math
 import subprocess
@@ -66,6 +90,8 @@ from repro_torch.data import make_emotion_dataset  # noqa: E402
 from repro_torch.fed import (PAPER_CLIENTS, PAPER_CUTS, AggConfig,  # noqa: E402
                              EngineConfig, FedRunConfig, NetConfig, Simulator)
 from repro_torch.kernels import build  # noqa: E402
+from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
+from repro_torch.kernels.flash_attention import flash_attention_plain  # noqa: E402
 from repro_torch.kernels.grouped_lora import (grouped_lora,  # noqa: E402
                                               grouped_lora_chunk,
                                               grouped_lora_direct)
@@ -73,10 +99,15 @@ from repro_torch.kernels.lora_matmul import lora_matmul  # noqa: E402
 from repro_torch.kernels.ops import fused_lora_matmul, grouped_lora_matmul  # noqa: E402
 from repro_torch.kernels.quant import quantize_rows  # noqa: E402
 from repro_torch.kernels.ref import (grouped_lora_matmul_ref,  # noqa: E402
-                                     lora_matmul_ref, quantize_rows_ref)
+                                     lora_matmul_ref, quantize_rows_ref, wkv6_ref)
+from repro_torch.kernels.wkv6 import wkv6  # noqa: E402
+from repro_torch.models import build_model  # noqa: E402
+from repro_torch.serving import Request, ServingEngine  # noqa: E402
 
-# H100 SXM data-sheet peaks (dense): fp32 on the CUDA cores, HBM bandwidth
+# H100 SXM data-sheet peaks (dense): fp32 on the CUDA cores, bf16 on the
+# tensor cores, HBM bandwidth
 PEAK_FP32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_HBM_BYTES = 3.35e12
 
 # kernel vs plain version: fp32 sums taken in another order differ by a few
@@ -90,13 +121,37 @@ KERNEL_RTOL = 1e-4
 # loss by far less than 1e-3 of its value
 LOSS_RTOL = 1e-3
 
+# flash and WKV6 kernels vs their plain versions, normalized error: in fp32
+# both sum the same f32 products in another order (the flash kernel's
+# online softmax against one softmax); in bf16 the output, and in flash
+# the probabilities, round to bf16 at other points (an ulp of bf16 is
+# 2**-8 of the value)
+LM_KERNEL_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+# the LM paths in bf16, layer by layer from a shared input: kernel vs plain
+# (each layer's output and cache, the last-token logits) and decode vs
+# prefill.  The two sides differ by bf16 roundings of the attention or WKV
+# output (~2**-8 of a value, the kernel checks' 1e-2) carried through one
+# layer's projections; a wrong mask, position, cache slot or state changes
+# a layer's output by O(1) of its scale.  Held per layer because a
+# random-weight model run free through 18-32 layers in bf16 amplifies one
+# rounding into O(1) differences (measured: the free-running numbers are
+# printed beside the held ones)
+LM_TOL = 5e-2
+
 ROUNDS, BATCH, SEQ, LR = 2, 16, 128, 1e-3
 N_TRAIN, N_TEST = 4000, 512
-SOURCES = ("lora_matmul", "grouped_lora", "quant")
+SOURCES = ("lora_matmul", "grouped_lora", "quant", "flash_attention", "wkv6")
+
+# the LM slice: 4 prompts of 2048 tokens for the prefill; for the engine,
+# six requests of 16-64 prompt tokens and 16 new tokens in 4 slots
+LM_ARCHS = ("gemma-2b", "rwkv6-3b")
+PREFILL_BATCH, PREFILL_SEQ = 4, 2048
+SERVE_SLOTS, SERVE_CACHE, SERVE_NEW, SERVE_REQUESTS = 4, 128, 16, 6
 
 # every kernel's launch counter, by the name the summary gives it
 COUNTERS = {"lora_matmul": lora_matmul, "grouped_lora_chunk": grouped_lora_chunk,
-            "grouped_lora_direct": grouped_lora_direct, "quantize_rows": quantize_rows}
+            "grouped_lora_direct": grouped_lora_direct, "quantize_rows": quantize_rows,
+            "flash_attention": flash_attention, "wkv6": wkv6}
 
 
 def reset_counts() -> None:
@@ -128,26 +183,31 @@ def cuda_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, kernel: str, iters: int = 20) -> float:
+def device_ms(fn, kernel: str, iters: int = 20, attempts: int = 3) -> float:
     """Device time of one launch of the kernel whose name contains
     ``kernel``, from the profiler over ``iters`` calls.  Where a call's
     host side (Python, ctypes, allocation) takes longer than its kernel,
-    ``cuda_ms`` measures the host and this the kernel."""
+    ``cuda_ms`` measures the host and this the kernel.  The profiler can
+    drop kernel records (a window once showed 15 of 20 launches), so a
+    window that does not show exactly ``iters`` launches is profiled again,
+    up to ``attempts`` windows in all."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    hits = [e for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA and kernel in e.key]
-    count = sum(e.count for e in hits)
-    if count != iters:
-        raise AssertionError(f"the profiler saw {count} launches of {kernel}, "
-                             f"not {iters}")
-    return sum(e.self_device_time_total for e in hits) / count / 1e3
+    seen = []
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        hits = [e for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA and kernel in e.key]
+        seen.append(sum(e.count for e in hits))
+        if seen[-1] == iters:
+            return sum(e.self_device_time_total for e in hits) / iters / 1e3
+    raise AssertionError(f"the profiler saw {seen} launches of {kernel} in "
+                         f"{attempts} windows, not {iters}")
 
 
 def norm_err(got: torch.Tensor, want: torch.Tensor) -> float:
@@ -348,7 +408,8 @@ def expected_cohort_launches(cfg, cuts, n_eval_batches: int, rounds: int,
     lm = sum(2 * t * cut - 3 for cut in cuts)
     gl = sum(2 * t * (nl - cut) for cut in sorted(set(cuts)))
     rows = [{"lora_matmul": lm if fused else 0, "grouped_lora_chunk": gl if fused else 0,
-             "grouped_lora_direct": 0, "quantize_rows": 2 * len(cuts)}
+             "grouped_lora_direct": 0, "quantize_rows": 2 * len(cuts),
+             "flash_attention": 0, "wkv6": 0}
             for _ in range(rounds)]
     if fused:
         rows[-1]["lora_matmul"] += n_eval_batches * t * nl
@@ -415,7 +476,8 @@ def run_path(fused: bool, train, test, cohort: bool = False) -> dict:
     else:
         lm = expected_launches(sim.cfg, sim.cuts, n_eval, ROUNDS)
         expected = [{"lora_matmul": c if fused else 0, "grouped_lora_chunk": 0,
-                     "grouped_lora_direct": 0, "quantize_rows": 0} for c in lm]
+                     "grouped_lora_direct": 0, "quantize_rows": 0,
+                     "flash_attention": 0, "wkv6": 0} for c in lm]
     got = [row["launches"] for row in rows]
     print(f"[{label}] setup_s={setup_s:.3f} data_sizes={sim.data_sizes} "
           f"launches={json.dumps(total)} expected={json.dumps(expected)}", flush=True)
@@ -481,6 +543,348 @@ def profile_round(fused: bool, train, test, cohort: bool = False) -> dict:
     return out
 
 
+def attention_pairs(s: int, t: int, causal: bool, window) -> int:
+    """(query, key) pairs the mask keeps, queries at 0..s-1, keys at 0..t-1."""
+    q = np.arange(s)[:, None]
+    rel = q - np.arange(t)[None, :]
+    keep = np.ones((s, t), bool)
+    if causal:
+        keep &= rel >= 0
+    if window is not None:
+        keep &= rel < window
+    return int(keep.sum())
+
+
+def check_flash(b, s, t, h, kh, d, causal, window, dtype, seed, timed=False) -> dict:
+    """Flash kernel vs its plain version (model layout, kv heads repeated
+    for the plain one) at one shape; with ``timed`` the kernel, the plain
+    version and PyTorch's scaled_dot_product_attention (the yardstick,
+    which the port never calls) are timed."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn(b, s, h, d, generator=gen, device=dev).to(dtype)
+    k = torch.randn(b, t, kh, d, generator=gen, device=dev).to(dtype)
+    v = torch.randn(b, t, kh, d, generator=gen, device=dev).to(dtype)
+    out = flash_attention(q, k, v, causal=causal, window=window)
+    want = flash_attention_plain(q, k, v, causal, window)
+    torch.cuda.synchronize()
+    err = norm_err(out.float(), want.float())
+    res = {"shape": [b, s, t, h, kh, d], "causal": causal, "window": window,
+           "dtype": str(dtype).replace("torch.", ""), "err": err,
+           "max_abs_err": float((out.float() - want.float()).abs().max())}
+    tol = LM_KERNEL_TOL[dtype]
+    if not err <= tol:
+        raise AssertionError(f"flash_attention disagrees with its plain version: {res} "
+                             f"(tolerance {tol})")
+    if timed:
+        pairs = attention_pairs(s, t, causal, window)
+        flops = 4 * b * h * d * pairs
+        nbytes = q.element_size() * (2 * b * s * h * d + 2 * b * t * kh * d)
+        peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_FP32_FLOPS
+        t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_HBM_BYTES * 1e3
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+
+        def sdpa():
+            return torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=causal, enable_gqa=True)
+
+        lib = sdpa()
+        res.update(
+            ms=cuda_ms(lambda: flash_attention(q, k, v, causal=causal, window=window),
+                       iters=20),
+            device_ms=device_ms(lambda: flash_attention(q, k, v, causal=causal,
+                                                        window=window),
+                                "flash_attention_kernel", iters=10),
+            plain_ms=cuda_ms(lambda: flash_attention_plain(q, k, v, causal, window),
+                             iters=5, warmup=1),
+            library_ms=cuda_ms(sdpa, iters=20),
+            library_err=norm_err(lib.transpose(1, 2).float(), want.float()),
+            bound_ms=max(t_ops, t_bytes),
+            bound_by="operations" if t_ops >= t_bytes else "bytes",
+            gflop=flops / 1e9, mbytes=nbytes / 1e6)
+    return res
+
+
+def check_wkv(b, t, h, d, dtype, w_dtype, seed, timed=False) -> dict:
+    """WKV6 kernel vs its plain version (the step-by-step recurrence), out
+    and final state, at one shape."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    r, k, v = ((torch.randn(b, t, h, d, generator=gen, device=dev) * 0.3).to(dtype)
+               for _ in range(3))
+    # decays exp(-exp(w)) of the model's range, most of them slow
+    w = torch.exp(-torch.exp(torch.randn(b, t, h, d, generator=gen, device=dev) - 3.0))
+    w = w.to(w_dtype)
+    u = torch.randn(h, d, generator=gen, device=dev) * 0.5
+    zero = torch.zeros(b, h, d, d, device=dev)
+    out, state = wkv6(r, k, v, w, u)
+    out_p, state_p = wkv6_ref(r, k, v, w, u, zero)
+    torch.cuda.synchronize()
+    res = {"shape": [b, t, h, d], "dtype": str(dtype).replace("torch.", ""),
+           "w_dtype": str(w_dtype).replace("torch.", ""),
+           "err": norm_err(out.float(), out_p.to(dtype).float()),
+           "state_err": norm_err(state, state_p),
+           "max_abs_err": float((out.float() - out_p.to(dtype).float()).abs().max())}
+    tol = LM_KERNEL_TOL[dtype]
+    if not (res["err"] <= tol and res["state_err"] <= LM_KERNEL_TOL[torch.float32]):
+        raise AssertionError(f"wkv6 disagrees with its plain version: {res} "
+                             f"(tolerance {tol} out, 1e-5 state)")
+    if timed:
+        n = b * t * h * d
+        res.update(
+            ms=cuda_ms(lambda: wkv6(r, k, v, w, u), iters=20),
+            device_ms=device_ms(lambda: wkv6(r, k, v, w, u), "wkv6_kernel", iters=10),
+            plain_ms=cuda_ms(lambda: wkv6_ref(r, k, v, w, u, zero), iters=3, warmup=1),
+            **bound(7 * b * t * h * d * d,
+                    4 * n * r.element_size() + n * w.element_size() + 4 * h * d
+                    + 4 * b * h * d * d))
+    return res
+
+
+def device_time(fn, top: int = 5):
+    """Seconds of device time (every kernel and copy) that one call of
+    ``fn`` takes, from the profiler, and its ``top`` kernels by time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    total = sum(e.self_device_time_total for e in events)
+    if total <= 0:
+        raise AssertionError("the profiler recorded no device time")
+    events.sort(key=lambda e: -e.self_device_time_total)
+    return total / 1e6, [{"kernel": e.key[:70], "calls": e.count,
+                          "device_ms": e.self_device_time_total / 1e3,
+                          "share": e.self_device_time_total / total}
+                         for e in events[:top]]
+
+
+def lm_adapters(model, gen) -> dict:
+    """Two tenants' adapters, every leaf ~ N(0, 0.05) as in
+    tests/test_serving.py: B is not zero, so each adapter changes the
+    output."""
+    adapters = {}
+    for tenant in ("client-a", "client-b"):
+        adapters[tenant] = model.init_lora(gen)
+        for leaf in _leaves(adapters[tenant]):
+            leaf.normal_(0.0, 0.05, generator=gen)
+    return adapters
+
+
+def _layer(tree, i):
+    if isinstance(tree, dict):
+        return {k: _layer(v, i) for k, v in tree.items()}
+    return tree[i]
+
+
+def layerwise_prefill(model_k, model_p, params, lora, tokens) -> dict:
+    """Every layer of the kernel model and of the plain model on the same
+    input (the plain model's), worst normalized error of each layer's
+    output and cache leaves, and of the last-token logits."""
+    cfg = model_p.cfg
+    x = model_p.embed(params, {"tokens": tokens})
+    ctx = model_p.make_ctx(x.shape[1], x.device)
+    worst = {"x": 0.0}
+    for i in range(cfg.n_layers):
+        p_l, lo_l = _layer(params["layers"], i), _layer(lora.get("layers", {}), i)
+        yk, ck, _ = model_k.block["prefill"](model_k.cfg, p_l, lo_l, x, ctx)
+        yp, cp, _ = model_p.block["prefill"](cfg, p_l, lo_l, x, ctx)
+        worst["x"] = max(worst["x"], norm_err(yk.float(), yp.float()))
+        for key in cp:
+            worst[key] = max(worst.get(key, 0.0), norm_err(ck[key].float(), cp[key].float()))
+        x = yp
+    worst["logits"] = norm_err(model_k.unembed(params, yk[:, -1:]).float(),
+                               model_p.unembed(params, yp[:, -1:]).float())
+    return worst
+
+
+def layerwise_decode(model, params, lora, prompt) -> float:
+    """For each layer: its prefill on the prompt's input to that layer, and
+    its decode of the same input token by token from an empty cache of
+    SERVE_CACHE slots; worst normalized error of the outputs."""
+    cfg = model.cfg
+    x = model.embed(params, {"tokens": prompt})
+    ctx = model.make_ctx(x.shape[1], x.device)
+    worst = 0.0
+    for i in range(cfg.n_layers):
+        p_l, lo_l = _layer(params["layers"], i), _layer(lora.get("layers", {}), i)
+        y, _, _ = model.block["prefill"](cfg, p_l, lo_l, x, ctx)
+        cache = model.block["init_cache"](cfg, x.shape[0], SERVE_CACHE, x.device)
+        outs = []
+        for t in range(x.shape[1]):
+            pos = torch.full((1,), t, dtype=torch.int32, device=x.device)
+            y_t, cache = model.block["decode"](cfg, p_l, lo_l, x[:, t:t + 1], cache, t,
+                                               model.make_ctx(1, x.device, positions=pos))
+            outs.append(y_t)
+        worst = max(worst, norm_err(torch.cat(outs, dim=1).float(), y.float()))
+        x = y
+    return worst
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def lm_phase(arch: str, seed: int) -> dict:
+    """Prefill and serving of one decoder LM at full width and depth in its
+    published bf16, random weights from ``seed``."""
+    base = REGISTRY[arch]
+    kernels_cfg = base.with_(attn_impl="chunked", wkv_impl="chunked")
+    plain_cfg = base.with_(attn_impl="naive", wkv_impl="scan")
+    expect = {name: 0 for name in COUNTERS}
+    expect["flash_attention" if base.family == "dense" else "wkv6"] = base.n_layers
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    t0 = time.perf_counter()
+    model = build_model(kernels_cfg)                    # on the card by default
+    params = model.init_params(gen)
+    adapters = lm_adapters(model, gen)
+    torch.cuda.synchronize()
+    n_params = sum(x.numel() for x in _leaves(params))
+    out = {"arch": arch, "dtype": base.dtype, "layers": base.n_layers,
+           "d_model": base.d_model, "vocab": base.vocab_size, "params": n_params,
+           "param_bytes": sum(x.numel() * x.element_size() for x in _leaves(params)),
+           "init_s": time.perf_counter() - t0}
+    print(f"[lm:{arch}] {json.dumps(out)}", flush=True)
+
+    rs = np.random.default_rng(seed)
+    tokens = torch.from_numpy(rs.integers(0, base.vocab_size, (PREFILL_BATCH, PREFILL_SEQ))
+                              .astype(np.int32)).cuda()
+    lora = adapters["client-a"]
+    runs, prefill_rows = {}, {}
+    for label, cfg in (("kernels", kernels_cfg), ("plain", plain_cfg)):
+        m = build_model(cfg)
+        with torch.no_grad():
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts()                              # just before the path runs
+            t0 = time.perf_counter()
+            logits, cache = m.prefill(params, lora, {"tokens": tokens})
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = read_counts()                      # just after
+            peak = torch.cuda.max_memory_allocated()
+            dev_s, top = device_time(lambda: m.prefill(params, lora, {"tokens": tokens}))
+        want = expect if label == "kernels" else {name: 0 for name in COUNTERS}
+        row = {"wall_s": wall, "device_s": dev_s, "busy_share": dev_s / wall,
+               "max_mem_bytes": peak, "launches": counts,
+               "tokens_per_s": PREFILL_BATCH * PREFILL_SEQ / wall, "top": top}
+        print(f"[lm:{arch}] prefill {label} ({cfg.attn_impl}/{cfg.wkv_impl}) "
+              f"{json.dumps(row)}", flush=True)
+        if counts != want:
+            raise AssertionError(f"{arch} prefill {label}: launches {counts}, expected {want}")
+        if not bool(torch.isfinite(logits.float()).all()):
+            raise AssertionError(f"{arch} prefill {label}: non-finite logits")
+        if tuple(logits.shape) != (PREFILL_BATCH, 1, base.vocab_size):
+            raise AssertionError(f"{arch} prefill {label}: logits {tuple(logits.shape)}")
+        runs[label] = (logits, cache, row)
+        prefill_rows[label] = row
+    (lk, ck, _), (lp, cp, _) = runs["kernels"], runs["plain"]
+    free = {"logits_err": norm_err(lk.float(), lp.float()),
+            "cache_err": {key: norm_err(ck[key].float(), cp[key].float()) for key in ck},
+            "argmax_equal": int((lk.argmax(-1) == lp.argmax(-1)).sum())}
+    del runs, lk, ck, lp, cp, logits, cache
+    with torch.no_grad():
+        held = layerwise_prefill(build_model(kernels_cfg), build_model(plain_cfg),
+                                 params, lora, tokens)
+    cmp = {"free_running": free, "per_layer": held, "tolerance": LM_TOL}
+    print(f"[lm:{arch}] prefill kernels vs plain {json.dumps(cmp)}", flush=True)
+    if not max(held.values()) <= LM_TOL:
+        raise AssertionError(f"{arch}: the kernel prefill and the plain prefill disagree "
+                             f"layer by layer: {held}")
+    out["prefill"] = {"kernels": prefill_rows["kernels"], "plain": prefill_rows["plain"],
+                      **cmp}
+
+    # serving: six greedy requests over two tenants
+    rs = np.random.default_rng(seed + 1)
+    tenants = ("client-a", "client-b")
+    reqs = [Request(uid=i, tenant=tenants[i % 2],
+                    prompt=rs.integers(2, base.vocab_size,
+                                       size=int(rs.integers(16, 65))).astype(np.int32),
+                    max_new_tokens=SERVE_NEW) for i in range(SERVE_REQUESTS)]
+    engine = ServingEngine(kernels_cfg, params, adapters, slots=SERVE_SLOTS,
+                           cache_len=SERVE_CACHE, seed=seed)
+    for r in reqs:
+        engine.submit(r)
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()                                  # just before the path runs
+        t0 = time.perf_counter()
+        done = engine.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts()                          # just after
+        serve_dev_s, serve_top = device_time(
+            lambda: model.serve_step(params, adapters["client-a"],
+                                     model.init_cache(SERVE_SLOTS, SERVE_CACHE),
+                                     torch.ones((SERVE_SLOTS, 1), dtype=torch.int32,
+                                                device="cuda"), 0))
+        t1 = time.perf_counter()
+        model.serve_step(params, adapters["client-a"],
+                         model.init_cache(SERVE_SLOTS, SERVE_CACHE),
+                         torch.ones((SERVE_SLOTS, 1), dtype=torch.int32, device="cuda"), 0)
+        torch.cuda.synchronize()
+        step_wall = time.perf_counter() - t1
+    steps = sum(max(len(r.prompt) for r in reqs if r.tenant == t) + SERVE_NEW - 1
+                for t in tenants)
+    want_stats = {"decode_steps": steps, "adapter_switches": 2, "completed": SERVE_REQUESTS}
+    serve = {"wall_s": wall, "stats": engine.stats, "launches": counts,
+             "new_tokens": SERVE_NEW * len(done),
+             "prompt_tokens": sum(len(r.prompt) for r in reqs),
+             "tokens_per_s": SERVE_NEW * len(done) / wall,
+             "steps_per_s": engine.stats["decode_steps"] / wall,
+             "max_mem_bytes": torch.cuda.max_memory_allocated(),
+             "one_step": {"wall_s": step_wall, "device_s": serve_dev_s,
+                          "busy_share": serve_dev_s / step_wall, "top": serve_top}}
+    print(f"[lm:{arch}] serve {json.dumps(serve)}", flush=True)
+    if counts != {name: 0 for name in COUNTERS}:
+        raise AssertionError(f"{arch} decode launched a kernel: {counts}")
+    if engine.stats != want_stats:
+        raise AssertionError(f"{arch} engine stats {engine.stats}, expected {want_stats}")
+    if sorted(r.uid for r in done) != list(range(SERVE_REQUESTS)) or any(
+            r.output is None or len(r.output) != SERVE_NEW
+            or not ((r.output >= 0) & (r.output < base.vocab_size)).all() for r in done):
+        raise AssertionError(f"{arch}: not every request completed with "
+                             f"{SERVE_NEW} tokens")
+    print(f"[lm:{arch}] outputs " + json.dumps({r.uid: r.output[:8].tolist()
+                                                for r in done}), flush=True)
+
+    # the reference's invariant, decode == the parallel forward: for one
+    # request's prompt, through the entry points (reported) and layer by
+    # layer from shared inputs (held)
+    req = reqs[0]
+    prompt = torch.from_numpy(req.prompt[None]).cuda()
+    lora = adapters[req.tenant]
+    with torch.no_grad():
+        pre, _ = model.prefill(params, lora, {"tokens": prompt})
+        cache = model.init_cache(1, SERVE_CACHE)
+        for i in range(prompt.shape[1]):
+            dec, cache = model.serve_step(params, lora, cache, prompt[:, i:i + 1], i)
+        held = layerwise_decode(model, params, lora, prompt)
+    torch.cuda.synchronize()
+    inv = {"prompt_len": int(prompt.shape[1]),
+           "free_running": {"logits_err": norm_err(dec.float(), pre.float()),
+                            "argmax_equal": bool(dec.argmax(-1) == pre.argmax(-1))},
+           "per_layer_err": held, "tolerance": LM_TOL}
+    print(f"[lm:{arch}] decode vs prefill {json.dumps(inv)}", flush=True)
+    if not held <= LM_TOL:
+        raise AssertionError(f"{arch}: decode and prefill of one prompt disagree "
+                             f"layer by layer: {inv}")
+    out["serve"] = serve
+    out["decode_vs_prefill"] = inv
+    del model, params, adapters, lora, engine, cache, pre, dec
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -521,6 +925,23 @@ def main() -> None:
                      ("grouped_lora G=1", grouped_one), ("quantize_rows", quant)):
         print(f"[kernel] {label} {json.dumps(c)}", flush=True)
 
+    flash_path = check_flash(4, 2048, 2048, 8, 1, 256, True, None, torch.bfloat16, seed=7,
+                             timed=True)
+    flash_f32 = check_flash(4, 2048, 2048, 8, 1, 256, True, None, torch.float32, seed=8,
+                            timed=True)
+    flash_gqa = [check_flash(2, 1000, 1000, 32, 8, 64, causal, window, dtype, seed=9)
+                 for dtype in (torch.bfloat16, torch.float32)
+                 for causal, window in ((True, 256), (False, None))]
+    wkv_path = check_wkv(4, 2048, 40, 64, torch.bfloat16, torch.float32, seed=10,
+                         timed=True)
+    wkv_f32 = check_wkv(4, 2048, 40, 64, torch.float32, torch.float32, seed=11, timed=True)
+    wkv_ragged = [check_wkv(4, 1000, 40, 64, dtype, torch.float32, seed=12)
+                  for dtype in (torch.bfloat16, torch.float32)]
+    for c in (flash_path, flash_f32, *flash_gqa):
+        print(f"[kernel] flash_attention {json.dumps(c)}", flush=True)
+    for c in (wkv_path, wkv_f32, *wkv_ragged):
+        print(f"[kernel] wkv6 {json.dumps(c)}", flush=True)
+
     train = make_emotion_dataset(N_TRAIN, seq_len=SEQ, vocab_size=30_522, seed=0)
     test = make_emotion_dataset(N_TEST, seq_len=SEQ, vocab_size=30_522, seed=1)
     fused = run_path(True, train, test)
@@ -530,10 +951,18 @@ def main() -> None:
     cohort_plain = run_path(False, train, test, cohort=True)
     compare_paths(cohort, cohort_plain, "cohort")
 
+    del train, test
+    gc.collect()
+    torch.cuda.empty_cache()
+    lm = {arch: lm_phase(arch, seed=13 + i) for i, arch in enumerate(LM_ARCHS)}
+
     if args.profile:
+        train = make_emotion_dataset(N_TRAIN, seq_len=SEQ, vocab_size=30_522, seed=0)
+        test = make_emotion_dataset(N_TEST, seq_len=SEQ, vocab_size=30_522, seed=1)
         for fused_path, cohort_path in ((True, False), (False, False), (True, True)):
             profile_round(fused_path, train, test, cohort=cohort_path)
 
+    print(json.dumps({"lm": lm}), flush=True)
     main_shape, ragged = checks
 
     def entry(name, source, replaces, launches, c, **extra):
@@ -564,6 +993,27 @@ def main() -> None:
         entry("quantize_rows", csrc + "quant.cu", "src/repro/kernels/quant.py:33",
               cohort["launches"]["quantize_rows"], quant, path="cohort",
               bit_equal=True),
+        {**entry("flash_attention", csrc + "flash_attention.cu",
+                 "src/repro/kernels/flash_attention.py:84",
+                 lm["gemma-2b"]["prefill"]["kernels"]["launches"]["flash_attention"],
+                 flash_path, path="gemma-2b prefill", shape=flash_path["shape"],
+                 dtype="bfloat16", err=flash_path["err"],
+                 fp32={key: flash_f32[key] for key in
+                       ("err", "ms", "device_ms", "plain_ms", "library_ms", "bound_ms",
+                        "bound_by")},
+                 gqa_errs=[c["err"] for c in flash_gqa],
+                 library="torch.nn.functional.scaled_dot_product_attention",
+                 library_err=flash_path["library_err"]),
+         "library_ms": flash_path["library_ms"]},
+        entry("wkv6", csrc + "wkv6.cu", "src/repro/kernels/rwkv6_scan.py:71",
+              lm["rwkv6-3b"]["prefill"]["kernels"]["launches"]["wkv6"], wkv_path,
+              path="rwkv6-3b prefill", shape=wkv_path["shape"],
+              dtype="bfloat16 r/k/v, float32 w", err=wkv_path["err"],
+              state_err=wkv_path["state_err"],
+              fp32={key: wkv_f32[key] for key in
+                    ("err", "state_err", "ms", "device_ms", "plain_ms", "bound_ms",
+                     "bound_by")},
+              ragged_errs=[[c["err"], c["state_err"]] for c in wkv_ragged]),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -3,7 +3,8 @@
 The JAX PRNG cannot be replayed in torch, so a parity run starts the port
 from the reference's own initial state.  The caller turns the reference's
 arrays into numpy (``jax.tree.map(np.asarray, tree)``); this module never
-imports JAX.  Trees keep their key paths and dtypes: nested dicts of
+imports JAX.  Trees keep their key paths and dtypes (bfloat16 included,
+bit for bit, beside the float32 leaves of a bf16 model): nested dicts of
 arrays, stacked LoRA trees ``{"layers": {..., "a", "b"}}``, and optimizer
 states with fields ``(step, mu, nu)``.
 """
@@ -33,7 +34,12 @@ def to_torch(tree: PyTree, device) -> PyTree:
         return {k: to_torch(v, device) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return type(tree)(to_torch(v, device) for v in tree)
-    return torch.from_numpy(np.array(tree, copy=True)).to(device)
+    arr = np.array(tree, copy=True)
+    if arr.dtype.name == "bfloat16":
+        # numpy's bfloat16 (ml_dtypes) has no torch counterpart to convert
+        # from: the bits go across as int16 and are viewed as bfloat16
+        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16).to(device)
+    return torch.from_numpy(arr).to(device)
 
 
 def to_numpy(tree: PyTree) -> PyTree:

@@ -1,11 +1,13 @@
-"""Config registry of the port: the paper's BERT-base.  The other model
-families join as their slices are ported."""
+"""Config registry of the port: the paper's BERT-base and the decoder LMs
+of the serving slice (gemma-2b, rwkv6-3b).  The other model families join
+as their slices are ported."""
 from __future__ import annotations
 
-from repro_torch.configs import bert_base
+from repro_torch.configs import bert_base, gemma_2b, rwkv6_3b
 from repro_torch.configs.base import LoRAConfig, ModelConfig, MoEConfig, SSMConfig, reduced
 
-REGISTRY: dict[str, ModelConfig] = {m.CONFIG.name: m.CONFIG for m in (bert_base,)}
+REGISTRY: dict[str, ModelConfig] = {m.CONFIG.name: m.CONFIG
+                                    for m in (gemma_2b, rwkv6_3b, bert_base)}
 
 
 def get_config(name: str) -> ModelConfig:

@@ -1,6 +1,7 @@
-"""Differentiable wrappers around the LoRA kernels — the port of
+"""Model-layout wrappers around the port's kernels — the port of
 ``src/repro/kernels/ops.py``: ``fused_lora_matmul`` and
-``grouped_lora_matmul`` with their custom VJPs.
+``grouped_lora_matmul`` with their custom VJPs, and the forward-only
+``flash_attention_apply`` and ``wkv6_apply``.
 
 Forward is the kernel.  The backward computes ``dx = g @ W^T + s*(g @ B) @ A``
 with the SAME kernel on (g, W^T, B^T, A^T) — the down/up projections swap
@@ -18,8 +19,10 @@ from typing import Optional, Sequence
 
 import torch
 
+from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.grouped_lora import grouped_lora
 from repro_torch.kernels.lora_matmul import lora_matmul
+from repro_torch.kernels.wkv6 import wkv6
 
 # mode="auto" of the grouped op takes the single-stage direct form when the
 # contraction fits one of the reference's 128-wide K blocks
@@ -134,3 +137,32 @@ def grouped_lora_matmul(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
                        "choose from ('auto', 'chunk', 'direct')")
     return _GroupedLoRAMatmul.apply(x.contiguous(), w.contiguous(), a.contiguous(),
                                     b.contiguous(), group_sizes, scales, mode)
+
+
+def _forward_only(name: str, *tensors: torch.Tensor) -> None:
+    """The flash and WKV6 kernels have no backward, as the reference's have
+    no VJP: a CUDA tensor that asks for a gradient raises rather than
+    leaving autograd without a path."""
+    if torch.is_grad_enabled() and any(t.is_cuda and t.requires_grad for t in tensors):
+        raise NotImplementedError(
+            f"{name} is forward-only: the kernel's backward comes with LM "
+            "training (ROADMAP Queue A, item 3)")
+
+
+def flash_attention_apply(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                          causal: bool = True,
+                          window: Optional[int] = None) -> torch.Tensor:
+    """q (B,S,H,D), k/v (B,T,K,D) with K | H  ->  (B,S,H*D) in q.dtype.
+    GQA reads the shared kv head in the kernel; nothing is repeated, moved
+    or padded."""
+    _forward_only("flash_attention_apply", q, k, v)
+    b, s, h, d = q.shape
+    return flash_attention(q, k, v, causal=causal, window=window).reshape(b, s, h * d)
+
+
+def wkv6_apply(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
+               u: torch.Tensor):
+    """r/k/v/w (B,S,H,D), u (H,D): the WKV recurrence from a zero state.
+    Returns (out (B,S,H,D) in r.dtype, final state (B,H,D,D) f32)."""
+    _forward_only("wkv6_apply", r, k, v, w, u)
+    return wkv6(r, k, v, w, u.float())

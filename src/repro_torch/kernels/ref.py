@@ -3,6 +3,8 @@ wrapper, and what ``chip_smoke.py`` holds each kernel against on the card.
 Mirrors ``src/repro/kernels/ref.py``."""
 from __future__ import annotations
 
+import math
+
 import torch
 
 
@@ -54,3 +56,43 @@ def quantize_rows_ref(x: torch.Tensor):
     scale = torch.clamp(absmax / torch.full_like(absmax, 127.0), min=1e-12)
     q = torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int8)
     return q, scale[..., 0]
+
+
+def wkv6_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
+             u: torch.Tensor, state: torch.Tensor):
+    """RWKV6 WKV recurrence, one time step after the other, in f32.
+
+    r/k/v/w: (B, S, H, D); u: (H, D); state: (B, H, D, D).
+      out_t = r_t . (S_{t-1} + u*k_t (x) v_t)
+      S_t   = diag(w_t) S_{t-1} + k_t (x) v_t
+    Returns (out (B,S,H,D) f32, final state).
+    """
+    r, k, v, w = (t.float() for t in (r, k, v, w))
+    uu = u.float()[None, :, :, None]
+    s = state.float()
+    outs = []
+    for t in range(r.shape[1]):
+        kv = k[:, t, :, :, None] * v[:, t, :, None, :]            # (B,H,D,D)
+        outs.append(torch.einsum("bhk,bhkv->bhv", r[:, t], s + uu * kv))
+        s = w[:, t, :, :, None] * s + kv
+    return torch.stack(outs, dim=1), s
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        causal: bool = True, window=None) -> torch.Tensor:
+    """What the flash kernel computes, with materialized probabilities.
+    q/k/v: (BH, S|T, D), keys already expanded to the query heads; query i
+    and key j sit at positions i and j.  Output in q.dtype."""
+    s, d = q.shape[1], q.shape[2]
+    t = k.shape[1]
+    scores = torch.einsum("bsd,btd->bst", q.float(), k.float()) / math.sqrt(d)
+    rel = (torch.arange(s, device=q.device)[:, None]
+           - torch.arange(t, device=q.device)[None, :])
+    mask = torch.ones((s, t), dtype=torch.bool, device=q.device)
+    if causal:
+        mask = mask & (rel >= 0)
+    if window is not None:
+        mask = mask & (rel < window)
+    scores = torch.where(mask[None], scores, torch.full_like(scores, -1e30))
+    probs = torch.softmax(scores, dim=-1)
+    return torch.einsum("bst,btd->bsd", probs.to(v.dtype), v).to(q.dtype)

@@ -7,10 +7,11 @@ from repro_torch.models.decoder import DecoderModel
 
 def build_model(cfg: ModelConfig, device="cuda"):
     """The model for ``cfg`` on ``device`` (the CUDA card unless the caller
-    asks for the CPU).  The encoder family is ported; the others raise."""
-    if cfg.family != "encoder":
-        raise NotImplementedError(
-            f"family {cfg.family!r} comes with a later slice of the port "
-            "(ROADMAP Queue A, item 10)")
+    asks for the CPU).  The encoder, dense and ssm (RWKV6) families are
+    ported; ``DecoderModel`` raises for the others."""
     return DecoderModel(cfg, device)
 
+
+def supports_decode(cfg: ModelConfig) -> bool:
+    # encoder-only models (bert) have no decode step
+    return cfg.family != "encoder"

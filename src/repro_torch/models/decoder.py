@@ -1,19 +1,23 @@
 """Single-stack model with the paper's split execution built in — the
-encoder family (BERT).  Port of ``src/repro/models/decoder.py``.
+encoder family (BERT), the dense decoder LM (gemma) and the RWKV6 LM.
+Port of ``src/repro/models/decoder.py``.
 
 ``side="full" | "client" | "server"`` with a static ``cut`` selects which
 layers run; the port runs the reference's ``sliced`` path, a Python loop
 over exactly the owned layers.  The masked-scan path (one compiled program
 for every cut) has no counterpart here: the reference's own tests pin it
-equal to the sliced path, and PyTorch runs eagerly.
+equal to the sliced path, and PyTorch runs eagerly.  Prefill and decode
+run the same loop over all layers (side "full").
 
 Params layout (as in the reference, layers stacked on a leading axis):
-    {"embed": (V,d), "pos_embed": (P,d), "layers": <stacked (L,...)>,
-     "final_norm": {...}, "cls_head": (d,n_classes)}
+    {"embed": (V,d), ["pos_embed": (P,d)], "layers": <stacked (L,...)>,
+     "final_norm": {...}, ["head": (d,V) | "cls_head": (d,n_classes)]}
+Caches stack the per-layer caches on a leading (L,) axis, as the
+reference's scan does; ``serve_step`` updates them in place.
 """
 from __future__ import annotations
 
-from typing import Any
+from typing import Any, Optional
 
 import torch
 
@@ -25,6 +29,8 @@ from repro_torch.models import layers as L
 from repro_torch.tree import tree_leaves, tree_map
 
 PyTree = Any
+
+FAMILIES = ("encoder", "dense", "ssm")
 
 
 def build_lora_tree(gen: torch.Generator, params_one_layer: PyTree, targets,
@@ -43,10 +49,11 @@ def build_lora_tree(gen: torch.Generator, params_one_layer: PyTree, targets,
 
 class DecoderModel:
     """Functional model namespace; every method is a pure function of its
-    arguments.  ``device`` is where init places the parameters."""
+    arguments, except that ``serve_step`` writes into the cache it is
+    given.  ``device`` is where init places the parameters."""
 
     def __init__(self, cfg: ModelConfig, device="cuda"):
-        if cfg.family != "encoder":
+        if cfg.family not in FAMILIES:
             raise NotImplementedError(
                 f"family {cfg.family!r} comes with a later slice of the port "
                 "(ROADMAP Queue A, item 10)")
@@ -67,6 +74,8 @@ class DecoderModel:
         if cfg.n_classes:
             p["cls_head"] = L.dense_init(gen, cfg.d_model, cfg.n_classes,
                                          torch.float32, dev)
+        elif not cfg.tie_embeddings:
+            p["head"] = L.dense_init(gen, cfg.d_model, cfg.vocab_size, dt, dev)
         return p
 
     def init_lora(self, gen: torch.Generator) -> PyTree:
@@ -89,15 +98,20 @@ class DecoderModel:
     def unembed(self, params: PyTree, x: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
         x = L.apply_norm(cfg, params["final_norm"], x)
-        if not cfg.n_classes:
-            raise NotImplementedError("LM heads come with the decoder-LM slice "
-                                      "(ROADMAP Queue A, item 10)")
-        return x[:, 0, :].float() @ params["cls_head"]   # CLS pool
+        if cfg.n_classes:
+            return x[:, 0, :].float() @ params["cls_head"]   # CLS pool
+        w = params["embed"].t() if cfg.tie_embeddings else params["head"]
+        return x @ w.to(x.dtype)
 
-    def make_ctx(self, seq_len: int, device) -> dict:
+    def make_ctx(self, seq_len: int, device, *, window: Optional[int] = None,
+                 positions: Optional[torch.Tensor] = None) -> dict:
         cfg = self.cfg
-        return {"positions": torch.arange(seq_len, dtype=torch.int32, device=device),
-                "causal": cfg.causal, "window": cfg.sliding_window}
+        arange = positions is None
+        if arange:
+            positions = torch.arange(seq_len, dtype=torch.int32, device=device)
+        return {"positions": positions, "causal": cfg.causal,
+                "window": window if window is not None else cfg.sliding_window,
+                "arange": arange}
 
     # -- backbone: sliced (static-cut) path -------------------------------------
     def sliced_forward(self, params, lora, x, ctx, layer_range) -> torch.Tensor:
@@ -126,9 +140,57 @@ class DecoderModel:
 
     def loss(self, params, lora, batch, *, cut: int = 0, side: str = "full",
              x0=None):
-        """Full loss (side='full') or server-side loss from activations x0."""
+        """Full loss (side='full') or server-side loss from activations x0:
+        the CLS head's cross-entropy, or the LM's teacher-forced one
+        against ``batch['targets']``."""
         h, aux = self.forward_hidden(params, lora, batch, cut=cut, side=side,
                                      x0=x0)
         logits = self.unembed(params, h)
-        loss = L.softmax_xent(logits[:, None, :], batch["label"][:, None])
+        if self.cfg.n_classes:
+            loss = L.softmax_xent(logits[:, None, :], batch["label"][:, None])
+        else:
+            loss = L.softmax_xent(logits, batch["targets"])
         return loss + aux, logits
+
+    # -- serving ---------------------------------------------------------------
+    def init_cache(self, batch_size: int, cache_len: int) -> PyTree:
+        """Zero caches of every layer, stacked on a leading (L,) axis."""
+        one = self.block["init_cache"](self.cfg, batch_size, cache_len, self.device)
+        return tree_map(lambda a: a[None].repeat(self.cfg.n_layers,
+                                                 *([1] * a.dim())), one)
+
+    def prefill(self, params, lora, batch, *, ctx=None):
+        """Run the prompt through every layer; returns (logits of the last
+        position (B,1,V), the stacked caches)."""
+        x = self.embed(params, batch)
+        if ctx is None:
+            ctx = self.make_ctx(x.shape[1], x.device)
+        lora_layers = (lora or {}).get("layers", {})
+        caches = []
+        for i in range(self.cfg.n_layers):
+            p_l = tree_map(lambda a: a[i], params["layers"])
+            lo_l = tree_map(lambda a: a[i], lora_layers)
+            x, c_l, _ = self.block["prefill"](self.cfg, p_l, lo_l, x, ctx)
+            caches.append(c_l)
+        logits = self.unembed(params, x[:, -1:, :])
+        return logits, stack_trees(caches)
+
+    def serve_step(self, params, lora, cache, token, pos, *, ctx=None,
+                   window: Optional[int] = None):
+        """One decode step: token (B,1) int, pos an int (or a 0-d tensor,
+        read on the host) shared by the batch.  Writes the step into
+        ``cache`` and returns (logits (B,1,V), cache)."""
+        pos = int(pos)
+        x = params["embed"][token.long()]
+        if self.cfg.positional == "learned":
+            x = x + params["pos_embed"][pos][None, None, :]
+        if ctx is None:
+            positions = torch.full((1,), pos, dtype=torch.int32, device=x.device)
+            ctx = self.make_ctx(1, x.device, window=window, positions=positions)
+        lora_layers = (lora or {}).get("layers", {})
+        for i in range(self.cfg.n_layers):
+            p_l = tree_map(lambda a: a[i], params["layers"])
+            lo_l = tree_map(lambda a: a[i], lora_layers)
+            c_l = tree_map(lambda a: a[i], cache)
+            x, _ = self.block["decode"](self.cfg, p_l, lo_l, x, c_l, pos, ctx)
+        return self.unembed(params, x), cache

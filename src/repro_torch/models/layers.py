@@ -1,6 +1,6 @@
-"""Shared neural-net primitives of the encoder slice: norms, LoRA-aware
-projections, full attention, MLP, cross-entropy.  Port of
-``src/repro/models/layers.py``.
+"""Shared neural-net primitives: norms, RoPE, LoRA-aware projections,
+attention (GQA/MQA, sliding window, KV-cache decode), MLPs, cross-entropy.
+Port of ``src/repro/models/layers.py``.
 
 Pure functions over explicit parameter trees (dicts of tensors).  Weights
 keep the JAX package's (in, out) layout, so ``x @ w`` applies them.
@@ -57,22 +57,39 @@ def layer_norm(x: Tensor, weight: Tensor, bias: Tensor, eps: float = 1e-5) -> Te
     return (x * weight.float() + bias.float()).to(dt)
 
 
+def rms_norm(x: Tensor, weight: Tensor, eps: float = 1e-6) -> Tensor:
+    """RMSNorm computed in f32 with the (1 + weight) scale (weight starts
+    at zero)."""
+    dt = x.dtype
+    x = x.float()
+    x = x * torch.rsqrt(x.square().mean(dim=-1, keepdim=True) + eps)
+    return (x * (1.0 + weight.float())).to(dt)
+
+
 def apply_norm(cfg: ModelConfig, p: dict, x: Tensor) -> Tensor:
-    if cfg.norm != "layernorm":
-        raise NotImplementedError(
-            f"norm {cfg.norm!r} comes with the decoder-LM slice "
-            "(ROADMAP Queue A, item 10)")
+    if cfg.norm == "rmsnorm":
+        return rms_norm(x, p["scale"])
     return layer_norm(x, p["scale"], p["bias"])
 
 
-def init_norm(cfg: ModelConfig, device) -> dict:
-    d = cfg.d_model
-    if cfg.norm != "layernorm":
-        raise NotImplementedError(
-            f"norm {cfg.norm!r} comes with the decoder-LM slice "
-            "(ROADMAP Queue A, item 10)")
+def init_norm(cfg: ModelConfig, device, d: Optional[int] = None) -> dict:
+    d = d or cfg.d_model
+    if cfg.norm == "rmsnorm":
+        return {"scale": torch.zeros((d,), dtype=torch.float32, device=device)}
     return {"scale": torch.ones((d,), dtype=torch.float32, device=device),
             "bias": torch.zeros((d,), dtype=torch.float32, device=device)}
+
+
+def group_norm(x: Tensor, weight: Tensor, bias: Tensor, n_groups: int,
+               eps: float = 1e-5) -> Tensor:
+    """GroupNorm over the last dim split into n_groups (rwkv ln_x)."""
+    dt = x.dtype
+    *lead, d = x.shape
+    x = x.float().reshape(*lead, n_groups, d // n_groups)
+    mu = x.mean(dim=-1, keepdim=True)
+    var = x.var(dim=-1, keepdim=True, unbiased=False)
+    x = ((x - mu) * torch.rsqrt(var + eps)).reshape(*lead, d)
+    return (x * weight + bias).to(dt)
 
 
 # ---------------------------------------------------------------------------
@@ -146,22 +163,79 @@ def lora_init(gen: torch.Generator, d_in: int, d_out: int, rank: int,
 
 
 # ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+
+def rope_freqs(head_dim: int, theta: float, device) -> Tensor:
+    return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
+                                         device=device) / head_dim))
+
+
+def apply_rope(x: Tensor, positions: Tensor, theta: float) -> Tensor:
+    """x: (..., S, H, Dh); positions: (..., S) or (S,).  Rotates the two
+    halves of the head dimension (not interleaved pairs), in f32."""
+    dh = x.shape[-1]
+    inv = rope_freqs(dh, theta, x.device)                   # (Dh/2,)
+    ang = positions[..., None].float() * inv                # (..., S, Dh/2)
+    sin, cos = torch.sin(ang)[..., None, :], torch.cos(ang)[..., None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
 # attention
 # ---------------------------------------------------------------------------
 
+# how full-sequence attention executes (ModelConfig.attn_impl):
+#   naive   — materialized probabilities, plain PyTorch (the reference's default);
+#   chunked — online softmax through the hand-written flash kernel
+#             (kernels/flash_attention.py), whose wrapper takes the plain
+#             version for CPU tensors.
+ATTN_IMPLS = ("naive", "chunked")
+
+
+def _gqa_scores_softmax_out(q: Tensor, k: Tensor, v: Tensor, mask: Tensor) -> Tensor:
+    """q: (B,S,K,G,Dh)  k,v: (B,T,K,Dh)  mask: broadcastable to (B,K,G,S,T)."""
+    dh = q.shape[-1]
+    scores = torch.einsum("bskgd,btkd->bkgst", q.float(), k.float()) / math.sqrt(dh)
+    scores = torch.where(mask, scores, torch.full_like(scores, -1e30))
+    probs = torch.softmax(scores, dim=-1)
+    return torch.einsum("bkgst,btkd->bskgd", probs.to(v.dtype), v)
+
+
+def _is_arange(pos: Tensor, n: int) -> bool:
+    return (pos.dim() == 1 and pos.numel() == n
+            and torch.equal(pos, torch.arange(n, dtype=pos.dtype, device=pos.device)))
+
+
 def attention_full(q: Tensor, k: Tensor, v: Tensor, *, causal: bool,
                    window: Optional[int], q_pos: Tensor, k_pos: Tensor,
-                   impl: str = "naive") -> Tensor:
-    """Full-sequence attention with materialized probabilities.
-    q:(B,S,H,Dh) k,v:(B,T,K,Dh) -> (B,S,H*Dh)."""
+                   impl: str = "naive", arange: bool = False) -> Tensor:
+    """Full-sequence attention. q:(B,S,H,Dh) k,v:(B,T,K,Dh) -> (B,S,H*Dh).
+
+    impl="naive": materialized (B,K,G,S,T) probabilities.
+    impl="chunked": the flash kernel (online softmax over key tiles; its
+    tile size is the kernel's, so ``attn_chunk`` does not enter).  The
+    kernel places query i and key j at positions i and j, so it takes
+    ``q_pos == k_pos == arange`` (prefill and training) and raises on any
+    other positions.  Checking that reads the positions on the host, which
+    waits for the device; ``arange=True`` (a model context whose positions
+    the model built as an arange) spares that read."""
+    if impl == "chunked":
+        s, t = q.shape[1], k.shape[1]
+        if not (arange and q_pos.shape == (s,) and k_pos.shape == (t,)) and not (
+                _is_arange(q_pos, s) and _is_arange(k_pos, t)):
+            raise NotImplementedError(
+                "attn_impl='chunked' runs the flash kernel, which takes "
+                "positions 0..S-1 for queries and keys alike")
+        from repro_torch.kernels.ops import flash_attention_apply
+        return flash_attention_apply(q, k, v, causal=causal, window=window)
     if impl != "naive":
-        raise NotImplementedError(
-            f"attention impl {impl!r} comes with the decoder-LM slice "
-            "(ROADMAP Queue A, item 10)")
+        raise KeyError(f"unknown attention impl {impl!r}; choose from {ATTN_IMPLS}")
     b, s, h, dh = q.shape
     kheads = k.shape[2]
-    g = h // kheads
-    q = q.reshape(b, s, kheads, g, dh)
+    q = q.reshape(b, s, kheads, h // kheads, dh)
     rel = q_pos[:, None] - k_pos[None, :]                        # (S, T)
     if causal:
         mask = rel >= 0
@@ -169,10 +243,19 @@ def attention_full(q: Tensor, k: Tensor, v: Tensor, *, causal: bool,
         mask = torch.ones((s, k.shape[1]), dtype=torch.bool, device=q.device)
     if window is not None:
         mask = mask & (rel < window)
-    scores = torch.einsum("bskgd,btkd->bkgst", q.float(), k.float()) / math.sqrt(dh)
-    scores = torch.where(mask, scores, torch.full_like(scores, -1e30))
-    probs = torch.softmax(scores, dim=-1)
-    out = torch.einsum("bkgst,btkd->bskgd", probs.to(v.dtype), v)
+    out = _gqa_scores_softmax_out(q, k, v, mask)
+    return out.reshape(b, s, h * dh)
+
+
+def attention_decode(q: Tensor, k_cache: Tensor, v_cache: Tensor,
+                     valid: Tensor) -> Tensor:
+    """One-token decode. q:(B,1,H,Dh) caches:(B,T,K,Dh) valid:(T,) or (B,T)."""
+    b, s, h, dh = q.shape
+    kheads = k_cache.shape[2]
+    q = q.reshape(b, s, kheads, h // kheads, dh)
+    mask = valid[None, None, None, None, :] if valid.dim() == 1 \
+        else valid[:, None, None, None, :]
+    out = _gqa_scores_softmax_out(q, k_cache, v_cache, mask)
     return out.reshape(b, s, h * dh)
 
 
@@ -182,28 +265,33 @@ def attention_full(q: Tensor, k: Tensor, v: Tensor, *, causal: bool,
 
 def mlp_init(gen: torch.Generator, cfg: ModelConfig, device) -> dict:
     d, ff = cfg.d_model, cfg.d_ff
-    if cfg.activation != "gelu":
-        raise NotImplementedError(
-            f"activation {cfg.activation!r} comes with the decoder-LM slice "
-            "(ROADMAP Queue A, item 10)")
     dt = torch_dtype(cfg.dtype)
-    return {"wu": dense_init(gen, d, ff, dt, device),
-            "wd": dense_init(gen, ff, d, dt, device)}
+    p = {"wu": dense_init(gen, d, ff, dt, device),
+         "wd": dense_init(gen, ff, d, dt, device)}
+    if cfg.activation in ("silu", "geglu"):      # gated
+        p["wg"] = dense_init(gen, d, ff, dt, device)
+    return p
 
 
 def _act(cfg: ModelConfig, x: Tensor) -> Tensor:
-    if cfg.activation == "gelu":
+    if cfg.activation == "silu":
+        return F.silu(x)
+    if cfg.activation in ("geglu", "gelu"):
         return F.gelu(x, approximate="tanh")
-    raise NotImplementedError(
-        f"activation {cfg.activation!r} comes with the decoder-LM slice "
-        "(ROADMAP Queue A, item 10)")
+    if cfg.activation == "relu2":
+        return F.relu(x).square()
+    raise ValueError(cfg.activation)
 
 
 def mlp_apply(cfg: ModelConfig, p: dict, lora: Optional[dict], x: Tensor) -> Tensor:
     scale = cfg.lora.alpha / cfg.lora.rank
     impl = cfg.lora.impl
     lget = (lora or {}).get
-    up = _act(cfg, lora_apply(x, p["wu"], lget("wu"), scale, impl=impl))
+    up = lora_apply(x, p["wu"], lget("wu"), scale, impl=impl)
+    if "wg" in p:
+        up = _act(cfg, lora_apply(x, p["wg"], lget("wg"), scale, impl=impl)) * up
+    else:
+        up = _act(cfg, up)
     return lora_apply(up, p["wd"], lget("wd"), scale, impl=impl)
 
 
@@ -215,15 +303,16 @@ def attn_init(gen: torch.Generator, cfg: ModelConfig, device) -> dict:
     d = cfg.d_model
     dt = torch_dtype(cfg.dtype)
     if cfg.qkv_bias:
-        raise NotImplementedError("qkv biases come with the decoder-LM slice "
-                                  "(ROADMAP Queue A, item 10)")
+        raise NotImplementedError("qkv biases come with a later slice "
+                                  "of the port (ROADMAP Queue A, item 10)")
     return {"wq": dense_init(gen, d, cfg.attn_dim, dt, device),
             "wk": dense_init(gen, d, cfg.kv_dim, dt, device),
             "wv": dense_init(gen, d, cfg.kv_dim, dt, device),
             "wo": dense_init(gen, cfg.attn_dim, d, dt, device)}
 
 
-def qkv_project(cfg: ModelConfig, p: dict, lora: Optional[dict], x: Tensor):
+def qkv_project(cfg: ModelConfig, p: dict, lora: Optional[dict], x: Tensor,
+                positions: Optional[Tensor] = None):
     scale = cfg.lora.alpha / cfg.lora.rank
     impl = cfg.lora.impl
     lget = (lora or {}).get
@@ -234,9 +323,9 @@ def qkv_project(cfg: ModelConfig, p: dict, lora: Optional[dict], x: Tensor):
     q = q.reshape(b, s, cfg.n_heads, cfg.head_dim)
     k = k.reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
     v = v.reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
-    if cfg.positional == "rope":
-        raise NotImplementedError("rotary positions come with the decoder-LM "
-                                  "slice (ROADMAP Queue A, item 10)")
+    if cfg.positional == "rope" and positions is not None:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
 
 

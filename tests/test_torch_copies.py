@@ -1,4 +1,5 @@
-"""The port's copies of the JAX package's numpy-only modules (configs, data,
+"""The port's copies of the JAX package's numpy-only modules (configs of
+bert-base, gemma-2b and rwkv6-3b, data,
 cost model, scheduling, devices, metrics, run config, the wire-byte count of
 the transport compression) stay bit-equal to their originals on seeded
 inputs."""
@@ -42,6 +43,17 @@ def _same_config(a, b):
                                 {"n_layers": 4, "d_model": 256, "seq_cap": 64}])
 def test_bert_config_and_reduced(kw):
     j, t = j_configs.REGISTRY["bert-base"], t_configs.REGISTRY["bert-base"]
+    _same_config(j, t)
+    if kw:
+        _same_config(j_configs.reduced(j, **kw), t_configs.reduced(t, **kw))
+    assert t.param_count() == j.param_count()
+
+
+@pytest.mark.parametrize("arch", ["gemma-2b", "rwkv6-3b"])
+@pytest.mark.parametrize("kw", [{}, {"n_layers": 2, "d_model": 256},
+                                {"n_layers": 3, "d_model": 128, "seq_cap": 64}])
+def test_decoder_lm_configs_and_reduced(arch, kw):
+    j, t = j_configs.REGISTRY[arch], t_configs.REGISTRY[arch]
     _same_config(j, t)
     if kw:
         _same_config(j_configs.reduced(j, **kw), t_configs.reduced(t, **kw))

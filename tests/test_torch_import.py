@@ -17,6 +17,11 @@ torch.set_num_threads(1)
 ROOT = Path(__file__).resolve().parents[1]
 SRC = ROOT / "src"
 
+# modules of the decoder-LM serving slice, which the walk below must reach
+_NEW_MODULES = ("repro_torch.configs.gemma_2b", "repro_torch.configs.rwkv6_3b",
+                "repro_torch.kernels.flash_attention", "repro_torch.kernels.wkv6",
+                "repro_torch.serving", "repro_torch.serving.engine")
+
 _IMPORT_ALL = r"""
 import importlib, pkgutil, sys
 sys.modules["jax"] = None            # any `import jax` now raises
@@ -27,16 +32,19 @@ for name in names:
 leaked = sorted(k for k in sys.modules if k == "repro" or k.startswith("repro."))
 print(len(names), leaked)
 assert not leaked, leaked
+for name in NEW:
+    assert name in names, name
 """
 
 
 def test_imports_without_jax_and_without_reference_package():
     env = dict(os.environ, PYTHONPATH=str(SRC))
-    proc = subprocess.run([sys.executable, "-c", _IMPORT_ALL], env=env,
+    code = f"NEW = {_NEW_MODULES!r}\n" + _IMPORT_ALL
+    proc = subprocess.run([sys.executable, "-c", code], env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     n_modules, leaked = proc.stdout.split(" ", 1)
-    assert int(n_modules) >= 20 and leaked.strip() == "[]"
+    assert int(n_modules) >= 26 and leaked.strip() == "[]"
 
 
 _FORBIDDEN = re.compile(r"^\s*(import jax|from jax|import repro\.|from repro\.|"
@@ -45,6 +53,7 @@ _FORBIDDEN = re.compile(r"^\s*(import jax|from jax|import repro\.|from repro\.|"
 
 @pytest.mark.parametrize("path", sorted(str(p.relative_to(ROOT)) for p in
                                         [*(SRC / "repro_torch").rglob("*.py"),
+                                         *(SRC / "repro_torch").rglob("*.cu"),
                                          ROOT / "chip_smoke.py"]))
 def test_sources_name_neither_jax_nor_reference_package(path):
     hits = _FORBIDDEN.findall((ROOT / path).read_text())
@@ -78,3 +87,20 @@ def test_simulator_defaults_to_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         Simulator(cfg, PAPER_CLIENTS, PAPER_CUTS, ds, ds,
                   FedRunConfig(rounds=1, batch_size=4, seq_len=16))
+
+
+def test_lm_entry_points_default_to_cuda(monkeypatch):
+    """The decoder LMs and the ServingEngine run on the card unless the
+    caller asks for the CPU; without a card they raise."""
+    from repro_torch.configs import REGISTRY, reduced
+    from repro_torch.models import build_model
+    from repro_torch.serving import ServingEngine
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for arch in ("gemma-2b", "rwkv6-3b"):
+        cfg = reduced(REGISTRY[arch], n_layers=1, d_model=64)
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            build_model(cfg)
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            ServingEngine(cfg, {}, {})
+        assert build_model(cfg, device="cpu").device.type == "cpu"
