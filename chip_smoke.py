@@ -9,11 +9,17 @@ Phases (any failed check raises and the script exits non-zero):
 2. build: every CUDA kernel (lora_matmul, grouped_lora, quant,
    flash_attention, wkv6), compiled
    with nvcc from the sources in this checkout, one nvcc per source, all
-   at once; ptxas's register and shared-memory lines are printed;
+   at once; ptxas's register and shared-memory lines are printed, and the
+   count of tensor-core instructions (HMMA, HGMMA) in each library's SASS;
 3. kernel check: each kernel against its plain PyTorch version on the card,
    forward and backward, at its path's shape and at ragged shapes (the
    quantize kernel bit for bit, .5 ties and a zero row included), with
    times for the kernel, the plain version and the base product;
+   lora_matmul also on the .t() views of W, A and B that its backward
+   passes, at M, N and K off its 128 x 96 x 32 tiles (N 130 and 770) and
+   at r 5, 16 and 64; at the main shape its error against exact (fp64)
+   products, split into what the TF32 operand split and what the kernel's
+   accumulation contribute (``lora_error_sources``);
 4. main path: the paper's split-federated round at the full width of
    bert-base (12 layers, d 768, vocab 30522, seq 128, batch 16) across the
    six paper clients at the paper cuts, scheme "ours", analytic engine,
@@ -31,11 +37,13 @@ Phases (any failed check raises and the script exits non-zero):
 7. LM kernel check: the flash-attention kernel at the gemma-2b prefill
    shape (B 4, S = T 2048, H 8, K 1, D 256, causal) in bf16 and fp32 and
    at a GQA shape with a ragged T (2, 1000, 32 heads, 8 kv heads, 64;
-   causal with window 256, and non-causal), beside PyTorch's
+   causal with window 256, and non-causal) and, in bf16, at D 64 and 128
+   (ragged S != T, and GQA with a window), beside PyTorch's
    scaled_dot_product_attention as the yardstick; the WKV6 kernel at the
    rwkv6-3b prefill shape (B 4, T 2048, H 40, D 64; bf16 r/k/v with an f32
    decay, and fp32) and at a ragged T of 1000; each against its plain
-   version (normalized error <= 1e-5 in fp32, <= 1e-2 in bf16);
+   version (flash: each query row's error over that row's own scale;
+   WKV6: over the output's; <= 1e-5 in fp32, <= 1e-2 in bf16);
 8. LM prefill: gemma-2b and rwkv6-3b at full width and depth in bf16 with
    random weights, 4 prompts of 2048 tokens, under attn_impl / wkv_impl
    "chunked" (the kernels: 18 flash launches, 32 WKV6 launches) and under
@@ -58,6 +66,15 @@ the main path (fused and einsum) and of the cohort path (fused) under
 ``torch.profiler``, with the device time by kernel, the host time by
 operator, and the device's busy share of the round's wall time.
 
+    python3 chip_smoke.py --ab OLD_ROOT
+
+compares the port of another checkout (a parent commit, unpacked with
+``git archive <commit> | tar -x -C OLD_ROOT`` into a directory that
+``.gitignore`` lists) with this one on the same card, and does nothing
+else: four processes in the order old, new, new, old, each importing and
+building its own checkout's port, each printing one ``[ab] {json}`` line
+(``ab_measure``).
+
 Exits non-zero without a result when no CUDA device is available, or when
 run from a directory that does not hold the repository's ``src/``.
 """
@@ -76,7 +93,11 @@ import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
-sys.path.insert(0, str(ROOT / "src"))
+# the checkout whose port this process runs: this one, or with --ab-one DIR
+# (a process that --ab starts) the one at DIR
+PORT_ROOT = (Path(sys.argv[sys.argv.index("--ab-one") + 1]).resolve()
+             if "--ab-one" in sys.argv[:-1] else ROOT)
+sys.path.insert(0, str(PORT_ROOT / "src"))
 
 if not torch.cuda.is_available():
     sys.exit("chip_smoke: no CUDA device is available")
@@ -108,7 +129,20 @@ from repro_torch.serving import Request, ServingEngine  # noqa: E402
 # tensor cores, HBM bandwidth
 PEAK_FP32_FLOPS = 67e12
 PEAK_BF16_FLOPS = 989e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_HBM_BYTES = 3.35e12
+
+# what each redesigned kernel is built from, for the summary line
+DESIGNS = {
+    "lora_matmul": "3xTF32 mma.sync.m16n8k8 (big/small TF32 splits: about 22-bit "
+                   "operands; each k8 slice's 3 products summed from zero, then added "
+                   "to the f32 accumulator round-to-nearest) on 128x96 tiles, 4-stage "
+                   "cp.async ring of 32-deep K steps; W N- or K-contiguous, A and B by "
+                   "strides",
+    "flash_attention": "bf16: wgmma m64n64k16 (Q K^T) and m64nDk16 (P V, P from "
+                       "registers), 2 consumer warpgroups x 64 query rows, TMA "
+                       "2-stage K/V ring on mbarriers; fp32: SIMT FMAs",
+}
 
 # kernel vs plain version: fp32 sums taken in another order differ by a few
 # ulps of the largest partial sum; 1e-4 of the output's scale is far above
@@ -121,11 +155,12 @@ KERNEL_RTOL = 1e-4
 # loss by far less than 1e-3 of its value
 LOSS_RTOL = 1e-3
 
-# flash and WKV6 kernels vs their plain versions, normalized error: in fp32
+# flash and WKV6 kernels vs their plain versions (flash: each query row's
+# error over that row's scale, ``row_err``; WKV6: ``norm_err``): in fp32
 # both sum the same f32 products in another order (the flash kernel's
 # online softmax against one softmax); in bf16 the output, and in flash
 # the probabilities, round to bf16 at other points (an ulp of bf16 is
-# 2**-8 of the value)
+# 2**-8 of the value, relative, so the limit is relative to the row too)
 LM_KERNEL_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 # the LM paths in bf16, layer by layer from a shared input: kernel vs plain
 # (each layer's output and cache, the last-token logits) and decode vs
@@ -170,6 +205,19 @@ def gpu_line() -> str:
     return out[0]
 
 
+def sass_mma_counts(name: str) -> dict:
+    """Tensor-core instructions in a built library's SASS, by opcode
+    (HMMA: mma.sync; HGMMA: wgmma), from cuobjdump beside nvcc."""
+    tool = Path(build.nvcc()).with_name("cuobjdump")
+    if not tool.exists():
+        return {"cuobjdump": "not found"}
+    sass = subprocess.run([str(tool), "-sass", str(build.BUILD_DIR / f"lib{name}.so")],
+                          capture_output=True, text=True, check=True).stdout
+    ops = [line.split()[1].split(".")[0] for line in sass.splitlines()
+           if "MMA" in line and line.strip().startswith("/*") and len(line.split()) > 1]
+    return {op: ops.count(op) for op in sorted(set(ops)) if op in ("HMMA", "HGMMA")}
+
+
 def cuda_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     for _ in range(warmup):
         fn()
@@ -185,17 +233,19 @@ def cuda_ms(fn, iters: int = 50, warmup: int = 5) -> float:
 
 def device_ms(fn, kernel: str, iters: int = 20, attempts: int = 3) -> float:
     """Device time of one launch of the kernel whose name contains
-    ``kernel``, from the profiler over ``iters`` calls.  Where a call's
-    host side (Python, ctypes, allocation) takes longer than its kernel,
-    ``cuda_ms`` measures the host and this the kernel.  The profiler can
-    drop kernel records (a window once showed 15 of 20 launches), so a
-    window that does not show exactly ``iters`` launches is profiled again,
-    up to ``attempts`` windows in all."""
+    ``kernel``: the device time the profiler recorded for it over the
+    launches it recorded.  Where a call's host side (Python, ctypes,
+    allocation) takes longer than its kernel, ``cuda_ms`` measures the host
+    and this the kernel.  The profiler can drop kernel records (windows of
+    10 launches have shown 9, 6 and 3), and the records it keeps are whole
+    launches, so windows of ``iters`` calls are profiled until ``iters``
+    launches are recorded in all, up to ``attempts`` windows; a shortfall
+    is printed, and no record at all raises."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    seen = []
+    seen, total_us = [], 0.0
     for _ in range(attempts):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
@@ -204,10 +254,16 @@ def device_ms(fn, kernel: str, iters: int = 20, attempts: int = 3) -> float:
         hits = [e for e in prof.key_averages()
                 if e.device_type == torch.autograd.DeviceType.CUDA and kernel in e.key]
         seen.append(sum(e.count for e in hits))
-        if seen[-1] == iters:
-            return sum(e.self_device_time_total for e in hits) / iters / 1e3
-    raise AssertionError(f"the profiler saw {seen} launches of {kernel} in "
-                         f"{attempts} windows, not {iters}")
+        total_us += sum(e.self_device_time_total for e in hits)
+        if sum(seen) >= iters:
+            break
+    if not sum(seen):
+        raise AssertionError(f"the profiler recorded no launch of {kernel} in "
+                             f"{attempts} windows of {iters} calls")
+    if seen[0] != iters:
+        print(f"[profile] {kernel}: the profiler recorded {seen} launches in windows "
+              f"of {iters} calls", flush=True)
+    return total_us / sum(seen) / 1e3
 
 
 def norm_err(got: torch.Tensor, want: torch.Tensor) -> float:
@@ -216,8 +272,65 @@ def norm_err(got: torch.Tensor, want: torch.Tensor) -> float:
     return float((got - want).abs().max()) / scale
 
 
-def check_lora_matmul(m: int, k: int, n: int, r: int, seed: int) -> dict:
-    """Kernel vs plain version, forward and backward, at one shape."""
+def row_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    """The largest, over rows (every index but the last), of a row's
+    relative error |got - want| / |want| in the 2-norm over the row.
+    Attention needs it: under a causal mask row i averages i + 1 value
+    rows, so late rows are about sqrt(1/i) of row 0's size, and one scale
+    for the whole output would let a fault confined to late key tiles pass.
+    The norm over the row, and not its largest element over the row's
+    largest: bf16 outputs differ by an ulp or two at single elements (one
+    ulp is up to 2**-7 of the row's largest element), which the row's norm
+    averages and a fault does not."""
+    diff = torch.linalg.vector_norm(got - want, dim=-1)
+    scale = torch.linalg.vector_norm(want, dim=-1).clamp_min(torch.finfo(torch.float32).tiny)
+    return float((diff / scale).max())
+
+
+def tf32_split(v: torch.Tensor):
+    """lora_matmul.cu's operand split, in PyTorch: big = v rounded to TF32
+    (10 mantissa bits, ties away from zero: add half an ulp to the bits and
+    clear the low 13), small = v - big rounded the same way."""
+    def rnd(u):
+        return ((u.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+    big = rnd(v)
+    return big, rnd(v - big)
+
+
+def lora_error_sources(x, w, a, b, scale: float, y: torch.Tensor) -> dict:
+    """Where the 3xTF32 kernel's error comes from, at one shape: each
+    output's normalized error against exact (fp64) products of the fp32
+    inputs.  ``split`` multiplies the kernel's split operands exactly
+    (small*big + big*small + big*big, B unsplit as in the epilogue): the
+    error of ~22-bit operands alone.  ``split_fp32`` sums those same
+    products in fp32 with round-to-nearest (PyTorch's fp32 products, TF32
+    off).  ``kernel_vs_split`` is what the kernel's own sums add: the
+    tensor core's inside each k8 slice's products, the f32 adds across
+    slices, and the epilogue's FMAs."""
+    f64 = torch.float64
+
+    def parts(p, q):
+        (pb, ps), (qb, qs) = tf32_split(p), tf32_split(q)
+        return ((ps, qb), (pb, qs), (pb, qb))
+
+    def split_mm(p, q, dtype):
+        return sum(u.to(dtype) @ v.to(dtype) for u, v in parts(p, q))
+
+    at = a.t().contiguous()
+    exact = x.to(f64) @ w.to(f64) + scale * (x.to(f64) @ at.to(f64)) @ b.to(f64).t()
+    split = split_mm(x, w, f64) + scale * split_mm(x, at, f64) @ b.to(f64).t()
+    split32 = split_mm(x, w, torch.float32) + scale * split_mm(x, at, torch.float32) @ b.t()
+    return {"kernel": norm_err(y.to(f64), exact),
+            "plain_fp32": norm_err(lora_matmul_ref(x, w, a, b, scale).to(f64), exact),
+            "split": norm_err(split, exact),
+            "split_fp32": norm_err(split32.to(f64), exact),
+            "kernel_vs_split": norm_err(y.to(f64), split)}
+
+
+def check_lora_matmul(m: int, k: int, n: int, r: int, seed: int,
+                      timed: bool = False) -> dict:
+    """Kernel vs plain version, forward (contiguous operands and the
+    backward's transposed views) and backward, at one shape."""
     dev = torch.device("cuda")
     rs = np.random.default_rng(seed)
 
@@ -231,8 +344,13 @@ def check_lora_matmul(m: int, k: int, n: int, r: int, seed: int) -> dict:
     scale = 2.0
     y = lora_matmul(x, w, a, b, scale=scale)
     y_ref = lora_matmul_ref(x, w, a, b, scale)
+    # the layouts the backward passes: W, A and B as .t() views of
+    # contiguous tensors (W K-contiguous, A and B read by strides)
+    wv, av, bv = (v.t().contiguous().t() for v in (w, a, b))
+    y_views = lora_matmul(x, wv, av, bv, scale=scale)
     torch.cuda.synchronize()
-    out = {"shape": [m, k, n, r], "fwd_err": norm_err(y, y_ref)}
+    out = {"shape": [m, k, n, r], "fwd_err": norm_err(y, y_ref),
+           "views_err": norm_err(y_views, y_ref)}
 
     grads = {}
     for name, fn in (("kernel", fused_lora_matmul), ("plain", None)):
@@ -252,17 +370,27 @@ def check_lora_matmul(m: int, k: int, n: int, r: int, seed: int) -> dict:
         raise AssertionError(f"lora_matmul disagrees with its plain version at "
                              f"{out['shape']}: {bad} (tolerance {KERNEL_RTOL})")
 
+    if not timed:
+        return out
     flops = 2 * m * k * n + 2 * m * k * r + 2 * m * n * r
     nbytes = 4 * (m * k + k * n + r * k + n * r + m * n)
     t_ops, t_bytes = flops / PEAK_FP32_FLOPS * 1e3, nbytes / PEAK_HBM_BYTES * 1e3
     out.update(
+        error_sources=lora_error_sources(x, w, a, b, scale, y),
         ms=cuda_ms(lambda: lora_matmul(x, w, a, b, scale=scale)),
         device_ms=device_ms(lambda: lora_matmul(x, w, a, b, scale=scale),
                             "lora_matmul_kernel"),
+        # the backward's dx call, on the views it passes
+        dx_call_device_ms=device_ms(lambda: lora_matmul(g, w.t(), b.t(), a.t(),
+                                                        scale=scale),
+                                    "lora_matmul_kernel"),
         plain_ms=cuda_ms(lambda: lora_matmul_ref(x, w, a, b, scale)),
         base_matmul_ms=cuda_ms(lambda: torch.matmul(x, w)),
         bound_ms=max(t_ops, t_bytes),
         bound_by="operations" if t_ops >= t_bytes else "bytes",
+        # beside the fp32 bound: the same products as 3 TF32 passes on the
+        # tensor cores, and the bytes alone
+        bound_tf32x3_ms=3 * flops / PEAK_TF32_FLOPS * 1e3, bound_bytes_ms=t_bytes,
         gflop=flops / 1e9, mbytes=nbytes / 1e6)
     return out
 
@@ -501,6 +629,14 @@ def compare_paths(fused: dict, plain: dict, label: str) -> None:
             raise AssertionError(f"{label}: simulated times differ between the paths")
 
 
+def pick(events, name: str) -> dict:
+    """Launches and device ms of the profiled kernels whose name holds
+    ``name``."""
+    hits = [e for e in events if name in e.key]
+    return {"launches": sum(e.count for e in hits),
+            "device_ms": sum(e.self_device_time_total for e in hits) / 1e3}
+
+
 def profile_round(fused: bool, train, test, cohort: bool = False) -> dict:
     """One warm round (the second, with its aggregation) under the profiler."""
     from torch.profiler import ProfilerActivity, profile
@@ -531,9 +667,15 @@ def profile_round(fused: bool, train, test, cohort: bool = False) -> dict:
     host_top = [{"op": e.key[:60], "calls": e.count,
                  "host_ms": e.self_cpu_time_total / 1e3} for e in host]
     out = {"path": label, "wall_s": wall, "device_s": device_us / 1e6,
-           "busy_share": device_us / 1e6 / wall, "top": top, "host_top": host_top}
+           "busy_share": device_us / 1e6 / wall, "top": top, "host_top": host_top,
+           # the backward's copies (.contiguous() runs direct_copy) and the
+           # adapted projections' kernels
+           **{name: pick(events, name) for name in ("direct_copy", "lora_matmul_kernel",
+                                                    "grouped_lora")}}
     print(f"[profile:{label}] wall_s={wall:.4f} device_s={device_us / 1e6:.4f} "
-          f"busy_share={out['busy_share']:.3f}", flush=True)
+          f"busy_share={out['busy_share']:.3f} direct_copy={out['direct_copy']} "
+          f"lora_matmul={out['lora_matmul_kernel']} grouped_lora={out['grouped_lora']}",
+          flush=True)
     for row in top:
         print(f"[profile:{label}] device {row['share']:6.3f} {row['device_ms']:9.3f} ms "
               f"{row['calls']:6d} x {row['kernel']}", flush=True)
@@ -568,9 +710,11 @@ def check_flash(b, s, t, h, kh, d, causal, window, dtype, seed, timed=False) -> 
     out = flash_attention(q, k, v, causal=causal, window=window)
     want = flash_attention_plain(q, k, v, causal, window)
     torch.cuda.synchronize()
-    err = norm_err(out.float(), want.float())
+    err = row_err(out.float(), want.float())
+    # err_global: one scale for the whole output, the reading before row_err
     res = {"shape": [b, s, t, h, kh, d], "causal": causal, "window": window,
            "dtype": str(dtype).replace("torch.", ""), "err": err,
+           "err_global": norm_err(out.float(), want.float()),
            "max_abs_err": float((out.float() - want.float()).abs().max())}
     tol = LM_KERNEL_TOL[dtype]
     if not err <= tol:
@@ -594,11 +738,12 @@ def check_flash(b, s, t, h, kh, d, causal, window, dtype, seed, timed=False) -> 
                        iters=20),
             device_ms=device_ms(lambda: flash_attention(q, k, v, causal=causal,
                                                         window=window),
-                                "flash_attention_kernel", iters=10),
+                                "flash_bf16_kernel" if dtype == torch.bfloat16
+                                else "flash_f32_kernel", iters=10),
             plain_ms=cuda_ms(lambda: flash_attention_plain(q, k, v, causal, window),
                              iters=5, warmup=1),
             library_ms=cuda_ms(sdpa, iters=20),
-            library_err=norm_err(lib.transpose(1, 2).float(), want.float()),
+            library_err=row_err(lib.transpose(1, 2).float(), want.float()),
             bound_ms=max(t_ops, t_bytes),
             bound_by="operations" if t_ops >= t_bytes else "bytes",
             gflop=flops / 1e9, mbytes=nbytes / 1e6)
@@ -641,9 +786,10 @@ def check_wkv(b, t, h, d, dtype, w_dtype, seed, timed=False) -> dict:
     return res
 
 
-def device_time(fn, top: int = 5):
+def device_time(fn, top: int = 5, find: str = ""):
     """Seconds of device time (every kernel and copy) that one call of
-    ``fn`` takes, from the profiler, and its ``top`` kernels by time."""
+    ``fn`` takes, from the profiler, and its ``top`` kernels by time; with
+    ``find``, also ``pick`` of the kernels whose name holds it."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -656,10 +802,12 @@ def device_time(fn, top: int = 5):
     if total <= 0:
         raise AssertionError("the profiler recorded no device time")
     events.sort(key=lambda e: -e.self_device_time_total)
-    return total / 1e6, [{"kernel": e.key[:70], "calls": e.count,
-                          "device_ms": e.self_device_time_total / 1e3,
-                          "share": e.self_device_time_total / total}
-                         for e in events[:top]]
+    rows = [{"kernel": e.key[:70], "calls": e.count,
+             "device_ms": e.self_device_time_total / 1e3,
+             "share": e.self_device_time_total / total} for e in events[:top]]
+    if find:
+        return total / 1e6, rows, pick(events, find)
+    return total / 1e6, rows
 
 
 def lm_adapters(model, gen) -> dict:
@@ -885,15 +1033,88 @@ def lm_phase(arch: str, seed: int) -> dict:
     return out
 
 
+def ab_measure() -> dict:
+    """What ``--ab`` compares, on the port this process imported: the
+    redesigned kernels at their paths' shapes (ms a call by CUDA events,
+    device ms a launch by the profiler), one warm fused main round under
+    the profiler (``profile_round``), and one gemma-2b prefill of 4 x 2048
+    tokens through the flash kernel (wall s after one unmeasured prefill;
+    device s and the flash kernel's share under the profiler)."""
+    dev = torch.device("cuda")
+    rs = np.random.default_rng(0)
+
+    def t(*shape, std=1.0):
+        return torch.from_numpy((rs.standard_normal(shape) * std)
+                                .astype(np.float32)).to(dev)
+
+    x, w, a, b = t(2048, 768), t(768, 768, std=768 ** -0.5), t(16, 768, std=0.25), \
+        t(768, 16, std=0.1)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    q = torch.randn(4, 2048, 8, 256, generator=gen, device=dev).bfloat16()
+    k, v = (torch.randn(4, 2048, 1, 256, generator=gen, device=dev).bfloat16()
+            for _ in range(2))
+    out = {"root": str(PORT_ROOT)}
+    for name, fn, kernel, iters in (
+            ("lora_matmul", lambda: lora_matmul(x, w, a, b, scale=2.0),
+             "lora_matmul_kernel", 20),
+            ("flash_attention", lambda: flash_attention(q, k, v, causal=True), "flash", 10)):
+        out[name] = {"ms": cuda_ms(fn, iters=2 * iters),
+                     "device_ms": device_ms(fn, kernel, iters=iters)}
+    del x, w, a, b, q, k, v
+
+    train = make_emotion_dataset(N_TRAIN, seq_len=SEQ, vocab_size=30_522, seed=0)
+    test = make_emotion_dataset(N_TEST, seq_len=SEQ, vocab_size=30_522, seed=1)
+    prof = profile_round(True, train, test)
+    out["main_round"] = {key: prof[key] for key in ("wall_s", "device_s", "busy_share",
+                                                    "lora_matmul_kernel", "direct_copy")}
+    del train, test
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    cfg = REGISTRY["gemma-2b"].with_(attn_impl="chunked")
+    model = build_model(cfg)
+    gen = torch.Generator(device=dev).manual_seed(13)
+    params = model.init_params(gen)
+    lora = lm_adapters(model, gen)["client-a"]
+    tokens = torch.from_numpy(rs.integers(0, cfg.vocab_size, (PREFILL_BATCH, PREFILL_SEQ))
+                              .astype(np.int32)).to(dev)
+    with torch.no_grad():
+        model.prefill(params, lora, {"tokens": tokens})
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model.prefill(params, lora, {"tokens": tokens})
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        dev_s, _, flash = device_time(lambda: model.prefill(params, lora, {"tokens": tokens}),
+                                      find="flash")
+    out["gemma_prefill"] = {"wall_s": wall, "device_s": dev_s, "flash": flash,
+                            "flash_share": flash["device_ms"] / 1e3 / dev_s}
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
                     help="also profile one warm round of each path")
+    ap.add_argument("--ab", type=Path, metavar="OLD_ROOT",
+                    help="compare the port of another checkout (a parent commit "
+                         "unpacked with git archive) with this one on this card, "
+                         "in the order old, new, new, old, and do nothing else")
+    ap.add_argument("--ab-one", type=Path, help=argparse.SUPPRESS)
     args = ap.parse_args()
+    if args.ab_one is not None:
+        print("[ab]", json.dumps(ab_measure()), flush=True)
+        return
     card = gpu_line()
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}", flush=True)
     print(card, flush=True)
+    if args.ab is not None:
+        # one process per turn, each building and importing its own checkout
+        for root in (args.ab, ROOT, ROOT, args.ab):
+            subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"), "--ab-one",
+                            str(Path(root).resolve())], check=True)
+        return
 
     t0 = time.perf_counter()
     build.load_all(SOURCES)             # one nvcc per source, all at once
@@ -906,9 +1127,15 @@ def main() -> None:
             if ("registers" in line or "spill" in line or "smem" in line
                     or "Compiling entry" in line):
                 print(f"[build] {name}: {line.strip()}", flush=True)
+        print(f"[build] {name}: tensor-core instructions in SASS "
+              f"{json.dumps(sass_mma_counts(name))}", flush=True)
 
-    checks = [check_lora_matmul(2048, 768, 768, 16, seed=0),
-              check_lora_matmul(37, 100, 130, 5, seed=1)]
+    # the main path's shape (timed), then M, N, K off the tiles, the dx
+    # call's K 770 (N 770 forward) and ranks 5, 16, 64
+    checks = [check_lora_matmul(2048, 768, 768, 16, seed=0, timed=True),
+              check_lora_matmul(37, 100, 130, 5, seed=1),
+              check_lora_matmul(2047, 768, 770, 16, seed=14),
+              check_lora_matmul(2047, 770, 768, 64, seed=15)]
     for c in checks:
         print(f"[kernel] lora_matmul {json.dumps(c)}", flush=True)
     grouped_path = check_grouped((2048, 2048), 768, 768, 16, (2.0, 2.0), "chunk",
@@ -932,12 +1159,19 @@ def main() -> None:
     flash_gqa = [check_flash(2, 1000, 1000, 32, 8, 64, causal, window, dtype, seed=9)
                  for dtype in (torch.bfloat16, torch.float32)
                  for causal, window in ((True, 256), (False, None))]
+    # the tensor-core path at the other head dimensions the models use
+    flash_bf16_dims = [check_flash(b_, s_, t_, h_, kh_, d, causal, window, torch.bfloat16,
+                                   seed=16)
+                       for d in (64, 128)
+                       for b_, s_, t_, h_, kh_, causal, window in (
+                           (1, 700, 900, 16, 4, False, None),
+                           (2, 1000, 1000, 32, 8, True, 256))]
     wkv_path = check_wkv(4, 2048, 40, 64, torch.bfloat16, torch.float32, seed=10,
                          timed=True)
     wkv_f32 = check_wkv(4, 2048, 40, 64, torch.float32, torch.float32, seed=11, timed=True)
     wkv_ragged = [check_wkv(4, 1000, 40, 64, dtype, torch.float32, seed=12)
                   for dtype in (torch.bfloat16, torch.float32)]
-    for c in (flash_path, flash_f32, *flash_gqa):
+    for c in (flash_path, flash_f32, *flash_gqa, *flash_bf16_dims):
         print(f"[kernel] flash_attention {json.dumps(c)}", flush=True)
     for c in (wkv_path, wkv_f32, *wkv_ragged):
         print(f"[kernel] wkv6 {json.dumps(c)}", flush=True)
@@ -963,7 +1197,7 @@ def main() -> None:
             profile_round(fused_path, train, test, cohort=cohort_path)
 
     print(json.dumps({"lm": lm}), flush=True)
-    main_shape, ragged = checks
+    main_shape, ragged = checks[0], checks[1:]
 
     def entry(name, source, replaces, launches, c, **extra):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -976,9 +1210,16 @@ def main() -> None:
     kernels = [
         entry("lora_matmul", csrc + "lora_matmul.cu", "src/repro/kernels/lora_matmul.py:62",
               fused["launches"]["lora_matmul"], main_shape, path="main",
+              design=DESIGNS["lora_matmul"],
+              bound_tf32x3_ms=main_shape["bound_tf32x3_ms"],
+              bound_bytes_ms=main_shape["bound_bytes_ms"],
+              dx_call_device_ms=main_shape["dx_call_device_ms"],
               cohort_launches=cohort["launches"]["lora_matmul"],
               base_matmul_ms=main_shape["base_matmul_ms"],
-              ragged_max_abs_err=ragged["max_abs_err"]),
+              ragged={str(c["shape"]): {key: c[key] for key in
+                                        ("fwd_err", "views_err", "dx_err", "da_err",
+                                         "db_err", "max_abs_err")}
+                      for c in ragged}),
         entry("grouped_lora_chunk", csrc + "grouped_lora.cu",
               "src/repro/kernels/grouped_lora.py:119",
               cohort["launches"]["grouped_lora_chunk"], grouped_path, path="cohort",
@@ -998,6 +1239,8 @@ def main() -> None:
                  lm["gemma-2b"]["prefill"]["kernels"]["launches"]["flash_attention"],
                  flash_path, path="gemma-2b prefill", shape=flash_path["shape"],
                  dtype="bfloat16", err=flash_path["err"],
+                 design=DESIGNS["flash_attention"],
+                 bf16_dims_errs={f"{c['shape']}": c["err"] for c in flash_bf16_dims},
                  fp32={key: flash_f32[key] for key in
                        ("err", "ms", "device_ms", "plain_ms", "library_ms", "bound_ms",
                         "bound_by")},

@@ -8,7 +8,8 @@ Query i and key j sit at positions i and j; the masks are causal
 (i >= j), window (i - j < window) and none.  GQA/MQA: query head h reads
 key/value head h // (H // K), with no repeated copy.  Float32 or
 bfloat16, D in {32, 64, 128, 256}; any strides with the last dimension
-contiguous.
+contiguous (bfloat16: 16-byte aligned, strides a multiple of 8, as TMA
+reads them).
 
 A CUDA tensor launches the kernel on the current stream or raises; a CPU
 tensor takes the plain version (``ref.flash_attention_ref`` on the heads
@@ -63,6 +64,11 @@ def _check(q, k, v, window) -> None:
         raise ValueError(f"window must be a positive int or None, got {window}")
 
 
+def _tma_ok(x: torch.Tensor) -> bool:
+    return x.data_ptr() % 16 == 0 and all(
+        st % 8 == 0 for st, n in zip(x.stride()[:3], x.shape[:3]) if n > 1)
+
+
 def flash_attention_plain(q, k, v, causal, window):
     """The plain version in model layout: what a CPU tensor runs."""
     b, s, h, d = q.shape
@@ -92,6 +98,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError("flash_attention needs the head dimension contiguous")
     if b * h > 65535:
         raise ValueError(f"flash_attention takes B*H <= 65535, got {b * h}")
+    if q.dtype == torch.bfloat16 and not all(_tma_ok(x) for x in (q, k, v)):
+        raise ValueError("bfloat16 flash_attention loads by TMA: q, k, v need "
+                         "16-byte aligned data and strides a multiple of 8")
     out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
     if s == 0:
         return out

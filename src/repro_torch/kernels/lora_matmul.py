@@ -3,6 +3,9 @@
 
     y = x @ w + scale * (x @ a.T) @ b.T     x (M,K) w (K,N) a (r,K) b (N,r)
 
+x is contiguous; w, a and b are each contiguous or the transposed view of
+a contiguous tensor (``t.t()``), the layouts the backward passes for
+``dx = g @ W^T + s * (g @ B) @ A``; the kernel reads them where they are.
 A CUDA tensor launches the kernel on the current stream or raises; a CPU
 tensor takes the plain version (``ref.lora_matmul_ref``).  The counter
 ``lora_matmul.launches`` grows by one per kernel launch and by nothing else,
@@ -27,8 +30,9 @@ def _kernel():
     if _launch is None:
         lib = build.load("lora_matmul")
         fn = lib.lora_matmul_f32
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [
-            ctypes.c_float, ctypes.c_void_p]
+        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
+                       + [ctypes.c_float, ctypes.c_longlong, ctypes.c_longlong,
+                          ctypes.c_int] + [ctypes.c_longlong] * 4 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         lib.lora_matmul_max_rank.argtypes = []
         lib.lora_matmul_max_rank.restype = ctypes.c_int
@@ -37,6 +41,10 @@ def _kernel():
                                "the largest rank")
         _launch = fn
     return _launch
+
+
+def _transposed_ok(t: torch.Tensor) -> bool:
+    return t.is_contiguous() or t.t().is_contiguous()
 
 
 def _check(x, w, a, b) -> None:
@@ -52,8 +60,9 @@ def _check(x, w, a, b) -> None:
         raise ValueError(f"lora_matmul supports rank <= {MAX_RANK}, got {r}")
     if any(t.dtype != torch.float32 for t in ts):
         raise TypeError("lora_matmul takes float32 tensors")
-    if any(not t.is_contiguous() for t in ts):
-        raise ValueError("lora_matmul takes contiguous tensors")
+    if not x.is_contiguous() or not all(_transposed_ok(t) for t in (w, a, b)):
+        raise ValueError("lora_matmul takes a contiguous x, and w, a, b each "
+                         "contiguous or the .t() view of a contiguous tensor")
     if any(t.device != x.device for t in ts):
         raise ValueError("lora_matmul inputs must share one device")
     if x.device.type not in ("cpu", "cuda"):
@@ -71,10 +80,14 @@ def lora_matmul(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
     if m == 0 or n == 0:
         return y
     fn = _kernel()
+    # w N-contiguous (row stride) or K-contiguous (column stride)
+    w_kmajor = not w.is_contiguous()
+    sw = w.stride(1) if w_kmajor else w.stride(0)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = fn(x.data_ptr(), w.data_ptr(), a.data_ptr(), b.data_ptr(),
-                y.data_ptr(), m, n, k, r, float(scale), stream)
+                y.data_ptr(), m, n, k, r, float(scale), x.stride(0), sw,
+                int(w_kmajor), *a.stride(), *b.stride(), stream)
     if rc != 0:
         raise RuntimeError(f"lora_matmul kernel launch failed: CUDA error {rc}")
     lora_matmul.launches += 1

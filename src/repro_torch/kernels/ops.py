@@ -43,8 +43,8 @@ class _FusedLoRAMatmul(torch.autograd.Function):
         g = g.contiguous()
         dx = dw = da = db = None
         if ctx.needs_input_grad[0]:
-            dx = lora_matmul(g, w.t().contiguous(), b.t().contiguous(),
-                             a.t().contiguous(), scale=s)
+            # views: the kernel reads W^T K-contiguous and B^T, A^T by strides
+            dx = lora_matmul(g, w.t(), b.t(), a.t(), scale=s)
         if ctx.needs_input_grad[1]:
             dw = x2.t() @ g
         if ctx.needs_input_grad[2]:

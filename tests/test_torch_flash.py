@@ -152,6 +152,17 @@ def cuda_device():
     return torch.device("cuda")
 
 
+def _row_err(got, want):
+    """Each query row's relative error |got - want| / |want| (2-norms over
+    the row), the largest over rows, as chip_smoke.py's row_err: late
+    causal rows average many values and are small, so one scale for the
+    whole output would not see a fault confined to them.  bf16 rounds p and
+    the output relative to their own size (an ulp is 2**-8 of the value),
+    so 1e-2 holds per row."""
+    diff = torch.linalg.vector_norm(got - want, dim=-1)
+    return float((diff / torch.linalg.vector_norm(want, dim=-1).clamp_min(1e-30)).max())
+
+
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 1e-2)])
 @pytest.mark.parametrize("shape,causal,window", [((2, 100, 100, 8, 2, 64), True, None),
                                                  ((1, 70, 90, 4, 1, 32), False, None),
@@ -165,10 +176,46 @@ def test_cuda_kernel_matches_plain_version(cuda_device, dtype, tol, shape, causa
     got = flash_attention(q, k, v, causal=causal, window=window)
     assert flash_attention.launches == before + 1
     want = flash_attention(q.cpu(), k.cpu(), v.cpu(), causal=causal, window=window)
-    # normalized error, as chip_smoke.py states it: a bf16 ulp of an output
-    # near 4 is 2**-6
-    err = (got.float().cpu() - want.float()).abs().max() / max(1.0, want.float().abs().max())
+    err = _row_err(got.float().cpu(), want.float())
     assert err <= tol, err
+
+
+@pytest.mark.parametrize("d", [32, 64, 128, 256])
+@pytest.mark.parametrize("shape,causal,window", [((1, 70, 150, 4, 2, None), False, None),
+                                                 ((1, 150, 70, 4, 2, None), True, None),
+                                                 ((1, 300, 300, 4, 1, None), True, 100),
+                                                 ((1, 200, 200, 32, 8, None), True, None)])
+def test_cuda_bf16_tensor_core_path(cuda_device, d, shape, causal, window):
+    """On the card, the bf16 path (wgmma products, TMA-fed K/V ring) at every
+    head dimension: ragged S != T (no tile multiple; S > T causal, where
+    the last rows see every key), a causal window, and
+    GQA with 32 query heads on 8 kv heads; per-row error <= 1e-2 against
+    the plain version, as chip_smoke.py's bf16 tolerance (p and the output
+    round to bf16 at other points)."""
+    b, s, t, h, kh, _ = shape
+    q, k, v = (x.to(cuda_device) for x in _torch(*_qkv(b, s, t, h, kh, d, seed=d),
+                                                  dtype=torch.bfloat16))
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, causal=causal, window=window)
+    assert flash_attention.launches == before + 1
+    want = flash_attention(q.cpu(), k.cpu(), v.cpu(), causal=causal, window=window).float()
+    assert _row_err(got.float().cpu(), want) <= 1e-2
+
+
+def test_cuda_kernel_launches_on_every_card():
+    """The bf16 kernel's shared-memory opt-in acts on one device's context:
+    after launches on the first card, each other card launches too and
+    agrees with the plain version."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    q, k, v = _torch(*_qkv(1, 150, 150, 4, 2, 64, seed=3), dtype=torch.bfloat16)
+    want = flash_attention(q, k, v, causal=True).float()
+    for i in range(torch.cuda.device_count()):
+        dev = torch.device("cuda", i)
+        before = flash_attention.launches
+        got = flash_attention(q.to(dev), k.to(dev), v.to(dev), causal=True)
+        assert flash_attention.launches == before + 1 and got.device == dev
+        assert _row_err(got.float().cpu(), want) <= 1e-2, i
 
 
 def test_cuda_wrapper_is_forward_only(cuda_device):

@@ -93,7 +93,9 @@ def test_cpu_tensors_take_the_plain_version_without_counting():
     assert torch.equal(y, lora_matmul_ref(*(torch.from_numpy(v) for v in (x, w, a, b)), 2.0))
 
 
-@pytest.mark.parametrize("case", ["rank", "dtype", "layout", "shape", "device"])
+@pytest.mark.parametrize("case", ["rank", "dtype", "layout", "shape", "device",
+                                  "layout_x_transposed", "layout_x_sliced",
+                                  "layout_a_sliced", "layout_b_sliced"])
 def test_wrapper_rejects_what_the_kernel_does_not_take(case):
     x, w, a, b, _ = (torch.from_numpy(v) for v in _inputs(8, 16, 8, 4))
     if case == "rank":
@@ -103,14 +105,74 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(case):
     elif case == "dtype":
         x, err = x.double(), TypeError
     elif case == "layout":
-        w, err = w.t().contiguous().t(), ValueError
+        # every other column of a wider W: neither contiguous nor the .t()
+        # view of a contiguous tensor (those two are the layouts the kernel reads)
+        w, err = torch.zeros(16, 16)[:, ::2], ValueError
     elif case == "shape":
         b, err = torch.zeros(9, 4), ValueError
+    elif case.startswith("layout_"):
+        # x must be contiguous; a and b may be .t() views, but not strided slices
+        x, a, b = {"layout_x_transposed": (x.t().contiguous().t(), a, b),
+                   "layout_x_sliced": (torch.zeros(8, 32)[:, ::2], a, b),
+                   "layout_a_sliced": (x, torch.zeros(4, 32)[:, ::2], b),
+                   "layout_b_sliced": (x, a, torch.zeros(8, 8)[:, ::2])}[case]
+        err = ValueError
     else:
         x, w, a, b = (v.to("meta") for v in (x, w, a, b))
         err = ValueError
     with pytest.raises(err):
         lora_matmul(x, w, a, b, scale=1.0)
+
+
+def _views(x, w, a, b, which):
+    """The same values with the named operands as .t() views of contiguous
+    tensors, the layouts the backward passes for dx."""
+    def view(t):
+        return t.t().contiguous().t()
+    return (x, view(w) if "w" in which else w, view(a) if "a" in which else a,
+            view(b) if "b" in which else b)
+
+
+@pytest.mark.parametrize("which", ["w", "a", "b", "wab"])
+def test_wrapper_accepts_the_transposed_views_the_backward_passes(which):
+    """A layout-acceptance test: ``_check`` lets the backward's .t() views
+    through.  On the CPU the wrapper runs the plain version (no launch), so
+    the exact comparison holds the plain version on views against itself on
+    contiguous copies; the kernel's reading of the strides is held on the
+    card (test_cuda_kernel_ragged_tiles_ranks_and_backward_layouts)."""
+    x, w, a, b, _ = (torch.from_numpy(v) for v in _inputs(12, 20, 9, 3))
+    xv, wv, av, bv = _views(x, w, a, b, which)
+    assert not all(t.is_contiguous() for t in (wv, av, bv))
+    before = lora_matmul.launches
+    torch.testing.assert_close(lora_matmul(xv, wv, av, bv, scale=1.5),
+                               lora_matmul_ref(x, w, a, b, 1.5), rtol=0, atol=0)
+    assert lora_matmul.launches == before
+
+
+def test_backward_hands_the_kernel_views_not_copies(monkeypatch):
+    """dx = g @ W^T + s*(g @ B) @ A goes through the kernel on (g, W^T, B^T,
+    A^T) as views of the saved W, B and A: no transposed copy is made."""
+    from repro_torch.kernels import ops
+    calls = []
+
+    def recording(*args, **kwargs):
+        calls.append(args)
+        return lora_matmul(*args, **kwargs)
+
+    monkeypatch.setattr(ops, "lora_matmul", recording)
+    x, w, a, b, g = (torch.from_numpy(v) for v in _inputs(10, 24, 16, 4))
+    xs = x.clone().requires_grad_(True)
+    y = ops.fused_lora_matmul(xs, w, a, b, scale=2.0)
+    (dx,) = torch.autograd.grad(y, (xs,), g)
+    assert len(calls) == 2
+    _, w_t, b_t, a_t = calls[1]
+    for view, src in ((w_t, w), (b_t, b), (a_t, a)):
+        assert view.data_ptr() == src.data_ptr()
+        assert view.untyped_storage().data_ptr() == src.untyped_storage().data_ptr()
+        assert view.shape == src.t().shape and view.stride() == src.t().stride()
+    xr = x.clone().requires_grad_(True)
+    (dx_ref,) = torch.autograd.grad(lora_matmul_ref(xr, w, a, b, 2.0), (xr,), g)
+    torch.testing.assert_close(dx, dx_ref, rtol=1e-5, atol=1e-5)
 
 
 @pytest.fixture
@@ -135,3 +197,52 @@ def test_cuda_kernel_matches_plain_version(cuda_device, shape):
     xr = x.clone().requires_grad_(True)
     (dx_ref,) = torch.autograd.grad(lora_matmul_ref(xr, w, a, b, 2.0), (xr,), g)
     torch.testing.assert_close(dx, dx_ref, rtol=1e-4, atol=1e-4)
+
+
+def _norm_err(got, want):
+    return float((got - want).abs().max()) / max(1.0, float(want.abs().max()))
+
+
+@pytest.mark.parametrize("shape", [(37, 100, 130), (2047, 768, 770)])
+@pytest.mark.parametrize("r", [5, 16, 64])
+def test_cuda_kernel_ragged_tiles_ranks_and_backward_layouts(cuda_device, shape, r):
+    """On the card, at M, N and K that are not multiples of the 128 x 96 x 32
+    tiles (N 130 and 770 and the dx call's K 770 take the 4-byte copies):
+    the kernel on contiguous operands and on the backward's transposed views
+    agrees with the plain version (normalized error <= 1e-4, as
+    chip_smoke.py's KERNEL_RTOL), and so do dx, dA and dB."""
+    x, w, a, b, g = (torch.from_numpy(v).to(cuda_device) for v in _inputs(*shape, r, seed=r))
+    want = lora_matmul_ref(x, w, a, b, 2.0)
+    for which in ("", "wab"):
+        got = lora_matmul(*_views(x, w, a, b, which), scale=2.0)
+        assert _norm_err(got, want) <= 1e-4, which
+    # the dx call's own layout: (g, W^T, B^T, A^T) as views
+    got = lora_matmul(g, w.t(), b.t(), a.t(), scale=2.0)
+    assert _norm_err(got, lora_matmul_ref(g, w.t(), b.t(), a.t(), 2.0)) <= 1e-4
+    grads = []
+    for fn in (fused_lora_matmul, None):
+        xs, as_, bs = (v.clone().requires_grad_(True) for v in (x, a, b))
+        y = (fn(xs, w, as_, bs, scale=2.0) if fn is not None
+             else lora_matmul_ref(xs, w, as_, bs, 2.0))
+        grads.append(torch.autograd.grad(y, (xs, as_, bs), g))
+    for got, want in zip(*grads):
+        assert _norm_err(got, want) <= 1e-4
+
+
+def test_cuda_kernel_launches_on_every_card():
+    """The kernel's shared-memory opt-in acts on one device's context:
+    after launches on the first card, each other card launches too (the
+    forward's N-contiguous W and the dx call's K-contiguous view) and
+    agrees with the plain version."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    x, w, a, b, g = (torch.from_numpy(v) for v in _inputs(300, 256, 200, 16))
+    for i in range(torch.cuda.device_count()):
+        dev = torch.device("cuda", i)
+        xd, wd, ad, bd, gd = (v.to(dev) for v in (x, w, a, b, g))
+        before = lora_matmul.launches
+        y = lora_matmul(xd, wd, ad, bd, scale=2.0)
+        dx = lora_matmul(gd, wd.t(), bd.t(), ad.t(), scale=2.0)
+        assert lora_matmul.launches == before + 2 and y.device == dev
+        assert _norm_err(y, lora_matmul_ref(xd, wd, ad, bd, 2.0)) <= 1e-4, i
+        assert _norm_err(dx, lora_matmul_ref(gd, wd.t(), bd.t(), ad.t(), 2.0)) <= 1e-4, i
