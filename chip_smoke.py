@@ -19,7 +19,11 @@ Phases (any failed check raises and the script exits non-zero):
    passes, at M, N and K off its 128 x 96 x 32 tiles (N 130 and 770) and
    at r 5, 16 and 64; at the main shape its error against exact (fp64)
    products, split into what the TF32 operand split and what the kernel's
-   accumulation contribute (``lora_error_sources``);
+   accumulation contribute (``lora_error_sources``); grouped_lora also on
+   the views of W, B and A its backward passes (the dx call's layout), and
+   at the cohort shape its errors against fp64 products forward and on
+   that dx call (``grouped_error_sources``), beside the plain fp32
+   version's;
 4. main path: the paper's split-federated round at the full width of
    bert-base (12 layers, d 768, vocab 30522, seq 128, batch 16) across the
    six paper clients at the paper cuts, scheme "ours", analytic engine,
@@ -41,9 +45,12 @@ Phases (any failed check raises and the script exits non-zero):
    (ragged S != T, and GQA with a window), beside PyTorch's
    scaled_dot_product_attention as the yardstick; the WKV6 kernel at the
    rwkv6-3b prefill shape (B 4, T 2048, H 40, D 64; bf16 r/k/v with an f32
-   decay, and fp32) and at a ragged T of 1000; each against its plain
+   decay, and fp32) and at a ragged T of 1000, with slow decays and with
+   fast ones (exp(-exp(z)), z ~ N(0, 1): many near 0), at T 37, and at
+   every head dimension it takes (16, 32, 64, 128); each against its plain
    version (flash: each query row's error over that row's own scale;
-   WKV6: over the output's; <= 1e-5 in fp32, <= 1e-2 in bf16);
+   WKV6: over the output's; <= 1e-5 in fp32, <= 1e-2 in bf16; the final
+   state <= 1e-5);
 8. LM prefill: gemma-2b and rwkv6-3b at full width and depth in bf16 with
    random weights, 4 prompts of 2048 tokens, under attn_impl / wkv_impl
    "chunked" (the kernels: 18 flash launches, 32 WKV6 launches) and under
@@ -73,7 +80,9 @@ compares the port of another checkout (a parent commit, unpacked with
 ``.gitignore`` lists) with this one on the same card, and does nothing
 else: four processes in the order old, new, new, old, each importing and
 building its own checkout's port, each printing one ``[ab] {json}`` line
-(``ab_measure``).
+(``ab_measure``: the redesigned kernels, a warm main and a warm cohort
+round under the profiler, the cohort server step fused against einsum,
+and a gemma-2b and an rwkv6-3b prefill).
 
 Exits non-zero without a result when no CUDA device is available, or when
 run from a directory that does not hold the repository's ``src/``.
@@ -81,6 +90,7 @@ run from a directory that does not hold the repository's ``src/``.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import gc
 import json
 import math
@@ -124,6 +134,7 @@ from repro_torch.kernels.ref import (grouped_lora_matmul_ref,  # noqa: E402
 from repro_torch.kernels.wkv6 import wkv6  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.serving import Request, ServingEngine  # noqa: E402
+from repro_torch.tree import tree_leaves  # noqa: E402
 
 # H100 SXM data-sheet peaks (dense): fp32 on the CUDA cores, bf16 on the
 # tensor cores, HBM bandwidth
@@ -142,6 +153,16 @@ DESIGNS = {
     "flash_attention": "bf16: wgmma m64n64k16 (Q K^T) and m64nDk16 (P V, P from "
                        "registers), 2 consumer warpgroups x 64 query rows, TMA "
                        "2-stage K/V ring on mbarriers; fp32: SIMT FMAs",
+    "grouped_lora_chunk": "lora_matmul's 3xTF32 mma.sync tile (shared header "
+                          "tf32_lora_tile.cuh) per 128x96 tile of one group, from a "
+                          "device tile table; 4-stage cp.async ring; W N- or "
+                          "K-contiguous, A and B by group and element strides",
+    "grouped_lora_direct": "the SIMT body (64x64 tiles, 4x4 FMA micro-tiles, the "
+                           "whole K slab in shared memory), W, A and B by strides",
+    "wkv6": "state split over P lanes per group of JC columns and the columns over "
+            "S blocks a head ((P, S, JC) = (8, 2, 2) at D 64), outputs reduced P steps "
+            "at a time by one shuffle butterfly; r, k, w, v staged by cp.async into a "
+            "two-buffer ring in their stored types, one barrier a chunk",
 }
 
 # kernel vs plain version: fp32 sums taken in another order differ by a few
@@ -327,6 +348,20 @@ def lora_error_sources(x, w, a, b, scale: float, y: torch.Tensor) -> dict:
             "kernel_vs_split": norm_err(y.to(f64), split)}
 
 
+def grouped_error_sources(x, w, a, b, sizes, scales, y: torch.Tensor) -> dict:
+    """``lora_error_sources`` over each group's rows of a grouped product
+    (w, a and b as the kernel was given them, views included); the worst
+    group of each."""
+    out, off = {}, 0
+    for i, m in enumerate(sizes):
+        src = lora_error_sources(x[off:off + m], w, a[i], b[i], float(scales[i]),
+                                 y[off:off + m])
+        for key, v in src.items():
+            out[key] = max(out.get(key, 0.0), v)
+        off += m
+    return out
+
+
 def check_lora_matmul(m: int, k: int, n: int, r: int, seed: int,
                       timed: bool = False) -> dict:
     """Kernel vs plain version, forward (contiguous operands and the
@@ -421,9 +456,14 @@ def check_grouped(sizes, k: int, n: int, r: int, scales, mode: str, seed: int,
     gy = t(m, n)
     y = grouped_lora(x, w, a, b, group_sizes=sizes, scales=scales, mode=mode)
     y_ref = grouped_lora_matmul_ref(x, w, a, b, sizes, scales)
+    # the dx call's own layout: (g, W^T, B^T, A^T) as views of W, B and A
+    views = (w.t(), b.transpose(1, 2), a.transpose(1, 2))
+    dx_call = grouped_lora(gy, *views, group_sizes=sizes, scales=scales, mode=mode)
     torch.cuda.synchronize()
     out = {"mode": mode, "sizes": list(sizes), "k": k, "n": n, "r": r,
-           "scales": list(scales), "fwd_err": norm_err(y, y_ref)}
+           "scales": list(scales), "fwd_err": norm_err(y, y_ref),
+           "views_err": norm_err(dx_call, grouped_lora_matmul_ref(gy, *views, sizes,
+                                                                  scales))}
     grads = []
     for fn in (grouped_lora_matmul, None):
         xs, as_, bs = (v.clone().requires_grad_(True) for v in (x, a, b))
@@ -443,17 +483,26 @@ def check_grouped(sizes, k: int, n: int, r: int, scales, mode: str, seed: int,
                              f"at {sizes}, K {k}, N {n}, r {r}: {bad} "
                              f"(tolerance {KERNEL_RTOL})")
     if timed:
-        tiles = -(-np.asarray(sizes) // 64)
+        tiles = -(-np.asarray(sizes) // (128 if mode == "chunk" else 64))
+        flops = 2 * m * k * n + 2 * m * k * r + 2 * m * n * r
         out.update(
             ms=cuda_ms(lambda: grouped_lora(x, w, a, b, group_sizes=sizes,
                                             scales=scales, mode=mode)),
             device_ms=device_ms(lambda: grouped_lora(x, w, a, b, group_sizes=sizes,
                                                      scales=scales, mode=mode),
                                 "grouped_lora_kernel"),
+            # the backward's dx call, on the views it passes
+            dx_call_device_ms=device_ms(lambda: grouped_lora(gy, *views, group_sizes=sizes,
+                                                             scales=scales, mode=mode),
+                                        "grouped_lora_kernel"),
             plain_ms=cuda_ms(lambda: grouped_lora_matmul_ref(x, w, a, b, sizes, scales)),
             base_matmul_ms=cuda_ms(lambda: torch.matmul(x, w)),
-            **bound(2 * m * k * n + 2 * m * k * r + 2 * m * n * r,
-                    4 * (m * k + k * n + g_n * (r * k + n * r) + m * n + g_n)
+            # errors against exact (fp64) products, forward and the dx call
+            error_sources=grouped_error_sources(x, w, a, b, sizes, scales, y),
+            dx_error_sources=grouped_error_sources(gy, *views, sizes, scales, dx_call),
+            # beside the fp32 bound: the products as 3 TF32 passes
+            bound_tf32x3_ms=3 * flops / PEAK_TF32_FLOPS * 1e3,
+            **bound(flops, 4 * (m * k + k * n + g_n * (r * k + n * r) + m * n + g_n)
                     + 12 * int(tiles.sum())))
     return out
 
@@ -750,23 +799,25 @@ def check_flash(b, s, t, h, kh, d, causal, window, dtype, seed, timed=False) -> 
     return res
 
 
-def check_wkv(b, t, h, d, dtype, w_dtype, seed, timed=False) -> dict:
+def check_wkv(b, t, h, d, dtype, w_dtype, seed, timed=False, fast=False) -> dict:
     """WKV6 kernel vs its plain version (the step-by-step recurrence), out
-    and final state, at one shape."""
+    and final state, at one shape.  Decays exp(-exp(z)) of the model's
+    range: most of them slow (z ~ N(-3, 1)), or with ``fast`` z ~ N(0, 1),
+    many near 0, so each step all but replaces some state rows and a fault
+    in how the lanes hold the state shows at once."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(seed)
     r, k, v = ((torch.randn(b, t, h, d, generator=gen, device=dev) * 0.3).to(dtype)
                for _ in range(3))
-    # decays exp(-exp(w)) of the model's range, most of them slow
-    w = torch.exp(-torch.exp(torch.randn(b, t, h, d, generator=gen, device=dev) - 3.0))
-    w = w.to(w_dtype)
+    z = torch.randn(b, t, h, d, generator=gen, device=dev)
+    w = torch.exp(-torch.exp(z if fast else z - 3.0)).to(w_dtype)
     u = torch.randn(h, d, generator=gen, device=dev) * 0.5
     zero = torch.zeros(b, h, d, d, device=dev)
     out, state = wkv6(r, k, v, w, u)
     out_p, state_p = wkv6_ref(r, k, v, w, u, zero)
     torch.cuda.synchronize()
     res = {"shape": [b, t, h, d], "dtype": str(dtype).replace("torch.", ""),
-           "w_dtype": str(w_dtype).replace("torch.", ""),
+           "w_dtype": str(w_dtype).replace("torch.", ""), "fast_decays": fast,
            "err": norm_err(out.float(), out_p.to(dtype).float()),
            "state_err": norm_err(state, state_p),
            "max_abs_err": float((out.float() - out_p.to(dtype).float()).abs().max())}
@@ -1033,49 +1084,94 @@ def lm_phase(arch: str, seed: int) -> dict:
     return out
 
 
-def ab_measure() -> dict:
-    """What ``--ab`` compares, on the port this process imported: the
-    redesigned kernels at their paths' shapes (ms a call by CUDA events,
-    device ms a launch by the profiler), one warm fused main round under
-    the profiler (``profile_round``), and one gemma-2b prefill of 4 x 2048
-    tokens through the flash kernel (wall s after one unmeasured prefill;
-    device s and the flash kernel's share under the profiler)."""
+class _GradsOnly:
+    """An optimizer whose update hands back the gradients as the new
+    parameters: a server step built on it returns its adapter and head
+    gradients, before any AdamW step."""
+
+    def update(self, grads, state, params):
+        return grads, state
+
+
+def _flat(tree) -> torch.Tensor:
+    return torch.cat([leaf.reshape(-1).float() for leaf in tree_leaves(tree)])
+
+
+def cohort_step_gap(train, test) -> dict:
+    """Where the cohort path's fused-against-einsum loss gap starts, in
+    round 1 at full width.  First the clients: each client's activations
+    from a fused and an einsum model on the same batch, and the int8 codes
+    the uplink would send for each (``quantize``, without the error
+    feedback, which starts at zero).  Then one cut-grouped ragged server
+    step over the six clients, run by a fused and an einsum model on
+    identical inputs (the state before round 1, the einsum clients'
+    activations and batches; the step takes v directly, so the int8 links
+    play no part).  Compared: the per-client losses, ``dv`` and the adapter
+    and head gradients before the optimizer, then the adapters after
+    AdamW's first step, where an element whose gradient is near zero can
+    move by about lr either way (a flip)."""
+    from repro_torch.comm import quantize
+    from repro_torch.core import lora as lora_lib
+    from repro_torch.core.splitfl import make_client_step, make_server_step_cls_batched
+
+    sim = Simulator(REGISTRY["bert-base"], PAPER_CLIENTS, PAPER_CUTS, train, test,
+                    path_run(True, False), device="cuda")
+    fused_cfg = sim.cfg.with_(lora=dataclasses.replace(sim.cfg.lora, impl="fused"))
+    models = {"fused": build_model(fused_cfg), "einsum": sim.model}
+    grp = list(range(sim.u))
+    batches, acts, client = [], [], {"v_err": 0.0, "int8_codes_differing": 0,
+                                     "int8_codes": 0, "int8_scales_differing": 0}
+    with torch.no_grad():
+        for u in grp:
+            batches.append(sim._batch(u))
+            v = {label: make_client_step(m, sim.opt, sim.cuts[u])[0](
+                sim.client_params[u], sim.client_lora[u], batches[u])[0]
+                for label, m in models.items()}
+            acts.append(v["einsum"])
+            qf, qe = quantize(v["fused"]), quantize(v["einsum"])
+            client["v_err"] = max(client["v_err"], norm_err(v["fused"], v["einsum"]))
+            client["int8_codes_differing"] += int((qf.q != qe.q).sum())
+            client["int8_codes"] += qf.q.numel()
+            client["int8_scales_differing"] += int((qf.scale != qe.scale).sum())
+    args = (sim.params, lora_lib.stack_trees([sim.server_lora[u] for u in grp]),
+            torch.stack([sim.heads[u] for u in grp]),
+            lora_lib.stack_trees([sim.server_opt[u] for u in grp]), torch.stack(acts),
+            lora_lib.stack_trees(batches), [sim.cuts[u] for u in grp])
+    res, launches = {}, {}
+    for label, model in models.items():
+        reset_counts()
+        grads = make_server_step_cls_batched(model, _GradsOnly(), impl="ragged")(*args)
+        adam = make_server_step_cls_batched(model, sim.opt, impl="ragged")(*args)
+        torch.cuda.synchronize()
+        launches[label] = read_counts()["grouped_lora_chunk"]
+        res[label] = {"loss": grads[0].double(), "dv": grads[4], "lora_grad": _flat(grads[1]),
+                      "head_grad": grads[2], "lora_new": _flat(adam[1])}
+    f, e = res["fused"], res["einsum"]
+    diff = (f["lora_new"] - e["lora_new"]).abs()
+    out = {"loss_rel": float(((f["loss"] - e["loss"]).abs() / e["loss"].abs()).max()),
+           "dv_err": norm_err(f["dv"], e["dv"]),
+           "lora_grad_err": norm_err(f["lora_grad"], e["lora_grad"]),
+           "head_grad_err": norm_err(f["head_grad"], e["head_grad"]),
+           "adam_max_abs_diff": float(diff.max()), "lr": LR,
+           "adam_flips": int((diff > 0.5 * LR).sum()), "adapter_elements": diff.numel(),
+           "grouped_launches": launches, "client": client}
+    if launches["fused"] == 0 or launches["einsum"] != 0:
+        raise AssertionError(f"cohort step: grouped-kernel launches {launches}")
+    print(f"[cohort-step] {json.dumps(out)}", flush=True)
+    return out
+
+
+def lm_prefill_time(arch: str, cfg_kw: dict, kernel: str, seed: int) -> dict:
+    """One prefill of 4 x 2048 tokens through a model's kernel: wall s
+    after one unmeasured prefill; device s and the kernel's share under the
+    profiler."""
     dev = torch.device("cuda")
-    rs = np.random.default_rng(0)
-
-    def t(*shape, std=1.0):
-        return torch.from_numpy((rs.standard_normal(shape) * std)
-                                .astype(np.float32)).to(dev)
-
-    x, w, a, b = t(2048, 768), t(768, 768, std=768 ** -0.5), t(16, 768, std=0.25), \
-        t(768, 16, std=0.1)
-    gen = torch.Generator(device=dev).manual_seed(0)
-    q = torch.randn(4, 2048, 8, 256, generator=gen, device=dev).bfloat16()
-    k, v = (torch.randn(4, 2048, 1, 256, generator=gen, device=dev).bfloat16()
-            for _ in range(2))
-    out = {"root": str(PORT_ROOT)}
-    for name, fn, kernel, iters in (
-            ("lora_matmul", lambda: lora_matmul(x, w, a, b, scale=2.0),
-             "lora_matmul_kernel", 20),
-            ("flash_attention", lambda: flash_attention(q, k, v, causal=True), "flash", 10)):
-        out[name] = {"ms": cuda_ms(fn, iters=2 * iters),
-                     "device_ms": device_ms(fn, kernel, iters=iters)}
-    del x, w, a, b, q, k, v
-
-    train = make_emotion_dataset(N_TRAIN, seq_len=SEQ, vocab_size=30_522, seed=0)
-    test = make_emotion_dataset(N_TEST, seq_len=SEQ, vocab_size=30_522, seed=1)
-    prof = profile_round(True, train, test)
-    out["main_round"] = {key: prof[key] for key in ("wall_s", "device_s", "busy_share",
-                                                    "lora_matmul_kernel", "direct_copy")}
-    del train, test
-    gc.collect()
-    torch.cuda.empty_cache()
-
-    cfg = REGISTRY["gemma-2b"].with_(attn_impl="chunked")
+    cfg = REGISTRY[arch].with_(**cfg_kw)
     model = build_model(cfg)
-    gen = torch.Generator(device=dev).manual_seed(13)
+    gen = torch.Generator(device=dev).manual_seed(seed)
     params = model.init_params(gen)
     lora = lm_adapters(model, gen)["client-a"]
+    rs = np.random.default_rng(seed)
     tokens = torch.from_numpy(rs.integers(0, cfg.vocab_size, (PREFILL_BATCH, PREFILL_SEQ))
                               .astype(np.int32)).to(dev)
     with torch.no_grad():
@@ -1085,10 +1181,69 @@ def ab_measure() -> dict:
         model.prefill(params, lora, {"tokens": tokens})
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        dev_s, _, flash = device_time(lambda: model.prefill(params, lora, {"tokens": tokens}),
-                                      find="flash")
-    out["gemma_prefill"] = {"wall_s": wall, "device_s": dev_s, "flash": flash,
-                            "flash_share": flash["device_ms"] / 1e3 / dev_s}
+        dev_s, _, hit = device_time(lambda: model.prefill(params, lora, {"tokens": tokens}),
+                                    find=kernel)
+    del model, params, lora
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"wall_s": wall, "device_s": dev_s, kernel: hit,
+            "share": hit["device_ms"] / 1e3 / dev_s}
+
+
+def ab_measure() -> dict:
+    """What ``--ab`` compares, on the port this process imported: the
+    redesigned kernels at their paths' shapes (ms a call by CUDA events,
+    device ms a launch by the profiler); one warm fused main round and one
+    warm cohort round under the profiler (``profile_round``); the cohort
+    server step fused against einsum (``cohort_step_gap``); and one
+    gemma-2b and one rwkv6-3b prefill of 4 x 2048 tokens through their
+    kernels (``lm_prefill_time``)."""
+    dev = torch.device("cuda")
+    rs = np.random.default_rng(0)
+
+    def t(*shape, std=1.0):
+        return torch.from_numpy((rs.standard_normal(shape) * std)
+                                .astype(np.float32)).to(dev)
+
+    x, w, a, b = t(2048, 768), t(768, 768, std=768 ** -0.5), t(16, 768, std=0.25), \
+        t(768, 16, std=0.1)
+    xg = t(4096, 768)
+    ag, bg = t(2, 16, 768, std=0.25), t(2, 768, 16, std=0.1)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    q = torch.randn(4, 2048, 8, 256, generator=gen, device=dev).bfloat16()
+    k, v = (torch.randn(4, 2048, 1, 256, generator=gen, device=dev).bfloat16()
+            for _ in range(2))
+    wr, wk, wv = ((torch.randn(4, 2048, 40, 64, generator=gen, device=dev) * 0.3).bfloat16()
+                  for _ in range(3))
+    ww = torch.exp(-torch.exp(torch.randn(4, 2048, 40, 64, generator=gen, device=dev) - 3.0))
+    wu = torch.randn(40, 64, generator=gen, device=dev) * 0.5
+    out = {"root": str(PORT_ROOT)}
+    for name, fn, kernel, iters in (
+            ("lora_matmul", lambda: lora_matmul(x, w, a, b, scale=2.0),
+             "lora_matmul_kernel", 20),
+            ("grouped_lora_chunk",
+             lambda: grouped_lora(xg, w, ag, bg, group_sizes=(2048, 2048), scales=(2.0, 2.0),
+                                  mode="chunk"), "grouped_lora_kernel", 20),
+            ("flash_attention", lambda: flash_attention(q, k, v, causal=True), "flash", 10),
+            ("wkv6", lambda: wkv6(wr, wk, wv, ww, wu), "wkv6_kernel", 10)):
+        out[name] = {"ms": cuda_ms(fn, iters=2 * iters),
+                     "device_ms": device_ms(fn, kernel, iters=iters)}
+    del x, w, a, b, xg, ag, bg, q, k, v, wr, wk, wv, ww, wu
+
+    train = make_emotion_dataset(N_TRAIN, seq_len=SEQ, vocab_size=30_522, seed=0)
+    test = make_emotion_dataset(N_TEST, seq_len=SEQ, vocab_size=30_522, seed=1)
+    for label, cohort in (("main_round", False), ("cohort_round", True)):
+        prof = profile_round(True, train, test, cohort=cohort)
+        out[label] = {key: prof[key] for key in ("wall_s", "device_s", "busy_share",
+                                                 "lora_matmul_kernel", "grouped_lora",
+                                                 "direct_copy")}
+    out["cohort_step"] = cohort_step_gap(train, test)
+    del train, test
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    out["gemma_prefill"] = lm_prefill_time("gemma-2b", {"attn_impl": "chunked"}, "flash", 13)
+    out["rwkv6_prefill"] = lm_prefill_time("rwkv6-3b", {"wkv_impl": "chunked"}, "wkv6", 14)
     return out
 
 
@@ -1171,9 +1326,19 @@ def main() -> None:
     wkv_f32 = check_wkv(4, 2048, 40, 64, torch.float32, torch.float32, seed=11, timed=True)
     wkv_ragged = [check_wkv(4, 1000, 40, 64, dtype, torch.float32, seed=12)
                   for dtype in (torch.bfloat16, torch.float32)]
+    # fast decays (many near 0) at the path's shape and at ragged T, and
+    # every head dimension the kernel takes
+    wkv_fast = [check_wkv(b_, t_, 40, 64, dtype, torch.float32, seed=17, fast=True)
+                for b_, t_ in ((4, 2048), (4, 1000), (3, 37))
+                for dtype in (torch.bfloat16, torch.float32)]
+    wkv_dims = [check_wkv(2, t_, 3, d, dtype, w_dtype, seed=18, fast=fast)
+                for d in (16, 32, 64, 128) for t_ in (1000, 37) for fast in (False, True)
+                for dtype, w_dtype in ((torch.float32, torch.float32),
+                                       (torch.bfloat16, torch.float32),
+                                       (torch.bfloat16, torch.bfloat16))]
     for c in (flash_path, flash_f32, *flash_gqa, *flash_bf16_dims):
         print(f"[kernel] flash_attention {json.dumps(c)}", flush=True)
-    for c in (wkv_path, wkv_f32, *wkv_ragged):
+    for c in (wkv_path, wkv_f32, *wkv_ragged, *wkv_fast, *wkv_dims):
         print(f"[kernel] wkv6 {json.dumps(c)}", flush=True)
 
     train = make_emotion_dataset(N_TRAIN, seq_len=SEQ, vocab_size=30_522, seed=0)
@@ -1223,12 +1388,19 @@ def main() -> None:
         entry("grouped_lora_chunk", csrc + "grouped_lora.cu",
               "src/repro/kernels/grouped_lora.py:119",
               cohort["launches"]["grouped_lora_chunk"], grouped_path, path="cohort",
+              design=DESIGNS["grouped_lora_chunk"],
+              bound_tf32x3_ms=grouped_path["bound_tf32x3_ms"],
+              dx_call_device_ms=grouped_path["dx_call_device_ms"],
+              views_err=grouped_path["views_err"],
+              error_sources=grouped_path["error_sources"],
+              dx_error_sources=grouped_path["dx_error_sources"],
               base_matmul_ms=grouped_path["base_matmul_ms"],
               ragged_max_abs_err=grouped_ragged["max_abs_err"],
               single_group_err_vs_lora_matmul=grouped_one["err_vs_lora_matmul"]),
         entry("grouped_lora_direct", csrc + "grouped_lora.cu",
               "src/repro/kernels/grouped_lora.py:103",
               cohort["launches"]["grouped_lora_direct"], grouped_direct, path=None,
+              design=DESIGNS["grouped_lora_direct"], views_err=grouped_direct["views_err"],
               shape=[grouped_direct["sizes"], grouped_direct["k"], grouped_direct["n"],
                      grouped_direct["r"]]),
         entry("quantize_rows", csrc + "quant.cu", "src/repro/kernels/quant.py:33",
@@ -1252,7 +1424,11 @@ def main() -> None:
               lm["rwkv6-3b"]["prefill"]["kernels"]["launches"]["wkv6"], wkv_path,
               path="rwkv6-3b prefill", shape=wkv_path["shape"],
               dtype="bfloat16 r/k/v, float32 w", err=wkv_path["err"],
-              state_err=wkv_path["state_err"],
+              state_err=wkv_path["state_err"], design=DESIGNS["wkv6"],
+              fast_decay_errs=[[c["shape"], c["dtype"], c["err"], c["state_err"]]
+                               for c in wkv_fast],
+              worst_dims_errs={key: max(c[key] for c in wkv_dims)
+                               for key in ("err", "state_err")},
               fp32={key: wkv_f32[key] for key in
                     ("err", "state_err", "ms", "device_ms", "plain_ms", "bound_ms",
                      "bound_by")},

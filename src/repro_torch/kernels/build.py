@@ -3,9 +3,10 @@ them with ``ctypes``.
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and compiles on its own
 into ``build/repro_torch/lib<name>.so`` at the root of the checkout.  A
-library is rebuilt when its source or the flags change (a SHA-256 stamp
-sits beside it), and the compile writes to a temporary name first, so
-processes that build at once never load a half-written file.
+library is rebuilt when its source, a local header it includes
+(``csrc/*.cuh``) or the flags change (a SHA-256 stamp sits beside it), and
+the compile writes to a temporary name first, so processes that build at
+once never load a half-written file.
 :func:`load_all` compiles several sources at once, one ``nvcc`` each.
 Nothing here runs at import time: the CPU path never needs ``nvcc``.
 """
@@ -14,13 +15,14 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Dict, Sequence, Tuple
+from typing import Dict, List, Sequence, Tuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -48,8 +50,29 @@ def nvcc() -> str:
     raise RuntimeError("nvcc not found: put it on PATH or set CUDA_HOME")
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def _sources(src: Path) -> List[Path]:
+    """``src`` and every header it includes by ``#include "..."``, found
+    beside it, recursively, each once."""
+    seen, todo = [], [src]
+    while todo:
+        path = todo.pop()
+        if path in seen:
+            continue
+        seen.append(path)
+        todo.extend(path.parent / m.decode() for m in _INCLUDE.findall(path.read_bytes()))
+    return seen
+
+
 def _digest(src: Path) -> str:
-    h = hashlib.sha256(src.read_bytes())
+    """The stamp of a library: its source, the local headers it includes
+    and the flags, so a change to a shared header rebuilds every library
+    that includes it."""
+    h = hashlib.sha256()
+    for path in _sources(src):
+        h.update(path.name.encode() + b"\0" + path.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return h.hexdigest()
 

@@ -5,15 +5,24 @@
     x (M,K) = the groups' rows concatenated, w (K,N), a (G,r,K), b (G,N,r)
 
 Two modes, the two formulations of the reference's Pallas kernel:
-``chunk`` sweeps K in stages of 16 columns; ``direct`` stages the whole K
-slab in shared memory in one step and raises above the K that shared
-memory holds (:func:`direct_max_k`).
+``chunk`` sweeps K through a ring of 32-deep stages on the tensor cores
+(3xTF32, lora_matmul's body); ``direct`` stages the whole K slab in shared
+memory in one step (a SIMT body of FMA micro-tiles) and raises above the K
+that shared memory holds (:func:`direct_max_k`).
+
+x is contiguous; w is contiguous or the ``.t()`` view of a contiguous
+tensor, and a and b are each contiguous or the ``.transpose(1, 2)`` view of
+a contiguous tensor: the layouts the backward passes for
+``dx = g @ W^T + s_i * (g @ B_i) @ A_i``.  The kernel reads them where
+they are; rows whose length or stride is not a multiple of 4 floats take
+4-byte copies, so no copy reads past a row.
 
 Each block of the kernel reads its group from a tile table, one
-``(group, first row, rows)`` entry per 64-row tile, each group tiled on its
-own (:func:`tile_table`).  The table and the scales live on the device,
-cached by (group sizes, scales, device), so a launch copies nothing from
-the host once the key has been seen.
+``(group, first row, rows)`` entry per tile of :data:`BM` rows (chunk) or
+:data:`DIRECT_BM` rows (direct), each group tiled on its own
+(:func:`tile_table`).  The table and the scales live on the device, cached
+by (group sizes, scales, tile height, device), so a launch copies nothing
+from the host once the key has been seen.
 
 A CUDA tensor launches the kernel on the current stream or raises; a CPU
 tensor takes the plain version (``ref.grouped_lora_matmul_ref``).  The
@@ -32,8 +41,9 @@ from repro_torch.kernels import build
 from repro_torch.kernels.ref import grouped_lora_matmul_ref
 
 MAX_RANK = 64          # the kernel's shared tiles hold r <= 64
-BM = 64                # rows per tile
-BN = 64                # columns of y per block
+BM = 128               # rows per tile in chunk mode (the tensor-core tile)
+DIRECT_BM = 64         # rows per tile in direct mode (the SIMT tile)
+DIRECT_BN = 64         # columns of y per direct-mode block
 MAX_TILES = 65535      # tiles per launch (the grid's y extent)
 MAX_SMEM = 232448      # bytes of shared memory a block may use (sm_90)
 MODES = ("chunk", "direct")
@@ -47,8 +57,9 @@ def _rank_tile(r: int) -> int:
 
 def direct_max_k(r: int) -> int:
     """The largest K the direct mode takes at rank ``r``: its stage holds
-    the x^T, A_g^T and W slabs, (BM+1 + RP+1 + BN) floats per column of K."""
-    return (MAX_SMEM // 4) // ((BM + 1) + (_rank_tile(r) + 1) + BN)
+    the x^T, A_g^T and W slabs, (DIRECT_BM+1 + RP+1 + DIRECT_BN) floats per
+    column of K, RP the rank rounded up to 16, 32 or 64."""
+    return (MAX_SMEM // 4) // ((DIRECT_BM + 1) + (_rank_tile(r) + 1) + DIRECT_BN)
 
 
 def _kernel():
@@ -56,7 +67,9 @@ def _kernel():
     if _launch is None:
         lib = build.load("grouped_lora")
         fn = lib.grouped_lora_f32
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
+                       + [ctypes.c_longlong, ctypes.c_int] + [ctypes.c_longlong] * 6
+                       + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         lib.grouped_lora_max_rank.argtypes = []
         lib.grouped_lora_max_rank.restype = ctypes.c_int
@@ -70,23 +83,33 @@ def _kernel():
     return _launch
 
 
-def tile_table(group_sizes: Sequence[int]) -> List[Tuple[int, int, int]]:
-    """(group, first row, rows) for every BM-row tile, each group tiled on
-    its own, in row order: every row lies in exactly one tile and no tile
-    straddles two groups (a group's last tile may be short)."""
+def tile_table(group_sizes: Sequence[int], bm: int = BM) -> List[Tuple[int, int, int]]:
+    """(group, first row, rows) for every ``bm``-row tile, each group tiled
+    on its own, in row order: every row lies in exactly one tile and no
+    tile straddles two groups (a group's last tile may be short)."""
     out, row0 = [], 0
     for g, size in enumerate(group_sizes):
-        for lo in range(0, size, BM):
-            out.append((g, row0 + lo, min(BM, size - lo)))
+        for lo in range(0, size, bm):
+            out.append((g, row0 + lo, min(bm, size - lo)))
         row0 += size
     return out
 
 
+def _tile_rows(mode: str) -> int:
+    return DIRECT_BM if mode == "direct" else BM
+
+
 @functools.lru_cache(maxsize=64)
-def _device_tables(group_sizes: Tuple[int, ...], scales: Tuple[float, ...],
+def _device_tables(group_sizes: Tuple[int, ...], scales: Tuple[float, ...], bm: int,
                    device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
-    tiles = torch.tensor(tile_table(group_sizes), dtype=torch.int32).to(device)
+    tiles = torch.tensor(tile_table(group_sizes, bm), dtype=torch.int32).to(device)
     return tiles, torch.tensor(scales, dtype=torch.float32).to(device)
+
+
+def _transposed_ok(t: torch.Tensor) -> bool:
+    """Contiguous, or the transposed view of a contiguous tensor: ``.t()``
+    of a matrix, ``.transpose(1, 2)`` of a stack of matrices."""
+    return t.is_contiguous() or t.transpose(-2, -1).is_contiguous()
 
 
 def _check(x, w, a, b, group_sizes, scales, mode) -> None:
@@ -110,13 +133,15 @@ def _check(x, w, a, b, group_sizes, scales, mode) -> None:
     if mode == "direct" and k > direct_max_k(r):
         raise ValueError(f"grouped_lora direct mode holds K <= {direct_max_k(r)} "
                          f"in shared memory at rank {r}, got {k}; use mode='chunk'")
-    if len(tile_table(group_sizes)) > MAX_TILES:
+    if len(tile_table(group_sizes, _tile_rows(mode))) > MAX_TILES:
         raise ValueError(f"grouped_lora takes at most {MAX_TILES} tiles of "
-                         f"{BM} rows")
+                         f"{_tile_rows(mode)} rows")
     if any(t.dtype != torch.float32 for t in (x, w, a, b)):
         raise TypeError("grouped_lora takes float32 tensors")
-    if any(not t.is_contiguous() for t in (x, w, a, b)):
-        raise ValueError("grouped_lora takes contiguous tensors")
+    if not x.is_contiguous() or not all(_transposed_ok(t) for t in (w, a, b)):
+        raise ValueError("grouped_lora takes a contiguous x, and w, a, b each "
+                         "contiguous or the transposed view of a contiguous "
+                         "tensor (w.t(), a.transpose(1, 2), b.transpose(1, 2))")
     if any(t.device != x.device for t in (w, a, b)):
         raise ValueError("grouped_lora inputs must share one device")
     if x.device.type not in ("cpu", "cuda"):
@@ -134,13 +159,17 @@ def _run(x, w, a, b, group_sizes, scales, mode, counted) -> torch.Tensor:
     y = torch.empty((m, n), dtype=torch.float32, device=x.device)
     if n == 0:
         return y
-    tiles, scales_dev = _device_tables(group_sizes, scales, x.device)
+    tiles, scales_dev = _device_tables(group_sizes, scales, _tile_rows(mode), x.device)
     fn = _kernel()
+    # w N-contiguous (row stride) or K-contiguous (column stride)
+    w_kmajor = not w.is_contiguous()
+    sw = w.stride(1) if w_kmajor else w.stride(0)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = fn(x.data_ptr(), w.data_ptr(), a.data_ptr(), b.data_ptr(),
                 scales_dev.data_ptr(), tiles.data_ptr(), y.data_ptr(),
-                tiles.shape[0], n, k, r, int(mode == "direct"), stream)
+                tiles.shape[0], n, k, r, int(mode == "direct"), sw, int(w_kmajor),
+                *a.stride(), *b.stride(), stream)
     if rc != 0:
         raise RuntimeError(f"grouped_lora ({mode}) kernel launch failed: "
                            f"CUDA error {rc}")
@@ -151,14 +180,15 @@ def _run(x, w, a, b, group_sizes, scales, mode, counted) -> torch.Tensor:
 def grouped_lora_chunk(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
                        b: torch.Tensor, *, group_sizes: Sequence[int],
                        scales: Sequence[float]) -> torch.Tensor:
-    """The K-sweep mode (Pallas body ``_kernel_chunk``)."""
+    """The K-sweep mode (Pallas body ``_kernel_chunk``), 128-row tiles."""
     return _run(x, w, a, b, group_sizes, scales, "chunk", grouped_lora_chunk)
 
 
 def grouped_lora_direct(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
                         b: torch.Tensor, *, group_sizes: Sequence[int],
                         scales: Sequence[float]) -> torch.Tensor:
-    """The single-stage full-K mode (Pallas body ``_kernel_direct``)."""
+    """The single-stage full-K mode (Pallas body ``_kernel_direct``),
+    64-row tiles."""
     return _run(x, w, a, b, group_sizes, scales, "direct", grouped_lora_direct)
 
 

@@ -84,10 +84,11 @@ class _GroupedLoRAMatmul(torch.autograd.Function):
         g = g.contiguous()
         dx = dw = da = db = None
         if ctx.needs_input_grad[0]:
-            # the (G, r, N) down- and (G, K, r) up-projections swap roles
-            dx = grouped_lora(g, w.t().contiguous(), b.transpose(1, 2).contiguous(),
-                              a.transpose(1, 2).contiguous(), group_sizes=sizes,
-                              scales=scales, mode=_grouped_mode(ctx.mode, g.shape[1]))
+            # the (G, r, N) down- and (G, K, r) up-projections swap roles;
+            # views: the kernel reads W^T K-contiguous and B_i^T, A_i^T by strides
+            dx = grouped_lora(g, w.t(), b.transpose(1, 2), a.transpose(1, 2),
+                              group_sizes=sizes, scales=scales,
+                              mode=_grouped_mode(ctx.mode, g.shape[1]))
         if ctx.needs_input_grad[1]:
             dw = x2.t() @ g
         if ctx.needs_input_grad[2] or ctx.needs_input_grad[3]:

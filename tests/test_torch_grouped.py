@@ -116,6 +116,88 @@ def test_tile_table_covers_every_row_once_within_its_group(sizes):
     assert len(tiles) == sum(-(-s // gl_mod.BM) for s in sizes)
 
 
+@pytest.mark.parametrize("mode,bm", [("chunk", 128), ("direct", 64)])
+def test_tile_table_at_the_kernel_tile_height_with_a_ragged_last_tile(mode, bm):
+    """Chunk mode tiles each group in 128-row tiles (the tensor-core tile),
+    direct mode in 64-row tiles (the SIMT tile); each group's last tile
+    holds what is left of it."""
+    assert gl_mod._tile_rows(mode) == bm
+    sizes = (300, 129, 128)
+    tiles = tile_table(sizes, gl_mod._tile_rows(mode))
+    if mode == "chunk":
+        assert gl_mod.BM == 128
+        assert tiles == [(0, 0, 128), (0, 128, 128), (0, 256, 44), (1, 300, 128),
+                         (1, 428, 1), (2, 429, 128)]
+    else:
+        assert [t for t in tiles if t[0] == 0] == [(0, 0, 64), (0, 64, 64), (0, 128, 64),
+                                                   (0, 192, 64), (0, 256, 44)]
+        assert [t[2] for t in tiles if t[0] == 1] == [64, 64, 1]
+    assert tile_table(sizes) == tile_table(sizes, gl_mod.BM)
+
+
+def _grouped_views(w, a, b, which):
+    """The same values with the named operands in the layouts the
+    backward passes: w as the .t() view of a contiguous (N, K) tensor, a
+    and b as .transpose(1, 2) views of contiguous stacks."""
+    def view(t):
+        return t.transpose(-2, -1).contiguous().transpose(-2, -1)
+    return (view(w) if "w" in which else w, view(a) if "a" in which else a,
+            view(b) if "b" in which else b)
+
+
+@pytest.mark.parametrize("mode", gl_mod.MODES)
+@pytest.mark.parametrize("which", ["w", "a", "b", "wab"])
+def test_wrapper_accepts_the_transposed_views_the_backward_passes(which, mode):
+    """A layout-acceptance test: ``_check`` lets the backward's transposed
+    views through.  On the CPU the wrapper runs the plain version (no
+    launch: both counters stay), so the exact comparison holds the plain
+    version on views against itself on contiguous copies; the kernel's
+    reading of the strides is held on the card
+    (test_cuda_kernel_backward_layouts_ragged_shapes_and_ranks)."""
+    x, w, a, b, _, scales = (torch.from_numpy(v) if isinstance(v, np.ndarray) else v
+                             for v in _cohort((7, 30), 24, 12, 4))
+    wv, av, bv = _grouped_views(w, a, b, which)
+    assert not all(t.is_contiguous() for t in (wv, av, bv))
+    before = (grouped_lora_chunk.launches, grouped_lora_direct.launches)
+    y = grouped_lora(x, wv, av, bv, group_sizes=(7, 30), scales=scales, mode=mode)
+    torch.testing.assert_close(y, grouped_lora_matmul_ref(x, w, a, b, (7, 30), scales),
+                               rtol=0, atol=0)
+    assert (grouped_lora_chunk.launches, grouped_lora_direct.launches) == before
+
+
+@pytest.mark.parametrize("mode", ["chunk", "direct"])
+def test_grouped_backward_hands_the_kernel_views_not_copies(monkeypatch, mode):
+    """dx = g @ W^T + s_i*(g @ B_i) @ A_i goes through the kernel on
+    (g, W^T, B^T, A^T) as views of the saved W, B and A: no transposed
+    copy is made.  The counterpart of
+    tests/test_torch_kernels.py::test_backward_hands_the_kernel_views_not_copies."""
+    from repro_torch.kernels import ops
+    calls = []
+
+    def recording(*args, **kwargs):
+        calls.append(args)
+        return grouped_lora(*args, **kwargs)
+
+    monkeypatch.setattr(ops, "grouped_lora", recording)
+    sizes = (9, 23)
+    x, w, a, b, gy, scales = (torch.from_numpy(v) if isinstance(v, np.ndarray) else v
+                              for v in _cohort(sizes, 32, 16, 4))
+    xs = x.clone().requires_grad_(True)
+    y = ops.grouped_lora_matmul(xs, w, a, b, group_sizes=sizes, scales=scales, mode=mode)
+    (dx,) = torch.autograd.grad(y, (xs,), gy)
+    assert len(calls) == 2
+    _, w_t, b_t, a_t = calls[1]
+    for view, want in ((w_t, w.t()), (b_t, b.transpose(1, 2)), (a_t, a.transpose(1, 2))):
+        assert view.data_ptr() == want.data_ptr()
+        assert view.untyped_storage().data_ptr() == want.untyped_storage().data_ptr()
+        assert view.shape == want.shape and view.stride() == want.stride()
+        assert not view.is_contiguous()
+    xr = x.clone().requires_grad_(True)
+    (dx_ref,) = torch.autograd.grad(grouped_lora_matmul_ref(xr, w, a, b, sizes, scales),
+                                    (xr,), gy)
+    torch.testing.assert_close(dx, dx_ref, rtol=1e-5, atol=1e-5)
+
+
 def test_cpu_tensors_take_the_plain_version_without_counting():
     x, w, a, b, _, scales = _cohort((7, 30), 24, 12, 4)
     args = [torch.from_numpy(v) for v in (x, w, a, b)]
@@ -158,9 +240,13 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(case):
     elif case == "dtype":
         x, err = x.double(), TypeError
     elif case == "layout":
-        # the op makes its inputs contiguous; the binding takes them as given
+        # the binding takes the backward's transposed views; a W with
+        # neither unit stride (every other column of a wider tensor) is
+        # neither of the layouts the kernel reads
+        w_strided = torch.zeros(16, 16)[:, ::2]
+        assert w_strided.shape == w.shape and 1 not in w_strided.stride()
         with pytest.raises(ValueError):
-            grouped_lora(x, w.t().contiguous().t(), a, b, group_sizes=(5, 11),
+            grouped_lora(x, w_strided, a, b, group_sizes=(5, 11),
                          scales=(1.0, 1.0), mode="chunk")
         return
     elif case == "device":
@@ -224,3 +310,45 @@ def test_cuda_single_group_equals_lora_matmul(cuda_device):
     torch.testing.assert_close(y, want, rtol=0, atol=1e-4 * max(1.0, float(want.abs().max())))
     torch.testing.assert_close(want, lora_matmul_ref(x, w, a[0], b[0], 2.0), rtol=1e-4,
                                atol=1e-4)
+
+
+def _norm_err(got, want):
+    return float((got - want).abs().max()) / max(1.0, float(want.abs().max()))
+
+
+@pytest.mark.parametrize("mode", ["chunk", "direct"])
+@pytest.mark.parametrize("shape", [((37, 100, 5), 130, 100), ((300, 129, 1), 770, 130),
+                                   ((200, 3), 96, 770)],
+                         ids=["37-100-5", "300-129-1", "200-3"])
+@pytest.mark.parametrize("r", [5, 16, 33])
+def test_cuda_kernel_backward_layouts_ragged_shapes_and_ranks(cuda_device, shape, r, mode):
+    """On the card, at group sizes, N and K off the 128 x 96 x 32 tiles
+    (N and K of 130 and 770 take the 4-byte copies): the kernel on
+    contiguous operands, on each of the backward's views, and on the dx
+    call's own layout agrees with the plain version (normalized error
+    <= 1e-4, chip_smoke.py's KERNEL_RTOL), and so do dx, dA and dB.  Direct
+    mode takes K and N up to its shared-memory limit (398 at r <= 16, 299
+    at r 33: both ragged)."""
+    sizes, k, n = shape
+    if mode == "direct":
+        # the dx call contracts over N: both K and N within what it holds
+        k, n = (min(v, gl_mod.direct_max_k(r)) for v in (k, n))
+    x, w, a, b, gy, scales = (torch.from_numpy(v).to(cuda_device)
+                              if isinstance(v, np.ndarray) else v
+                              for v in _cohort(sizes, k, n, r, seed=r))
+    want = grouped_lora_matmul_ref(x, w, a, b, sizes, scales)
+    for which in ("", "w", "a", "b", "wab"):
+        got = grouped_lora(x, *_grouped_views(w, a, b, which), group_sizes=sizes,
+                           scales=scales, mode=mode)
+        assert _norm_err(got, want) <= 1e-4, which
+    views = (w.t(), b.transpose(1, 2), a.transpose(1, 2))
+    got = grouped_lora(gy, *views, group_sizes=sizes, scales=scales, mode=mode)
+    assert _norm_err(got, grouped_lora_matmul_ref(gy, *views, sizes, scales)) <= 1e-4
+    grads = []
+    for fn in (grouped_lora_matmul, None):
+        xs, as_, bs = (v.clone().requires_grad_(True) for v in (x, a, b))
+        yy = (fn(xs, w, as_, bs, group_sizes=sizes, scales=scales, mode=mode)
+              if fn is not None else grouped_lora_matmul_ref(xs, w, as_, bs, sizes, scales))
+        grads.append(torch.autograd.grad(yy, (xs, as_, bs), gy))
+    for got, want in zip(*grads):
+        assert _norm_err(got, want) <= 1e-4

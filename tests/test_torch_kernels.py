@@ -175,6 +175,24 @@ def test_backward_hands_the_kernel_views_not_copies(monkeypatch):
     torch.testing.assert_close(dx, dx_ref, rtol=1e-5, atol=1e-5)
 
 
+def test_build_stamp_follows_the_shared_header(tmp_path):
+    """lora_matmul.cu and grouped_lora.cu share their tensor-core tile
+    through csrc/tf32_lora_tile.cuh: each library's stamp hashes the
+    header, so a change to it rebuilds both, and no other library."""
+    import shutil
+    from repro_torch.kernels import build
+    for src in build.CSRC.iterdir():
+        shutil.copy(src, tmp_path / src.name)
+    names = ("lora_matmul", "grouped_lora", "quant", "wkv6", "flash_attention")
+    for name in ("lora_matmul", "grouped_lora"):
+        assert "tf32_lora_tile.cuh" in {p.name for p in build._sources(tmp_path / f"{name}.cu")}
+    before = {n: build._digest(tmp_path / f"{n}.cu") for n in names}
+    header = tmp_path / "tf32_lora_tile.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    after = {n: build._digest(tmp_path / f"{n}.cu") for n in names}
+    assert {n for n in names if after[n] != before[n]} == {"lora_matmul", "grouped_lora"}
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():

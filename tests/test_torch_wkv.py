@@ -157,6 +157,55 @@ def test_cuda_kernel_matches_plain_version(cuda_device, dtype, w_dtype, tol, sha
     assert err(sf, sf_p) <= 1e-5
 
 
+def _fast_decay_inputs(b, s, h, d, seed):
+    """Decays exp(-exp(z)), z ~ N(0, 1): many near 0 (a state all but
+    forgotten each step), beside the slow ones of ``_inputs``."""
+    r, k, v, _, u = _inputs(b, s, h, d, seed=seed)
+    z = np.random.default_rng(seed + 100).standard_normal((b, s, h, d))
+    return r, k, v, np.exp(-np.exp(z)).astype(np.float32), u
+
+
+def _cuda_err(got, want):   # normalized, as chip_smoke.py states it
+    return float((got.float().cpu() - want.float()).abs().max()
+                 / max(1.0, want.float().abs().max()))
+
+
+@pytest.mark.parametrize("dtype,w_dtype,tol", [
+    (torch.float32, torch.float32, 1e-5), (torch.bfloat16, torch.float32, 1e-2),
+    (torch.bfloat16, torch.bfloat16, 1e-2)])
+@pytest.mark.parametrize("t", [1000, 37])
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("decay", ["slow", "fast"])
+def test_cuda_kernel_ragged_t_each_head_dim(cuda_device, d, t, dtype, w_dtype, tol, decay):
+    """On the card, at T off the kernel's 16- and 8-step chunks and at
+    every head dimension, with slow decays and with fast ones: the lane
+    split keeps out and the final state within the plain version's
+    tolerances."""
+    make = _inputs if decay == "slow" else _fast_decay_inputs
+    r, k, v, w, u = (torch.from_numpy(x).to(cuda_device) for x in make(2, t, 3, d, seed=d))
+    r, k, v, w = r.to(dtype), k.to(dtype), v.to(dtype), w.to(w_dtype)
+    out, sf = wkv6(r, k, v, w, u)
+    out_p, sf_p = wkv6(r.cpu(), k.cpu(), v.cpu(), w.cpu(), u.cpu())
+    assert _cuda_err(out, out_p) <= tol
+    assert _cuda_err(sf, sf_p) <= 1e-5
+
+
+def test_cuda_kernel_reads_unaligned_strided_views(cuda_device):
+    """r and v as views one element into a wider tensor (bases and strides
+    off 16 bytes) take the element-copy staging and still agree."""
+    rs = np.random.default_rng(9)
+    big = torch.from_numpy((rs.standard_normal((2, 50, 3, 65)) * 0.3)
+                           .astype(np.float32)).to(cuda_device)
+    r, v = big[..., 1:], big[..., :64] * 0.5
+    _, k, _, w, u = (torch.from_numpy(x).to(cuda_device)
+                     for x in _fast_decay_inputs(2, 50, 3, 64, seed=4))
+    assert r.data_ptr() % 16 != 0 and r.stride(2) == 65
+    out, sf = wkv6(r, k, v, w, u)
+    out_p, sf_p = wkv6(r.cpu(), k.cpu(), v.cpu(), w.cpu(), u.cpu())
+    assert _cuda_err(out, out_p) <= 1e-5
+    assert _cuda_err(sf, sf_p) <= 1e-5
+
+
 def test_cuda_wrapper_is_forward_only(cuda_device):
     r, k, v, w, u = (torch.from_numpy(x).to(cuda_device) for x in _inputs(1, 8, 2, 16))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
