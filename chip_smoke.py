@@ -23,7 +23,13 @@ Phases (any failed check raises and the script exits non-zero):
    the views of W, B and A its backward passes (the dx call's layout), and
    at the cohort shape its errors against fp64 products forward and on
    that dx call (``grouped_error_sources``), beside the plain fp32
-   version's;
+   version's; in bf16, lora_matmul at gemma-2b's q and k/v projections
+   over the prefill's 8192 rows (timed, with the bf16 base product and the
+   bound at the bf16 tensor-core peak), at the reference's sweep shapes and
+   ranks and at ragged shapes, grouped_lora in chunk mode (the 2-tenant
+   prefill's q-projection, timed, and ragged cohorts) and direct mode, each
+   also on the backward's views and for dx, dA and dB (each output row's
+   error over its own scale, <= 1e-2);
 4. main path: the paper's split-federated round at the full width of
    bert-base (12 layers, d 768, vocab 30522, seq 128, batch 16) across the
    six paper clients at the paper cuts, scheme "ours", analytic engine,
@@ -38,6 +44,11 @@ Phases (any failed check raises and the script exits non-zero):
    (net quantize=True), fused and then einsum; the launches of every
    kernel per round must equal the counts derived in PERF.md, the losses
    of the two runs must agree and their simulated times be equal;
+   then the split-learning baseline (scheme "sl": one traveling adapter
+   set, clients one after the other), 2 rounds through the fused kernel,
+   its launches asserted by the main path's rule; and the paper's memory
+   model (``server_memory_report``) for ours, sfl and sl printed beside
+   each run's measured peak device memory;
 7. LM kernel check: the flash-attention kernel at the gemma-2b prefill
    shape (B 4, S = T 2048, H 8, K 1, D 256, causal) in bf16 and fp32 and
    at a GQA shape with a ragged T (2, 1000, 32 heads, 8 kv heads, 64;
@@ -57,7 +68,11 @@ Phases (any failed check raises and the script exits non-zero):
    "naive" / "scan" (plain PyTorch, no launch); then every layer of both
    settings on the same input (the plain run's), so that each layer's
    output, its cache leaves and the last-token logits are held together
-   (LM_TOL) without the depth amplifying one layer's bf16 rounding;
+   (LM_TOL) without the depth amplifying one layer's bf16 rounding; the
+   same prefill with LoRAConfig(impl="fused") (bf16 lora_matmul, one
+   launch per adapted projection, asserted) and with two tenants' adapters
+   stacked into a group (bf16 grouped_lora chunk, asserted), each held layer
+   by layer against the einsum prefill (per tenant for the group);
 9. LM serving: a ServingEngine per model with two tenants (every adapter
    leaf ~ N(0, 0.05), as in tests/test_serving.py), six greedy requests
    of 16-64 prompt tokens and 16 new tokens in 4 slots of a 128-token
@@ -65,7 +80,15 @@ Phases (any failed check raises and the script exits non-zero):
    neither kernel; and for one prompt, every layer's decode, token by
    token from its own cache, agrees with that layer's prefill on the same
    input (LM_TOL);
-10. summary: one JSON line per ported kernel, then the device line last.
+10. LM backward: the gradient of a token cross-entropy with respect to
+   the adapters, gemma-2b and rwkv6-3b at full width and 4 layers, 2 x 512
+   tokens, attn_impl / wkv_impl "chunked" (under grad the plain chunked
+   forms run), fused (bf16 lora_matmul forward and dx, launches asserted)
+   against einsum: the loss within 1e-2; gemma-2b's end-to-end adapter
+   gradients within 1e-1; and layer by layer from shared inputs, every
+   adapter leaf's gradient within 5e-2 of fp32 where the einsum path is
+   too (the other leaves listed, at least one held a layer);
+11. summary: one JSON line per ported kernel, then the device line last.
 
 Every launch counter is set to 0 just before each path runs and read just
 after it.  ``--profile`` adds a phase before the summary: one warm round of
@@ -82,7 +105,8 @@ else: four processes in the order old, new, new, old, each importing and
 building its own checkout's port, each printing one ``[ab] {json}`` line
 (``ab_measure``: the redesigned kernels, a warm main and a warm cohort
 round under the profiler, the cohort server step fused against einsum,
-and a gemma-2b and an rwkv6-3b prefill).
+the cohort rounds' loss gap with int8 links on and off, and a gemma-2b
+and an rwkv6-3b prefill).
 
 Exits non-zero without a result when no CUDA device is available, or when
 run from a directory that does not hold the repository's ``src/``.
@@ -133,8 +157,9 @@ from repro_torch.kernels.ref import (grouped_lora_matmul_ref,  # noqa: E402
                                      lora_matmul_ref, quantize_rows_ref, wkv6_ref)
 from repro_torch.kernels.wkv6 import wkv6  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
+from repro_torch.models.layers import softmax_xent  # noqa: E402
 from repro_torch.serving import Request, ServingEngine  # noqa: E402
-from repro_torch.tree import tree_leaves  # noqa: E402
+from repro_torch.tree import tree_leaves, tree_map  # noqa: E402
 
 # H100 SXM data-sheet peaks (dense): fp32 on the CUDA cores, bf16 on the
 # tensor cores, HBM bandwidth
@@ -159,6 +184,17 @@ DESIGNS = {
                           "K-contiguous, A and B by group and element strides",
     "grouped_lora_direct": "the SIMT body (64x64 tiles, 4x4 FMA micro-tiles, the "
                            "whole K slab in shared memory), W, A and B by strides",
+    "lora_matmul_bf16": "bf16 mma.sync.m16n8k16 with f32 accumulators, no operand split, "
+                        "fed by ldmatrix (.trans for the N-contiguous W) on 128x128 tiles, "
+                        "two blocks an SM up to r 32; 4-stage ring of 32-deep K steps "
+                        "(16-byte cp.async where aligned, element loads otherwise; A through "
+                        "registers a step ahead); x @ A^T kept in f32 and the up-projection "
+                        "in f32 FMAs; y rounded to bf16 once",
+    "grouped_lora_chunk_bf16": "lora_matmul's bf16 tile (shared header bf16_lora_tile.cuh) "
+                               "per 128x128 tile of one group, from the device tile table",
+    "grouped_lora_direct_bf16": "the SIMT direct body templated on the element type: bf16 "
+                                "widened to f32 on the way into shared memory, f32 FMAs, "
+                                "y rounded to bf16",
     "wkv6": "state split over P lanes per group of JC columns and the columns over "
             "S blocks a head ((P, S, JC) = (8, 2, 2) at D 64), outputs reduced P steps "
             "at a time by one shuffle butterfly; r, k, w, v staged by cp.async into a "
@@ -193,6 +229,37 @@ LM_KERNEL_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 # rounding into O(1) differences (measured: the free-running numbers are
 # printed beside the held ones)
 LM_TOL = 5e-2
+# the bf16 LoRA kernels vs their plain versions, each output row's relative
+# error over its own scale (``row_err``): both sum bf16 products in f32 (in
+# another order) and round y to bf16 once, so rows differ by single-ulp
+# roundings (2**-8 of an element); a fault in indexing or masking is O(1)
+BF16_KERNEL_TOL = 1e-2
+# the LM backward in bf16 (4 layers, full width), fused against einsum: the
+# loss (relative); and every adapter leaf's gradient layer by layer from
+# shared inputs (the einsum run's input to the layer and the gradient at its
+# output), each bf16 path against the fp32 gradient of the same layer on the
+# same (bf16-valued) weights and inputs, as the relative 2-norm over the
+# leaf.  A leaf is held when the einsum path is itself within LM_GRAD_TOL of
+# fp32: the fused path must then be within LM_GRAD_TOL too.  The leaves where
+# the einsum path is farther are ill-conditioned in bf16 (the einsum path's
+# own roundings of r and k put some RWKV6 leaves 15-21 % from fp32 where the
+# fused path is at 4.4 %, CPU, reduced width); they are listed with both
+# readings and not held, and a layer with no held leaf fails.  A wrong dx,
+# dA or dB is O(1) of a leaf.
+LM_GRAD_LOSS_RTOL, LM_GRAD_TOL = 1e-2, 5e-2
+# the end-to-end adapter gradients, fused against einsum (the relative 2-norm,
+# worst leaf), held where the model is well-conditioned at random weights:
+# 1e-3 relative noise in the fp32 weights moves gemma-2b's fp32 adapter
+# gradients by 1.3 % and rwkv6-3b's by ~100 % (CPU, full width, 4 layers).
+# gemma-2b's two bf16 paths read 6.1 % worst and 6.0 % median on the H100
+# (PERF.md), and a wrong dx, dA or dB is O(1): the limit is 1e-1.  rwkv6-3b's
+# read 78-90 %, so its end-to-end gradients are printed and not held.
+LM_GRAD_E2E_TOL = {"gemma-2b": 1e-1}
+# layer-0 projections whose input is a function of frozen tensors alone (the
+# embedding, norms and, in RWKV6, the token-shift mix), so autograd asks no
+# dx of them: dense wq, wk, wv; ssm time-mix wr, wk, wv, wg
+FROZEN_INPUT_PROJECTIONS = {"dense": 3, "ssm": 4}
+LM_GRAD_LAYERS, LM_GRAD_BATCH, LM_GRAD_SEQ = 4, 2, 512
 
 ROUNDS, BATCH, SEQ, LR = 2, 16, 128, 1e-3
 N_TRAIN, N_TEST = 4000, 512
@@ -204,19 +271,33 @@ LM_ARCHS = ("gemma-2b", "rwkv6-3b")
 PREFILL_BATCH, PREFILL_SEQ = 4, 2048
 SERVE_SLOTS, SERVE_CACHE, SERVE_NEW, SERVE_REQUESTS = 4, 128, 16, 6
 
-# every kernel's launch counter, by the name the summary gives it
-COUNTERS = {"lora_matmul": lora_matmul, "grouped_lora_chunk": grouped_lora_chunk,
-            "grouped_lora_direct": grouped_lora_direct, "quantize_rows": quantize_rows,
-            "flash_attention": flash_attention, "wkv6": wkv6}
+# every kernel's launch counter, by the name the summary gives it: the
+# wrapper and its attribute (``launches`` counts either type, and
+# ``launches_bf16`` the bf16 launches alone)
+COUNTERS = {"lora_matmul": (lora_matmul, "launches"),
+            "lora_matmul_bf16": (lora_matmul, "launches_bf16"),
+            "grouped_lora_chunk": (grouped_lora_chunk, "launches"),
+            "grouped_lora_chunk_bf16": (grouped_lora_chunk, "launches_bf16"),
+            "grouped_lora_direct": (grouped_lora_direct, "launches"),
+            "grouped_lora_direct_bf16": (grouped_lora_direct, "launches_bf16"),
+            "quantize_rows": (quantize_rows, "launches"),
+            "flash_attention": (flash_attention, "launches"),
+            "wkv6": (wkv6, "launches")}
 
 
 def reset_counts() -> None:
-    for fn in COUNTERS.values():
-        fn.launches = 0
+    for fn, attr in COUNTERS.values():
+        setattr(fn, attr, 0)
 
 
 def read_counts() -> dict:
-    return {name: fn.launches for name, fn in COUNTERS.items()}
+    # a parent checkout under --ab may predate the bf16 counters: 0 there
+    return {name: getattr(fn, attr, 0) for name, (fn, attr) in COUNTERS.items()}
+
+
+def no_launches(**counts) -> dict:
+    """Every counter at 0 but the ones given."""
+    return {**{name: 0 for name in COUNTERS}, **counts}
 
 
 def gpu_line() -> str:
@@ -302,7 +383,9 @@ def row_err(got: torch.Tensor, want: torch.Tensor) -> float:
     The norm over the row, and not its largest element over the row's
     largest: bf16 outputs differ by an ulp or two at single elements (one
     ulp is up to 2**-7 of the row's largest element), which the row's norm
-    averages and a fault does not."""
+    averages and a fault does not.  bf16 inputs are compared in f32."""
+    got, want = (t if t.dtype in (torch.float32, torch.float64) else t.float()
+                 for t in (got, want))
     diff = torch.linalg.vector_norm(got - want, dim=-1)
     scale = torch.linalg.vector_norm(want, dim=-1).clamp_min(torch.finfo(torch.float32).tiny)
     return float((diff / scale).max())
@@ -554,6 +637,133 @@ def check_quantize(n: int, d: int, seed: int) -> dict:
     return out
 
 
+def bf16_bound(flops: float, nbytes: float) -> dict:
+    """The least time at the bf16 tensor-core peak or the HBM rate,
+    whichever is larger."""
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_HBM_BYTES * 1e3
+    return {"bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "bound_bytes_ms": t_bytes, "gflop": flops / 1e9, "mbytes": nbytes / 1e6}
+
+
+def _bf16_inputs(seed, *shapes_stds):
+    dev = torch.device("cuda")
+    rs = np.random.default_rng(seed)
+    return [torch.from_numpy((rs.standard_normal(shape) * std).astype(np.float32))
+            .to(dev).to(torch.bfloat16) for shape, std in shapes_stds]
+
+
+def _grad_errs(fn, ref, x, a, b, g) -> dict:
+    """dx, dA and dB of the autograd op against autograd through the plain
+    version, each row over its own scale."""
+    grads = []
+    for f in (fn, ref):
+        xs, as_, bs = (v.clone().requires_grad_(True) for v in (x, a, b))
+        grads.append(torch.autograd.grad(f(xs, as_, bs), (xs, as_, bs), g))
+    torch.cuda.synchronize()
+    return {f"{name}_err": row_err(got.float(), want.float())
+            for name, got, want in zip(("dx", "da", "db"), *grads)}
+
+
+def check_lora_matmul_bf16(m: int, k: int, n: int, r: int, seed: int,
+                           timed: bool = False) -> dict:
+    """The bf16 kernel vs its plain version, forward (contiguous operands,
+    the backward's transposed views, the dx call's layout) and backward, at
+    one shape; with ``timed`` its time beside the plain version's and the
+    bf16 base product ``x @ W``'s, and its error against exact products."""
+    x, w, a, b, g = _bf16_inputs(seed, ((m, k), 1.0), ((k, n), k ** -0.5),
+                                 ((r, k), r ** -0.5), ((n, r), 0.1), ((m, n), 1.0))
+    scale = 2.0
+    y = lora_matmul(x, w, a, b, scale=scale)
+    y_ref = lora_matmul_ref(x, w, a, b, scale)
+    wv, av, bv = (v.t().contiguous().t() for v in (w, a, b))
+    y_views = lora_matmul(x, wv, av, bv, scale=scale)
+    dx_call = lora_matmul(g, w.t(), b.t(), a.t(), scale=scale)
+    torch.cuda.synchronize()
+    out = {"shape": [m, k, n, r], "dtype": "bfloat16", "fwd_err": row_err(y, y_ref),
+           "views_err": row_err(y_views, y_ref),
+           "dx_call_err": row_err(dx_call, lora_matmul_ref(g, w.t(), b.t(), a.t(), scale)),
+           **_grad_errs(lambda x_, a_, b_: fused_lora_matmul(x_, w, a_, b_, scale=scale),
+                        lambda x_, a_, b_: lora_matmul_ref(x_, w, a_, b_, scale),
+                        x, a, b, g),
+           "max_abs_err": float((y.float() - y_ref.float()).abs().max())}
+    bad = {key: v for key, v in out.items() if key.endswith("_err")
+           and key != "max_abs_err" and not v <= BF16_KERNEL_TOL}
+    if y.dtype != torch.bfloat16 or bad:
+        raise AssertionError(f"bf16 lora_matmul disagrees with its plain version at "
+                             f"{out['shape']}: {bad} (tolerance {BF16_KERNEL_TOL} per row)")
+    if not timed:
+        return out
+    # the adapter term's intermediate x @ A^T kept in f32 (as the kernel
+    # does) against rounded to bf16 before the up-projection, each against
+    # exact (fp64) products of the bf16 inputs
+    f64 = torch.float64
+    xa = x.to(f64) @ a.to(f64).t()
+    exact = x.to(f64) @ w.to(f64) + scale * xa @ b.to(f64).t()
+    xa16 = (x.float() @ a.float().t()).bfloat16().to(f64)
+    rounded_xa = (x.float() @ w.float()).to(f64) + scale * xa16 @ b.to(f64).t()
+    out["error_vs_exact"] = {"kernel": row_err(y.to(f64), exact),
+                             "plain": row_err(y_ref.to(f64), exact),
+                             "xa_rounded_to_bf16": row_err(rounded_xa.bfloat16().to(f64),
+                                                           exact)}
+    flops = 2 * m * k * n + 2 * m * k * r + 2 * m * n * r
+    out.update(
+        ms=cuda_ms(lambda: lora_matmul(x, w, a, b, scale=scale)),
+        device_ms=device_ms(lambda: lora_matmul(x, w, a, b, scale=scale),
+                            "lora_matmul_bf16_kernel"),
+        dx_call_device_ms=device_ms(lambda: lora_matmul(g, w.t(), b.t(), a.t(), scale=scale),
+                                    "lora_matmul_bf16_kernel"),
+        plain_ms=cuda_ms(lambda: lora_matmul_ref(x, w, a, b, scale), iters=20),
+        base_matmul_ms=cuda_ms(lambda: torch.matmul(x, w)),
+        **bf16_bound(flops, 2 * (m * k + k * n + r * k + n * r + m * n)))
+    return out
+
+
+def check_grouped_bf16(sizes, k: int, n: int, r: int, scales, mode: str, seed: int,
+                       timed: bool = False) -> dict:
+    """The bf16 grouped kernel vs its plain version, forward, the dx call's
+    views and backward, at one ragged cohort shape."""
+    g_n, m = len(sizes), sum(sizes)
+    x, w, a, b, gy = _bf16_inputs(seed, ((m, k), 1.0), ((k, n), k ** -0.5),
+                                  ((g_n, r, k), r ** -0.5), ((g_n, n, r), 0.1),
+                                  ((m, n), 1.0))
+    y = grouped_lora(x, w, a, b, group_sizes=sizes, scales=scales, mode=mode)
+    y_ref = grouped_lora_matmul_ref(x, w, a, b, sizes, scales)
+    views = (w.t(), b.transpose(1, 2), a.transpose(1, 2))
+    dx_call = grouped_lora(gy, *views, group_sizes=sizes, scales=scales, mode=mode)
+    torch.cuda.synchronize()
+    out = {"mode": mode, "dtype": "bfloat16", "sizes": list(sizes), "k": k, "n": n, "r": r,
+           "fwd_err": row_err(y, y_ref),
+           "views_err": row_err(dx_call, grouped_lora_matmul_ref(gy, *views, sizes, scales)),
+           **_grad_errs(lambda x_, a_, b_: grouped_lora_matmul(
+               x_, w, a_, b_, group_sizes=sizes, scales=scales, mode=mode),
+               lambda x_, a_, b_: grouped_lora_matmul_ref(x_, w, a_, b_, sizes, scales),
+               x, a, b, gy),
+           "max_abs_err": float((y.float() - y_ref.float()).abs().max())}
+    bad = {key: v for key, v in out.items() if key.endswith("_err")
+           and key != "max_abs_err" and not v <= BF16_KERNEL_TOL}
+    if y.dtype != torch.bfloat16 or bad:
+        raise AssertionError(f"bf16 grouped_lora ({mode}) disagrees with its plain version "
+                             f"at {sizes}, K {k}, N {n}, r {r}: {bad}")
+    if timed:
+        kernel = ("grouped_lora_bf16_kernel" if mode == "chunk"
+                  else "grouped_lora_kernel_direct<unsigned short")
+        tiles = -(-np.asarray(sizes) // (128 if mode == "chunk" else 64))
+        flops = 2 * m * k * n + 2 * m * k * r + 2 * m * n * r
+        call = (lambda: grouped_lora(x, w, a, b, group_sizes=sizes, scales=scales,
+                                     mode=mode))
+        out.update(
+            ms=cuda_ms(call), device_ms=device_ms(call, kernel),
+            dx_call_device_ms=device_ms(lambda: grouped_lora(
+                gy, *views, group_sizes=sizes, scales=scales, mode=mode), kernel),
+            plain_ms=cuda_ms(lambda: grouped_lora_matmul_ref(x, w, a, b, sizes, scales),
+                             iters=20),
+            base_matmul_ms=cuda_ms(lambda: torch.matmul(x, w)),
+            **bf16_bound(flops, 2 * (m * k + k * n + g_n * (r * k + n * r) + m * n)
+                         + 4 * g_n + 12 * int(tiles.sum())))
+    return out
+
+
 def expected_launches(cfg, cuts, n_eval_batches: int, rounds: int) -> list:
     """Kernel launches per round on the main path (derivation in PERF.md).
 
@@ -584,33 +794,35 @@ def expected_cohort_launches(cfg, cuts, n_eval_batches: int, rounds: int,
     t, nl = len(cfg.lora.targets), cfg.n_layers
     lm = sum(2 * t * cut - 3 for cut in cuts)
     gl = sum(2 * t * (nl - cut) for cut in sorted(set(cuts)))
-    rows = [{"lora_matmul": lm if fused else 0, "grouped_lora_chunk": gl if fused else 0,
-             "grouped_lora_direct": 0, "quantize_rows": 2 * len(cuts),
-             "flash_attention": 0, "wkv6": 0}
+    rows = [no_launches(lora_matmul=lm if fused else 0,
+                        grouped_lora_chunk=gl if fused else 0,
+                        quantize_rows=2 * len(cuts))
             for _ in range(rounds)]
     if fused:
         rows[-1]["lora_matmul"] += n_eval_batches * t * nl
     return rows
 
 
-def path_run(cohort: bool, fused: bool) -> FedRunConfig:
+def path_run(cohort: bool, fused: bool, scheme: str = "ours",
+             quantize=None) -> FedRunConfig:
     """The main path, or with ``cohort`` the cohort path: the six clients in
-    one ragged dispatch chunk and int8+EF links."""
+    one ragged dispatch chunk and int8+EF links (``quantize`` overrides the
+    links' int8); ``scheme="sl"`` the split-learning baseline's path."""
     engine = EngineConfig(mode="analytic", fused_lora=fused)
     if cohort:
         engine = EngineConfig(mode="analytic", fused_lora=fused, cohort_chunk=6,
                               cohort_impl="ragged")
-    return FedRunConfig(scheme="ours", rounds=ROUNDS, batch_size=BATCH,
+    return FedRunConfig(scheme=scheme, rounds=ROUNDS, batch_size=BATCH,
                         seq_len=SEQ, lr=LR, seed=0, engine=engine,
                         agg=AggConfig(policy="sync", interval=2),
-                        net=NetConfig(quantize=cohort))
+                        net=NetConfig(quantize=cohort if quantize is None else quantize))
 
 
-def run_path(fused: bool, train, test, cohort: bool = False) -> dict:
+def run_path(fused: bool, train, test, cohort: bool = False, scheme: str = "ours") -> dict:
     cfg = REGISTRY["bert-base"]
     t0 = time.perf_counter()
     sim = Simulator(cfg, PAPER_CLIENTS, PAPER_CUTS, train, test,
-                    path_run(cohort, fused), device="cuda")
+                    path_run(cohort, fused, scheme), device="cuda")
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
     rows = []
@@ -635,7 +847,8 @@ def run_path(fused: bool, train, test, cohort: bool = False) -> dict:
     mark["t"] = time.perf_counter()
     sim.run_training(on_round=on_round)
     total = read_counts()               # just after
-    label = ("cohort:" if cohort else "main:") + ("fused" if fused else "einsum")
+    label = ("cohort:" if cohort else "sl:" if scheme == "sl" else "main:") + (
+        "fused" if fused else "einsum")
     for row in rows:
         print(f"[{label}] round {row['round']} loss={row['loss']:.7f} "
               f"sim_time_s={row['sim_time_s']:.6f} accuracy={row['accuracy']} "
@@ -651,16 +864,18 @@ def run_path(fused: bool, train, test, cohort: bool = False) -> dict:
     if cohort:
         expected = expected_cohort_launches(sim.cfg, sim.cuts, n_eval, ROUNDS, fused)
     else:
+        # an sl round (Simulator._round_sl) runs each client's forward, its
+        # server step and its backward one client after the other: the same
+        # launches per client as the main path's round
         lm = expected_launches(sim.cfg, sim.cuts, n_eval, ROUNDS)
-        expected = [{"lora_matmul": c if fused else 0, "grouped_lora_chunk": 0,
-                     "grouped_lora_direct": 0, "quantize_rows": 0,
-                     "flash_attention": 0, "wkv6": 0} for c in lm]
+        expected = [no_launches(lora_matmul=c if fused else 0) for c in lm]
     got = [row["launches"] for row in rows]
     print(f"[{label}] setup_s={setup_s:.3f} data_sizes={sim.data_sizes} "
           f"launches={json.dumps(total)} expected={json.dumps(expected)}", flush=True)
     if got != expected:
         raise AssertionError(f"{label}: launches per round {got}, expected {expected}")
-    return {"rows": rows, "launches": total, "setup_s": setup_s}
+    return {"rows": rows, "launches": total, "setup_s": setup_s,
+            "memory_report": dataclasses.asdict(sim.server_memory_report())}
 
 
 def compare_paths(fused: dict, plain: dict, label: str) -> None:
@@ -999,6 +1214,7 @@ def lm_phase(arch: str, seed: int) -> dict:
                              f"layer by layer: {held}")
     out["prefill"] = {"kernels": prefill_rows["kernels"], "plain": prefill_rows["plain"],
                       **cmp}
+    out["lora_kernels"] = lm_lora_prefill(kernels_cfg, params, adapters, tokens)
 
     # serving: six greedy requests over two tenants
     rs = np.random.default_rng(seed + 1)
@@ -1084,6 +1300,255 @@ def lm_phase(arch: str, seed: int) -> dict:
     return out
 
 
+def lora_projections(lora) -> int:
+    """The adapted projections a forward applies: one per {a, b} pair of
+    the model's LoRA tree, times the layers the tree stacks."""
+    if "a" in lora and not isinstance(lora["a"], dict):
+        return int(lora["a"].shape[0])
+    return sum(lora_projections(v) for v in lora.values() if isinstance(v, dict))
+
+
+def _prefill_counted(model, params, lora, tokens) -> tuple:
+    """One prefill, its wall time and the launches of every kernel in it."""
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        reset_counts()                                  # just before the path runs
+        t0 = time.perf_counter()
+        logits, _ = model.prefill(params, lora, {"tokens": tokens})
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts()                          # just after
+    if not bool(torch.isfinite(logits.float()).all()):
+        raise AssertionError(f"{model.cfg.name} prefill: non-finite logits")
+    return logits, wall, counts
+
+
+def layerwise_grouped(model_g, model_p, params, lora_g, loras, tokens) -> list:
+    """Every layer of the grouped model on the two tenants' prompts
+    concatenated (tenant i's adapters on rows of half i) against each
+    tenant's layer of the plain model on its half, from the same inputs
+    (the plain model's): worst normalized error of each half."""
+    cfg = model_p.cfg
+    h = tokens.shape[0] // 2
+    xs = [model_p.embed(params, {"tokens": tokens[i * h:(i + 1) * h]}) for i in range(2)]
+    ctx = model_p.make_ctx(tokens.shape[1], tokens.device)
+    worst = [0.0, 0.0]
+    for i in range(cfg.n_layers):
+        p_l = _layer(params["layers"], i)
+        yg, _, _ = model_g.block["prefill"](model_g.cfg, p_l, _layer(lora_g["layers"], i),
+                                            torch.cat(xs), ctx)
+        ys = [model_p.block["prefill"](cfg, p_l, _layer(lo["layers"], i), x, ctx)[0]
+              for lo, x in zip(loras, xs)]
+        for half in range(2):
+            worst[half] = max(worst[half], norm_err(yg[half * h:(half + 1) * h].float(),
+                                                    ys[half].float()))
+        xs = ys
+    return worst
+
+
+def lm_lora_prefill(kernels_cfg, params, adapters, tokens) -> dict:
+    """The bf16 LoRA kernels on an LM's prefill (4 x 2048 tokens, attention
+    or WKV through its kernel): ``LoRAConfig(impl="fused")`` with one
+    tenant's adapters (lora_matmul, bf16) and with two tenants' adapters
+    stacked into a (G = 2, ...) group per layer, prompts 0-1 to the first
+    and 2-3 to the second (grouped_lora chunk, bf16); each held layer by
+    layer against the einsum prefill (per tenant for the group)."""
+    arch = kernels_cfg.name
+    fused_cfg = kernels_cfg.with_(lora=dataclasses.replace(kernels_cfg.lora, impl="fused"))
+    lora = adapters["client-a"]
+    n_proj = lora_projections(lora)
+    seq_kernel = "flash_attention" if kernels_cfg.family == "dense" else "wkv6"
+    fused_model, einsum_model = build_model(fused_cfg), build_model(kernels_cfg)
+    out = {"adapted_projections": n_proj}
+
+    _, wall_e, counts_e = _prefill_counted(einsum_model, params, lora, tokens)
+    logits_f, wall_f, counts_f = _prefill_counted(fused_model, params, lora, tokens)
+    want = no_launches(lora_matmul=n_proj, lora_matmul_bf16=n_proj,
+                       **{seq_kernel: kernels_cfg.n_layers})
+    if counts_f != want:
+        raise AssertionError(f"{arch} fused prefill: launches {counts_f}, expected {want}")
+    held = layerwise_prefill(fused_model, einsum_model, params, lora, tokens)
+    with torch.no_grad():
+        dev_f, top_f = device_time(lambda: fused_model.prefill(params, lora,
+                                                               {"tokens": tokens}))
+        dev_e, top_e = device_time(lambda: einsum_model.prefill(params, lora,
+                                                                {"tokens": tokens}))
+    out["fused"] = {"wall_s": wall_f, "einsum_wall_s": wall_e, "device_s": dev_f,
+                    "einsum_device_s": dev_e, "top": top_f, "einsum_top": top_e,
+                    "launches": counts_f, "per_layer": held, "tolerance": LM_TOL}
+    print(f"[lm:{arch}] prefill fused LoRA vs einsum {json.dumps(out['fused'])}", flush=True)
+    if not max(held.values()) <= LM_TOL:
+        raise AssertionError(f"{arch}: the fused-LoRA prefill and the einsum prefill "
+                             f"disagree layer by layer: {held}")
+
+    loras = (adapters["client-a"], adapters["client-b"])
+    grouped = tree_map(lambda u, v: torch.stack([u, v], dim=1), *loras)
+    logits_g, wall_g, counts_g = _prefill_counted(fused_model, params, grouped, tokens)
+    want = no_launches(grouped_lora_chunk=n_proj, grouped_lora_chunk_bf16=n_proj,
+                       **{seq_kernel: kernels_cfg.n_layers})
+    if counts_g != want:
+        raise AssertionError(f"{arch} grouped prefill: launches {counts_g}, expected {want}")
+    with torch.no_grad():
+        halves = layerwise_grouped(fused_model, einsum_model, params, grouped, loras, tokens)
+        dev_g, _ = device_time(lambda: fused_model.prefill(params, grouped,
+                                                           {"tokens": tokens}))
+    out["grouped"] = {"wall_s": wall_g, "device_s": dev_g, "launches": counts_g,
+                      "per_layer_per_tenant": halves, "tolerance": LM_TOL}
+    print(f"[lm:{arch}] prefill 2-tenant grouped LoRA vs each tenant's einsum "
+          f"{json.dumps(out['grouped'])}", flush=True)
+    if not max(halves) <= LM_TOL:
+        raise AssertionError(f"{arch}: the grouped prefill and the tenants' einsum prefills "
+                             f"disagree layer by layer: {halves}")
+    return out
+
+
+def _rel(got, want) -> float:
+    return float((got.float() - want.float()).norm() / want.float().norm().clamp_min(1e-30))
+
+
+def _leaf_names(tree, prefix: str = "") -> list:
+    """The key path of each leaf, in tree_leaves order."""
+    if isinstance(tree, dict):
+        return [n for k, v in tree.items() for n in _leaf_names(v, f"{prefix}/{k}")]
+    return [prefix.lstrip("/")]
+
+
+def layerwise_grads(model_f, model_e, model_32, params, lora, batch) -> tuple:
+    """Each layer's adapter gradients from shared inputs: the einsum run's
+    input to the layer (detached) and the gradient of the einsum run's loss
+    at the layer's output, through the fused and the einsum bf16 layer and
+    the fp32 layer (the same bf16-valued weights and inputs, upcast).
+    Returns, per layer, the worst relative 2-norm error of each bf16 path
+    against fp32 over its held leaves (those where the einsum path is within
+    LM_GRAD_TOL of fp32) and over all its leaves; the held leaves where the
+    fused path is beyond LM_GRAD_TOL; the ill-conditioned leaves left out,
+    with both readings; the layers with no held leaf; and the kernel
+    launches of the per-layer runs."""
+    cfg = model_e.cfg
+    # a leaf that asks for a gradient, so every layer's output has one
+    x = model_e.embed(params, batch).detach().requires_grad_(True)
+    ctx = model_e.make_ctx(x.shape[1], x.device)
+    lora_layers = lora["layers"]
+    names = _leaf_names(lora_layers)
+    ins, outs = [], []
+    for i in range(cfg.n_layers):
+        ins.append(x.detach())
+        x, _ = model_e.block["train"](cfg, _layer(params["layers"], i),
+                                      _layer(lora_layers, i), x, ctx)
+        x.retain_grad()
+        outs.append(x)
+    softmax_xent(model_e.unembed(params, x), batch["targets"]).backward()
+    params32 = tree_map(lambda t: t.float(), params)
+    worst = {"held_fused_vs_fp32": [], "held_einsum_vs_fp32": [], "held_leaves": [],
+             "fused_vs_fp32": [], "einsum_vs_fp32": [], "fused_vs_einsum": []}
+    off, left_out, no_held = [], [], []
+    reset_counts()                                      # just before the layer runs
+    for i in range(cfg.n_layers):
+        grads = {}
+        for label, m, p, dt in (("fused", model_f, params, None),
+                                ("einsum", model_e, params, None),
+                                ("fp32", model_32, params32, torch.float32)):
+            lo = tree_map(lambda t: t[i].detach().clone().requires_grad_(True), lora_layers)
+            xin, gout = ins[i], outs[i].grad
+            if dt is not None:
+                xin, gout = xin.to(dt), gout.to(dt)
+            y, _ = m.block["train"](m.cfg, _layer(p["layers"], i), lo, xin, ctx)
+            grads[label] = torch.autograd.grad(y, tree_leaves(lo), gout)
+        ef = [_rel(g, t) for g, t in zip(grads["fused"], grads["fp32"])]
+        ee = [_rel(g, t) for g, t in zip(grads["einsum"], grads["fp32"])]
+        held = [j for j, e in enumerate(ee) if e <= LM_GRAD_TOL]
+        worst["held_fused_vs_fp32"].append(max((ef[j] for j in held), default=None))
+        worst["held_einsum_vs_fp32"].append(max((ee[j] for j in held), default=None))
+        worst["held_leaves"].append(f"{len(held)}/{len(ee)}")
+        worst["fused_vs_fp32"].append(max(ef))
+        worst["einsum_vs_fp32"].append(max(ee))
+        worst["fused_vs_einsum"].append(max(_rel(g, t) for g, t in zip(grads["fused"],
+                                                                       grads["einsum"])))
+        off += [{"layer": i, "leaf": names[j], "fused": ef[j], "einsum": ee[j]}
+                for j in held if not ef[j] <= LM_GRAD_TOL]
+        left_out += [{"layer": i, "leaf": names[j], "fused": ef[j], "einsum": ee[j]}
+                     for j in range(len(ee)) if j not in held]
+        if not held:
+            no_held.append(i)
+    torch.cuda.synchronize()
+    return worst, off, left_out, no_held, read_counts()  # just after
+
+
+def lm_backward(arch: str, seed: int) -> dict:
+    """The gradient of a token cross-entropy with respect to the adapters,
+    through an LM at full width and LM_GRAD_LAYERS layers in bf16 under
+    attn_impl / wkv_impl="chunked" (under grad the plain chunked forms run,
+    no flash or WKV6 launch), fused LoRA (the bf16 lora_matmul kernel
+    forward and, on the backward's views, for dx) against einsum: end to
+    end (the loss held; the gradients held where LM_GRAD_E2E_TOL names the
+    model, else printed) and layer by layer (the held leaves)."""
+    base = REGISTRY[arch].with_(n_layers=LM_GRAD_LAYERS, attn_impl="chunked",
+                                wkv_impl="chunked")
+    fused_cfg = base.with_(lora=dataclasses.replace(base.lora, impl="fused"))
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    model = build_model(base)
+    params = model.init_params(gen)
+    lora = lm_adapters(model, gen)["client-a"]
+    rs = np.random.default_rng(seed)
+    batch = {key: torch.from_numpy(rs.integers(0, base.vocab_size,
+                                               (LM_GRAD_BATCH, LM_GRAD_SEQ))
+                                   .astype(np.int32)).cuda() for key in ("tokens", "targets")}
+    n_proj = lora_projections(lora)
+    per_layer = n_proj // base.n_layers
+    frozen = FROZEN_INPUT_PROJECTIONS[base.family]
+    models = {"fused": build_model(fused_cfg), "einsum": model}
+    res = {}
+    for label, m in models.items():
+        lo = tree_map(lambda t: t.detach().clone().requires_grad_(True), lora)
+        torch.cuda.synchronize()
+        reset_counts()                                  # just before the path runs
+        t0 = time.perf_counter()
+        loss = m.loss(params, lo, batch)[0]
+        grads = torch.autograd.grad(loss, tree_leaves(lo))
+        torch.cuda.synchronize()
+        res[label] = {"loss": float(loss.detach()), "grads": grads,
+                      "wall_s": time.perf_counter() - t0, "launches": read_counts()}
+    held, off, left_out, no_held, layer_launches = layerwise_grads(
+        models["fused"], model, build_model(base.with_(dtype="float32")), params, lora, batch)
+    # end to end: every projection forward, dx for all but layer 0's
+    # frozen-input ones; per layer (a detached input each): the same less
+    # the frozen-input ones of every layer
+    want = {"fused": no_launches(lora_matmul=2 * n_proj - frozen,
+                                 lora_matmul_bf16=2 * n_proj - frozen),
+            "einsum": no_launches(),
+            "per_layer": no_launches(
+                lora_matmul=base.n_layers * (2 * per_layer - frozen),
+                lora_matmul_bf16=base.n_layers * (2 * per_layer - frozen))}
+    f, e = res["fused"], res["einsum"]
+    free = [_rel(gf, ge) for gf, ge in zip(f["grads"], e["grads"])]
+    out = {"arch": arch, "layers": LM_GRAD_LAYERS, "batch": [LM_GRAD_BATCH, LM_GRAD_SEQ],
+           "loss": {"fused": f["loss"], "einsum": e["loss"]},
+           "loss_rel": abs(f["loss"] - e["loss"]) / abs(e["loss"]),
+           "free_running_grad_err": {"max": max(free), "median": sorted(free)[len(free) // 2]},
+           "per_layer_grad_err": held, "per_layer_off": off,
+           "per_layer_ill_conditioned": left_out, "per_layer_none_held": no_held,
+           "finite": all(bool(torch.isfinite(g).all()) for g in f["grads"]),
+           "wall_s": {"fused": f["wall_s"], "einsum": e["wall_s"]},
+           "launches": {"fused": f["launches"], "einsum": e["launches"],
+                        "per_layer": layer_launches},
+           "tolerance": {"loss_rel": LM_GRAD_LOSS_RTOL,
+                         "per_layer_held_fused_vs_fp32": LM_GRAD_TOL,
+                         "end_to_end": LM_GRAD_E2E_TOL.get(arch)}}
+    print(f"[lm-grad:{arch}] {json.dumps(out)}", flush=True)
+    for label, got in out["launches"].items():
+        if got != want[label]:
+            raise AssertionError(f"{arch} backward {label}: launches {got}, "
+                                 f"expected {want[label]}")
+    e2e_ok = arch not in LM_GRAD_E2E_TOL or max(free) <= LM_GRAD_E2E_TOL[arch]
+    if not (out["finite"] and out["loss_rel"] <= LM_GRAD_LOSS_RTOL and e2e_ok) \
+            or off or no_held:
+        raise AssertionError(f"{arch}: the fused and einsum LM backward disagree: {out}")
+    del model, models, params, lora, res, f, e
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 class _GradsOnly:
     """An optimizer whose update hands back the gradients as the new
     parameters: a server step built on it returns its adapter and head
@@ -1161,6 +1626,25 @@ def cohort_step_gap(train, test) -> dict:
     return out
 
 
+def cohort_round_gaps(train, test) -> dict:
+    """The cohort path's per-round mean loss, fused against einsum, with the
+    int8 links on (the path as it runs) and off on both sides: whether the
+    gap comes through the uplink quantizer (ROADMAP Queue C.1)."""
+    out = {}
+    for quantize in (True, False):
+        losses = {}
+        for fused in (True, False):
+            sim = Simulator(REGISTRY["bert-base"], PAPER_CLIENTS, PAPER_CUTS, train, test,
+                            path_run(True, fused, quantize=quantize), device="cuda")
+            losses["fused" if fused else "einsum"] = [sim.run_round(r).mean_loss
+                                                      for r in range(ROUNDS)]
+            del sim
+        out["int8" if quantize else "fp32_links"] = {
+            **losses, "gap": [abs(f - e) for f, e in zip(losses["fused"], losses["einsum"])]}
+    print(f"[cohort-gap] {json.dumps(out)}", flush=True)
+    return out
+
+
 def lm_prefill_time(arch: str, cfg_kw: dict, kernel: str, seed: int) -> dict:
     """One prefill of 4 x 2048 tokens through a model's kernel: wall s
     after one unmeasured prefill; device s and the kernel's share under the
@@ -1195,7 +1679,9 @@ def ab_measure() -> dict:
     redesigned kernels at their paths' shapes (ms a call by CUDA events,
     device ms a launch by the profiler); one warm fused main round and one
     warm cohort round under the profiler (``profile_round``); the cohort
-    server step fused against einsum (``cohort_step_gap``); and one
+    server step fused against einsum (``cohort_step_gap``); the cohort
+    path's round losses fused against einsum with the int8 links on and
+    off (``cohort_round_gaps``); and one
     gemma-2b and one rwkv6-3b prefill of 4 x 2048 tokens through their
     kernels (``lm_prefill_time``)."""
     dev = torch.device("cuda")
@@ -1238,12 +1724,35 @@ def ab_measure() -> dict:
                                                  "lora_matmul_kernel", "grouped_lora",
                                                  "direct_copy")}
     out["cohort_step"] = cohort_step_gap(train, test)
+    out["cohort_round_gaps"] = cohort_round_gaps(train, test)
     del train, test
     gc.collect()
     torch.cuda.empty_cache()
 
     out["gemma_prefill"] = lm_prefill_time("gemma-2b", {"attn_impl": "chunked"}, "flash", 13)
     out["rwkv6_prefill"] = lm_prefill_time("rwkv6-3b", {"wkv_impl": "chunked"}, "wkv6", 14)
+    return out
+
+
+def memory_lines(fused: dict, plain: dict, cohort: dict, sl: dict) -> dict:
+    """The paper's memory model (``Simulator.server_memory_report``) for
+    ours, sfl and sl at the paper cuts, printed beside the peak device
+    memory each run's rounds allocated.  A model and a reading, side by
+    side: neither is held against the other (PERF.md compares them)."""
+    from repro_torch.core.memory_model import server_memory
+
+    sfl = dataclasses.asdict(server_memory(REGISTRY["bert-base"], "sfl", PAPER_CUTS,
+                                           BATCH, SEQ))
+    out = {"modelled_bytes": {}, "measured_max_mem_bytes": {}}
+    for scheme, report in (("ours", fused["memory_report"]), ("sfl", sfl),
+                           ("sl", sl["memory_report"])):
+        out["modelled_bytes"][scheme] = {**report, "total": report["params"]
+                                         + report["activations"]
+                                         + report["adapters_and_opt"]}
+    for label, run in (("main:fused", fused), ("main:einsum", plain),
+                       ("cohort:fused", cohort), ("sl:fused", sl)):
+        out["measured_max_mem_bytes"][label] = [row["max_mem_bytes"] for row in run["rows"]]
+    print(f"[memory] {json.dumps(out)}", flush=True)
     return out
 
 
@@ -1307,6 +1816,34 @@ def main() -> None:
                      ("grouped_lora G=1", grouped_one), ("quantize_rows", quant)):
         print(f"[kernel] {label} {json.dumps(c)}", flush=True)
 
+    # bf16: gemma-2b's q-projection (timed) and k/v projection over the
+    # prefill's 4 x 2048 rows, the reference's sweep shapes and ranks, and
+    # the fp32 checks' ragged shapes
+    bf16_q = check_lora_matmul_bf16(8192, 2048, 2048, 16, seed=20, timed=True)
+    bf16_kv = check_lora_matmul_bf16(8192, 2048, 256, 16, seed=21, timed=True)
+    bf16_ragged = [check_lora_matmul_bf16(m, k, n, r, seed=22 + r)
+                   for m, k, n in ((128, 128, 128), (64, 256, 128), (100, 300, 200),
+                                   (7, 130, 64), (256, 512, 384))
+                   for r in (4, 16)]
+    bf16_ragged += [check_lora_matmul_bf16(2047, 770, 768, 64, seed=23),
+                    check_lora_matmul_bf16(2047, 768, 770, 5, seed=24)]
+    for c in (bf16_q, bf16_kv, *bf16_ragged):
+        print(f"[kernel] lora_matmul bf16 {json.dumps(c)}", flush=True)
+    # the 2-tenant grouped prefill's q-projection (timed); ragged cohorts in
+    # chunk mode; direct mode at K <= 128, the reference's auto choice
+    bf16_grouped = check_grouped_bf16((4096, 4096), 2048, 2048, 16, (2.0, 2.0), "chunk",
+                                      seed=25, timed=True)
+    bf16_grouped_ragged = [check_grouped_bf16(sizes, k, n, r, sc, "chunk", seed=26)
+                           for sizes, k, n, r, sc in (((37, 100, 5), 130, 100, 5,
+                                                       (0.5, 1.0, 1.5)),
+                                                      ((33, 90), 256, 192, 8, (2.0, 2.0)))]
+    bf16_direct = check_grouped_bf16((40, 100, 17), 96, 150, 6, (0.5, 1.0, 1.5), "direct",
+                                     seed=27, timed=True)
+    bf16_direct_more = [check_grouped_bf16((33, 90), 128, 192, 8, (2.0, 2.0), "direct",
+                                           seed=28)]
+    for c in (bf16_grouped, *bf16_grouped_ragged, bf16_direct, *bf16_direct_more):
+        print(f"[kernel] grouped_lora {c['mode']} bf16 {json.dumps(c)}", flush=True)
+
     flash_path = check_flash(4, 2048, 2048, 8, 1, 256, True, None, torch.bfloat16, seed=7,
                              timed=True)
     flash_f32 = check_flash(4, 2048, 2048, 8, 1, 256, True, None, torch.float32, seed=8,
@@ -1349,11 +1886,14 @@ def main() -> None:
     cohort = run_path(True, train, test, cohort=True)
     cohort_plain = run_path(False, train, test, cohort=True)
     compare_paths(cohort, cohort_plain, "cohort")
+    sl = run_path(True, train, test, scheme="sl")
+    memory_lines(fused, plain, cohort, sl)
 
     del train, test
     gc.collect()
     torch.cuda.empty_cache()
     lm = {arch: lm_phase(arch, seed=13 + i) for i, arch in enumerate(LM_ARCHS)}
+    lm_grad = {arch: lm_backward(arch, seed=30 + i) for i, arch in enumerate(LM_ARCHS)}
 
     if args.profile:
         train = make_emotion_dataset(N_TRAIN, seq_len=SEQ, vocab_size=30_522, seed=0)
@@ -1361,7 +1901,7 @@ def main() -> None:
         for fused_path, cohort_path in ((True, False), (False, False), (True, True)):
             profile_round(fused_path, train, test, cohort=cohort_path)
 
-    print(json.dumps({"lm": lm}), flush=True)
+    print(json.dumps({"lm": lm, "lm_grad": lm_grad}), flush=True)
     main_shape, ragged = checks[0], checks[1:]
 
     def entry(name, source, replaces, launches, c, **extra):
@@ -1380,6 +1920,7 @@ def main() -> None:
               bound_bytes_ms=main_shape["bound_bytes_ms"],
               dx_call_device_ms=main_shape["dx_call_device_ms"],
               cohort_launches=cohort["launches"]["lora_matmul"],
+              sl_launches=sl["launches"]["lora_matmul"],
               base_matmul_ms=main_shape["base_matmul_ms"],
               ragged={str(c["shape"]): {key: c[key] for key in
                                         ("fwd_err", "views_err", "dx_err", "da_err",
@@ -1403,6 +1944,52 @@ def main() -> None:
               design=DESIGNS["grouped_lora_direct"], views_err=grouped_direct["views_err"],
               shape=[grouped_direct["sizes"], grouped_direct["k"], grouped_direct["n"],
                      grouped_direct["r"]]),
+        entry("lora_matmul_bf16", csrc + "lora_matmul.cu",
+              "src/repro/kernels/lora_matmul.py:62",
+              sum(lm[arch]["lora_kernels"]["fused"]["launches"]["lora_matmul_bf16"]
+                  for arch in LM_ARCHS), bf16_q,
+              path="gemma-2b and rwkv6-3b fused-LoRA prefill", dtype="bfloat16",
+              shape=bf16_q["shape"], design=DESIGNS["lora_matmul_bf16"],
+              launches_by_path={
+                  **{f"{arch} fused prefill":
+                     lm[arch]["lora_kernels"]["fused"]["launches"]["lora_matmul_bf16"]
+                     for arch in LM_ARCHS},
+                  **{f"{arch} backward ({LM_GRAD_LAYERS} layers)":
+                     lm_grad[arch]["launches"]["fused"]["lora_matmul_bf16"]
+                     for arch in LM_ARCHS}},
+              dx_call_device_ms=bf16_q["dx_call_device_ms"],
+              base_matmul_ms=bf16_q["base_matmul_ms"],
+              bound_bytes_ms=bf16_q["bound_bytes_ms"],
+              error_vs_exact=bf16_q["error_vs_exact"],
+              kv_projection={key: bf16_kv[key] for key in
+                             ("shape", "ms", "device_ms", "plain_ms", "base_matmul_ms",
+                              "bound_ms", "bound_by", "fwd_err")},
+              ragged={str(c["shape"]): max(v for key, v in c.items()
+                                           if key.endswith("_err") and key != "max_abs_err")
+                      for c in bf16_ragged}),
+        entry("grouped_lora_chunk_bf16", csrc + "grouped_lora.cu",
+              "src/repro/kernels/grouped_lora.py:119",
+              sum(lm[arch]["lora_kernels"]["grouped"]["launches"]["grouped_lora_chunk_bf16"]
+                  for arch in LM_ARCHS), bf16_grouped,
+              path="gemma-2b and rwkv6-3b 2-tenant grouped prefill", dtype="bfloat16",
+              shape=[bf16_grouped["sizes"], bf16_grouped["k"], bf16_grouped["n"],
+                     bf16_grouped["r"]],
+              design=DESIGNS["grouped_lora_chunk_bf16"],
+              dx_call_device_ms=bf16_grouped["dx_call_device_ms"],
+              base_matmul_ms=bf16_grouped["base_matmul_ms"],
+              bound_bytes_ms=bf16_grouped["bound_bytes_ms"],
+              ragged_errs=[max(v for key, v in c.items()
+                               if key.endswith("_err") and key != "max_abs_err")
+                           for c in bf16_grouped_ragged]),
+        entry("grouped_lora_direct_bf16", csrc + "grouped_lora.cu",
+              "src/repro/kernels/grouped_lora.py:103",
+              sum(lm[arch]["lora_kernels"]["grouped"]["launches"]["grouped_lora_direct_bf16"]
+                  for arch in LM_ARCHS), bf16_direct, path=None, dtype="bfloat16",
+              shape=[bf16_direct["sizes"], bf16_direct["k"], bf16_direct["n"],
+                     bf16_direct["r"]],
+              design=DESIGNS["grouped_lora_direct_bf16"],
+              base_matmul_ms=bf16_direct["base_matmul_ms"],
+              more_errs=[c["fwd_err"] for c in bf16_direct_more]),
         entry("quantize_rows", csrc + "quant.cu", "src/repro/kernels/quant.py:33",
               cohort["launches"]["quantize_rows"], quant, path="cohort",
               bit_equal=True),

@@ -1,0 +1,115 @@
+"""End-to-end example on PyTorch, the twin of ``examples/train_emotion_sfl.py``'s
+default path: split-federated LoRA fine-tuning of a BERT-family model on the
+CARER-shaped emotion task across the paper's six heterogeneous devices,
+with the analytic engine and sync FedAvg, for the schemes ``ours``, ``sfl``
+and ``sl`` (a ``-fifo`` / ``-wf`` suffix picks a scheduling baseline).
+
+Default is a ~29M-parameter BERT-small sized model; ``--full`` selects the
+paper's exact BERT-base (110M) at the paper's cuts; ``--tiny`` a 2-layer
+smoke model.  The run is on the CUDA card unless ``--device cpu``.
+
+    PYTHONPATH=src python examples/train_emotion_sfl_torch.py --full --rounds 20
+    PYTHONPATH=src python examples/train_emotion_sfl_torch.py --tiny --rounds 3 \
+        --schemes ours,sfl,sl --device cpu
+
+The port covers the analytic engine with sync FedAvg over constant links,
+so the reference's event-engine, async, network-plane, control-plane,
+snapshot and trace flags are absent here (ROADMAP Queue A, item 8).
+"""
+import argparse
+
+from repro_torch.configs import REGISTRY, reduced
+from repro_torch.core.partition import assign_cuts
+from repro_torch.data import make_emotion_dataset
+from repro_torch.fed import (AggConfig, EngineConfig, FedRunConfig, PAPER_CLIENTS,
+                             PAPER_CUTS, Simulator, validate_run_config)
+from repro_torch.numerics import set_fp32_policy
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--full", action="store_true", help="paper's BERT-base 110M")
+    ap.add_argument("--tiny", action="store_true", help="2-layer smoke model")
+    ap.add_argument("--rounds", type=int, default=60)
+    ap.add_argument("--agg-interval", type=int, default=5,
+                    help="rounds per sync aggregation")
+    ap.add_argument("--batch", type=int, default=16)
+    ap.add_argument("--seq", type=int, default=64)
+    ap.add_argument("--lr", type=float, default=1e-3)
+    ap.add_argument("--schemes", default="ours",
+                    help="comma list from: ours,sfl,sl,ours-fifo,ours-wf")
+    ap.add_argument("--alpha", type=float, default=0.5)
+    ap.add_argument("--n-train", type=int, default=4000)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--cohort-impl", choices=("vmap", "ragged"), default="vmap",
+                    help="batched server step of a cohort chunk (one client "
+                    "per dispatch here, as in the reference's default)")
+    ap.add_argument("--fused-lora", action="store_true",
+                    help="run adapted projections through the hand-written "
+                    "fused LoRA kernel (its plain version on the CPU)")
+    ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
+                    help="where the models run (default: the CUDA card)")
+    args = ap.parse_args()
+    set_fp32_policy()
+
+    if args.full:
+        cfg = REGISTRY["bert-base"]
+        args.seq = 128
+    elif args.tiny:
+        # conftest-sized smoke model: 2 layers, d=256
+        cfg = reduced(REGISTRY["bert-base"], n_layers=2, d_model=256)
+        cfg = cfg.with_(vocab_size=4096, max_position=32, dtype="float32")
+        args.seq = min(args.seq, 16)
+        args.batch = min(args.batch, 4)
+        args.n_train = min(args.n_train, 400)
+    else:
+        # bert-small-ish: 4 layers, d=512 -> ~29M params
+        cfg = reduced(REGISTRY["bert-base"], n_layers=4, d_model=512)
+        # reduced() caps vocab at 512 but the emotion corpus spans ~6.4k ids
+        cfg = cfg.with_(n_heads=8, n_kv_heads=8, head_dim=64, vocab_size=8192,
+                        max_position=max(64, args.seq), dtype="float32")
+
+    train = make_emotion_dataset(args.n_train, seq_len=args.seq,
+                                 vocab_size=cfg.vocab_size, seed=args.seed)
+    test = make_emotion_dataset(args.n_train // 5, seq_len=args.seq,
+                                vocab_size=cfg.vocab_size, seed=args.seed + 1)
+
+    if args.full:
+        cuts = list(PAPER_CUTS)            # the paper's §V assignment
+    else:
+        cuts = assign_cuts(cfg, PAPER_CLIENTS, args.batch, args.seq,
+                           max_cut=cfg.n_layers - 1)
+    print(f"model: {cfg.name} ({cfg.param_count()/1e6:.0f}M params, "
+          f"{cfg.n_layers} layers)  cuts={cuts}")
+
+    # validate every schemes entry up front, so a bad late entry does not
+    # abort the script after earlier entries trained
+    runs = []
+    for entry in args.schemes.split(","):
+        scheme, _, sched = entry.partition("-")
+        run = FedRunConfig(scheme=scheme, rounds=args.rounds,
+                           batch_size=args.batch, seq_len=args.seq,
+                           lr=args.lr, alpha=args.alpha, seed=args.seed,
+                           eval_every=max(args.rounds // 10, 1),
+                           engine=EngineConfig(mode="analytic", scheduler=sched or "ours",
+                                               cohort_impl=args.cohort_impl,
+                                               fused_lora=args.fused_lora),
+                           agg=AggConfig(policy="sync", interval=args.agg_interval))
+        try:
+            validate_run_config(run, len(PAPER_CLIENTS))
+        except (KeyError, ValueError) as e:
+            ap.error(f"--schemes entry {entry!r}: {e}")
+        runs.append((entry, run))
+
+    for entry, run in runs:
+        sim = Simulator(cfg, PAPER_CLIENTS, cuts, train, test, run, device=args.device)
+        sim.run_training(verbose=True)
+        acc, f1 = sim.evaluate()
+        mem = sim.server_memory_report()
+        print(f"== {entry} [analytic/sync]: acc={acc:.4f} f1={f1:.4f} "
+              f"sim_time={sim.sim_clock:.1f}s server_mem={mem.total_mb:.1f}MB")
+        print()
+
+
+if __name__ == "__main__":
+    main()

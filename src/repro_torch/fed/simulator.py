@@ -5,6 +5,8 @@ Port of ``src/repro/fed/simulator.py`` for the paper's own experiment:
          sequential per-client server LoRA updates, Alg. 2 scheduling,
          Eq. 5-9 aggregation every I rounds.
   sfl  : FedBERT-style SFL — the same updates; only the round time differs.
+  sl   : split learning — one traveling adapter set, strictly sequential
+         clients, model handoff between them; no aggregation.
 
 Model math runs for real (client forward, server resume-at-cut,
 activation-gradient backprop, LoRA/AdamW updates, FedAvg aggregation);
@@ -34,7 +36,7 @@ from repro_torch.comm import dequantize, quantize, quantize_with_feedback, trans
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import aggregation as agg_lib
 from repro_torch.core import lora as lora_lib
-from repro_torch.core import splitfl
+from repro_torch.core import memory_model, splitfl
 from repro_torch.core.cost_model import (DeviceProfile, LinkProfile, StepTimes,
                                          client_step_times, dtype_nbytes,
                                          lora_upload_bytes, makespan)
@@ -67,8 +69,6 @@ def _not_in_slice(knob: str, item: str) -> NotImplementedError:
 
 def check_slice(run: FedRunConfig) -> None:
     """Raise for every knob the port does not cover yet — none is ignored."""
-    if run.scheme == "sl":
-        raise _not_in_slice("scheme='sl'", "5")
     # the control and obs planes run only under the event engine, so they
     # are named before it
     if run.control.policy != "static":
@@ -224,15 +224,27 @@ class Simulator:
             start = max(st.ready for st in t)
             busy = sum(st.t_s for st in t) * SFL_FRAGMENTATION
             return start + busy + max(st.t_bc + st.t_b for st in t)
+        if self.run.scheme == "sl":
+            # strictly sequential + client-side model handoff between clients
+            mb = memory_model.model_bytes(self.cfg)
+            total = 0.0
+            for u, st in enumerate(t):
+                handoff = self.link.transfer_s(mb.embed + self.cuts[u] * mb.per_layer)
+                total += st.ready + st.t_s + st.t_bc + st.t_b + handoff
+            return total
         raise KeyError(self.run.scheme)
 
     # ------------------------------------------------------------------ round
     def run_round(self, rnd: int) -> RoundRecord:
         """One closed-form (analytic-engine) barrier round."""
         self._times_this_round = self._adjusted_times()
-        losses, order = self._round_parallel()
+        if self.run.scheme == "sl":
+            losses, order = self._round_sl()
+        else:
+            losses, order = self._round_parallel()
         self.sim_clock += self._round_time(order)
-        if (rnd + 1) % self.run.agg.interval == 0:
+        # aggregation phase (not for SL)
+        if self.run.scheme != "sl" and (rnd + 1) % self.run.agg.interval == 0:
             self.sim_clock += self._commit_sync()
         mean_loss = float(np.mean(losses)) if losses else float("nan")
         rec = RoundRecord(rnd, self.sim_clock, mean_loss)
@@ -295,6 +307,41 @@ class Simulator:
             self._client_backward(u, tapes.pop(u), dv_g[i])
         return losses
 
+    def _round_sl(self):
+        """SL baseline: ONE traveling full adapter set (kept in slot 0 as a
+        full-shape tree); clients run strictly sequentially, each re-splits
+        the traveling adapters at its own cut, trains, and folds back."""
+        order = list(range(self.u))
+        losses = []
+        for u in order:
+            cut = self.cuts[u]
+            batch = self._batch(u)
+            # hand-off: the client receives the traveling client-side adapters
+            cli_lo, _ = lora_lib.split_lora(self.server_lora[0], cut)
+            fwd, bwd = self._cli_steps[cut]
+            v, tape = fwd(self.client_params[u], cli_lo, batch)
+            loss, new_lora, new_head, new_opt, dv = self._srv_steps[cut](
+                self.params, self.server_lora[0], self.heads[0],
+                self.server_opt[0], v, batch)
+            self._apply_server_update(0, new_lora, new_head, new_opt)
+            losses.append(float(loss))
+            new_cli, _ = bwd(tape, self.opt.init(cli_lo), dv)
+            self._sl_fold_back(new_cli, cut)
+        return losses, order
+
+    def _sl_fold_back(self, client_part, cut: int) -> None:
+        """Write the client's updated prefix back into the traveling set."""
+        full = self.server_lora[0]
+        merged = {}
+        for key, sub in full.items():
+            if key in lora_lib.STACKED_KEYS and key in client_part:
+                merged[key] = tree_map(
+                    lambda f, c: torch.cat([c.to(f.dtype), f[cut:]], dim=0),
+                    sub, client_part[key])
+            else:
+                merged[key] = sub
+        self.server_lora[0] = merged
+
     def _apply_server_update(self, u: int, new_lora, new_head, new_opt) -> None:
         self.server_lora[u] = new_lora
         self.heads[u] = new_head
@@ -352,16 +399,21 @@ class Simulator:
     # ------------------------------------------------------------------ eval
     @torch.no_grad()
     def evaluate(self, max_batches: int = 32):
-        """Global model = aggregate of the current full adapters, evaluated
-        centrally on the held-out set."""
-        fulls = [lora_lib.assemble_full(
-                     self.client_lora[u],
-                     lora_lib.split_lora(self.server_lora[u], self.cuts[u])[1],
-                     self.cuts[u])
-                 for u in range(self.u)]
-        full = agg_lib.aggregate_full(fulls, self.data_sizes)
+        """Global model = aggregate of the current full adapters (ours/sfl)
+        or the traveling set (sl), evaluated centrally on the held-out
+        set."""
         params = dict(self.params)
-        params["cls_head"] = self._fedavg_head()
+        if self.run.scheme == "sl":
+            full = self.server_lora[0]
+            params["cls_head"] = self.heads[0]
+        else:
+            fulls = [lora_lib.assemble_full(
+                         self.client_lora[u],
+                         lora_lib.split_lora(self.server_lora[u], self.cuts[u])[1],
+                         self.cuts[u])
+                     for u in range(self.u)]
+            full = agg_lib.aggregate_full(fulls, self.data_sizes)
+            params["cls_head"] = self._fedavg_head()
 
         preds, golds = [], []
         loader = ClassificationLoader(self.test, self.run.batch_size, seed=0)
@@ -389,5 +441,9 @@ class Simulator:
                 break
         return self.history
 
-    def server_memory_report(self):
-        raise _not_in_slice("server_memory_report (the memory model)", "5")
+    def server_memory_report(self) -> memory_model.ServerMemoryReport:
+        """The modelled server bytes of this run's scheme at its cuts
+        (paper Table I)."""
+        return memory_model.server_memory(
+            self.cfg, self.run.scheme, self.cuts,
+            self.run.batch_size, self.run.seq_len)

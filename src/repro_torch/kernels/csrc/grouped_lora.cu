@@ -1,4 +1,5 @@
-// Grouped ragged-cohort base + LoRA matmul for Hopper (sm_90a), fp32:
+// Grouped ragged-cohort base + LoRA matmul for Hopper (sm_90a), fp32 and
+// bf16:
 //
 //     y_i = x_i @ W + s_i * (x_i @ A_i^T) @ B_i^T        for each group i
 //
@@ -8,7 +9,8 @@
 // A (G, r, K) and B (G, N, r) are the per-group adapters, each read by a
 // group stride and any (row, column) strides, so the backward's transposed
 // views B_i^T and A_i^T go in as they are; scales (G,) their scales;
-// y (M, N) contiguous; r <= 64.
+// y (M, N) contiguous, in x's type; r <= 64.  All operands share one type:
+// float (grouped_lora_f32) or bf16 (grouped_lora_bf16); the scales are f32.
 //
 // Replaces src/repro/kernels/grouped_lora.py:grouped_lora_matmul (the
 // Pallas TPU kernel), both of its modes: "chunk" (body _kernel_chunk, K
@@ -24,7 +26,9 @@
 // s_g first and takes A_g and B_g by the group stride.
 //
 // Chunk mode (every launch on the cohort path) is lora_matmul's body,
-// shared through tf32_lora_tile.cuh: 3xTF32 mma.sync.m16n8k8 (about 22-bit
+// shared through tf32_lora_tile.cuh (fp32) and bf16_lora_tile.cuh (bf16:
+// mma.sync.m16n8k16 on 128 x 128 tiles, f32 accumulators, the up-projection
+// in f32).  In fp32: 3xTF32 mma.sync.m16n8k8 (about 22-bit
 // operands; each k8 slice's products added to the f32 accumulator with
 // round-to-nearest), one block of 256 threads per 128 x 96 tile of y, and
 // a 4-stage cp.async ring of 32-deep K steps carrying x, W and A_g, A_g's
@@ -35,7 +39,8 @@
 //
 // Direct mode keeps a SIMT body: 64 x 64 tiles of 256 threads with 4 x 4
 // FMA micro-tiles, staging the whole K slab of x, A_g and the W columns in
-// shared memory at once, synchronising once, and running the full K loop
+// shared memory at once (as f32, widened from bf16 on the way in, so both
+// types take the same K), synchronising once, and running the full K loop
 // from there.  It reads W, A and B by the same strides as chunk
 // mode.  It needs (64+1 + RP+1 + 64) * K floats of shared memory, so
 // grouped_lora_direct_max_k(r) is the largest K it takes (398 at r <= 16);
@@ -48,8 +53,12 @@
 // the fp32 CUDA-core peak of 67 TFLOP/s (the bound chip_smoke.py reports),
 // 30.5 us as 3 x 5.03 GFLOP of TF32 at 495 TFLOP/s, and 8 us of traffic at
 // 3.35 TB/s.  Each N-tile recomputes its rows' x @ A_g^T, RP / 96 = 17 %
-// more products at r 16.  Measured times are in PERF.md.
+// more products at r 16.  In bf16 the products run at the bf16 tensor-core
+// peak (989 TFLOP/s): at gemma-2b's q-projection over two groups of 4096
+// rows (K = N 2048, r 16), 69 GFLOP in 70 us against 76 MB in 23 us.
+// Measured times are in PERF.md.
 
+#include "bf16_lora_tile.cuh"
 #include "tf32_lora_tile.cuh"
 
 namespace {
@@ -94,6 +103,41 @@ int launch_chunk(const float* x, const float* w, const float* a, const float* b,
   return (int)cudaGetLastError();
 }
 
+// the same on the bf16 tile
+template <int RP, bool WK>
+__global__ void __launch_bounds__(bc::THREADS, bc::min_blocks<RP>())
+grouped_lora_bf16_kernel(const bc::half_t* __restrict__ x, const bc::half_t* __restrict__ w,
+                         const bc::half_t* __restrict__ a, const bc::half_t* __restrict__ b,
+                         const float* __restrict__ scales, const int* __restrict__ tiles,
+                         bc::half_t* __restrict__ y, int N, int K, int r, long long sw,
+                         long long sag, long long saj, long long sak, long long sbg,
+                         long long sbn, long long sbj, int vec) {
+  extern __shared__ __align__(16) unsigned char smb[];
+  const int* tile = tiles + 3 * blockIdx.y;
+  const int g = tile[0], m0 = tile[1], rows = tile[2];
+  bc::lora_tile<RP, WK>(smb, x, w, a + g * sag, b + g * sbg, y, m0, rows,
+                        blockIdx.x * bc::BN, N, K, r, scales[g], K, sw, saj, sak, sbn,
+                        sbj, vec != 0);
+}
+
+template <int RP, bool WK>
+int launch_chunk_bf16(const bc::half_t* x, const bc::half_t* w, const bc::half_t* a,
+                      const bc::half_t* b, const float* scales, const int* tiles,
+                      bc::half_t* y, int n_tiles, int N, int K, int r, long long sw,
+                      long long sag, long long saj, long long sak, long long sbg,
+                      long long sbn, long long sbj, cudaStream_t s) {
+  using L = bc::Smem<RP, WK>;
+  auto kern = grouped_lora_bf16_kernel<RP, WK>;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::BYTES);
+  if (err != cudaSuccess) return (int)err;
+  const int vec = bc::vec_copies(x, w, K, sw, N, K);
+  const dim3 grid((N + bc::BN - 1) / bc::BN, n_tiles);
+  kern<<<grid, bc::THREADS, L::BYTES, s>>>(x, w, a, b, scales, tiles, y, N, K, r, sw, sag,
+                                           saj, sak, sbg, sbn, sbj, vec);
+  return (int)cudaGetLastError();
+}
+
 // --------------------------------------------------------------- direct mode
 
 namespace simt {
@@ -120,16 +164,26 @@ constexpr int direct_max_k() {
   return (MAX_SMEM / 4) / ((BM + 1) + (RP + 1) + BN);
 }
 
+// an element as f32, and back: bf16 widens exactly and rounds to nearest
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(bc::half_t v) { return bc::widen(v); }
+template <typename T> __device__ __forceinline__ T from_f32(float v);
+template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
+template <> __device__ __forceinline__ bc::half_t from_f32<bc::half_t>(float v) {
+  return bc::narrow(v);
+}
+
 }  // namespace simt
 
-// W element (k, n) at k * swk + n * swn; A_g element (j, k) at
-// j * saj + k * sak; B_g element (n, j) at n * sbn + j * sbj.
-template <int RP>
+// T: float or bf16 (bc::half_t).  W element (k, n) at k * swk + n * swn;
+// A_g element (j, k) at j * saj + k * sak; B_g element (n, j) at
+// n * sbn + j * sbj.
+template <typename T, int RP>
 __global__ void __launch_bounds__(simt::THREADS)
-grouped_lora_kernel_direct(const float* __restrict__ x, const float* __restrict__ w,
-                           const float* __restrict__ a, const float* __restrict__ b,
+grouped_lora_kernel_direct(const T* __restrict__ x, const T* __restrict__ w,
+                           const T* __restrict__ a, const T* __restrict__ b,
                            const float* __restrict__ scales,
-                           const int* __restrict__ tiles, float* __restrict__ y, int N,
+                           const int* __restrict__ tiles, T* __restrict__ y, int N,
                            int K, int r, long long swk, long long swn, long long sag,
                            long long saj, long long sak, long long sbg, long long sbn,
                            long long sbj) {
@@ -141,8 +195,8 @@ grouped_lora_kernel_direct(const float* __restrict__ x, const float* __restrict_
 
   const int* tile = tiles + 3 * blockIdx.y;
   const int g = tile[0], m0 = tile[1], rows = tile[2];
-  const float* __restrict__ ag = a + g * sag;
-  const float* __restrict__ bg = b + g * sbg;
+  const T* __restrict__ ag = a + g * sag;
+  const T* __restrict__ bg = b + g * sbg;
   const float scale = scales[g];
 
   float* xs = smem;                          // [K][XS]: x^T
@@ -174,16 +228,16 @@ grouped_lora_kernel_direct(const float* __restrict__ x, const float* __restrict_
 
   for (int e = tid; e < BM * K; e += THREADS) {
     const int mm = e / K, kk = e % K;
-    xs[kk * XS + mm] = (mm < rows) ? x[(size_t)(m0 + mm) * K + kk] : 0.f;
+    xs[kk * XS + mm] = (mm < rows) ? to_f32(x[(size_t)(m0 + mm) * K + kk]) : 0.f;
   }
   for (int e = tid; e < K * BN; e += THREADS) {
     const int kk = e / BN, nn = e % BN;
     const int gn = n0 + nn;
-    ws[kk * BN + nn] = (gn < N) ? w[kk * swk + gn * swn] : 0.f;
+    ws[kk * BN + nn] = (gn < N) ? to_f32(w[kk * swk + gn * swn]) : 0.f;
   }
   for (int e = tid; e < r * K; e += THREADS) {
     const int j = e / K, kk = e % K;
-    as_[kk * AS + j] = ag[j * saj + kk * sak];
+    as_[kk * AS + j] = to_f32(ag[j * saj + kk * sak]);
   }
   __syncthreads();
 
@@ -219,7 +273,7 @@ grouped_lora_kernel_direct(const float* __restrict__ x, const float* __restrict_
   for (int e = tid; e < BN * r; e += THREADS) {
     const int nn = e / r, j = e % r;
     const int gn = n0 + nn;
-    bs[j * (BN + 1) + nn] = (gn < N) ? bg[gn * sbn + j * sbj] : 0.f;
+    bs[j * (BN + 1) + nn] = (gn < N) ? to_f32(bg[gn * sbn + j * sbj]) : 0.f;
   }
   __syncthreads();
 
@@ -232,20 +286,21 @@ grouped_lora_kernel_direct(const float* __restrict__ x, const float* __restrict_
       const int gn = n0 + col;
       float up = 0.f;
       for (int j = 0; j < r; ++j) up = fmaf(xas[row * AS + j], bs[j * (BN + 1) + col], up);
-      if (row < rows && gn < N) y[(size_t)(m0 + row) * N + gn] = acc[i][jn] + scale * up;
+      if (row < rows && gn < N)
+        y[(size_t)(m0 + row) * N + gn] = from_f32<T>(acc[i][jn] + scale * up);
     }
   }
 }
 
-template <int RP>
-int launch_direct(const float* x, const float* w, const float* a, const float* b,
-                  const float* scales, const int* tiles, float* y, int n_tiles, int N, int K,
+template <typename T, int RP>
+int launch_direct(const T* x, const T* w, const T* a, const T* b,
+                  const float* scales, const int* tiles, T* y, int n_tiles, int N, int K,
                   int r, long long swk, long long swn, long long sag, long long saj,
                   long long sak, long long sbg, long long sbn, long long sbj,
                   cudaStream_t s) {
   if (K > simt::direct_max_k<RP>()) return (int)cudaErrorInvalidValue;
   const size_t bytes = simt::smem_floats<RP>(K) * sizeof(float);
-  auto kern = grouped_lora_kernel_direct<RP>;
+  auto kern = grouped_lora_kernel_direct<T, RP>;
   const cudaError_t e =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (e != cudaSuccess) return (int)e;
@@ -261,14 +316,52 @@ int launch(const float* x, const float* w, const float* a, const float* b,
            bool direct, long long sw, bool w_kmajor, long long sag, long long saj,
            long long sak, long long sbg, long long sbn, long long sbj, cudaStream_t s) {
   if (direct)
-    return launch_direct<RP>(x, w, a, b, scales, tiles, y, n_tiles, N, K, r,
-                             w_kmajor ? 1 : sw, w_kmajor ? sw : 1, sag, saj, sak, sbg, sbn,
-                             sbj, s);
+    return launch_direct<float, RP>(x, w, a, b, scales, tiles, y, n_tiles, N, K, r,
+                                    w_kmajor ? 1 : sw, w_kmajor ? sw : 1, sag, saj, sak, sbg,
+                                    sbn, sbj, s);
   if (w_kmajor)
     return launch_chunk<RP, true>(x, w, a, b, scales, tiles, y, n_tiles, N, K, r, sw, sag,
                                   saj, sak, sbg, sbn, sbj, s);
   return launch_chunk<RP, false>(x, w, a, b, scales, tiles, y, n_tiles, N, K, r, sw, sag,
                                  saj, sak, sbg, sbn, sbj, s);
+}
+
+template <int RP>
+int launch(const bc::half_t* x, const bc::half_t* w, const bc::half_t* a,
+           const bc::half_t* b, const float* scales, const int* tiles, bc::half_t* y,
+           int n_tiles, int N, int K, int r, bool direct, long long sw, bool w_kmajor,
+           long long sag, long long saj, long long sak, long long sbg, long long sbn,
+           long long sbj, cudaStream_t s) {
+  if (direct)
+    return launch_direct<bc::half_t, RP>(x, w, a, b, scales, tiles, y, n_tiles, N, K, r,
+                                         w_kmajor ? 1 : sw, w_kmajor ? sw : 1, sag, saj, sak,
+                                         sbg, sbn, sbj, s);
+  if (w_kmajor)
+    return launch_chunk_bf16<RP, true>(x, w, a, b, scales, tiles, y, n_tiles, N, K, r, sw,
+                                       sag, saj, sak, sbg, sbn, sbj, s);
+  return launch_chunk_bf16<RP, false>(x, w, a, b, scales, tiles, y, n_tiles, N, K, r, sw,
+                                      sag, saj, sak, sbg, sbn, sbj, s);
+}
+
+// either type, by the rank rounded up to 16, 32 or 64
+template <typename T>
+int launch_rank(const T* x, const T* w, const T* a, const T* b, const float* scales,
+                const int* tiles, T* y, int n_tiles, int N, int K, int r, int direct,
+                long long sw, int w_kmajor, long long sag, long long saj, long long sak,
+                long long sbg, long long sbn, long long sbj, void* stream) {
+  if (n_tiles <= 0 || n_tiles > MAX_TILES || N <= 0 || K < 0 || r < 0 ||
+      r > tc::MAX_RANK)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool d = direct != 0, wk = w_kmajor != 0;
+  if (r <= 16)
+    return launch<16>(x, w, a, b, scales, tiles, y, n_tiles, N, K, r, d, sw, wk, sag, saj,
+                      sak, sbg, sbn, sbj, s);
+  if (r <= 32)
+    return launch<32>(x, w, a, b, scales, tiles, y, n_tiles, N, K, r, d, sw, wk, sag, saj,
+                      sak, sbg, sbn, sbj, s);
+  return launch<64>(x, w, a, b, scales, tiles, y, n_tiles, N, K, r, d, sw, wk, sag, saj,
+                    sak, sbg, sbn, sbj, s);
 }
 
 }  // namespace
@@ -297,19 +390,20 @@ int grouped_lora_f32(const float* x, const float* w, const float* a, const float
                      int K, int r, int direct, long long sw, int w_kmajor, long long sag,
                      long long saj, long long sak, long long sbg, long long sbn,
                      long long sbj, void* stream) {
-  if (n_tiles <= 0 || n_tiles > MAX_TILES || N <= 0 || K < 0 || r < 0 ||
-      r > tc::MAX_RANK)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool d = direct != 0, wk = w_kmajor != 0;
-  if (r <= 16)
-    return launch<16>(x, w, a, b, scales, tiles, y, n_tiles, N, K, r, d, sw, wk, sag, saj,
-                      sak, sbg, sbn, sbj, s);
-  if (r <= 32)
-    return launch<32>(x, w, a, b, scales, tiles, y, n_tiles, N, K, r, d, sw, wk, sag, saj,
-                      sak, sbg, sbn, sbj, s);
-  return launch<64>(x, w, a, b, scales, tiles, y, n_tiles, N, K, r, d, sw, wk, sag, saj,
-                    sak, sbg, sbn, sbj, s);
+  return launch_rank(x, w, a, b, scales, tiles, y, n_tiles, N, K, r, direct, sw, w_kmajor,
+                     sag, saj, sak, sbg, sbn, sbj, stream);
+}
+
+// the same in bf16 (raw 16-bit words; scales f32), y in bf16
+int grouped_lora_bf16(const void* x, const void* w, const void* a, const void* b,
+                      const float* scales, const int* tiles, void* y, int n_tiles, int N,
+                      int K, int r, int direct, long long sw, int w_kmajor, long long sag,
+                      long long saj, long long sak, long long sbg, long long sbn,
+                      long long sbj, void* stream) {
+  typedef const bc::half_t* P;
+  return launch_rank(P(x), P(w), P(a), P(b), scales, tiles, static_cast<bc::half_t*>(y),
+                     n_tiles, N, K, r, direct, sw, w_kmajor, sag, saj, sak, sbg, sbn, sbj,
+                     stream);
 }
 
 }  // extern "C"

@@ -1,4 +1,5 @@
-// Fused base + LoRA matmul for Hopper (sm_90a), fp32 through 3xTF32:
+// Fused base + LoRA matmul for Hopper (sm_90a), in fp32 through 3xTF32 and
+// in bf16 on the bf16 tensor cores:
 //
 //     y = x @ W + scale * (x @ A^T) @ B^T
 //
@@ -6,30 +7,40 @@
 // forward's W, row stride sw) or K-contiguous (the backward's W^T view of a
 // contiguous (N, K) tensor, column stride sw); A (r, K) and B (N, r) by
 // any strides (the backward passes the transposed views B^T and A^T);
-// y (M, N) contiguous; r <= 64.
+// y (M, N) contiguous, in x's type; r <= 64.  All four operands share one
+// type: float (lora_matmul_f32) or bf16 (lora_matmul_bf16).
 //
 // Replaces src/repro/kernels/lora_matmul.py:lora_matmul (the Pallas TPU
-// kernel, body _kernel).  Like it, the rank-r down-projection x @ A^T rides
+// kernel, body _kernel), which runs in either type with f32 accumulators and
+// writes y in x's type.  Like it, the rank-r down-projection x @ A^T rides
 // the same K sweep as the base product, so x is read once for both, and the
 // (M, r) intermediate never goes to device memory: the up-projection is
-// applied in the epilogue from shared memory.
+// applied in the epilogue from shared memory, in f32.
 //
-// Numerics and design: tf32_lora_tile.cuh, the body this kernel shares with
-// grouped_lora.cu's chunk mode: 3xTF32 mma.sync.m16n8k8 (about 22-bit
+// fp32 (tf32_lora_tile.cuh, the body this kernel shares with
+// grouped_lora.cu's chunk mode): 3xTF32 mma.sync.m16n8k8 (about 22-bit
 // operands; each k8 slice's products added to the f32 accumulator with
 // round-to-nearest), one block of 256 threads per 128 x 96 tile of y, and a
 // 4-stage cp.async ring of 32-deep K steps carrying x, W and A.  At the main
 // path's shape (M 2048, K = N 768, r 16) the tiles make 16 x 8 = 128 blocks,
 // one wave on the 132 SMs (64 x 64 tiles made 384 blocks, a 2.9-wave tail).
 //
-// What bounds it.  At the main path's shape one launch does
+// bf16 (bf16_lora_tile.cuh, shared the same way): mma.sync.m16n8k16 bf16
+// with f32 accumulators and no operand split, fed by ldmatrix (.trans for
+// the forward's N-contiguous W), one block of 256 threads per 128 x 128
+// tile, two blocks an SM up to r 32, a 4-stage ring of 32-deep K steps.
+//
+// What bounds it.  fp32, at the main path's shape one launch does
 // 2MKN + 2MKr + 2MNr = 2.52 GFLOP and must move about 15 MB: 37.6 us at the
 // fp32 CUDA-core peak of 67 TFLOP/s (the least time for fp32 products, the
 // bound chip_smoke.py reports); 3 x 2.52 GFLOP of TF32 at 495 TFLOP/s is
 // 15.3 us, and 15 MB at 3.35 TB/s 4.5 us.  Each N-tile recomputes its rows'
-// x @ A^T, RP / 96 = 17 % more products at r 16.  Measured times are in
-// PERF.md.
+// x @ A^T, RP / 96 = 17 % more products at r 16.  bf16, at gemma-2b's
+// q-projection (M 8192, K = N 2048, r 16): 69 GFLOP, 70 us at 989 TFLOP/s,
+// against 76 MB, 23 us at 3.35 TB/s: bound by operations.  Measured times
+// are in PERF.md.
 
+#include "bf16_lora_tile.cuh"
 #include "tf32_lora_tile.cuh"
 
 namespace {
@@ -78,6 +89,52 @@ int dispatch_rank(const float* x, const float* w, const float* a, const float* b
   return launch<64, WK>(x, w, a, b, y, M, N, K, r, scale, sx, sw, saj, sak, sbn, sbj, vec, s);
 }
 
+// ------------------------------------------------------------------ bf16
+
+template <int RP, bool WK>
+__global__ void __launch_bounds__(bc::THREADS, bc::min_blocks<RP>())
+lora_matmul_bf16_kernel(const bc::half_t* __restrict__ x, const bc::half_t* __restrict__ w,
+                        const bc::half_t* __restrict__ a, const bc::half_t* __restrict__ b,
+                        bc::half_t* __restrict__ y, int M, int N, int K, int r, float scale,
+                        long long sx, long long sw, long long saj, long long sak,
+                        long long sbn, long long sbj, int vec) {
+  extern __shared__ __align__(16) unsigned char smb[];
+  const int m0 = blockIdx.y * bc::BM;
+  bc::lora_tile<RP, WK>(smb, x, w, a, b, y, m0, min(bc::BM, M - m0), blockIdx.x * bc::BN, N,
+                        K, r, scale, sx, sw, saj, sak, sbn, sbj, vec != 0);
+}
+
+template <int RP, bool WK>
+int launch_bf16(const bc::half_t* x, const bc::half_t* w, const bc::half_t* a,
+                const bc::half_t* b, bc::half_t* y, int M, int N, int K, int r, float scale,
+                long long sx, long long sw, long long saj, long long sak, long long sbn,
+                long long sbj, int vec, cudaStream_t s) {
+  using L = bc::Smem<RP, WK>;
+  auto kern = lora_matmul_bf16_kernel<RP, WK>;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::BYTES);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((N + bc::BN - 1) / bc::BN, (M + bc::BM - 1) / bc::BM);
+  kern<<<grid, bc::THREADS, L::BYTES, s>>>(x, w, a, b, y, M, N, K, r, scale, sx, sw, saj, sak,
+                                           sbn, sbj, vec);
+  return (int)cudaGetLastError();
+}
+
+template <bool WK>
+int dispatch_rank_bf16(const bc::half_t* x, const bc::half_t* w, const bc::half_t* a,
+                       const bc::half_t* b, bc::half_t* y, int M, int N, int K, int r,
+                       float scale, long long sx, long long sw, long long saj, long long sak,
+                       long long sbn, long long sbj, int vec, cudaStream_t s) {
+  if (r <= 16)
+    return launch_bf16<16, WK>(x, w, a, b, y, M, N, K, r, scale, sx, sw, saj, sak, sbn, sbj,
+                               vec, s);
+  if (r <= 32)
+    return launch_bf16<32, WK>(x, w, a, b, y, M, N, K, r, scale, sx, sw, saj, sak, sbn, sbj,
+                               vec, s);
+  return launch_bf16<64, WK>(x, w, a, b, y, M, N, K, r, scale, sx, sw, saj, sak, sbn, sbj,
+                             vec, s);
+}
+
 }  // namespace
 
 extern "C" {
@@ -100,6 +157,23 @@ int lora_matmul_f32(const float* x, const float* w, const float* a, const float*
                                vec, s);
   return dispatch_rank<false>(x, w, a, b, y, M, N, K, r, scale, sx, sw, saj, sak, sbn, sbj,
                               vec, s);
+}
+
+// the same in bf16 (raw 16-bit words), y in bf16
+int lora_matmul_bf16(const void* x, const void* w, const void* a, const void* b, void* y,
+                     int M, int N, int K, int r, float scale, long long sx, long long sw,
+                     int w_kmajor, long long saj, long long sak, long long sbn, long long sbj,
+                     void* stream) {
+  if (M <= 0 || N <= 0 || K < 0 || r < 0 || r > MAX_RANK) return (int)cudaErrorInvalidValue;
+  typedef const bc::half_t* P;
+  const int vec = bc::vec_copies(x, w, sx, sw, N, K);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  bc::half_t* yh = static_cast<bc::half_t*>(y);
+  if (w_kmajor)
+    return dispatch_rank_bf16<true>(P(x), P(w), P(a), P(b), yh, M, N, K, r, scale, sx, sw, saj,
+                                    sak, sbn, sbj, vec, s);
+  return dispatch_rank_bf16<false>(P(x), P(w), P(a), P(b), yh, M, N, K, r, scale, sx, sw, saj,
+                                   sak, sbn, sbj, vec, s);
 }
 
 }  // extern "C"

@@ -1,21 +1,23 @@
 """ctypes binding of the grouped ragged-cohort base+LoRA CUDA kernel
-(``csrc/grouped_lora.cu``), with one launch counter per mode.
+(``csrc/grouped_lora.cu``), with launch counters per mode.
 
     y_i = x_i @ w + s_i * (x_i @ a_i.T) @ b_i.T
     x (M,K) = the groups' rows concatenated, w (K,N), a (G,r,K), b (G,N,r)
 
-Two modes, the two formulations of the reference's Pallas kernel:
-``chunk`` sweeps K through a ring of 32-deep stages on the tensor cores
-(3xTF32, lora_matmul's body); ``direct`` stages the whole K slab in shared
-memory in one step (a SIMT body of FMA micro-tiles) and raises above the K
-that shared memory holds (:func:`direct_max_k`).
+x, w, a and b are all float32 or all bfloat16; y comes back in x's type,
+summed in f32 either way.  Two modes, the two formulations of the
+reference's Pallas kernel: ``chunk`` sweeps K through a ring of 32-deep
+stages on the tensor cores (lora_matmul's bodies: 3xTF32 in fp32, bf16
+mma in bf16); ``direct`` stages the whole K slab in shared memory in one
+step (a SIMT body of FMA micro-tiles, in f32 for both types) and raises
+above the K that shared memory holds (:func:`direct_max_k`).
 
 x is contiguous; w is contiguous or the ``.t()`` view of a contiguous
 tensor, and a and b are each contiguous or the ``.transpose(1, 2)`` view of
 a contiguous tensor: the layouts the backward passes for
 ``dx = g @ W^T + s_i * (g @ B_i) @ A_i``.  The kernel reads them where
-they are; rows whose length or stride is not a multiple of 4 floats take
-4-byte copies, so no copy reads past a row.
+they are; rows whose length or stride is not a multiple of 16 bytes take
+narrower copies, so no copy reads past a row.
 
 Each block of the kernel reads its group from a tile table, one
 ``(group, first row, rows)`` entry per tile of :data:`BM` rows (chunk) or
@@ -24,10 +26,12 @@ Each block of the kernel reads its group from a tile table, one
 by (group sizes, scales, tile height, device), so a launch copies nothing
 from the host once the key has been seen.
 
-A CUDA tensor launches the kernel on the current stream or raises; a CPU
-tensor takes the plain version (``ref.grouped_lora_matmul_ref``).  The
-counters ``grouped_lora_chunk.launches`` and ``grouped_lora_direct.launches``
-grow by one per kernel launch of their mode and by nothing else.
+A CUDA tensor launches the kernel of its type on the current stream or
+raises; a CPU tensor takes the plain version
+(``ref.grouped_lora_matmul_ref``).  The counters
+``grouped_lora_chunk.launches`` and ``grouped_lora_direct.launches`` grow by
+one per kernel launch of their mode, of either type, and by nothing else;
+``.launches_bf16`` of each by one per bf16 launch.
 """
 from __future__ import annotations
 
@@ -47,8 +51,10 @@ DIRECT_BN = 64         # columns of y per direct-mode block
 MAX_TILES = 65535      # tiles per launch (the grid's y extent)
 MAX_SMEM = 232448      # bytes of shared memory a block may use (sm_90)
 MODES = ("chunk", "direct")
+# the C entry point of each operand type
+ENTRY = {torch.float32: "grouped_lora_f32", torch.bfloat16: "grouped_lora_bf16"}
 
-_launch = None
+_launch = {}
 
 
 def _rank_tile(r: int) -> int:
@@ -58,15 +64,15 @@ def _rank_tile(r: int) -> int:
 def direct_max_k(r: int) -> int:
     """The largest K the direct mode takes at rank ``r``: its stage holds
     the x^T, A_g^T and W slabs, (DIRECT_BM+1 + RP+1 + DIRECT_BN) floats per
-    column of K, RP the rank rounded up to 16, 32 or 64."""
+    column of K, RP the rank rounded up to 16, 32 or 64; bf16 is staged
+    as f32 too, so both types take the same K."""
     return (MAX_SMEM // 4) // ((DIRECT_BM + 1) + (_rank_tile(r) + 1) + DIRECT_BN)
 
 
-def _kernel():
-    global _launch
-    if _launch is None:
+def _kernel(dtype: torch.dtype):
+    if dtype not in _launch:
         lib = build.load("grouped_lora")
-        fn = lib.grouped_lora_f32
+        fn = getattr(lib, ENTRY[dtype])
         fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
                        + [ctypes.c_longlong, ctypes.c_int] + [ctypes.c_longlong] * 6
                        + [ctypes.c_void_p])
@@ -79,8 +85,8 @@ def _kernel():
                 lib.grouped_lora_direct_max_k(r) != direct_max_k(r) for r in (16, 32, 64)):
             raise RuntimeError("grouped_lora library and binding disagree on "
                                "the largest rank or the direct mode's K")
-        _launch = fn
-    return _launch
+        _launch[dtype] = fn
+    return _launch[dtype]
 
 
 def tile_table(group_sizes: Sequence[int], bm: int = BM) -> List[Tuple[int, int, int]]:
@@ -136,8 +142,9 @@ def _check(x, w, a, b, group_sizes, scales, mode) -> None:
     if len(tile_table(group_sizes, _tile_rows(mode))) > MAX_TILES:
         raise ValueError(f"grouped_lora takes at most {MAX_TILES} tiles of "
                          f"{_tile_rows(mode)} rows")
-    if any(t.dtype != torch.float32 for t in (x, w, a, b)):
-        raise TypeError("grouped_lora takes float32 tensors")
+    if x.dtype not in ENTRY or any(t.dtype != x.dtype for t in (w, a, b)):
+        raise TypeError("grouped_lora takes x, w, a, b all float32 or all bfloat16, got "
+                        + ", ".join(str(t.dtype) for t in (x, w, a, b)))
     if not x.is_contiguous() or not all(_transposed_ok(t) for t in (w, a, b)):
         raise ValueError("grouped_lora takes a contiguous x, and w, a, b each "
                          "contiguous or the transposed view of a contiguous "
@@ -156,11 +163,11 @@ def _run(x, w, a, b, group_sizes, scales, mode, counted) -> torch.Tensor:
         return grouped_lora_matmul_ref(x, w, a, b, group_sizes, scales)
     m, k = x.shape
     n, r = b.shape[1], b.shape[2]
-    y = torch.empty((m, n), dtype=torch.float32, device=x.device)
+    y = torch.empty((m, n), dtype=x.dtype, device=x.device)
     if n == 0:
         return y
     tiles, scales_dev = _device_tables(group_sizes, scales, _tile_rows(mode), x.device)
-    fn = _kernel()
+    fn = _kernel(x.dtype)
     # w N-contiguous (row stride) or K-contiguous (column stride)
     w_kmajor = not w.is_contiguous()
     sw = w.stride(1) if w_kmajor else w.stride(0)
@@ -174,6 +181,8 @@ def _run(x, w, a, b, group_sizes, scales, mode, counted) -> torch.Tensor:
         raise RuntimeError(f"grouped_lora ({mode}) kernel launch failed: "
                            f"CUDA error {rc}")
     counted.launches += 1
+    if x.dtype == torch.bfloat16:
+        counted.launches_bf16 += 1
     return y
 
 
@@ -192,8 +201,8 @@ def grouped_lora_direct(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
     return _run(x, w, a, b, group_sizes, scales, "direct", grouped_lora_direct)
 
 
-grouped_lora_chunk.launches = 0
-grouped_lora_direct.launches = 0
+grouped_lora_chunk.launches = grouped_lora_chunk.launches_bf16 = 0
+grouped_lora_direct.launches = grouped_lora_direct.launches_bf16 = 0
 
 
 def grouped_lora(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,

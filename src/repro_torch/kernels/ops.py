@@ -3,10 +3,12 @@
 ``grouped_lora_matmul`` with their custom VJPs, and the forward-only
 ``flash_attention_apply`` and ``wkv6_apply``.
 
-Forward is the kernel.  The backward computes ``dx = g @ W^T + s*(g @ B) @ A``
-with the SAME kernel on (g, W^T, B^T, A^T) — the down/up projections swap
-roles — and ``dA = s*(g @ B)^T @ x``, ``dB = s*g^T @ (x @ A^T)`` as plain
-products, as the reference does.  ``dW`` and ``dx`` are formed only when
+Forward is the kernel, in float32 or bfloat16.  The backward computes
+``dx = g @ W^T + s*(g @ B) @ A`` with the SAME kernel on (g, W^T, B^T, A^T)
+— the down/up projections swap roles — in the input's type, and
+``dA = s*(g @ B)^T @ x``, ``dB = s*g^T @ (x @ A^T)`` as plain products of
+f32 upcasts cast to each parameter's type, as the reference does (in
+float32 the upcasts are the tensors themselves).  ``dW`` and ``dx`` are formed only when
 autograd asks for them: the base weights are frozen in split-federated
 fine-tuning, so ``dW`` never is.  The grouped op does the same per group:
 ``dx`` through the grouped kernel on (g, W^T, B_i^T, A_i^T), ``dA_i`` and
@@ -44,13 +46,14 @@ class _FusedLoRAMatmul(torch.autograd.Function):
         dx = dw = da = db = None
         if ctx.needs_input_grad[0]:
             # views: the kernel reads W^T K-contiguous and B^T, A^T by strides
-            dx = lora_matmul(g, w.t(), b.t(), a.t(), scale=s)
+            dx = lora_matmul(g, w.t(), b.t(), a.t(), scale=s).to(x2.dtype)
+        gf, xf = g.float(), x2.float()
         if ctx.needs_input_grad[1]:
-            dw = x2.t() @ g
+            dw = (xf.t() @ gf).to(w.dtype)
         if ctx.needs_input_grad[2]:
-            da = s * ((g @ b).t() @ x2)                   # (r, K)
+            da = (s * ((gf @ b.float()).t() @ xf)).to(a.dtype)            # (r, K)
         if ctx.needs_input_grad[3]:
-            db = s * (g.t() @ (x2 @ a.t()))               # (N, r)
+            db = (s * (gf.t() @ (xf @ a.float().t()))).to(b.dtype)        # (N, r)
         return dx, dw, da, db, None
 
 
@@ -88,18 +91,20 @@ class _GroupedLoRAMatmul(torch.autograd.Function):
             # views: the kernel reads W^T K-contiguous and B_i^T, A_i^T by strides
             dx = grouped_lora(g, w.t(), b.transpose(1, 2), a.transpose(1, 2),
                               group_sizes=sizes, scales=scales,
-                              mode=_grouped_mode(ctx.mode, g.shape[1]))
+                              mode=_grouped_mode(ctx.mode, g.shape[1])).to(x2.dtype)
+        gf, xf = g.float(), x2.float()
         if ctx.needs_input_grad[1]:
-            dw = x2.t() @ g
+            dw = (xf.t() @ gf).to(w.dtype)
         if ctx.needs_input_grad[2] or ctx.needs_input_grad[3]:
             offs = [0, *itertools.accumulate(sizes)]
+            af, bf = a.float(), b.float()
             das, dbs = [], []
             for i, s in enumerate(scales):
-                xg, gg = x2[offs[i]:offs[i + 1]], g[offs[i]:offs[i + 1]]
-                das.append(s * ((gg @ b[i]).t() @ xg))            # (r, K)
-                dbs.append(s * (gg.t() @ (xg @ a[i].t())))        # (N, r)
-            da = torch.stack(das) if ctx.needs_input_grad[2] else None
-            db = torch.stack(dbs) if ctx.needs_input_grad[3] else None
+                xg, gg = xf[offs[i]:offs[i + 1]], gf[offs[i]:offs[i + 1]]
+                das.append(s * ((gg @ bf[i]).t() @ xg))           # (r, K)
+                dbs.append(s * (gg.t() @ (xg @ af[i].t())))       # (N, r)
+            da = torch.stack(das).to(a.dtype) if ctx.needs_input_grad[2] else None
+            db = torch.stack(dbs).to(b.dtype) if ctx.needs_input_grad[3] else None
         return dx, dw, da, db, None, None, None
 
 
@@ -114,7 +119,8 @@ def grouped_lora_matmul(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
     w: (K, N) shared frozen base; a: (G, r, K) / b: (G, N, r) per-group
     adapters.  Pass one ``scale`` for a uniform cohort or per-group
     ``scales``.  mode="auto" takes "direct" when K <= 128, else "chunk".
-    Differentiable with respect to x, w, a and b; float32 only.
+    Differentiable with respect to x, w, a and b; all float32 or all
+    bfloat16, y in x's type.
     """
     group_sizes = tuple(int(s) for s in group_sizes)
     if not group_sizes or any(s < 1 for s in group_sizes):
@@ -143,11 +149,13 @@ def grouped_lora_matmul(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
 def _forward_only(name: str, *tensors: torch.Tensor) -> None:
     """The flash and WKV6 kernels have no backward, as the reference's have
     no VJP: a CUDA tensor that asks for a gradient raises rather than
-    leaving autograd without a path."""
+    leaving autograd without a path.  The models never get here under
+    grad: ``attn_impl`` / ``wkv_impl="chunked"`` take the plain chunked
+    forms there (``layers.attention_full``, ``blocks.wkv_apply``)."""
     if torch.is_grad_enabled() and any(t.is_cuda and t.requires_grad for t in tensors):
         raise NotImplementedError(
-            f"{name} is forward-only: the kernel's backward comes with LM "
-            "training (ROADMAP Queue A, item 3)")
+            f"{name} is forward-only, as the reference's kernel has no VJP; "
+            "differentiate the plain chunked form instead")
 
 
 def flash_attention_apply(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

@@ -7,7 +7,7 @@ from repro_torch.models.decoder import DecoderModel
 
 def build_model(cfg: ModelConfig, device="cuda"):
     """The model for ``cfg`` on ``device`` (the CUDA card unless the caller
-    asks for the CPU).  The encoder, dense and ssm (RWKV6) families are
+    asks for the CPU; ``meta`` builds shapes alone).  The encoder, dense and ssm (RWKV6) families are
     ported; ``DecoderModel`` raises for the others."""
     return DecoderModel(cfg, device)
 

@@ -53,7 +53,7 @@ def dense_prefill(cfg: ModelConfig, p: dict, lora, x: Tensor, ctx: dict):
     q, k, v = L.qkv_project(cfg, p["attn"], _attn_lora(lora), h, pos)
     a = L.attention_full(q, k, v, causal=ctx["causal"], window=ctx.get("window"),
                          q_pos=pos, k_pos=pos, impl=cfg.attn_impl,
-                         arange=ctx.get("arange", False))
+                         arange=ctx.get("arange", False), chunk=cfg.attn_chunk)
     x = x + L.attn_out(cfg, p["attn"], _attn_lora(lora), a)
     h = L.apply_norm(cfg, p["ln2"], x)
     x = x + L.mlp_apply(cfg, p["mlp"], (lora or {}).get("mlp"), h)
@@ -198,28 +198,84 @@ def wkv_scan(r: Tensor, k: Tensor, v: Tensor, decay: Tensor, u: Tensor,
     return wkv6_ref(r, k, v, decay, u, state)
 
 
+def wkv_chunked(r: Tensor, k: Tensor, v: Tensor, decay: Tensor, u: Tensor,
+                state: Tensor, chunk: int = 16):
+    """Chunk-parallel WKV in plain PyTorch, the reference's formulation.
+
+    Within a chunk (log-space cumulative decay logP; every exponent is <= 0
+    except k_j * exp(-logP_j), which the short chunk bounds):
+
+      out_t = r_t.(P_{t-1} o S0)  +  sum_{j<t} (r_t o P_{t-1}).(k_j / P_j) v_j
+              + r_t.(u o k_t) v_t
+      S_end = P_C o S0 + sum_j (P_C / P_j o k_j) (x) v_j
+
+    r/k/v/decay: (B,S,H,Dh); u: (H,Dh); state: (B,H,Dh,Dh).  Returns (out
+    (B,S,H,Dh) f32, final state f32).  Differentiable, from any state."""
+    b, s, h, d = r.shape
+    pad = (-s) % chunk
+    if pad:
+        r, k, v = (F.pad(t, (0, 0, 0, 0, 0, pad)) for t in (r, k, v))
+        decay = 1.0 - F.pad(1.0 - decay, (0, 0, 0, 0, 0, pad))   # pad decay with ones
+    nc = (s + pad) // chunk
+
+    def to_chunks(a):   # (B,T,H,D) -> (B, nc, C, H, D)
+        return a.reshape(b, nc, chunk, h, d).float()
+
+    rc, kc, vc, wc = map(to_chunks, (r, k, v, decay))
+    logw = torch.log(torch.clamp_min(wc, 1e-38))                  # <= 0
+    tri_lower = torch.tril(torch.ones((chunk, chunk), dtype=torch.float32,
+                                      device=r.device), -1)        # j < t
+    eye = torch.eye(chunk, dtype=torch.float32, device=r.device)
+    uf = u.float()[None, None]
+    s0 = state.float()
+    outs = []
+    for i in range(nc):
+        rr, kk, vv, lw = rc[:, i], kc[:, i], vc[:, i], logw[:, i]   # (B,C,H,D)
+        lp = torch.cumsum(lw, dim=1)                   # logP_t (inclusive)
+        lp_prev = lp - lw                              # logP_{t-1}
+        a = rr * torch.exp(lp_prev)                    # stable
+        bb = kk * torch.exp(-lp)                       # bounded by the short chunk
+        # intra-chunk scores A[t,j] = (a_t . b_j) for j<t, + u-diag for j=t
+        scores = torch.einsum("bthd,bjhd->bhtj", a, bb) * tri_lower
+        diag = torch.einsum("bthd,bthd->bht", rr * uf, kk)
+        scores = scores + diag[..., :, None] * eye
+        intra = torch.einsum("bhtj,bjhd->bthd", scores, vv)
+        # inter-chunk: r_t . (P_{t-1} o S0)
+        inter = torch.einsum("bthd,bhdv->bthv", a, s0)
+        # state update: S_end = P_C o S0 + sum_j (P_C/P_j o k_j) (x) v_j
+        pc = lp[:, -1]                                 # (B,H,D)
+        kfac = kk * torch.exp(pc[:, None] - lp)        # exponents <= 0
+        s0 = torch.exp(pc)[..., None] * s0 + torch.einsum("bjhd,bjhv->bhdv", kfac, vv)
+        outs.append(intra + inter)
+    out = torch.stack(outs, dim=1).reshape(b, s + pad, h, d)
+    return out[:, :s], s0
+
+
 # how the WKV recurrence of a whole sequence executes (ModelConfig.wkv_impl):
 #   scan    — one step after the other in plain PyTorch (the reference's default);
-#   chunked — the hand-written WKV6 kernel (kernels/wkv6.py), from a zero
-#             state, whose wrapper takes the plain version for CPU tensors.
+#   chunked — chunk-parallel: the hand-written WKV6 kernel (kernels/wkv6.py,
+#             whose wrapper takes the plain version for CPU tensors) where
+#             its domain allows, else the reference's plain chunked form
+#             (:func:`wkv_chunked`).
 WKV_IMPLS = ("scan", "chunked")
 
 
 def wkv_apply(cfg: ModelConfig, r, k, v, decay, u, state: Optional[Tensor] = None):
     """WKV over a sequence from ``state`` (None: zeros).  ``chunked`` runs the
-    kernel, which starts from zero, and takes ``state=None`` only; its
-    time tiling is the kernel's, so ``wkv_chunk`` does not enter."""
-    if cfg.wkv_impl == "chunked":
-        if state is not None:
-            raise ValueError("wkv_impl='chunked' runs the WKV6 kernel, which "
-                             "starts from a zero state: pass state=None")
+    kernel inside its domain, decided before any launch: a zero initial
+    state (``state=None``) and no gradient asked for (the kernel is
+    forward-only, as the reference's has no VJP); the kernel tiles time
+    itself.  Otherwise :func:`wkv_chunked` runs over ``wkv_chunk`` steps."""
+    if cfg.wkv_impl not in WKV_IMPLS:
+        raise KeyError(f"unknown wkv impl {cfg.wkv_impl!r}; choose from {WKV_IMPLS}")
+    if cfg.wkv_impl == "chunked" and state is None and not L.needs_grad(r, k, v, decay, u):
         from repro_torch.kernels.ops import wkv6_apply
         return wkv6_apply(r, k, v, decay, u)
-    if cfg.wkv_impl != "scan":
-        raise KeyError(f"unknown wkv impl {cfg.wkv_impl!r}; choose from {WKV_IMPLS}")
     if state is None:
         b, _, h, dh = r.shape
         state = torch.zeros((b, h, dh, dh), dtype=torch.float32, device=r.device)
+    if cfg.wkv_impl == "chunked":
+        return wkv_chunked(r, k, v, decay, u, state, chunk=cfg.wkv_chunk)
     return wkv_scan(r, k, v, decay, u, state)
 
 

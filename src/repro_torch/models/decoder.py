@@ -50,7 +50,9 @@ def build_lora_tree(gen: torch.Generator, params_one_layer: PyTree, targets,
 class DecoderModel:
     """Functional model namespace; every method is a pure function of its
     arguments, except that ``serve_step`` writes into the cache it is
-    given.  ``device`` is where init places the parameters."""
+    given.  ``device`` is where init places the parameters: the CUDA card,
+    the CPU, or ``meta`` for shapes and dtypes alone (the memory model
+    counts bytes there; nothing runs on it)."""
 
     def __init__(self, cfg: ModelConfig, device="cuda"):
         if cfg.family not in FAMILIES:
@@ -58,7 +60,8 @@ class DecoderModel:
                 f"family {cfg.family!r} comes with a later slice of the port "
                 "(ROADMAP Queue A, item 10)")
         self.cfg = cfg
-        self.device = resolve_device(device)
+        self.device = (torch.device("meta") if torch.device(device).type == "meta"
+                       else resolve_device(device))
         self.block = B.get_block(cfg)
 
     # -- init ---------------------------------------------------------------

@@ -189,9 +189,10 @@ def apply_rope(x: Tensor, positions: Tensor, theta: float) -> Tensor:
 
 # how full-sequence attention executes (ModelConfig.attn_impl):
 #   naive   — materialized probabilities, plain PyTorch (the reference's default);
-#   chunked — online softmax through the hand-written flash kernel
-#             (kernels/flash_attention.py), whose wrapper takes the plain
-#             version for CPU tensors.
+#   chunked — online softmax over key chunks: the hand-written flash kernel
+#             (kernels/flash_attention.py, whose wrapper takes the plain
+#             version for CPU tensors) where its domain allows, else the
+#             reference's plain chunked form (:func:`_attention_chunked`).
 ATTN_IMPLS = ("naive", "chunked")
 
 
@@ -209,28 +210,45 @@ def _is_arange(pos: Tensor, n: int) -> bool:
             and torch.equal(pos, torch.arange(n, dtype=pos.dtype, device=pos.device)))
 
 
+def needs_grad(*tensors: Tensor) -> bool:
+    """Autograd will ask for a gradient through these tensors."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def _flash_domain(q: Tensor, k: Tensor, v: Tensor, q_pos: Tensor, k_pos: Tensor,
+                  arange: bool) -> bool:
+    """The flash kernel's domain, decided before any launch: no gradient
+    asked for (the kernel is forward-only, as the reference's has no VJP)
+    and queries and keys at positions 0..S-1 and 0..T-1 (the kernel places
+    them so).  Reading the positions waits for the device; ``arange=True``
+    (a model context whose positions the model built as an arange) spares
+    that read."""
+    if needs_grad(q, k, v):
+        return False
+    s, t = q.shape[1], k.shape[1]
+    if arange and q_pos.shape == (s,) and k_pos.shape == (t,):
+        return True
+    return _is_arange(q_pos, s) and _is_arange(k_pos, t)
+
+
 def attention_full(q: Tensor, k: Tensor, v: Tensor, *, causal: bool,
                    window: Optional[int], q_pos: Tensor, k_pos: Tensor,
-                   impl: str = "naive", arange: bool = False) -> Tensor:
+                   impl: str = "naive", arange: bool = False,
+                   chunk: int = 1024) -> Tensor:
     """Full-sequence attention. q:(B,S,H,Dh) k,v:(B,T,K,Dh) -> (B,S,H*Dh).
 
     impl="naive": materialized (B,K,G,S,T) probabilities.
-    impl="chunked": the flash kernel (online softmax over key tiles; its
-    tile size is the kernel's, so ``attn_chunk`` does not enter).  The
-    kernel places query i and key j at positions i and j, so it takes
-    ``q_pos == k_pos == arange`` (prefill and training) and raises on any
-    other positions.  Checking that reads the positions on the host, which
-    waits for the device; ``arange=True`` (a model context whose positions
-    the model built as an arange) spares that read."""
+    impl="chunked": online softmax over key chunks.  Inside the flash
+    kernel's domain (:func:`_flash_domain`: no gradient, arange positions)
+    the kernel runs, with its own key tiles; outside it the reference's
+    plain form (:func:`_attention_chunked`) runs over ``chunk``-key chunks,
+    differentiable and at any positions."""
     if impl == "chunked":
-        s, t = q.shape[1], k.shape[1]
-        if not (arange and q_pos.shape == (s,) and k_pos.shape == (t,)) and not (
-                _is_arange(q_pos, s) and _is_arange(k_pos, t)):
-            raise NotImplementedError(
-                "attn_impl='chunked' runs the flash kernel, which takes "
-                "positions 0..S-1 for queries and keys alike")
-        from repro_torch.kernels.ops import flash_attention_apply
-        return flash_attention_apply(q, k, v, causal=causal, window=window)
+        if _flash_domain(q, k, v, q_pos, k_pos, arange):
+            from repro_torch.kernels.ops import flash_attention_apply
+            return flash_attention_apply(q, k, v, causal=causal, window=window)
+        return _attention_chunked(q, k, v, causal=causal, window=window,
+                                  q_pos=q_pos, k_pos=k_pos, chunk=chunk)
     if impl != "naive":
         raise KeyError(f"unknown attention impl {impl!r}; choose from {ATTN_IMPLS}")
     b, s, h, dh = q.shape
@@ -245,6 +263,50 @@ def attention_full(q: Tensor, k: Tensor, v: Tensor, *, causal: bool,
         mask = mask & (rel < window)
     out = _gqa_scores_softmax_out(q, k, v, mask)
     return out.reshape(b, s, h * dh)
+
+
+def _attention_chunked(q: Tensor, k: Tensor, v: Tensor, *, causal: bool,
+                       window: Optional[int], q_pos: Tensor, k_pos: Tensor,
+                       chunk: int) -> Tensor:
+    """Online-softmax attention over ``chunk``-key chunks in plain PyTorch
+    (the reference's pure-JAX flash), f32 running max, sum and output; keys
+    past T are padded at position -1 and masked."""
+    b, s, h, dh = q.shape
+    kheads = k.shape[2]
+    g = h // kheads
+    t = k.shape[1]
+    qq = q.reshape(b, s, kheads, g, dh).float()
+    scale = 1.0 / math.sqrt(dh)
+    pad = (-t) % chunk
+    if pad:
+        k = F.pad(k, (0, 0, 0, 0, 0, pad))
+        v = F.pad(v, (0, 0, 0, 0, 0, pad))
+        k_pos = torch.cat([k_pos, torch.full((pad,), -1, dtype=k_pos.dtype,
+                                             device=k_pos.device)])
+    f32 = torch.float32
+    m = torch.full((b, kheads, g, s), -1e30, dtype=f32, device=q.device)
+    l = torch.zeros((b, kheads, g, s), dtype=f32, device=q.device)
+    acc = torch.zeros((b, kheads, g, s, dh), dtype=f32, device=q.device)
+    for c0 in range(0, t + pad, chunk):
+        kc, vc, kpc = k[:, c0:c0 + chunk], v[:, c0:c0 + chunk], k_pos[c0:c0 + chunk]
+        sc = torch.einsum("bskgd,btkd->bkgst", qq, kc.float()) * scale
+        rel = q_pos[:, None] - kpc[None, :]                       # (S, C)
+        mask = kpc[None, :] >= 0
+        if causal:
+            mask = mask & (rel >= 0)
+        if window is not None:
+            mask = mask & (rel < window)
+        sc = torch.where(mask, sc, torch.full_like(sc, -1e30))
+        m_new = torch.maximum(m, sc.amax(dim=-1))
+        p = torch.exp(sc - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1)
+        pv = torch.einsum("bkgst,btkd->bkgsd", p.to(v.dtype), vc)
+        acc = acc * corr[..., None] + pv.float()
+        m = m_new
+    out = acc / l.clamp_min(1e-30)[..., None]
+    # (B,K,G,S,Dh) -> (B,S,K,G,Dh) -> (B,S,H*Dh)
+    return out.movedim(3, 1).reshape(b, s, h * dh).to(v.dtype)
 
 
 def attention_decode(q: Tensor, k_cache: Tensor, v_cache: Tensor,

@@ -1,8 +1,8 @@
 """The port's copies of the JAX package's numpy-only modules (configs of
 bert-base, gemma-2b and rwkv6-3b, data,
 cost model, scheduling, devices, metrics, run config, the wire-byte count of
-the transport compression) stay bit-equal to their originals on seeded
-inputs."""
+the transport compression, capacity-based partitioning) stay bit-equal to
+their originals on seeded inputs."""
 import os
 
 # the JAX reference runs on the CPU in these comparisons, also where its
@@ -21,6 +21,7 @@ from repro import configs as j_configs  # noqa: E402
 from repro.comm import transport_bytes as j_transport_bytes  # noqa: E402
 from repro import data as j_data  # noqa: E402
 from repro.core import cost_model as j_cost  # noqa: E402
+from repro.core import partition as j_part  # noqa: E402
 from repro.core import scheduling as j_sched  # noqa: E402
 from repro.fed import config as j_fedcfg  # noqa: E402
 from repro.fed import devices as j_devices  # noqa: E402
@@ -29,6 +30,7 @@ from repro_torch import configs as t_configs  # noqa: E402
 from repro_torch.comm import transport_bytes as t_transport_bytes  # noqa: E402
 from repro_torch import data as t_data  # noqa: E402
 from repro_torch.core import cost_model as t_cost  # noqa: E402
+from repro_torch.core import partition as t_part  # noqa: E402
 from repro_torch.core import scheduling as t_sched  # noqa: E402
 from repro_torch.fed import config as t_fedcfg  # noqa: E402
 from repro_torch.fed import devices as t_devices  # noqa: E402
@@ -155,3 +157,26 @@ def test_run_config_validation_matches(groups):
         except (KeyError, ValueError) as e:
             outcomes.append((type(e), str(e)))
     assert outcomes[0] == outcomes[1]
+
+
+@pytest.mark.parametrize("arch,batch,seq,kw", [
+    ("bert-base", 16, 128, {}),
+    ("bert-base", 8, 32, {"max_cut": 4, "mem_fraction": 0.01}),
+    ("bert-base", 64, 512, {"latency_budget_s": 2.0}),
+    ("gemma-2b", 4, 256, {"mem_fraction": 0.3}),
+])
+def test_partition_bit_equal(arch, batch, seq, kw):
+    """assign_cuts, cut_bounds, feasible_cut and the two ceilings over the
+    paper clients, on the port's memory model against the reference's."""
+    jc, tc = j_configs.REGISTRY[arch], t_configs.REGISTRY[arch]
+    jd, td = j_devices.PAPER_CLIENTS, t_devices.PAPER_CLIENTS
+    assert (t_part.assign_cuts(tc, td, batch, seq, **kw)
+            == j_part.assign_cuts(jc, jd, batch, seq, **kw))
+    mem_kw = {k: v for k, v in kw.items() if k != "max_cut"}
+    for jdev, tdev in zip(jd, td):
+        assert (t_part.feasible_cut(tc, tdev, batch, seq, **mem_kw)
+                == j_part.feasible_cut(jc, jdev, batch, seq, **mem_kw))
+        assert (t_part.cut_bounds(tc, tdev, batch, seq, **kw)
+                == j_part.cut_bounds(jc, jdev, batch, seq, **kw))
+        assert (t_part.max_cut_for_compute(tc, tdev, batch, seq)
+                == j_part.max_cut_for_compute(jc, jdev, batch, seq))

@@ -1,0 +1,50 @@
+"""The torch twin of the paper's example script runs end to end on the CPU
+(``--tiny``, every scheme) and takes its cuts from the port's
+``assign_cuts``, as the reference's script does."""
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parents[1]
+SCRIPT = ROOT / "examples" / "train_emotion_sfl_torch.py"
+
+
+def test_tiny_run_of_the_twin_exits_zero():
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="2")
+    proc = subprocess.run([sys.executable, str(SCRIPT), "--tiny", "--rounds", "2",
+                           "--agg-interval", "2", "--schemes", "ours,sl",
+                           "--device", "cpu"],
+                          env=env, capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    out = proc.stdout
+    cuts = re.search(r"cuts=\[([0-9, ]+)\]", out)
+    assert cuts is not None, out
+    for entry in ("ours", "sl"):
+        assert re.search(rf"\[{entry}/ours\] round +2 t= *[0-9.]+s loss=[0-9.]+ "
+                         rf"acc=[0-9.]+ f1=[0-9.]+", out), out
+        assert re.search(rf"== {entry} \[analytic/sync\]: acc=[0-9.]+ f1=[0-9.]+ "
+                         rf"sim_time=[0-9.]+s server_mem=[0-9.]+MB", out), out
+
+    pytest.importorskip("jax")
+    from repro.configs import REGISTRY, reduced
+    from repro.core.partition import assign_cuts
+    from repro.fed import PAPER_CLIENTS
+
+    cfg = reduced(REGISTRY["bert-base"], n_layers=2, d_model=256).with_(
+        vocab_size=4096, max_position=32, dtype="float32")
+    want = assign_cuts(cfg, PAPER_CLIENTS, 4, 16, max_cut=cfg.n_layers - 1)
+    assert [int(c) for c in cuts.group(1).split(",")] == want
+
+
+def test_flags_outside_the_port_are_refused():
+    """The reference's event-engine and async flags are absent: argparse
+    refuses them rather than ignoring them."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, str(SCRIPT), "--tiny", "--engine", "event",
+                           "--device", "cpu"],
+                          env=env, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 2 and "unrecognized arguments" in proc.stderr

@@ -17,10 +17,12 @@ torch.set_num_threads(1)
 ROOT = Path(__file__).resolve().parents[1]
 SRC = ROOT / "src"
 
-# modules of the decoder-LM serving slice, which the walk below must reach
+# modules of the later slices (decoder-LM serving; the memory model and
+# partitioning), which the walk below must reach
 _NEW_MODULES = ("repro_torch.configs.gemma_2b", "repro_torch.configs.rwkv6_3b",
                 "repro_torch.kernels.flash_attention", "repro_torch.kernels.wkv6",
-                "repro_torch.serving", "repro_torch.serving.engine")
+                "repro_torch.serving", "repro_torch.serving.engine",
+                "repro_torch.core.memory_model", "repro_torch.core.partition")
 
 _IMPORT_ALL = r"""
 import importlib, pkgutil, sys
@@ -54,7 +56,9 @@ _FORBIDDEN = re.compile(r"^\s*(import jax|from jax|import repro\.|from repro\.|"
 @pytest.mark.parametrize("path", sorted(str(p.relative_to(ROOT)) for p in
                                         [*(SRC / "repro_torch").rglob("*.py"),
                                          *(SRC / "repro_torch").rglob("*.cu"),
-                                         ROOT / "chip_smoke.py"]))
+                                         *(SRC / "repro_torch").rglob("*.cuh"),
+                                         ROOT / "chip_smoke.py",
+                                         ROOT / "examples" / "train_emotion_sfl_torch.py"]))
 def test_sources_name_neither_jax_nor_reference_package(path):
     hits = _FORBIDDEN.findall((ROOT / path).read_text())
     assert not hits, (path, hits)

@@ -239,15 +239,14 @@ def test_unported_knobs_raise():
         build_model(tc.with_(kv_cache_dtype="int8"), device="cpu").init_cache(1, 8)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build_model(tc.with_(qkv_bias=True), device="cpu").init_params(torch.Generator())
+    # shifted positions and a given WKV state no longer raise under
+    # "chunked": they take the plain chunked forms (tests/test_torch_chunked.py)
     q = torch.zeros(1, 4, 4, 64)
     pos = torch.arange(4)
-    with pytest.raises(NotImplementedError):
-        L.attention_full(q, q, q, causal=True, window=None, q_pos=pos + 1, k_pos=pos + 1,
-                         impl="chunked")
     with pytest.raises(KeyError):
         L.attention_full(q, q, q, causal=True, window=None, q_pos=pos, k_pos=pos,
                          impl="flash")
     _, rc = _cfgs("rwkv6-3b", "chunked")
     r = torch.zeros(1, 4, 8, 32)
-    with pytest.raises(ValueError, match="zero state"):
-        B.wkv_apply(rc, r, r, r, r, torch.zeros(8, 32), torch.zeros(1, 8, 32, 32))
+    with pytest.raises(KeyError):
+        B.wkv_apply(rc.with_(wkv_impl="pallas"), r, r, r, r, torch.zeros(8, 32))

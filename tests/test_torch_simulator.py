@@ -178,7 +178,6 @@ def _run(**groups):
 
 
 @pytest.mark.parametrize("run,knob", [
-    pytest.param(_run(scheme="sl"), "scheme='sl'", id="sl"),
     pytest.param(_run(engine=EngineConfig(mode="event")), "mode='event'", id="event"),
     pytest.param(_run(engine=EngineConfig(cohort_chunk=2)), "cohort_impl='vmap'",
                  id="cohort_chunk"),
@@ -201,13 +200,17 @@ def test_knobs_outside_the_slice_raise(run, knob):
 
 
 def test_memory_report_and_custom_links_raise():
+    """Custom links still raise; the memory report is ported (compared with
+    the reference's in tests/test_torch_sl.py) and reports this run."""
+    from repro_torch.core import memory_model
+
     train, test = _datasets(make_emotion_dataset)
     with pytest.raises(NotImplementedError, match="ROADMAP Queue A"):
         Simulator(_port_cfg(), PAPER_CLIENTS, CUTS, train, test, _run(),
                   links=[object()] * 6, device="cpu")
     sim = Simulator(_port_cfg(), PAPER_CLIENTS, CUTS, train, test, _run(), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A"):
-        sim.server_memory_report()
+    assert sim.server_memory_report() == memory_model.server_memory(
+        sim.cfg, "ours", CUTS, RUN_KW["batch_size"], RUN_KW["seq_len"])
 
 
 def test_bridge_round_trip_keeps_paths_and_dtypes():

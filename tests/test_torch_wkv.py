@@ -208,5 +208,5 @@ def test_cuda_kernel_reads_unaligned_strided_views(cuda_device):
 
 def test_cuda_wrapper_is_forward_only(cuda_device):
     r, k, v, w, u = (torch.from_numpy(x).to(cuda_device) for x in _inputs(1, 8, 2, 16))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="no VJP"):
         wkv6_apply(r.requires_grad_(True), k, v, w, u)
