@@ -10,7 +10,9 @@ Phases (any failed check raises and the script exits non-zero):
    flash_attention, wkv6), compiled
    with nvcc from the sources in this checkout, one nvcc per source, all
    at once; ptxas's register and shared-memory lines are printed, and the
-   count of tensor-core instructions (HMMA, HGMMA) in each library's SASS;
+   count of tensor-core instructions (HMMA, HGMMA) in each library's SASS,
+   which must hold HGMMA (wgmma) in lora_matmul, grouped_lora and
+   flash_attention;
 3. kernel check: each kernel against its plain PyTorch version on the card,
    forward and backward, at its path's shape and at ragged shapes (the
    quantize kernel bit for bit, .5 ties and a zero row included), with
@@ -24,12 +26,16 @@ Phases (any failed check raises and the script exits non-zero):
    at the cohort shape its errors against fp64 products forward and on
    that dx call (``grouped_error_sources``), beside the plain fp32
    version's; in bf16, lora_matmul at gemma-2b's q and k/v projections
-   over the prefill's 8192 rows (timed, with the bf16 base product and the
-   bound at the bf16 tensor-core peak), at the reference's sweep shapes and
-   ranks and at ragged shapes, grouped_lora in chunk mode (the 2-tenant
-   prefill's q-projection, timed, and ragged cohorts) and direct mode, each
-   also on the backward's views and for dx, dA and dB (each output row's
-   error over its own scale, <= 1e-2);
+   and rwkv6-3b's three projection shapes over the prefill's 8192 rows
+   (timed, with the bf16 base product, the bound at the bf16 tensor-core
+   peak, the mma.sync tile at the same shape (A misaligned by one
+   element, which sends the call there) and the error against exact
+   products, held within 5 % of the plain version's), at the reference's
+   sweep shapes and ranks and at ragged shapes, grouped_lora in chunk mode
+   (the 2-tenant prefill's q-projection, timed, and ragged cohorts) and
+   direct mode, each also on the backward's views and for dx, dA and dB
+   (each output row's error over its own scale, <= 1e-2); each result
+   names the tile that ran (``tma_ok``: wgmma, else mma.sync);
 4. main path: the paper's split-federated round at the full width of
    bert-base (12 layers, d 768, vocab 30522, seq 128, batch 16) across the
    six paper clients at the paper cuts, scheme "ours", analytic engine,
@@ -70,9 +76,10 @@ Phases (any failed check raises and the script exits non-zero):
    output, its cache leaves and the last-token logits are held together
    (LM_TOL) without the depth amplifying one layer's bf16 rounding; the
    same prefill with LoRAConfig(impl="fused") (bf16 lora_matmul, one
-   launch per adapted projection, asserted) and with two tenants' adapters
-   stacked into a group (bf16 grouped_lora chunk, asserted), each held layer
-   by layer against the einsum prefill (per tenant for the group);
+   launch per adapted projection, asserted, every one on the wgmma tile)
+   and with two tenants' adapters stacked into a group (bf16 grouped_lora
+   chunk, asserted the same way), each held layer by layer against the
+   einsum prefill (per tenant for the group);
 9. LM serving: a ServingEngine per model with two tenants (every adapter
    leaf ~ N(0, 0.05), as in tests/test_serving.py), six greedy requests
    of 16-64 prompt tokens and 16 new tokens in 4 slots of a 128-token
@@ -83,7 +90,8 @@ Phases (any failed check raises and the script exits non-zero):
 10. LM backward: the gradient of a token cross-entropy with respect to
    the adapters, gemma-2b and rwkv6-3b at full width and 4 layers, 2 x 512
    tokens, attn_impl / wkv_impl "chunked" (under grad the plain chunked
-   forms run), fused (bf16 lora_matmul forward and dx, launches asserted)
+   forms run), fused (bf16 lora_matmul forward and dx, launches asserted,
+   every one on the wgmma tile)
    against einsum: the loss within 1e-2; gemma-2b's end-to-end adapter
    gradients within 1e-1; and layer by layer from shared inputs, every
    adapter leaf's gradient within 5e-2 of fp32 where the einsum path is
@@ -103,10 +111,12 @@ compares the port of another checkout (a parent commit, unpacked with
 ``.gitignore`` lists) with this one on the same card, and does nothing
 else: four processes in the order old, new, new, old, each importing and
 building its own checkout's port, each printing one ``[ab] {json}`` line
-(``ab_measure``: the redesigned kernels, a warm main and a warm cohort
+(``ab_measure``: every kernel at its path's shape (fp32 lora_matmul and
+grouped chunk, bf16 lora_matmul and grouped chunk at gemma-2b's
+q-projection, quantize_rows, flash, WKV6), a warm main and a warm cohort
 round under the profiler, the cohort server step fused against einsum,
-the cohort rounds' loss gap with int8 links on and off, and a gemma-2b
-and an rwkv6-3b prefill).
+the cohort rounds' loss gap with int8 links on and off, a gemma-2b and an
+rwkv6-3b prefill, and the rwkv6-3b prefill with fused bf16 LoRA).
 
 Exits non-zero without a result when no CUDA device is available, or when
 run from a directory that does not hold the repository's ``src/``.
@@ -150,6 +160,7 @@ from repro_torch.kernels.flash_attention import flash_attention_plain  # noqa: E
 from repro_torch.kernels.grouped_lora import (grouped_lora,  # noqa: E402
                                               grouped_lora_chunk,
                                               grouped_lora_direct)
+from repro_torch.kernels import lora_matmul as lora_matmul_module  # noqa: E402
 from repro_torch.kernels.lora_matmul import lora_matmul  # noqa: E402
 from repro_torch.kernels.ops import fused_lora_matmul, grouped_lora_matmul  # noqa: E402
 from repro_torch.kernels.quant import quantize_rows  # noqa: E402
@@ -160,6 +171,10 @@ from repro_torch.models import build_model  # noqa: E402
 from repro_torch.models.layers import softmax_xent  # noqa: E402
 from repro_torch.serving import Request, ServingEngine  # noqa: E402
 from repro_torch.tree import tree_leaves, tree_map  # noqa: E402
+
+# the bf16 tiles' dispatch rule; a parent checkout under --ab (which runs
+# only ab_measure, where it is not read) may predate it
+tma_ok = getattr(lora_matmul_module, "tma_ok", None)
 
 # H100 SXM data-sheet peaks (dense): fp32 on the CUDA cores, bf16 on the
 # tensor cores, HBM bandwidth
@@ -184,14 +199,26 @@ DESIGNS = {
                           "K-contiguous, A and B by group and element strides",
     "grouped_lora_direct": "the SIMT body (64x64 tiles, 4x4 FMA micro-tiles, the "
                            "whole K slab in shared memory), W, A and B by strides",
-    "lora_matmul_bf16": "bf16 mma.sync.m16n8k16 with f32 accumulators, no operand split, "
-                        "fed by ldmatrix (.trans for the N-contiguous W) on 128x128 tiles, "
-                        "two blocks an SM up to r 32; 4-stage ring of 32-deep K steps "
-                        "(16-byte cp.async where aligned, element loads otherwise; A through "
-                        "registers a step ahead); x @ A^T kept in f32 and the up-projection "
-                        "in f32 FMAs; y rounded to bf16 once",
-    "grouped_lora_chunk_bf16": "lora_matmul's bf16 tile (shared header bf16_lora_tile.cuh) "
-                               "per 128x128 tile of one group, from the device tile table",
+    "lora_matmul_bf16": "wgmma m64nBNk16 (x @ W) and m64nRPk16 (x @ A^T, same x "
+                        "descriptor) with f32 accumulators, 2 consumer warpgroups x 64 rows "
+                        "of a 128 x BN tile (BN 256 where the grid fills the card, else 64), "
+                        "1 producer warpgroup (setmaxnreg 40/232) keeping a 4-stage TMA ring "
+                        "of 64-deep K steps on full/empty mbarriers; W N- or K-contiguous by "
+                        "the B descriptor's transpose bit; A by TMA or the producer's 16-byte "
+                        "loads; x @ A^T kept in f32 and the up-projection as three "
+                        "register-A wgmma of its three-term bf16 split (about 2^-26); y "
+                        "rounded to bf16 once (bf16_wgmma_tile.cuh)",
+    "lora_matmul_bf16_mma_sync": "bf16 mma.sync.m16n8k16 with f32 accumulators, fed by "
+                                 "ldmatrix (.trans for the N-contiguous W) on 128x128 tiles, "
+                                 "two blocks an SM up to r 32; 4-stage ring of 32-deep K "
+                                 "steps; for operands TMA cannot describe "
+                                 "(bf16_lora_tile.cuh)",
+    "grouped_lora_chunk_bf16": "lora_matmul's wgmma tile (shared header "
+                               "bf16_wgmma_tile.cuh) per 128-row tile of one group, from the "
+                               "device tile table; A_g by a 3-D tensor map or by pointer",
+    "grouped_lora_chunk_bf16_mma_sync": "lora_matmul's mma.sync tile (bf16_lora_tile.cuh) per "
+                                        "128x128 tile of one group, for operands TMA cannot "
+                                        "describe",
     "grouped_lora_direct_bf16": "the SIMT direct body templated on the element type: bf16 "
                                 "widened to f32 on the way into shared memory, f32 FMAs, "
                                 "y rounded to bf16",
@@ -264,6 +291,10 @@ LM_GRAD_LAYERS, LM_GRAD_BATCH, LM_GRAD_SEQ = 4, 2, 512
 ROUNDS, BATCH, SEQ, LR = 2, 16, 128, 1e-3
 N_TRAIN, N_TEST = 4000, 512
 SOURCES = ("lora_matmul", "grouped_lora", "quant", "flash_attention", "wkv6")
+WGMMA_SOURCES = ("lora_matmul", "grouped_lora", "flash_attention")
+# rwkv6-3b's adapted projections (K, N): time-mix r, k, v, g, o and
+# channel-mix r at 2560 x 2560, channel-mix k and v
+RWKV6_PROJECTIONS = ((2560, 2560), (2560, 8960), (8960, 2560))
 
 # the LM slice: 4 prompts of 2048 tokens for the prefill; for the engine,
 # six requests of 16-64 prompt tokens and 16 new tokens in 4 slots
@@ -272,12 +303,15 @@ PREFILL_BATCH, PREFILL_SEQ = 4, 2048
 SERVE_SLOTS, SERVE_CACHE, SERVE_NEW, SERVE_REQUESTS = 4, 128, 16, 6
 
 # every kernel's launch counter, by the name the summary gives it: the
-# wrapper and its attribute (``launches`` counts either type, and
-# ``launches_bf16`` the bf16 launches alone)
+# wrapper and its attribute (``launches`` counts either type,
+# ``launches_bf16`` the bf16 launches alone, and ``launches_wgmma`` the bf16
+# launches of the wgmma tile)
 COUNTERS = {"lora_matmul": (lora_matmul, "launches"),
             "lora_matmul_bf16": (lora_matmul, "launches_bf16"),
+            "lora_matmul_wgmma": (lora_matmul, "launches_wgmma"),
             "grouped_lora_chunk": (grouped_lora_chunk, "launches"),
             "grouped_lora_chunk_bf16": (grouped_lora_chunk, "launches_bf16"),
+            "grouped_lora_chunk_wgmma": (grouped_lora_chunk, "launches_wgmma"),
             "grouped_lora_direct": (grouped_lora_direct, "launches"),
             "grouped_lora_direct_bf16": (grouped_lora_direct, "launches_bf16"),
             "quantize_rows": (quantize_rows, "launches"),
@@ -291,7 +325,7 @@ def reset_counts() -> None:
 
 
 def read_counts() -> dict:
-    # a parent checkout under --ab may predate the bf16 counters: 0 there
+    # a parent checkout under --ab may predate the bf16 and wgmma counters: 0 there
     return {name: getattr(fn, attr, 0) for name, (fn, attr) in COUNTERS.items()}
 
 
@@ -665,12 +699,27 @@ def _grad_errs(fn, ref, x, a, b, g) -> dict:
             for name, got, want in zip(("dx", "da", "db"), *grads)}
 
 
+def _kernel_name(op: str, wgmma: bool) -> str:
+    """The device kernel a bf16 call launches, by its tile."""
+    return f"{op}_wgmma_kernel" if wgmma else f"{op}_bf16_kernel"
+
+
+def _misaligned(t: torch.Tensor) -> torch.Tensor:
+    """A copy of ``t`` whose storage starts one element past a 16-byte
+    boundary: TMA cannot describe it, so an A given so sends the call to
+    the mma.sync tile, which loads A by element either way."""
+    out = torch.empty(t.numel() + 8, dtype=t.dtype, device=t.device)[1:1 + t.numel()]
+    return out.view(t.shape).copy_(t)
+
+
 def check_lora_matmul_bf16(m: int, k: int, n: int, r: int, seed: int,
                            timed: bool = False) -> dict:
     """The bf16 kernel vs its plain version, forward (contiguous operands,
     the backward's transposed views, the dx call's layout) and backward, at
     one shape; with ``timed`` its time beside the plain version's and the
-    bf16 base product ``x @ W``'s, and its error against exact products."""
+    bf16 base product ``x @ W``'s, the mma.sync tile's time at the same
+    shape (A misaligned by one element), and its error against exact
+    products, which must be within 5 % of the plain version's."""
     x, w, a, b, g = _bf16_inputs(seed, ((m, k), 1.0), ((k, n), k ** -0.5),
                                  ((r, k), r ** -0.5), ((n, r), 0.1), ((m, n), 1.0))
     scale = 2.0
@@ -680,7 +729,12 @@ def check_lora_matmul_bf16(m: int, k: int, n: int, r: int, seed: int,
     y_views = lora_matmul(x, wv, av, bv, scale=scale)
     dx_call = lora_matmul(g, w.t(), b.t(), a.t(), scale=scale)
     torch.cuda.synchronize()
-    out = {"shape": [m, k, n, r], "dtype": "bfloat16", "fwd_err": row_err(y, y_ref),
+    wgmma = tma_ok(x, w, a, b)
+    out = {"shape": [m, k, n, r], "dtype": "bfloat16",
+           "tile": "wgmma" if wgmma else "mma.sync",
+           "views_tile": "wgmma" if tma_ok(x, wv, av, bv) else "mma.sync",
+           "dx_call_tile": "wgmma" if tma_ok(g, w.t(), b.t(), a.t()) else "mma.sync",
+           "fwd_err": row_err(y, y_ref),
            "views_err": row_err(y_views, y_ref),
            "dx_call_err": row_err(dx_call, lora_matmul_ref(g, w.t(), b.t(), a.t(), scale)),
            **_grad_errs(lambda x_, a_, b_: fused_lora_matmul(x_, w, a_, b_, scale=scale),
@@ -706,13 +760,28 @@ def check_lora_matmul_bf16(m: int, k: int, n: int, r: int, seed: int,
                              "plain": row_err(y_ref.to(f64), exact),
                              "xa_rounded_to_bf16": row_err(rounded_xa.bfloat16().to(f64),
                                                            exact)}
+    del xa, exact, xa16, rounded_xa
+    if not out["error_vs_exact"]["kernel"] <= 1.05 * out["error_vs_exact"]["plain"]:
+        raise AssertionError(f"bf16 lora_matmul at {out['shape']}: error against exact "
+                             f"products {out['error_vs_exact']} beyond 1.05 x the plain "
+                             f"version's")
     flops = 2 * m * k * n + 2 * m * k * r + 2 * m * n * r
+    a_mis = _misaligned(a)
+    y_mis = lora_matmul(x, w, a_mis, b, scale=scale)
+    out.update(mma_sync_err=row_err(y_mis, y_ref),
+               mma_sync_max_abs_err=float((y_mis.float() - y_ref.float()).abs().max()))
+    if not out["mma_sync_err"] <= BF16_KERNEL_TOL:
+        raise AssertionError(f"bf16 lora_matmul's mma.sync tile at {out['shape']}: "
+                             f"{out['mma_sync_err']}")
     out.update(
         ms=cuda_ms(lambda: lora_matmul(x, w, a, b, scale=scale)),
         device_ms=device_ms(lambda: lora_matmul(x, w, a, b, scale=scale),
-                            "lora_matmul_bf16_kernel"),
+                            _kernel_name("lora_matmul", wgmma)),
         dx_call_device_ms=device_ms(lambda: lora_matmul(g, w.t(), b.t(), a.t(), scale=scale),
-                                    "lora_matmul_bf16_kernel"),
+                                    _kernel_name("lora_matmul", out["dx_call_tile"] == "wgmma")),
+        mma_sync_ms=cuda_ms(lambda: lora_matmul(x, w, a_mis, b, scale=scale)),
+        mma_sync_device_ms=device_ms(lambda: lora_matmul(x, w, a_mis, b, scale=scale),
+                                     _kernel_name("lora_matmul", False)),
         plain_ms=cuda_ms(lambda: lora_matmul_ref(x, w, a, b, scale), iters=20),
         base_matmul_ms=cuda_ms(lambda: torch.matmul(x, w)),
         **bf16_bound(flops, 2 * (m * k + k * n + r * k + n * r + m * n)))
@@ -745,17 +814,33 @@ def check_grouped_bf16(sizes, k: int, n: int, r: int, scales, mode: str, seed: i
     if y.dtype != torch.bfloat16 or bad:
         raise AssertionError(f"bf16 grouped_lora ({mode}) disagrees with its plain version "
                              f"at {sizes}, K {k}, N {n}, r {r}: {bad}")
+    wgmma = mode == "chunk" and tma_ok(x, w, a, b)
+    out["tile"] = "wgmma" if wgmma else "mma.sync" if mode == "chunk" else "simt"
     if timed:
-        kernel = ("grouped_lora_bf16_kernel" if mode == "chunk"
+        kernel = (_kernel_name("grouped_lora", wgmma) if mode == "chunk"
                   else "grouped_lora_kernel_direct<unsigned short")
         tiles = -(-np.asarray(sizes) // (128 if mode == "chunk" else 64))
         flops = 2 * m * k * n + 2 * m * k * r + 2 * m * n * r
         call = (lambda: grouped_lora(x, w, a, b, group_sizes=sizes, scales=scales,
                                      mode=mode))
+        a_mis = _misaligned(a)
+        call_mis = (lambda: grouped_lora(x, w, a_mis, b, group_sizes=sizes, scales=scales,
+                                         mode=mode))
+        if mode == "chunk":
+            y_mis = call_mis()
+            out.update(mma_sync_err=row_err(y_mis, y_ref),
+                       mma_sync_max_abs_err=float((y_mis.float() - y_ref.float()).abs().max()))
+            if not out["mma_sync_err"] <= BF16_KERNEL_TOL:
+                raise AssertionError(f"bf16 grouped_lora's mma.sync tile: {out['mma_sync_err']}")
         out.update(
             ms=cuda_ms(call), device_ms=device_ms(call, kernel),
             dx_call_device_ms=device_ms(lambda: grouped_lora(
-                gy, *views, group_sizes=sizes, scales=scales, mode=mode), kernel),
+                gy, *views, group_sizes=sizes, scales=scales, mode=mode),
+                _kernel_name("grouped_lora", tma_ok(gy, *views)) if mode == "chunk"
+                else kernel),
+            **({"mma_sync_ms": cuda_ms(call_mis),
+                "mma_sync_device_ms": device_ms(call_mis, _kernel_name("grouped_lora", False))}
+               if mode == "chunk" else {}),
             plain_ms=cuda_ms(lambda: grouped_lora_matmul_ref(x, w, a, b, sizes, scales),
                              iters=20),
             base_matmul_ms=cuda_ms(lambda: torch.matmul(x, w)),
@@ -1363,7 +1448,8 @@ def lm_lora_prefill(kernels_cfg, params, adapters, tokens) -> dict:
 
     _, wall_e, counts_e = _prefill_counted(einsum_model, params, lora, tokens)
     logits_f, wall_f, counts_f = _prefill_counted(fused_model, params, lora, tokens)
-    want = no_launches(lora_matmul=n_proj, lora_matmul_bf16=n_proj,
+    # every bf16 launch on the wgmma tile
+    want = no_launches(lora_matmul=n_proj, lora_matmul_bf16=n_proj, lora_matmul_wgmma=n_proj,
                        **{seq_kernel: kernels_cfg.n_layers})
     if counts_f != want:
         raise AssertionError(f"{arch} fused prefill: launches {counts_f}, expected {want}")
@@ -1385,7 +1471,7 @@ def lm_lora_prefill(kernels_cfg, params, adapters, tokens) -> dict:
     grouped = tree_map(lambda u, v: torch.stack([u, v], dim=1), *loras)
     logits_g, wall_g, counts_g = _prefill_counted(fused_model, params, grouped, tokens)
     want = no_launches(grouped_lora_chunk=n_proj, grouped_lora_chunk_bf16=n_proj,
-                       **{seq_kernel: kernels_cfg.n_layers})
+                       grouped_lora_chunk_wgmma=n_proj, **{seq_kernel: kernels_cfg.n_layers})
     if counts_g != want:
         raise AssertionError(f"{arch} grouped prefill: launches {counts_g}, expected {want}")
     with torch.no_grad():
@@ -1512,13 +1598,13 @@ def lm_backward(arch: str, seed: int) -> dict:
         models["fused"], model, build_model(base.with_(dtype="float32")), params, lora, batch)
     # end to end: every projection forward, dx for all but layer 0's
     # frozen-input ones; per layer (a detached input each): the same less
-    # the frozen-input ones of every layer
-    want = {"fused": no_launches(lora_matmul=2 * n_proj - frozen,
-                                 lora_matmul_bf16=2 * n_proj - frozen),
+    # the frozen-input ones of every layer; every one on the wgmma tile
+    n_e2e, n_layer = 2 * n_proj - frozen, base.n_layers * (2 * per_layer - frozen)
+    want = {"fused": no_launches(lora_matmul=n_e2e, lora_matmul_bf16=n_e2e,
+                                 lora_matmul_wgmma=n_e2e),
             "einsum": no_launches(),
-            "per_layer": no_launches(
-                lora_matmul=base.n_layers * (2 * per_layer - frozen),
-                lora_matmul_bf16=base.n_layers * (2 * per_layer - frozen))}
+            "per_layer": no_launches(lora_matmul=n_layer, lora_matmul_bf16=n_layer,
+                                     lora_matmul_wgmma=n_layer)}
     f, e = res["fused"], res["einsum"]
     free = [_rel(gf, ge) for gf, ge in zip(f["grads"], e["grads"])]
     out = {"arch": arch, "layers": LM_GRAD_LAYERS, "batch": [LM_GRAD_BATCH, LM_GRAD_SEQ],
@@ -1645,12 +1731,16 @@ def cohort_round_gaps(train, test) -> dict:
     return out
 
 
-def lm_prefill_time(arch: str, cfg_kw: dict, kernel: str, seed: int) -> dict:
+def lm_prefill_time(arch: str, cfg_kw: dict, kernel: str, seed: int,
+                    fused: bool = False) -> dict:
     """One prefill of 4 x 2048 tokens through a model's kernel: wall s
     after one unmeasured prefill; device s and the kernel's share under the
-    profiler."""
+    profiler.  ``fused``: with LoRAConfig(impl="fused") (the bf16 LoRA
+    kernel in every adapted projection)."""
     dev = torch.device("cuda")
     cfg = REGISTRY[arch].with_(**cfg_kw)
+    if fused:
+        cfg = cfg.with_(lora=dataclasses.replace(cfg.lora, impl="fused"))
     model = build_model(cfg)
     gen = torch.Generator(device=dev).manual_seed(seed)
     params = model.init_params(gen)
@@ -1676,14 +1766,15 @@ def lm_prefill_time(arch: str, cfg_kw: dict, kernel: str, seed: int) -> dict:
 
 def ab_measure() -> dict:
     """What ``--ab`` compares, on the port this process imported: the
-    redesigned kernels at their paths' shapes (ms a call by CUDA events,
-    device ms a launch by the profiler); one warm fused main round and one
+    kernels at their paths' shapes (ms a call by CUDA events, device ms a
+    launch by the profiler); one warm fused main round and one
     warm cohort round under the profiler (``profile_round``); the cohort
     server step fused against einsum (``cohort_step_gap``); the cohort
     path's round losses fused against einsum with the int8 links on and
     off (``cohort_round_gaps``); and one
     gemma-2b and one rwkv6-3b prefill of 4 x 2048 tokens through their
-    kernels (``lm_prefill_time``)."""
+    kernels (``lm_prefill_time``), the rwkv6-3b one also with fused bf16
+    LoRA."""
     dev = torch.device("cuda")
     rs = np.random.default_rng(0)
 
@@ -1703,10 +1794,23 @@ def ab_measure() -> dict:
                   for _ in range(3))
     ww = torch.exp(-torch.exp(torch.randn(4, 2048, 40, 64, generator=gen, device=dev) - 3.0))
     wu = torch.randn(40, 64, generator=gen, device=dev) * 0.5
+    # bf16 at gemma-2b's q-projection, alone and over two tenants' groups;
+    # the int8 link quantizer at the cohort path's shape
+    xq, wq, aq, bq = (v.bfloat16() for v in (t(8192, 2048), t(2048, 2048, std=2048 ** -0.5),
+                                             t(16, 2048, std=0.25), t(2048, 16, std=0.1)))
+    aqg, bqg = torch.stack([aq, aq]), torch.stack([bq, bq])
+    xr = t(2048, 768)
     out = {"root": str(PORT_ROOT)}
     for name, fn, kernel, iters in (
             ("lora_matmul", lambda: lora_matmul(x, w, a, b, scale=2.0),
              "lora_matmul_kernel", 20),
+            # the parent's bf16 kernel and this tree's are both named lora_matmul_*
+            ("lora_matmul_bf16", lambda: lora_matmul(xq, wq, aq, bq, scale=2.0),
+             "lora_matmul_", 20),
+            ("grouped_lora_chunk_bf16",
+             lambda: grouped_lora(xq, wq, aqg, bqg, group_sizes=(4096, 4096),
+                                  scales=(2.0, 2.0), mode="chunk"), "grouped_lora_", 20),
+            ("quantize_rows", lambda: quantize_rows(xr), "quant", 20),
             ("grouped_lora_chunk",
              lambda: grouped_lora(xg, w, ag, bg, group_sizes=(2048, 2048), scales=(2.0, 2.0),
                                   mode="chunk"), "grouped_lora_kernel", 20),
@@ -1714,7 +1818,7 @@ def ab_measure() -> dict:
             ("wkv6", lambda: wkv6(wr, wk, wv, ww, wu), "wkv6_kernel", 10)):
         out[name] = {"ms": cuda_ms(fn, iters=2 * iters),
                      "device_ms": device_ms(fn, kernel, iters=iters)}
-    del x, w, a, b, xg, ag, bg, q, k, v, wr, wk, wv, ww, wu
+    del x, w, a, b, xg, ag, bg, q, k, v, wr, wk, wv, ww, wu, xq, wq, aq, bq, aqg, bqg, xr
 
     train = make_emotion_dataset(N_TRAIN, seq_len=SEQ, vocab_size=30_522, seed=0)
     test = make_emotion_dataset(N_TEST, seq_len=SEQ, vocab_size=30_522, seed=1)
@@ -1731,6 +1835,8 @@ def ab_measure() -> dict:
 
     out["gemma_prefill"] = lm_prefill_time("gemma-2b", {"attn_impl": "chunked"}, "flash", 13)
     out["rwkv6_prefill"] = lm_prefill_time("rwkv6-3b", {"wkv_impl": "chunked"}, "wkv6", 14)
+    out["rwkv6_prefill_fused"] = lm_prefill_time("rwkv6-3b", {"wkv_impl": "chunked"},
+                                                 "lora_matmul", 14, fused=True)
     return out
 
 
@@ -1791,8 +1897,12 @@ def main() -> None:
             if ("registers" in line or "spill" in line or "smem" in line
                     or "Compiling entry" in line):
                 print(f"[build] {name}: {line.strip()}", flush=True)
-        print(f"[build] {name}: tensor-core instructions in SASS "
-              f"{json.dumps(sass_mma_counts(name))}", flush=True)
+        mma = sass_mma_counts(name)
+        print(f"[build] {name}: tensor-core instructions in SASS {json.dumps(mma)}",
+              flush=True)
+        # the bf16 LoRA tile and flash's bf16 body are wgmma
+        if name in WGMMA_SOURCES and not mma.get("HGMMA", 0) > 0:
+            raise AssertionError(f"no HGMMA instruction in lib{name}.so: {mma}")
 
     # the main path's shape (timed), then M, N, K off the tiles, the dx
     # call's K 770 (N 770 forward) and ranks 5, 16, 64
@@ -1821,13 +1931,16 @@ def main() -> None:
     # the fp32 checks' ragged shapes
     bf16_q = check_lora_matmul_bf16(8192, 2048, 2048, 16, seed=20, timed=True)
     bf16_kv = check_lora_matmul_bf16(8192, 2048, 256, 16, seed=21, timed=True)
+    # and rwkv6-3b's three projection shapes over the same 8192 rows
+    bf16_rwkv = [check_lora_matmul_bf16(8192, k, n, 16, seed=40 + i, timed=True)
+                 for i, (k, n) in enumerate(RWKV6_PROJECTIONS)]
     bf16_ragged = [check_lora_matmul_bf16(m, k, n, r, seed=22 + r)
                    for m, k, n in ((128, 128, 128), (64, 256, 128), (100, 300, 200),
                                    (7, 130, 64), (256, 512, 384))
                    for r in (4, 16)]
     bf16_ragged += [check_lora_matmul_bf16(2047, 770, 768, 64, seed=23),
                     check_lora_matmul_bf16(2047, 768, 770, 5, seed=24)]
-    for c in (bf16_q, bf16_kv, *bf16_ragged):
+    for c in (bf16_q, bf16_kv, *bf16_rwkv, *bf16_ragged):
         print(f"[kernel] lora_matmul bf16 {json.dumps(c)}", flush=True)
     # the 2-tenant grouped prefill's q-projection (timed); ragged cohorts in
     # chunk mode; direct mode at K <= 128, the reference's auto choice
@@ -1946,9 +2059,10 @@ def main() -> None:
                      grouped_direct["r"]]),
         entry("lora_matmul_bf16", csrc + "lora_matmul.cu",
               "src/repro/kernels/lora_matmul.py:62",
-              sum(lm[arch]["lora_kernels"]["fused"]["launches"]["lora_matmul_bf16"]
+              sum(lm[arch]["lora_kernels"]["fused"]["launches"]["lora_matmul_wgmma"]
                   for arch in LM_ARCHS), bf16_q,
               path="gemma-2b and rwkv6-3b fused-LoRA prefill", dtype="bfloat16",
+              tile=csrc + "bf16_wgmma_tile.cuh",
               shape=bf16_q["shape"], design=DESIGNS["lora_matmul_bf16"],
               launches_by_path={
                   **{f"{arch} fused prefill":
@@ -1963,24 +2077,58 @@ def main() -> None:
               error_vs_exact=bf16_q["error_vs_exact"],
               kv_projection={key: bf16_kv[key] for key in
                              ("shape", "ms", "device_ms", "plain_ms", "base_matmul_ms",
-                              "bound_ms", "bound_by", "fwd_err")},
+                              "bound_ms", "bound_by", "fwd_err", "mma_sync_device_ms")},
+              rwkv6_projections=[{key: c[key] for key in
+                                  ("shape", "ms", "device_ms", "dx_call_device_ms",
+                                   "mma_sync_device_ms", "plain_ms", "base_matmul_ms",
+                                   "bound_ms", "bound_by", "fwd_err", "views_err",
+                                   "dx_call_err", "error_vs_exact")}
+                                 for c in bf16_rwkv],
               ragged={str(c["shape"]): max(v for key, v in c.items()
                                            if key.endswith("_err") and key != "max_abs_err")
                       for c in bf16_ragged}),
+        entry("lora_matmul_bf16_mma_sync", csrc + "lora_matmul.cu",
+              "src/repro/kernels/lora_matmul.py:62",
+              sum(lm[arch]["lora_kernels"]["fused"]["launches"]["lora_matmul_bf16"]
+                  - lm[arch]["lora_kernels"]["fused"]["launches"]["lora_matmul_wgmma"]
+                  for arch in LM_ARCHS),
+              {**bf16_q, "ms": bf16_q["mma_sync_ms"], "device_ms": bf16_q["mma_sync_device_ms"],
+               "max_abs_err": bf16_q["mma_sync_max_abs_err"]},
+              path=None, dtype="bfloat16", tile=csrc + "bf16_lora_tile.cuh",
+              shape=bf16_q["shape"], timed_with="A misaligned by one element",
+              design=DESIGNS["lora_matmul_bf16_mma_sync"],
+              ragged_tiles={str(c["shape"]): [c["tile"], c["views_tile"], c["dx_call_tile"]]
+                            for c in bf16_ragged}),
         entry("grouped_lora_chunk_bf16", csrc + "grouped_lora.cu",
               "src/repro/kernels/grouped_lora.py:119",
-              sum(lm[arch]["lora_kernels"]["grouped"]["launches"]["grouped_lora_chunk_bf16"]
+              sum(lm[arch]["lora_kernels"]["grouped"]["launches"]["grouped_lora_chunk_wgmma"]
                   for arch in LM_ARCHS), bf16_grouped,
               path="gemma-2b and rwkv6-3b 2-tenant grouped prefill", dtype="bfloat16",
+              tile=csrc + "bf16_wgmma_tile.cuh",
               shape=[bf16_grouped["sizes"], bf16_grouped["k"], bf16_grouped["n"],
                      bf16_grouped["r"]],
               design=DESIGNS["grouped_lora_chunk_bf16"],
               dx_call_device_ms=bf16_grouped["dx_call_device_ms"],
               base_matmul_ms=bf16_grouped["base_matmul_ms"],
               bound_bytes_ms=bf16_grouped["bound_bytes_ms"],
+              mma_sync_device_ms=bf16_grouped["mma_sync_device_ms"],
               ragged_errs=[max(v for key, v in c.items()
                                if key.endswith("_err") and key != "max_abs_err")
                            for c in bf16_grouped_ragged]),
+        entry("grouped_lora_chunk_bf16_mma_sync", csrc + "grouped_lora.cu",
+              "src/repro/kernels/grouped_lora.py:119",
+              sum(lm[arch]["lora_kernels"]["grouped"]["launches"]["grouped_lora_chunk_bf16"]
+                  - lm[arch]["lora_kernels"]["grouped"]["launches"]["grouped_lora_chunk_wgmma"]
+                  for arch in LM_ARCHS),
+              {**bf16_grouped, "ms": bf16_grouped["mma_sync_ms"],
+               "device_ms": bf16_grouped["mma_sync_device_ms"],
+               "max_abs_err": bf16_grouped["mma_sync_max_abs_err"]},
+              path=None, dtype="bfloat16", tile=csrc + "bf16_lora_tile.cuh",
+              timed_with="A misaligned by one element",
+              shape=[bf16_grouped["sizes"], bf16_grouped["k"], bf16_grouped["n"],
+                     bf16_grouped["r"]],
+              design=DESIGNS["grouped_lora_chunk_bf16_mma_sync"],
+              ragged_tiles=[c["tile"] for c in bf16_grouped_ragged]),
         entry("grouped_lora_direct_bf16", csrc + "grouped_lora.cu",
               "src/repro/kernels/grouped_lora.py:103",
               sum(lm[arch]["lora_kernels"]["grouped"]["launches"]["grouped_lora_direct_bf16"]

@@ -26,9 +26,11 @@
 // s_g first and takes A_g and B_g by the group stride.
 //
 // Chunk mode (every launch on the cohort path) is lora_matmul's body,
-// shared through tf32_lora_tile.cuh (fp32) and bf16_lora_tile.cuh (bf16:
-// mma.sync.m16n8k16 on 128 x 128 tiles, f32 accumulators, the up-projection
-// in f32).  In fp32: 3xTF32 mma.sync.m16n8k8 (about 22-bit
+// shared through tf32_lora_tile.cuh (fp32) and, in bf16, through
+// bf16_wgmma_tile.cuh (wgmma fed by TMA, entry grouped_lora_bf16_tma: A_g by
+// a 3-D tensor map or by pointer, B_g by pointer) where TMA can describe the
+// operands and bf16_lora_tile.cuh (mma.sync.m16n8k16 on 128 x 128 tiles)
+// elsewhere; both keep x @ A_g^T in f32.  In fp32: 3xTF32 mma.sync.m16n8k8 (about 22-bit
 // operands; each k8 slice's products added to the f32 accumulator with
 // round-to-nearest), one block of 256 threads per 128 x 96 tile of y, and
 // a 4-stage cp.async ring of 32-deep K steps carrying x, W and A_g, A_g's
@@ -59,6 +61,7 @@
 // Measured times are in PERF.md.
 
 #include "bf16_lora_tile.cuh"
+#include "bf16_wgmma_tile.cuh"
 #include "tf32_lora_tile.cuh"
 
 namespace {
@@ -136,6 +139,65 @@ int launch_chunk_bf16(const bc::half_t* x, const bc::half_t* w, const bc::half_t
   kern<<<grid, bc::THREADS, L::BYTES, s>>>(x, w, a, b, scales, tiles, y, N, K, r, sw, sag,
                                            saj, sak, sbg, sbn, sbj, vec);
   return (int)cudaGetLastError();
+}
+
+// the same on the wgmma tile (bf16_wgmma_tile.cuh): the block's group, rows
+// and scale from the tile table; A_g by the group's TMA coordinate (mode 0)
+// or pointer (mode 1), B_g by pointer
+template <int BN, int RP, bool WK>
+__global__ void __launch_bounds__(wg::THREADS, 1)
+grouped_lora_wgmma_kernel(const __grid_constant__ CUtensorMap tx,
+                          const __grid_constant__ CUtensorMap tw,
+                          const __grid_constant__ CUtensorMap ta, wg::Tile t,
+                          const float* __restrict__ scales, const int* __restrict__ tiles,
+                          long long sag, long long sbg) {
+  extern __shared__ __align__(1024) unsigned char smw[];
+  __shared__ __align__(8) uint64_t bars[2 * wg::STAGES];
+  const int* tile = tiles + 3 * blockIdx.y;
+  t.group = tile[0];
+  t.m0 = tile[1];
+  t.rows = tile[2];
+  t.n0 = blockIdx.x * BN;
+  t.scale = scales[t.group];
+  t.a += t.group * sag;
+  t.b += t.group * sbg;
+  wg::lora_tile<BN, RP, WK>(smw, bars, &tx, &tw, &ta, t);
+}
+
+struct WgmmaCall {
+  wg::Maps maps;
+  wg::Tile t;
+  const float* scales;
+  const int* tiles;
+  int n_tiles;
+  long long sag, sbg;
+};
+
+template <int BN, int RP, bool WK>
+int launch_wgmma(const WgmmaCall& c, cudaStream_t s) {
+  using C = wg::Cfg<BN, RP>;
+  auto kern = grouped_lora_wgmma_kernel<BN, RP, WK>;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)C::SMEM);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((c.t.N + BN - 1) / BN, c.n_tiles);
+  kern<<<grid, wg::THREADS, C::SMEM, s>>>(c.maps.tx, c.maps.tw, c.maps.ta, c.t, c.scales,
+                                          c.tiles, c.sag, c.sbg);
+  return (int)cudaGetLastError();
+}
+
+template <int BN, bool WK>
+int wgmma_rank(const WgmmaCall& c, cudaStream_t s) {
+  if (c.t.r <= 16) return launch_wgmma<BN, 16, WK>(c, s);
+  if (c.t.r <= 32) return launch_wgmma<BN, 32, WK>(c, s);
+  return launch_wgmma<BN, 64, WK>(c, s);
+}
+
+template <bool WK>
+int wgmma_width(int bn, const WgmmaCall& c, cudaStream_t s) {
+  if (bn == 256) return wgmma_rank<256, WK>(c, s);
+  if (bn == 128) return wgmma_rank<128, WK>(c, s);
+  return wgmma_rank<64, WK>(c, s);
 }
 
 // --------------------------------------------------------------- direct mode
@@ -404,6 +466,37 @@ int grouped_lora_bf16(const void* x, const void* w, const void* a, const void* b
   return launch_rank(P(x), P(w), P(a), P(b), scales, tiles, static_cast<bc::half_t*>(y),
                      n_tiles, N, K, r, direct, sw, w_kmajor, sag, saj, sak, sbg, sbn, sbj,
                      stream);
+}
+
+// chunk mode in bf16 on the wgmma tile (bf16_wgmma_tile.cuh), for operands
+// TMA can describe (wg::wgmma_ok; the wrapper's tma_ok): the arguments of
+// grouped_lora_bf16 less ``direct``, with M (x's rows) and G (the groups A
+// and B hold).  Returns cudaErrorInvalidValue for other operands, and when a
+// tensor map does not encode
+int grouped_lora_bf16_tma(const void* x, const void* w, const void* a, const void* b,
+                          const float* scales, const int* tiles, void* y, int n_tiles, int M,
+                          int N, int K, int r, int G, long long sw, int w_kmajor,
+                          long long sag, long long saj, long long sak, long long sbg,
+                          long long sbn, long long sbj, void* stream) {
+  if (n_tiles <= 0 || n_tiles > MAX_TILES || M <= 0 || N <= 0 || G <= 0 ||
+      r > wg::MAX_RANK || !wg::wgmma_ok(x, w, a, K, r, K, sw, saj, sak, sag))
+    return (int)cudaErrorInvalidValue;
+  const bool a_tma = wg::a_mode(a, r, saj, sak, sag) == 0;
+  const int bn = wg::tile_width(N, n_tiles);
+  WgmmaCall c;
+  if (!wg::encode_maps(&c.maps, x, w, a, M, N, K, r, G, K, sw, w_kmajor != 0, saj, sag, bn,
+                       wg::rank_tile(r), a_tma))
+    return (int)cudaErrorInvalidValue;
+  typedef const wg::half_t* P;
+  c.t = {0, 0, 0, N, K, r, 0, 0.f, P(a), saj, sak, P(b), sbn, sbj,
+         static_cast<wg::half_t*>(y), a_tma};
+  c.scales = scales;
+  c.tiles = tiles;
+  c.n_tiles = n_tiles;
+  c.sag = sag;
+  c.sbg = sbg;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return w_kmajor ? wgmma_width<true>(bn, c, s) : wgmma_width<false>(bn, c, s);
 }
 
 }  // extern "C"

@@ -25,10 +25,20 @@
 // path's shape (M 2048, K = N 768, r 16) the tiles make 16 x 8 = 128 blocks,
 // one wave on the 132 SMs (64 x 64 tiles made 384 blocks, a 2.9-wave tail).
 //
-// bf16 (bf16_lora_tile.cuh, shared the same way): mma.sync.m16n8k16 bf16
-// with f32 accumulators and no operand split, fed by ldmatrix (.trans for
-// the forward's N-contiguous W), one block of 256 threads per 128 x 128
-// tile, two blocks an SM up to r 32, a 4-stage ring of 32-deep K steps.
+// bf16, two tiles shared the same way, chosen by the operands before the
+// launch (the wrapper's tma_ok, wg::wgmma_ok here):
+//   * bf16_wgmma_tile.cuh (entry lora_matmul_bf16_tma), wherever TMA can
+//     describe x and W and A is K-contiguous or its ranks contiguous in
+//     16-byte runs: every shape of the LM paths, the backward's views
+//     included.  wgmma m64nBNk16 fed by a 4-stage TMA ring that a producer
+//     warpgroup keeps in flight, two consumer warpgroups a 128 x BN tile
+//     (BN 256, 128 or 64 by the grid), the up-projection on the tensor
+//     cores from a three-term bf16 split of the f32 x @ A^T;
+//   * bf16_lora_tile.cuh (entry lora_matmul_bf16) for the rest (K 130,
+//     N 770, unaligned slices, the B^T view at r 5): mma.sync.m16n8k16 with
+//     f32 accumulators fed by ldmatrix (.trans for the forward's
+//     N-contiguous W), one block of 256 threads per 128 x 128 tile, two
+//     blocks an SM up to r 32, a 4-stage ring of 32-deep K steps.
 //
 // What bounds it.  fp32, at the main path's shape one launch does
 // 2MKN + 2MKr + 2MNr = 2.52 GFLOP and must move about 15 MB: 37.6 us at the
@@ -41,6 +51,7 @@
 // are in PERF.md.
 
 #include "bf16_lora_tile.cuh"
+#include "bf16_wgmma_tile.cuh"
 #include "tf32_lora_tile.cuh"
 
 namespace {
@@ -135,6 +146,49 @@ int dispatch_rank_bf16(const bc::half_t* x, const bc::half_t* w, const bc::half_
                              vec, s);
 }
 
+// ------------------------------------------------------- bf16 on wgmma
+
+// BN: the tile width (256, 128 or 64).  RP: the rank rounded up to 16, 32 or
+// 64.  WK: W is K-contiguous.
+template <int BN, int RP, bool WK>
+__global__ void __launch_bounds__(wg::THREADS, 1)
+lora_matmul_wgmma_kernel(const __grid_constant__ CUtensorMap tx,
+                         const __grid_constant__ CUtensorMap tw,
+                         const __grid_constant__ CUtensorMap ta, wg::Tile t, int M) {
+  extern __shared__ __align__(1024) unsigned char smw[];
+  __shared__ __align__(8) uint64_t bars[2 * wg::STAGES];
+  t.m0 = blockIdx.y * wg::BM;
+  t.rows = min(wg::BM, M - t.m0);
+  t.n0 = blockIdx.x * BN;
+  wg::lora_tile<BN, RP, WK>(smw, bars, &tx, &tw, &ta, t);
+}
+
+template <int BN, int RP, bool WK>
+int launch_wgmma(const wg::Maps& maps, const wg::Tile& t, int M, cudaStream_t s) {
+  using C = wg::Cfg<BN, RP>;
+  auto kern = lora_matmul_wgmma_kernel<BN, RP, WK>;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)C::SMEM);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((t.N + BN - 1) / BN, (M + wg::BM - 1) / wg::BM);
+  kern<<<grid, wg::THREADS, C::SMEM, s>>>(maps.tx, maps.tw, maps.ta, t, M);
+  return (int)cudaGetLastError();
+}
+
+template <int BN, bool WK>
+int wgmma_rank(const wg::Maps& maps, const wg::Tile& t, int M, cudaStream_t s) {
+  if (t.r <= 16) return launch_wgmma<BN, 16, WK>(maps, t, M, s);
+  if (t.r <= 32) return launch_wgmma<BN, 32, WK>(maps, t, M, s);
+  return launch_wgmma<BN, 64, WK>(maps, t, M, s);
+}
+
+template <bool WK>
+int wgmma_width(int bn, const wg::Maps& maps, const wg::Tile& t, int M, cudaStream_t s) {
+  if (bn == 256) return wgmma_rank<256, WK>(maps, t, M, s);
+  if (bn == 128) return wgmma_rank<128, WK>(maps, t, M, s);
+  return wgmma_rank<64, WK>(maps, t, M, s);
+}
+
 }  // namespace
 
 extern "C" {
@@ -174,6 +228,29 @@ int lora_matmul_bf16(const void* x, const void* w, const void* a, const void* b,
                                     sak, sbn, sbj, vec, s);
   return dispatch_rank_bf16<false>(P(x), P(w), P(a), P(b), yh, M, N, K, r, scale, sx, sw, saj,
                                    sak, sbn, sbj, vec, s);
+}
+
+// the same on the wgmma tile (bf16_wgmma_tile.cuh), for operands TMA can
+// describe (wg::wgmma_ok; the wrapper's tma_ok): returns
+// cudaErrorInvalidValue for any other, and when a tensor map does not encode
+int lora_matmul_bf16_tma(const void* x, const void* w, const void* a, const void* b, void* y,
+                         int M, int N, int K, int r, float scale, long long sx, long long sw,
+                         int w_kmajor, long long saj, long long sak, long long sbn,
+                         long long sbj, void* stream) {
+  if (M <= 0 || N <= 0 || r > wg::MAX_RANK ||
+      !wg::wgmma_ok(x, w, a, K, r, sx, sw, saj, sak, 0))
+    return (int)cudaErrorInvalidValue;
+  const bool a_tma = wg::a_mode(a, r, saj, sak, 0) == 0;
+  const int bn = wg::tile_width(N, (M + wg::BM - 1) / wg::BM);
+  wg::Maps maps;
+  if (!wg::encode_maps(&maps, x, w, a, M, N, K, r, 1, sx, sw, w_kmajor != 0, saj, 0, bn,
+                       wg::rank_tile(r), a_tma))
+    return (int)cudaErrorInvalidValue;
+  typedef const wg::half_t* P;
+  const wg::Tile t = {0, 0, 0, N, K, r, 0, scale, P(a), saj, sak, P(b), sbn, sbj,
+                      static_cast<wg::half_t*>(y), a_tma};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return w_kmajor ? wgmma_width<true>(bn, maps, t, M, s) : wgmma_width<false>(bn, maps, t, M, s);
 }
 
 }  // extern "C"

@@ -28,10 +28,14 @@ from the host once the key has been seen.
 
 A CUDA tensor launches the kernel of its type on the current stream or
 raises; a CPU tensor takes the plain version
-(``ref.grouped_lora_matmul_ref``).  The counters
+(``ref.grouped_lora_matmul_ref``).  bf16 chunk mode runs the ``wgmma``
+tile fed by TMA (``csrc/bf16_wgmma_tile.cuh``) where
+``lora_matmul.tma_ok`` holds for x, w and the stacked a, b, and the
+``mma.sync`` tile otherwise, chosen before the launch.  The counters
 ``grouped_lora_chunk.launches`` and ``grouped_lora_direct.launches`` grow by
 one per kernel launch of their mode, of either type, and by nothing else;
-``.launches_bf16`` of each by one per bf16 launch.
+``.launches_bf16`` of each by one per bf16 launch, and
+``grouped_lora_chunk.launches_wgmma`` by one per launch of the wgmma tile.
 """
 from __future__ import annotations
 
@@ -42,6 +46,7 @@ from typing import List, Sequence, Tuple
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.lora_matmul import tma_ok
 from repro_torch.kernels.ref import grouped_lora_matmul_ref
 
 MAX_RANK = 64          # the kernel's shared tiles hold r <= 64
@@ -51,8 +56,10 @@ DIRECT_BN = 64         # columns of y per direct-mode block
 MAX_TILES = 65535      # tiles per launch (the grid's y extent)
 MAX_SMEM = 232448      # bytes of shared memory a block may use (sm_90)
 MODES = ("chunk", "direct")
-# the C entry point of each operand type
+# the C entry point of each operand type, and of bf16 chunk mode on the
+# wgmma tile
 ENTRY = {torch.float32: "grouped_lora_f32", torch.bfloat16: "grouped_lora_bf16"}
+ENTRY_WGMMA = "grouped_lora_bf16_tma"
 
 _launch = {}
 
@@ -87,6 +94,18 @@ def _kernel(dtype: torch.dtype):
                                "the largest rank or the direct mode's K")
         _launch[dtype] = fn
     return _launch[dtype]
+
+
+def _kernel_wgmma():
+    if ENTRY_WGMMA not in _launch:
+        fn = getattr(build.load("grouped_lora"), ENTRY_WGMMA)
+        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
+                       + [ctypes.c_longlong, ctypes.c_int] + [ctypes.c_longlong] * 6
+                       + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        _kernel(torch.bfloat16)         # checks the library against the binding
+        _launch[ENTRY_WGMMA] = fn
+    return _launch[ENTRY_WGMMA]
 
 
 def tile_table(group_sizes: Sequence[int], bm: int = BM) -> List[Tuple[int, int, int]]:
@@ -167,22 +186,28 @@ def _run(x, w, a, b, group_sizes, scales, mode, counted) -> torch.Tensor:
     if n == 0:
         return y
     tiles, scales_dev = _device_tables(group_sizes, scales, _tile_rows(mode), x.device)
-    fn = _kernel(x.dtype)
+    wgmma = mode == "chunk" and tma_ok(x, w, a, b)
     # w N-contiguous (row stride) or K-contiguous (column stride)
     w_kmajor = not w.is_contiguous()
     sw = w.stride(1) if w_kmajor else w.stride(0)
+    ptrs = (x.data_ptr(), w.data_ptr(), a.data_ptr(), b.data_ptr(), scales_dev.data_ptr(),
+            tiles.data_ptr(), y.data_ptr())
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = fn(x.data_ptr(), w.data_ptr(), a.data_ptr(), b.data_ptr(),
-                scales_dev.data_ptr(), tiles.data_ptr(), y.data_ptr(),
-                tiles.shape[0], n, k, r, int(mode == "direct"), sw, int(w_kmajor),
-                *a.stride(), *b.stride(), stream)
+        if wgmma:
+            rc = _kernel_wgmma()(*ptrs, tiles.shape[0], m, n, k, r, a.shape[0], sw,
+                                 int(w_kmajor), *a.stride(), *b.stride(), stream)
+        else:
+            rc = _kernel(x.dtype)(*ptrs, tiles.shape[0], n, k, r, int(mode == "direct"), sw,
+                                  int(w_kmajor), *a.stride(), *b.stride(), stream)
     if rc != 0:
         raise RuntimeError(f"grouped_lora ({mode}) kernel launch failed: "
                            f"CUDA error {rc}")
     counted.launches += 1
     if x.dtype == torch.bfloat16:
         counted.launches_bf16 += 1
+    if wgmma:
+        counted.launches_wgmma += 1
     return y
 
 
@@ -202,6 +227,7 @@ def grouped_lora_direct(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
 
 
 grouped_lora_chunk.launches = grouped_lora_chunk.launches_bf16 = 0
+grouped_lora_chunk.launches_wgmma = 0
 grouped_lora_direct.launches = grouped_lora_direct.launches_bf16 = 0
 
 
