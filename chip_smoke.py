@@ -12,11 +12,15 @@ Phases (any failed check raises and the script exits non-zero):
    at once; ptxas's register and shared-memory lines are printed, and the
    count of tensor-core instructions (HMMA, HGMMA) in each library's SASS,
    which must hold HGMMA (wgmma) in lora_matmul, grouped_lora and
-   flash_attention;
+   flash_attention, and in every instance of grouped_lora's direct-mode
+   tiles (HGMMA in bf16, HMMA in fp32), with no function of the SIMT
+   direct body left;
 3. kernel check: each kernel against its plain PyTorch version on the card,
    forward and backward, at its path's shape and at ragged shapes (the
-   quantize kernel bit for bit, .5 ties and a zero row included), with
-   times for the kernel, the plain version and the base product;
+   quantize kernel bit for bit, .5 ties and a zero row included, in f32
+   and bf16 at the cohort shape, timed, and both of its bodies at wide
+   and unaligned rows), with times for the kernel, the plain version and
+   the base product;
    lora_matmul also on the .t() views of W, A and B that its backward
    passes, at M, N and K off its 128 x 96 x 32 tiles (N 130 and 770) and
    at r 5, 16 and 64; at the main shape its error against exact (fp64)
@@ -35,7 +39,13 @@ Phases (any failed check raises and the script exits non-zero):
    (the 2-tenant prefill's q-projection, timed, and ragged cohorts) and
    direct mode, each also on the backward's views and for dx, dA and dB
    (each output row's error over its own scale, <= 1e-2); each result
-   names the tile that ran (``tma_ok``: wgmma, else mma.sync);
+   names the tile that ran (``tma_ok``: wgmma, else mma.sync); direct
+   mode in both types at its timed shapes (K 128: fp32 over two groups of
+   2048 rows, N 768; bf16 over two of 4096, N 2048), beside chunk mode on
+   the same inputs and the base product, the bf16 one's error against
+   exact products held within 5 % of the plain version's, and at ragged
+   shapes and K 770 (each result names its body: ``resident`` or the K
+   sweep, and its dx call's);
 4. main path: the paper's split-federated round at the full width of
    bert-base (12 layers, d 768, vocab 30522, seq 128, batch 16) across the
    six paper clients at the paper cuts, scheme "ours", analytic engine,
@@ -113,7 +123,9 @@ else: four processes in the order old, new, new, old, each importing and
 building its own checkout's port, each printing one ``[ab] {json}`` line
 (``ab_measure``: every kernel at its path's shape (fp32 lora_matmul and
 grouped chunk, bf16 lora_matmul and grouped chunk at gemma-2b's
-q-projection, quantize_rows, flash, WKV6), a warm main and a warm cohort
+q-projection, quantize_rows, flash, WKV6), grouped direct mode at its two
+timed shapes, bf16 quantize_rows where the checkout takes it, a warm main
+and a warm cohort
 round under the profiler, the cohort server step fused against einsum,
 the cohort rounds' loss gap with int8 links on and off, a gemma-2b and an
 rwkv6-3b prefill, and the rwkv6-3b prefill with fused bf16 LoRA).
@@ -157,12 +169,14 @@ from repro_torch.fed import (PAPER_CLIENTS, PAPER_CUTS, AggConfig,  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention_plain  # noqa: E402
+from repro_torch.kernels import grouped_lora as grouped_module  # noqa: E402
 from repro_torch.kernels.grouped_lora import (grouped_lora,  # noqa: E402
                                               grouped_lora_chunk,
                                               grouped_lora_direct)
 from repro_torch.kernels import lora_matmul as lora_matmul_module  # noqa: E402
 from repro_torch.kernels.lora_matmul import lora_matmul  # noqa: E402
 from repro_torch.kernels.ops import fused_lora_matmul, grouped_lora_matmul  # noqa: E402
+from repro_torch.kernels import quant as quant_module  # noqa: E402
 from repro_torch.kernels.quant import quantize_rows  # noqa: E402
 from repro_torch.kernels.ref import (grouped_lora_matmul_ref,  # noqa: E402
                                      lora_matmul_ref, quantize_rows_ref, wkv6_ref)
@@ -172,9 +186,12 @@ from repro_torch.models.layers import softmax_xent  # noqa: E402
 from repro_torch.serving import Request, ServingEngine  # noqa: E402
 from repro_torch.tree import tree_leaves, tree_map  # noqa: E402
 
-# the bf16 tiles' dispatch rule; a parent checkout under --ab (which runs
-# only ab_measure, where it is not read) may predate it
+# the bf16 tiles' dispatch rule, the quantize kernel's body rule and direct
+# mode's; a parent checkout under --ab (which runs only ab_measure, where
+# they are not read) may predate them
 tma_ok = getattr(lora_matmul_module, "tma_ok", None)
+resident_loads = getattr(quant_module, "resident_loads", None)
+direct_resident = getattr(grouped_module, "direct_resident", None)
 
 # H100 SXM data-sheet peaks (dense): fp32 on the CUDA cores, bf16 on the
 # tensor cores, HBM bandwidth
@@ -197,8 +214,11 @@ DESIGNS = {
                           "tf32_lora_tile.cuh) per 128x96 tile of one group, from a "
                           "device tile table; 4-stage cp.async ring; W N- or "
                           "K-contiguous, A and B by group and element strides",
-    "grouped_lora_direct": "the SIMT body (64x64 tiles, 4x4 FMA micro-tiles, the "
-                           "whole K slab in shared memory), W, A and B by strides",
+    "grouped_lora_direct": "K <= 128: the 3xTF32 mma.sync tile of chunk mode on 128x96 "
+                           "tiles from the device tile table with the whole K slab copied "
+                           "by cp.async in one step and waited for once (no stage "
+                           "recycled); K > 128: chunk mode's K sweep; W, A and B by "
+                           "strides",
     "lora_matmul_bf16": "wgmma m64nBNk16 (x @ W) and m64nRPk16 (x @ A^T, same x "
                         "descriptor) with f32 accumulators, 2 consumer warpgroups x 64 rows "
                         "of a 128 x BN tile (BN 256 where the grid fills the card, else 64), "
@@ -219,9 +239,25 @@ DESIGNS = {
     "grouped_lora_chunk_bf16_mma_sync": "lora_matmul's mma.sync tile (bf16_lora_tile.cuh) per "
                                         "128x128 tile of one group, for operands TMA cannot "
                                         "describe",
-    "grouped_lora_direct_bf16": "the SIMT direct body templated on the element type: bf16 "
-                                "widened to f32 on the way into shared memory, f32 FMAs, "
-                                "y rounded to bf16",
+    "grouped_lora_direct_bf16": "K <= 128 with operands TMA describes: a resident wgmma "
+                                "tile, one block an SM walking a balanced share of the "
+                                "(128-row tile, 128-column tile) pairs; a producer "
+                                "warpgroup loads a row tile's x slab and A_g once by TMA "
+                                "and streams W through a 2-stage TMA ring; 2 consumer "
+                                "warpgroups form x @ A_g^T once a row tile (m64nRPk16) "
+                                "and keep its three-term bf16 split in registers, issue "
+                                "m64n128k16 over the slab and the register-A "
+                                "up-projection per N tile, and store y by double-buffered "
+                                "TMA stores in bulk groups; otherwise chunk mode's K "
+                                "sweep (the wgmma tile, or mma.sync where TMA cannot "
+                                "describe the operands)",
+    "quantize_rows": "a warp per row, 8 rows a block (one resident wave at 2048 rows): "
+                     "each lane issues all of its 16-byte loads (4 f32 or 8 bf16) "
+                     "before the first use, keeps the row in registers, absmax by warp "
+                     "shuffles, the scale formed by every lane, codes stored 4 or 8 to "
+                     "a 32- or 64-bit store; rows that are not whole aligned 16-byte "
+                     "chunks, or wider than 512 chunks, take a block-per-row body that "
+                     "reads the row twice; x read in its stored type (f32 or bf16)",
     "wkv6": "state split over P lanes per group of JC columns and the columns over "
             "S blocks a head ((P, S, JC) = (8, 2, 2) at D 64), outputs reduced P steps "
             "at a time by one shuffle butterfly; r, k, w, v staged by cp.async into a "
@@ -314,6 +350,7 @@ COUNTERS = {"lora_matmul": (lora_matmul, "launches"),
             "grouped_lora_chunk_wgmma": (grouped_lora_chunk, "launches_wgmma"),
             "grouped_lora_direct": (grouped_lora_direct, "launches"),
             "grouped_lora_direct_bf16": (grouped_lora_direct, "launches_bf16"),
+            "grouped_lora_direct_swept": (grouped_lora_direct, "launches_swept"),
             "quantize_rows": (quantize_rows, "launches"),
             "flash_attention": (flash_attention, "launches"),
             "wkv6": (wkv6, "launches")}
@@ -341,17 +378,53 @@ def gpu_line() -> str:
     return out[0]
 
 
-def sass_mma_counts(name: str) -> dict:
-    """Tensor-core instructions in a built library's SASS, by opcode
-    (HMMA: mma.sync; HGMMA: wgmma), from cuobjdump beside nvcc."""
+def sass_mma_by_function(name: str) -> dict:
+    """Tensor-core instructions in a built library's SASS, by function (its
+    mangled name) and opcode (HMMA: mma.sync; HGMMA: wgmma), from cuobjdump
+    beside nvcc; None where cuobjdump is missing."""
     tool = Path(build.nvcc()).with_name("cuobjdump")
     if not tool.exists():
-        return {"cuobjdump": "not found"}
+        return None
     sass = subprocess.run([str(tool), "-sass", str(build.BUILD_DIR / f"lib{name}.so")],
                           capture_output=True, text=True, check=True).stdout
-    ops = [line.split()[1].split(".")[0] for line in sass.splitlines()
-           if "MMA" in line and line.strip().startswith("/*") and len(line.split()) > 1]
-    return {op: ops.count(op) for op in sorted(set(ops)) if op in ("HMMA", "HGMMA")}
+    out, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :", 1)[1].strip()
+            out[fn] = {"HMMA": 0, "HGMMA": 0}
+        elif fn and "MMA" in line and line.strip().startswith("/*") and len(line.split()) > 1:
+            op = line.split()[1].split(".")[0]
+            if op in out[fn]:
+                out[fn][op] += 1
+    return out
+
+
+def sass_mma_counts(name: str) -> dict:
+    """The library's tensor-core instructions by opcode, over its functions."""
+    funcs = sass_mma_by_function(name)
+    if funcs is None:
+        return {"cuobjdump": "not found"}
+    return {op: n for op in ("HGMMA", "HMMA")
+            if (n := sum(f[op] for f in funcs.values()))}
+
+
+def check_direct_sass() -> dict:
+    """Every instance of direct mode's resident tiles holds tensor-core
+    instructions (HGMMA in bf16's wgmma tile, HMMA in fp32's 3xTF32 tile),
+    and no function of the SIMT body the port had before remains."""
+    funcs = sass_mma_by_function("grouped_lora")
+    if funcs is None:
+        return {"cuobjdump": "not found"}
+    bf16 = {f: c for f, c in funcs.items() if "grouped_lora_direct_wgmma_kernel" in f}
+    f32 = {f: c for f, c in funcs.items() if "grouped_lora_direct_kernel" in f}
+    out = {"bf16_instances": len(bf16), "fp32_instances": len(f32),
+           "bf16_min_hgmma": min((c["HGMMA"] for c in bf16.values()), default=0),
+           "fp32_min_hmma": min((c["HMMA"] for c in f32.values()), default=0),
+           "simt_functions": [f for f in funcs if "grouped_lora_kernel_direct" in f]}
+    if (not bf16 or not f32 or out["bf16_min_hgmma"] == 0 or out["fp32_min_hmma"] == 0
+            or out["simt_functions"]):
+        raise AssertionError(f"direct mode's SASS: {out}")
+    return out
 
 
 def cuda_ms(fn, iters: int = 50, warmup: int = 5) -> float:
@@ -599,19 +672,26 @@ def check_grouped(sizes, k: int, n: int, r: int, scales, mode: str, seed: int,
         raise AssertionError(f"grouped_lora ({mode}) disagrees with its plain version "
                              f"at {sizes}, K {k}, N {n}, r {r}: {bad} "
                              f"(tolerance {KERNEL_RTOL})")
+    out["body"] = grouped_body(x, w, a, b, mode)
+    out["dx_call_body"] = grouped_body(gy, *views, mode)
     if timed:
-        tiles = -(-np.asarray(sizes) // (128 if mode == "chunk" else 64))
+        tiles = -(-np.asarray(sizes) // 128)
         flops = 2 * m * k * n + 2 * m * k * r + 2 * m * n * r
+        if mode == "direct":
+            # chunk mode on the same inputs, in the same run
+            out["chunk_device_ms"] = device_ms(
+                lambda: grouped_lora(x, w, a, b, group_sizes=sizes, scales=scales,
+                                     mode="chunk"), grouped_kernel(x, w, a, b, "chunk"))
         out.update(
             ms=cuda_ms(lambda: grouped_lora(x, w, a, b, group_sizes=sizes,
                                             scales=scales, mode=mode)),
             device_ms=device_ms(lambda: grouped_lora(x, w, a, b, group_sizes=sizes,
                                                      scales=scales, mode=mode),
-                                "grouped_lora_kernel"),
+                                grouped_kernel(x, w, a, b, mode)),
             # the backward's dx call, on the views it passes
             dx_call_device_ms=device_ms(lambda: grouped_lora(gy, *views, group_sizes=sizes,
                                                              scales=scales, mode=mode),
-                                        "grouped_lora_kernel"),
+                                        grouped_kernel(gy, *views, mode)),
             plain_ms=cuda_ms(lambda: grouped_lora_matmul_ref(x, w, a, b, sizes, scales)),
             base_matmul_ms=cuda_ms(lambda: torch.matmul(x, w)),
             # errors against exact (fp64) products, forward and the dx call
@@ -641,34 +721,60 @@ def check_grouped_single_group(seed: int) -> dict:
     return {"sizes": [300], "k": 200, "n": 130, "r": 16, "err_vs_lora_matmul": err}
 
 
-def check_quantize(n: int, d: int, seed: int) -> dict:
-    """Quantize kernel vs plain version, bit for bit: a row of exact .5
-    ties (x / scale = [127, 0.5, 1.5, 2.5, -0.5, ...]) and a zero row
-    (scale floors at 1e-12) among seeded rows."""
+def _quantize_once(n: int, d: int, dtype, seed: int):
+    """Quantize kernel vs plain version, bit for bit, on seeded rows with a
+    row of exact .5 ties (x / scale = [127, 0.5, 1.5, 2.5, -0.5, ...]) and
+    a zero row (scale floors at 1e-12), in ``dtype`` (both values exact in
+    bf16 too)."""
     rs = np.random.default_rng(seed)
     x = (rs.standard_normal((n, d)) * 2.0).astype(np.float32)
     tie = np.array([254, 1, 3, 5, -1, -3, -5, 7], np.float32)
     x[1, :] = 0.0
-    x[1, :tie.size] = tie
+    x[1, :tie.size] = tie[:d]
     x[2, :] = 0.0
-    x = torch.from_numpy(x).cuda()
+    x = torch.from_numpy(x).cuda().to(dtype)
     q, s = quantize_rows(x)
     q_ref, s_ref = quantize_rows_ref(x)
     torch.cuda.synchronize()
     tie_q = q[1, :tie.size].tolist()
-    out = {"shape": [n, d], "q_mismatches": int((q != q_ref).sum()),
+    out = {"shape": [n, d], "dtype": str(dtype).split(".")[-1],
+           "body": "resident" if resident_loads(x) else "strided",
+           "resident_loads": resident_loads(x),
+           "q_mismatches": int((q != q_ref).sum()),
            "scale_mismatches": int((s != s_ref).sum()), "tie_row_q": tie_q,
            "zero_row_scale": float(s[2]),
            "max_abs_err": float((q.float() - q_ref.float()).abs().max())}
     if (out["q_mismatches"] or out["scale_mismatches"]
-            or tie_q != [127, 0, 2, 2, 0, -2, -2, 4]
+            or tie_q != [127, 0, 2, 2, 0, -2, -2, 4][:d]
             or s[2] != torch.tensor(1e-12, dtype=torch.float32, device=s.device)):
         raise AssertionError(f"quantize_rows is not bit-equal to its plain version: {out}")
-    out.update(ms=cuda_ms(lambda: quantize_rows(x)),
-               device_ms=device_ms(lambda: quantize_rows(x), "quantize_rows_kernel"),
-               plain_ms=cuda_ms(lambda: quantize_rows_ref(x)),
-               **bound(5 * n * d, 4 * n * d + n * d + 4 * n))
-    return out
+    return x, out
+
+
+def check_quantize(n: int, d: int, seed: int) -> dict:
+    """The quantize kernel at the cohort path's shape in float32 and in
+    bfloat16 (timed against its bytes bound, beside the plain version),
+    and both bodies at a wide, unaligned d (12289) and a wide aligned one
+    (4096: bf16 resident, f32 strided), each bit-equal to the plain
+    version."""
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        x, c = _quantize_once(n, d, dtype, seed)
+        if c["body"] != "resident":
+            raise AssertionError(f"quantize_rows at the path's shape took {c['body']}")
+        size = x.element_size()
+        c.update(ms=cuda_ms(lambda: quantize_rows(x)),
+                 device_ms=device_ms(lambda: quantize_rows(x), "quantize_rows_"),
+                 plain_ms=cuda_ms(lambda: quantize_rows_ref(x)),
+                 **bound(5 * n * d, size * n * d + n * d + 4 * n))
+        out[c["dtype"]] = c
+    out["bodies"] = [_quantize_once(nn, dd, dtype, seed + 1)[1]
+                     for nn, dd in ((6, 12289), (6, 4096), (300, 7))
+                     for dtype in (torch.float32, torch.bfloat16)]
+    if {c["body"] for c in out["bodies"]} != {"resident", "strided"}:
+        raise AssertionError(f"quantize_rows did not run both bodies: {out['bodies']}")
+    # the summary's numbers are the f32 call's, as the cohort path runs it
+    return {**out["float32"], "bfloat16": out["bfloat16"], "bodies": out["bodies"]}
 
 
 def bf16_bound(flops: float, nbytes: float) -> dict:
@@ -702,6 +808,30 @@ def _grad_errs(fn, ref, x, a, b, g) -> dict:
 def _kernel_name(op: str, wgmma: bool) -> str:
     """The device kernel a bf16 call launches, by its tile."""
     return f"{op}_wgmma_kernel" if wgmma else f"{op}_bf16_kernel"
+
+
+def grouped_kernel(x, w, a, b, mode: str) -> str:
+    """The device kernel a grouped call launches, by mode, type and body:
+    direct mode's resident tiles where ``direct_resident`` holds, else the
+    chunk tiles (fp32 3xTF32; bf16 wgmma where ``tma_ok`` holds, else
+    mma.sync)."""
+    if mode == "direct" and direct_resident(x, w, a, b):
+        return ("grouped_lora_direct_kernel" if x.dtype == torch.float32
+                else "grouped_lora_direct_wgmma_kernel")
+    if x.dtype == torch.float32:
+        return "grouped_lora_kernel"
+    return _kernel_name("grouped_lora", tma_ok(x, w, a, b))
+
+
+def grouped_body(x, w, a, b, mode: str) -> str:
+    """What a grouped call runs, by name: ``resident`` (direct mode's
+    resident tile) or the chunk tiles' K sweep (``sweep``, and in bf16 the
+    tile: ``sweep wgmma`` or ``sweep mma.sync``)."""
+    if mode == "direct" and direct_resident(x, w, a, b):
+        return "resident"
+    if x.dtype == torch.float32:
+        return "sweep"
+    return "sweep wgmma" if tma_ok(x, w, a, b) else "sweep mma.sync"
 
 
 def _misaligned(t: torch.Tensor) -> torch.Tensor:
@@ -814,18 +944,38 @@ def check_grouped_bf16(sizes, k: int, n: int, r: int, scales, mode: str, seed: i
     if y.dtype != torch.bfloat16 or bad:
         raise AssertionError(f"bf16 grouped_lora ({mode}) disagrees with its plain version "
                              f"at {sizes}, K {k}, N {n}, r {r}: {bad}")
-    wgmma = mode == "chunk" and tma_ok(x, w, a, b)
-    out["tile"] = "wgmma" if wgmma else "mma.sync" if mode == "chunk" else "simt"
+    wgmma = tma_ok(x, w, a, b)
+    out["tile"] = "wgmma" if wgmma else "mma.sync"
+    out["body"] = grouped_body(x, w, a, b, mode)
+    out["dx_call_body"] = grouped_body(gy, *views, mode)
     if timed:
-        kernel = (_kernel_name("grouped_lora", wgmma) if mode == "chunk"
-                  else "grouped_lora_kernel_direct<unsigned short")
-        tiles = -(-np.asarray(sizes) // (128 if mode == "chunk" else 64))
+        kernel = grouped_kernel(x, w, a, b, mode)
+        tiles = -(-np.asarray(sizes) // 128)
         flops = 2 * m * k * n + 2 * m * k * r + 2 * m * n * r
         call = (lambda: grouped_lora(x, w, a, b, group_sizes=sizes, scales=scales,
                                      mode=mode))
         a_mis = _misaligned(a)
         call_mis = (lambda: grouped_lora(x, w, a_mis, b, group_sizes=sizes, scales=scales,
                                          mode=mode))
+        if mode == "direct":
+            # chunk mode on the same inputs, in the same run; the error
+            # against exact (fp64) products of the bf16 inputs, held within
+            # 5 % of the plain version's as chunk mode's is
+            out["chunk_device_ms"] = device_ms(
+                lambda: grouped_lora(x, w, a, b, group_sizes=sizes, scales=scales,
+                                     mode="chunk"), grouped_kernel(x, w, a, b, "chunk"))
+            f64, offs = torch.float64, np.cumsum([0, *sizes])
+            exact = torch.cat([
+                x[lo:hi].to(f64) @ w.to(f64) + float(scales[i])
+                * (x[lo:hi].to(f64) @ a[i].to(f64).t()) @ b[i].to(f64).t()
+                for i, (lo, hi) in enumerate(zip(offs[:-1], offs[1:]))])
+            out["error_vs_exact"] = {"kernel": row_err(y.to(f64), exact),
+                                     "plain": row_err(y_ref.to(f64), exact)}
+            del exact
+            if not out["error_vs_exact"]["kernel"] <= 1.05 * out["error_vs_exact"]["plain"]:
+                raise AssertionError(f"bf16 grouped_lora direct: error against exact "
+                                     f"products {out['error_vs_exact']} beyond 1.05 x the "
+                                     f"plain version's")
         if mode == "chunk":
             y_mis = call_mis()
             out.update(mma_sync_err=row_err(y_mis, y_ref),
@@ -836,8 +986,7 @@ def check_grouped_bf16(sizes, k: int, n: int, r: int, scales, mode: str, seed: i
             ms=cuda_ms(call), device_ms=device_ms(call, kernel),
             dx_call_device_ms=device_ms(lambda: grouped_lora(
                 gy, *views, group_sizes=sizes, scales=scales, mode=mode),
-                _kernel_name("grouped_lora", tma_ok(gy, *views)) if mode == "chunk"
-                else kernel),
+                grouped_kernel(gy, *views, mode)),
             **({"mma_sync_ms": cuda_ms(call_mis),
                 "mma_sync_device_ms": device_ms(call_mis, _kernel_name("grouped_lora", False))}
                if mode == "chunk" else {}),
@@ -1800,6 +1949,18 @@ def ab_measure() -> dict:
                                              t(16, 2048, std=0.25), t(2048, 16, std=0.1)))
     aqg, bqg = torch.stack([aq, aq]), torch.stack([bq, bq])
     xr = t(2048, 768)
+    # direct mode at its timed shapes (K 128): fp32 over the cohort's two
+    # groups of 2048 rows, bf16 over two tenants' groups of 4096
+    xd = t(4096, 128)
+    wd, ad, bd = t(128, 768, std=128 ** -0.5), t(2, 16, 128, std=0.25), t(2, 768, 16, std=0.1)
+    xdb, wdb, adb, bdb = (v.bfloat16() for v in (
+        t(8192, 128), t(128, 2048, std=128 ** -0.5), t(2, 16, 128, std=0.25),
+        t(2, 2048, 16, std=0.1)))
+    extra = []
+    if resident_loads is not None:
+        # bf16 quantize: a parent whose kernel takes f32 alone raises on it
+        xrb = xr.bfloat16()
+        extra.append(("quantize_rows_bf16", lambda: quantize_rows(xrb), "quant", 20))
     out = {"root": str(PORT_ROOT)}
     for name, fn, kernel, iters in (
             ("lora_matmul", lambda: lora_matmul(x, w, a, b, scale=2.0),
@@ -1815,10 +1976,18 @@ def ab_measure() -> dict:
              lambda: grouped_lora(xg, w, ag, bg, group_sizes=(2048, 2048), scales=(2.0, 2.0),
                                   mode="chunk"), "grouped_lora_kernel", 20),
             ("flash_attention", lambda: flash_attention(q, k, v, causal=True), "flash", 10),
-            ("wkv6", lambda: wkv6(wr, wk, wv, ww, wu), "wkv6_kernel", 10)):
+            ("wkv6", lambda: wkv6(wr, wk, wv, ww, wu), "wkv6_kernel", 10),
+            ("grouped_lora_direct",
+             lambda: grouped_lora(xd, wd, ad, bd, group_sizes=(2048, 2048), scales=(2.0, 2.0),
+                                  mode="direct"), "grouped_lora_", 20),
+            ("grouped_lora_direct_bf16",
+             lambda: grouped_lora(xdb, wdb, adb, bdb, group_sizes=(4096, 4096),
+                                  scales=(2.0, 2.0), mode="direct"), "grouped_lora_", 20),
+            *extra):
         out[name] = {"ms": cuda_ms(fn, iters=2 * iters),
                      "device_ms": device_ms(fn, kernel, iters=iters)}
     del x, w, a, b, xg, ag, bg, q, k, v, wr, wk, wv, ww, wu, xq, wq, aq, bq, aqg, bqg, xr
+    del xd, wd, ad, bd, xdb, wdb, adb, bdb, extra
 
     train = make_emotion_dataset(N_TRAIN, seq_len=SEQ, vocab_size=30_522, seed=0)
     test = make_emotion_dataset(N_TEST, seq_len=SEQ, vocab_size=30_522, seed=1)
@@ -1903,6 +2072,8 @@ def main() -> None:
         # the bf16 LoRA tile and flash's bf16 body are wgmma
         if name in WGMMA_SOURCES and not mma.get("HGMMA", 0) > 0:
             raise AssertionError(f"no HGMMA instruction in lib{name}.so: {mma}")
+    direct_sass = check_direct_sass()
+    print(f"[build] grouped_lora direct mode's SASS {json.dumps(direct_sass)}", flush=True)
 
     # the main path's shape (timed), then M, N, K off the tiles, the dx
     # call's K 770 (N 770 forward) and ranks 5, 16, 64
@@ -1916,13 +2087,22 @@ def main() -> None:
                                  seed=2, timed=True)
     grouped_ragged = check_grouped((37, 100, 5), 130, 100, 5, (0.5, 1.0, 1.5), "chunk",
                                    seed=3)
-    grouped_direct = check_grouped((40, 100, 17), 96, 150, 6, (0.5, 1.0, 1.5), "direct",
+    # direct mode: the cohort shape with K cut to 128, the largest K that
+    # mode "auto" sends there (timed, beside chunk mode on the same inputs);
+    # the ragged test shape; K 770, past the resident slab (the K sweep),
+    # whose dx call (K 96) runs the resident tile on the views
+    grouped_direct = check_grouped((2048, 2048), 128, 768, 16, (2.0, 2.0), "direct",
                                    seed=4, timed=True)
+    grouped_direct_more = [check_grouped((40, 100, 17), 96, 150, 6, (0.5, 1.0, 1.5),
+                                         "direct", seed=4),
+                           check_grouped((40, 100, 17), 770, 96, 6, (0.5, 1.0, 1.5),
+                                         "direct", seed=19)]
     grouped_one = check_grouped_single_group(seed=5)
     quant = check_quantize(2048, 768, seed=6)
     for label, c in (("grouped_lora chunk", grouped_path),
                      ("grouped_lora chunk", grouped_ragged),
                      ("grouped_lora direct", grouped_direct),
+                     *(("grouped_lora direct", c) for c in grouped_direct_more),
                      ("grouped_lora G=1", grouped_one), ("quantize_rows", quant)):
         print(f"[kernel] {label} {json.dumps(c)}", flush=True)
 
@@ -1950,10 +2130,28 @@ def main() -> None:
                            for sizes, k, n, r, sc in (((37, 100, 5), 130, 100, 5,
                                                        (0.5, 1.0, 1.5)),
                                                       ((33, 90), 256, 192, 8, (2.0, 2.0)))]
-    bf16_direct = check_grouped_bf16((40, 100, 17), 96, 150, 6, (0.5, 1.0, 1.5), "direct",
+    # direct mode: two tenants' groups of 4096 rows with K cut to 128
+    # (timed, beside chunk mode); the ragged test shapes (N 150: the K sweep
+    # on mma.sync; K 128 at r 8: the resident tile); K 64 (one panel), whose
+    # dx call runs the resident tile on W^T with A by hand (the B^T view);
+    # r 64; K 770 (the K sweep), its dx call (K 192) past the resident slab;
+    # K 2048 (the sweep), whose dx call (K 128, 18 row tiles x 16 N tiles)
+    # makes each block reload x and A_g by hand (the B^T view)
+    bf16_direct = check_grouped_bf16((4096, 4096), 128, 2048, 16, (2.0, 2.0), "direct",
                                      seed=27, timed=True)
-    bf16_direct_more = [check_grouped_bf16((33, 90), 128, 192, 8, (2.0, 2.0), "direct",
-                                           seed=28)]
+    bf16_direct_more = [check_grouped_bf16(sizes, k, n, r, sc, "direct", seed=28 + i)
+                        for i, (sizes, k, n, r, sc) in enumerate((
+                            ((40, 100, 17), 96, 150, 6, (0.5, 1.0, 1.5)),
+                            ((33, 90), 128, 192, 8, (2.0, 2.0)),
+                            ((33, 290), 64, 128, 16, (0.5, 2.0)),
+                            ((33, 290), 128, 256, 64, (0.5, 2.0)),
+                            ((33, 290), 770, 192, 8, (2.0, 2.0)),
+                            ((1000, 1100), 2048, 128, 16, (0.5, 2.0))))]
+    bodies = {c[key] for c in (bf16_direct, *bf16_direct_more)
+              for key in ("body", "dx_call_body")}
+    if bodies != {"resident", "sweep wgmma", "sweep mma.sync"} or "resident" not in {
+            c["dx_call_body"] for c in bf16_direct_more}:
+        raise AssertionError(f"bf16 direct mode's checks did not reach every body: {bodies}")
     for c in (bf16_grouped, *bf16_grouped_ragged, bf16_direct, *bf16_direct_more):
         print(f"[kernel] grouped_lora {c['mode']} bf16 {json.dumps(c)}", flush=True)
 
@@ -2054,9 +2252,21 @@ def main() -> None:
         entry("grouped_lora_direct", csrc + "grouped_lora.cu",
               "src/repro/kernels/grouped_lora.py:103",
               cohort["launches"]["grouped_lora_direct"], grouped_direct, path=None,
+              tile=csrc + "tf32_lora_tile.cuh", body=grouped_direct["body"],
               design=DESIGNS["grouped_lora_direct"], views_err=grouped_direct["views_err"],
               shape=[grouped_direct["sizes"], grouped_direct["k"], grouped_direct["n"],
-                     grouped_direct["r"]]),
+                     grouped_direct["r"]],
+              chunk_device_ms=grouped_direct["chunk_device_ms"],
+              dx_call_device_ms=grouped_direct["dx_call_device_ms"],
+              dx_call_body=grouped_direct["dx_call_body"],
+              base_matmul_ms=grouped_direct["base_matmul_ms"],
+              bound_tf32x3_ms=grouped_direct["bound_tf32x3_ms"],
+              error_sources=grouped_direct["error_sources"],
+              more={f"{c['sizes']} K {c['k']} N {c['n']} r {c['r']}": {
+                  key: c[key] for key in ("body", "dx_call_body", "fwd_err", "views_err",
+                                          "dx_err", "da_err", "db_err")}
+                  for c in grouped_direct_more},
+              sass=direct_sass),
         entry("lora_matmul_bf16", csrc + "lora_matmul.cu",
               "src/repro/kernels/lora_matmul.py:62",
               sum(lm[arch]["lora_kernels"]["fused"]["launches"]["lora_matmul_wgmma"]
@@ -2135,12 +2345,25 @@ def main() -> None:
                   for arch in LM_ARCHS), bf16_direct, path=None, dtype="bfloat16",
               shape=[bf16_direct["sizes"], bf16_direct["k"], bf16_direct["n"],
                      bf16_direct["r"]],
-              design=DESIGNS["grouped_lora_direct_bf16"],
+              design=DESIGNS["grouped_lora_direct_bf16"], body=bf16_direct["body"],
+              chunk_device_ms=bf16_direct["chunk_device_ms"],
+              dx_call_device_ms=bf16_direct["dx_call_device_ms"],
+              dx_call_body=bf16_direct["dx_call_body"],
               base_matmul_ms=bf16_direct["base_matmul_ms"],
-              more_errs=[c["fwd_err"] for c in bf16_direct_more]),
+              bound_bytes_ms=bf16_direct["bound_bytes_ms"],
+              error_vs_exact=bf16_direct["error_vs_exact"],
+              more={f"{c['sizes']} K {c['k']} N {c['n']} r {c['r']}": {
+                  key: c[key] for key in ("body", "dx_call_body", "fwd_err", "views_err",
+                                          "dx_err", "da_err", "db_err")}
+                  for c in bf16_direct_more}),
         entry("quantize_rows", csrc + "quant.cu", "src/repro/kernels/quant.py:33",
               cohort["launches"]["quantize_rows"], quant, path="cohort",
-              bit_equal=True),
+              bit_equal=True, design=DESIGNS["quantize_rows"], shape=quant["shape"],
+              dtype="float32", body=quant["body"],
+              bf16={key: quant["bfloat16"][key] for key in
+                    ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "body",
+                     "q_mismatches", "scale_mismatches")},
+              bodies=[[c["shape"], c["dtype"], c["body"]] for c in quant["bodies"]]),
         {**entry("flash_attention", csrc + "flash_attention.cu",
                  "src/repro/kernels/flash_attention.py:84",
                  lm["gemma-2b"]["prefill"]["kernels"]["launches"]["flash_attention"],

@@ -29,8 +29,11 @@ class Quantized(NamedTuple):
 
 def quantize(x: torch.Tensor, *, axis: int = -1) -> Quantized:
     """Symmetric per-row int8: q = round(x / s), s = absmax/127, ties to
-    even."""
-    xm = x.float().movedim(axis, -1)
+    even.  float32 and bfloat16 go to the kernel as they are stored (it
+    widens in registers); other types are cast to float32 first."""
+    xm = x.movedim(axis, -1)
+    if xm.dtype not in (torch.float32, torch.bfloat16):
+        xm = xm.float()
     lead, d = xm.shape[:-1], xm.shape[-1]
     q, scale = quantize_rows(xm.reshape(-1, d).contiguous())
     return Quantized(q=q.reshape(*lead, d).movedim(-1, axis),

@@ -1,13 +1,15 @@
 // Hopper (sm_90a) plumbing shared by the port's wgmma kernels: the bf16
-// flash-attention body (flash_attention.cu) and the bf16 LoRA tile
-// (bf16_wgmma_tile.cuh, in lora_matmul.cu and grouped_lora.cu).  build.py
+// flash-attention body (flash_attention.cu), the bf16 LoRA tile
+// (bf16_wgmma_tile.cuh, in lora_matmul.cu and grouped_lora.cu) and
+// grouped_lora.cu's resident direct-mode tile.  build.py
 // hashes this header into the stamp of every library that includes it.
 //
 //   * shared-memory matrix descriptors for wgmma (make_desc);
 //   * mbarriers: init, arrive, arrive with an expected transaction count,
 //     and a spin on a phase's parity;
 //   * TMA tile loads (cp.async.bulk.tensor, 2-, 3- and 4-D) that complete
-//     on an mbarrier;
+//     on an mbarrier, and 2-D TMA tile stores in bulk groups, with the
+//     groups' commit and wait;
 //   * wgmma's fence, commit and wait, a register fence for its
 //     accumulators, and m64nNk16 bf16 products with f32 accumulators, both
 //     operands in shared memory (WgmmaSS<N, TB>) or A from registers
@@ -86,6 +88,25 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map
       "[%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(bar)
       : "memory");
+}
+
+// shared -> global tile store by tensor map; completes in this thread's
+// bulk groups (bulk_commit, bulk_wait_read: the source may be rewritten)
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, uint32_t src, int c0,
+                                             int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%1, %2}], [%3];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(c0), "r"(c1), "r"(src)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// wait until at most N of this thread's bulk groups are still reading
+// shared memory (N = 0 at exit: every store has read its source)
+template <int N> __device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
 }
 
 __device__ __forceinline__ void wgmma_fence() {

@@ -4,8 +4,9 @@
 //     y[m0 : m0+rows, n0 : n0+96] = x @ W + scale * (x @ A^T) @ B^T
 //
 // The shared body of lora_matmul.cu (one adapter, tiles in a grid) and of
-// grouped_lora.cu's chunk mode (one adapter per group, tiles from a table),
-// so the two kernels cannot drift apart.  Each .cu includes this header and
+// grouped_lora.cu's fp32 modes (one adapter per group, tiles from a table:
+// chunk, and direct with the whole K slab staged at once), so the kernels
+// cannot drift apart.  Each .cu includes this header and
 // is built on its own; build.py hashes the header with each source.
 //
 // Operands.  x (rows, K) with row stride sx; W (K, N) either N-contiguous
@@ -158,7 +159,9 @@ __device__ __forceinline__ void mma_3xtf32(float (&d)[4], const uint32_t (&ab)[4
 // [n0, n0 + BN) of y.  ``sm`` is the block's dynamic shared memory,
 // Smem<RP, WK>::BYTES.  RP: the rank rounded up to 16, 32 or 64.  WK: W is
 // K-contiguous.  vec: 16-byte copies of x and W (see the note above).
-template <int RP, bool WK>
+// WHOLE (grouped_lora.cu's direct mode, K <= STAGES * BK): the whole K slab
+// is copied in one step and waited for once, and no stage is recycled.
+template <int RP, bool WK, bool WHOLE = false>
 __device__ __forceinline__ void lora_tile(
     float* __restrict__ sm, const float* __restrict__ x, const float* __restrict__ w,
     const float* __restrict__ a, const float* __restrict__ b, float* __restrict__ y,
@@ -220,18 +223,27 @@ __device__ __forceinline__ void lora_tile(
   }
 
   const int nk = (K + BK - 1) / BK;
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < nk) load(s, s);
+  if (WHOLE) {
+    for (int s = 0; s < nk; ++s) load(s, s);
     cp_commit();
+    cp_wait<0>();
+    __syncthreads();
+  } else {
+#pragma unroll
+    for (int s = 0; s < STAGES - 1; ++s) {
+      if (s < nk) load(s, s);
+      cp_commit();
+    }
   }
 
   for (int kt = 0; kt < nk; ++kt) {
-    cp_wait<STAGES - 2>();   // tile kt has landed
-    __syncthreads();         // and every warp is done with tile kt - 1
-    const int nxt = kt + STAGES - 1;
-    if (nxt < nk) load(nxt % STAGES, nxt);
-    cp_commit();
+    if (!WHOLE) {
+      cp_wait<STAGES - 2>();   // tile kt has landed
+      __syncthreads();         // and every warp is done with tile kt - 1
+      const int nxt = kt + STAGES - 1;
+      if (nxt < nk) load(nxt % STAGES, nxt);
+      cp_commit();
+    }
 
     const float* xs = sm + (kt % STAGES) * L::STAGE;
     const float* ws = xs + L::X;

@@ -24,7 +24,6 @@ import torch
 
 torch.set_num_threads(1)
 
-from repro_torch.kernels import grouped_lora as gl_mod
 from repro_torch.kernels.grouped_lora import grouped_lora, grouped_lora_chunk, grouped_lora_direct
 from repro_torch.kernels.lora_matmul import lora_matmul
 from repro_torch.kernels.ops import fused_lora_matmul, grouped_lora_matmul
@@ -283,4 +282,3 @@ def test_cuda_bf16_grouped_kernel_matches_plain_version(cuda_device, mode, sizes
     views = (w.t(), b.transpose(1, 2), a.transpose(1, 2))
     got = grouped_lora(g, *views, group_sizes=sizes, scales=scales, mode=mode)
     assert _row_err(got, grouped_lora_matmul_ref(g, *views, sizes, scales)) <= 1e-2
-    assert gl_mod.direct_max_k(r) >= k or mode == "chunk"

@@ -3,7 +3,9 @@
 ``quantize`` (through the quantize kernel's plain version on the CPU) and
 ``quantize_rows_ref`` are bit-equal to the reference's ``comm.quantize``
 and to its Pallas ``quantize_rows`` in interpret mode, exact .5 ties and a
-zero row included; ``quantize_with_feedback`` carries the same residuals.
+zero row included, in float32 and in bfloat16 (read in its stored type, as
+the reference's kernel reads it); ``quantize_with_feedback`` carries the
+same residuals.
 The CUDA kernel is held against its plain version on the card (tests at
 the end, and ``chip_smoke.py``); here those tests skip.
 """
@@ -23,7 +25,7 @@ torch.set_num_threads(1)
 
 from repro_torch.comm import (Quantized, dequantize, quantize,
                               quantize_with_feedback, transport_bytes)
-from repro_torch.kernels.quant import quantize_rows
+from repro_torch.kernels.quant import MAX_LOADS, quantize_rows, resident_loads
 from repro_torch.kernels.ref import quantize_rows_ref
 
 # x / scale of this row is [127, 0.5, 1.5, 2.5, -0.5, -1.5, -2.5, 3.5]:
@@ -107,6 +109,95 @@ def test_quantize_with_feedback_residuals_equal_jax():
         np.testing.assert_array_equal(t_res.numpy(), np.asarray(j_res))
 
 
+def test_bf16_quantize_rows_bit_equal_to_jax_comm_and_kernel():
+    """bf16 rows, quantized as stored: codes and scales bit-equal to the
+    reference's ``comm.quantize`` on the same bf16 input.  Against its
+    Pallas kernel (interpret mode): the scales within the reference's rtol
+    1e-6 (the kernel's ``absmax / 127`` is a product with 1/127 under XLA,
+    see above), and the codes bit-equal on every row whose scale the kernel
+    formed as ``comm.quantize`` does.  On the rows where its scale is an
+    ulp off (27 of 512 here) the reference's own two functions disagree on
+    4 codes, by one, where x / scale falls on a rounding boundary, so no
+    port can equal both there: those rows are held to one code."""
+    pytest.importorskip("jax")
+    import jax.numpy as jnp
+    from repro.comm import quantize as j_quantize
+    from repro.kernels.quant import quantize_rows as j_quantize_rows
+
+    x = torch.from_numpy(_rows()).to(torch.bfloat16)
+    xj = jnp.asarray(x.float().numpy(), jnp.bfloat16)
+    jc = j_quantize(xj)
+    jq, js = j_quantize_rows(xj, block_rows=256, interpret=True)
+    q, s = quantize_rows(x)
+    np.testing.assert_array_equal(q[5, :TIE_ROW.size].numpy(), TIE_Q)
+    assert float(s[3]) == np.float32(1e-12) and not q[3].any()
+    np.testing.assert_array_equal(q.numpy(), np.asarray(jc.q))
+    np.testing.assert_array_equal(s.numpy(), np.asarray(jc.scale))
+    np.testing.assert_allclose(s.numpy(), np.asarray(js), rtol=1e-6)
+    same = np.asarray(js) == s.numpy()
+    assert same.sum() >= 0.9 * same.size
+    np.testing.assert_array_equal(q.numpy()[same], np.asarray(jq)[same])
+    assert np.abs(q.numpy().astype(int) - np.asarray(jq).astype(int)).max() <= 1
+
+
+@pytest.mark.parametrize("axis", [-1, 1])
+def test_bf16_quantize_bit_equal_to_jax(axis):
+    """``comm.quantize`` hands bf16 to the kernel as it is (no f32 copy
+    first) and matches the reference's ``comm.quantize`` bit for bit."""
+    pytest.importorskip("jax")
+    import jax.numpy as jnp
+    from repro.comm import quantize as j_quantize
+
+    x = torch.from_numpy(_rows(96, 40).reshape(4, 24, 40)).to(torch.bfloat16)
+    jq = j_quantize(jnp.asarray(x.float().numpy(), jnp.bfloat16), axis=axis)
+    tq = quantize(x, axis=axis)
+    np.testing.assert_array_equal(tq.q.numpy(), np.asarray(jq.q))
+    np.testing.assert_array_equal(tq.scale.numpy(), np.asarray(jq.scale))
+
+
+def test_quantize_hands_bf16_to_the_kernel_in_its_stored_type(monkeypatch):
+    from repro_torch.comm import quantization
+    seen = []
+
+    def recording(x):
+        seen.append(x.dtype)
+        return quantize_rows(x)
+
+    monkeypatch.setattr(quantization, "quantize_rows", recording)
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
+        quantization.quantize(torch.ones(3, 8, dtype=dtype))
+    assert seen == [torch.float32, torch.bfloat16, torch.float32]
+
+
+def _offset(x, elements):
+    """The same values in storage that starts ``elements`` past a 16-byte
+    boundary."""
+    out = torch.empty(x.numel() + elements, dtype=x.dtype)[elements:]
+    return out.view(x.shape).copy_(x)
+
+
+@pytest.mark.parametrize("dtype,d,offset,loads", [
+    (torch.float32, 768, 0, 6),       # the cohort path: 192 chunks, 6 a lane
+    (torch.bfloat16, 768, 0, 3),
+    (torch.float32, 1000, 0, 8),
+    (torch.float32, 2048, 0, MAX_LOADS),
+    (torch.bfloat16, 4096, 0, MAX_LOADS),
+    (torch.float32, 2052, 0, 0),      # past 32 * MAX_LOADS chunks: strided
+    (torch.float32, 12289, 0, 0),     # rows not whole 16-byte chunks
+    (torch.bfloat16, 12289, 0, 0),
+    (torch.float32, 7, 0, 0),
+    (torch.float32, 768, 1, 0),       # a base off a 16-byte boundary
+], ids=["f32-768", "bf16-768", "f32-1000", "f32-2048", "bf16-4096", "f32-2052",
+        "f32-12289", "bf16-12289", "f32-7", "f32-768-unaligned"])
+def test_resident_or_strided_body_chosen_by_width_type_and_alignment(dtype, d, offset,
+                                                                     loads):
+    x = torch.zeros(2, d, dtype=dtype)
+    if offset:
+        x = _offset(x, offset)
+        assert x.data_ptr() % 16 != 0
+    assert resident_loads(x) == loads
+
+
 def test_transport_bytes_ratio():
     shape = (16, 128, 768)
     ratio = transport_bytes(shape, True) / transport_bytes(shape, False)
@@ -128,7 +219,7 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(case):
     if case == "dims":
         x = x.reshape(2, 4, 6)
     elif case == "dtype":
-        x, err = x.double(), TypeError
+        x, err = x.double(), TypeError      # float64, as float16, is not a kernel type
     elif case == "layout":
         x = x.t()
     elif case == "device":
@@ -152,6 +243,24 @@ def cuda_device():
 def test_cuda_kernel_bit_equal_to_plain_version(cuda_device, shape):
     """Ties and a zero row included; any N and d (no padding of N)."""
     x = torch.from_numpy(_rows(*shape)).to(cuda_device)
+    before = quantize_rows.launches
+    q, s = quantize_rows(x)
+    assert quantize_rows.launches == before + 1
+    rq, rs_ = quantize_rows_ref(x)
+    assert torch.equal(q, rq) and torch.equal(s, rs_)
+    assert not q[3].any() and float(s[3]) == np.float32(1e-12)
+    if shape[1] >= TIE_ROW.size:
+        np.testing.assert_array_equal(q[5, :TIE_ROW.size].cpu().numpy(), TIE_Q)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", [(2048, 768), (6, 12289), (6, 4096), (300, 7)],
+                         ids=["2048-768", "6-12289", "6-4096", "300-7"])
+def test_cuda_both_bodies_bit_equal_in_either_type(cuda_device, dtype, shape):
+    """The resident body (d 768; bf16 4096) and the strided one (d 12289,
+    unaligned rows; f32 4096, too wide; d 7), ties and a zero row included:
+    bit-equal to the plain version, x read in its stored type."""
+    x = torch.from_numpy(_rows(*shape)).to(dtype).to(cuda_device)
     before = quantize_rows.launches
     q, s = quantize_rows(x)
     assert quantize_rows.launches == before + 1

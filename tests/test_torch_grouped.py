@@ -116,23 +116,17 @@ def test_tile_table_covers_every_row_once_within_its_group(sizes):
     assert len(tiles) == sum(-(-s // gl_mod.BM) for s in sizes)
 
 
-@pytest.mark.parametrize("mode,bm", [("chunk", 128), ("direct", 64)])
+@pytest.mark.parametrize("mode,bm", [("chunk", 128), ("direct", 128)])
 def test_tile_table_at_the_kernel_tile_height_with_a_ragged_last_tile(mode, bm):
-    """Chunk mode tiles each group in 128-row tiles (the tensor-core tile),
-    direct mode in 64-row tiles (the SIMT tile); each group's last tile
-    holds what is left of it."""
-    assert gl_mod._tile_rows(mode) == bm
+    """Both modes tile each group in 128-row tiles (the tensor-core tiles'
+    height, one table for both); each group's last tile holds what is left
+    of it."""
+    assert mode in gl_mod.MODES and gl_mod.BM == bm
     sizes = (300, 129, 128)
-    tiles = tile_table(sizes, gl_mod._tile_rows(mode))
-    if mode == "chunk":
-        assert gl_mod.BM == 128
-        assert tiles == [(0, 0, 128), (0, 128, 128), (0, 256, 44), (1, 300, 128),
-                         (1, 428, 1), (2, 429, 128)]
-    else:
-        assert [t for t in tiles if t[0] == 0] == [(0, 0, 64), (0, 64, 64), (0, 128, 64),
-                                                   (0, 192, 64), (0, 256, 44)]
-        assert [t[2] for t in tiles if t[0] == 1] == [64, 64, 1]
-    assert tile_table(sizes) == tile_table(sizes, gl_mod.BM)
+    tiles = tile_table(sizes, gl_mod.BM)
+    assert tiles == [(0, 0, 128), (0, 128, 128), (0, 256, 44), (1, 300, 128),
+                     (1, 428, 1), (2, 429, 128)]
+    assert tile_table(sizes) == tiles
 
 
 def _grouped_views(w, a, b, which):
@@ -208,15 +202,9 @@ def test_cpu_tensors_take_the_plain_version_without_counting():
     assert (grouped_lora_chunk.launches, grouped_lora_direct.launches) == before
 
 
-def test_direct_mode_limit_follows_shared_memory():
-    assert gl_mod.direct_max_k(16) == 398
-    assert gl_mod.direct_max_k(5) == gl_mod.direct_max_k(16)
-    assert gl_mod.direct_max_k(64) < gl_mod.direct_max_k(32) < gl_mod.direct_max_k(16)
-
-
 @pytest.mark.parametrize("case", ["sizes_sum", "empty_sizes", "one_of_scale",
                                   "scales_len", "pairs", "mode", "rank", "dtype",
-                                  "layout", "device", "direct_k"])
+                                  "layout", "device"])
 def test_wrapper_rejects_what_the_kernel_does_not_take(case):
     x, w, a, b, _, _ = (torch.from_numpy(v) if isinstance(v, np.ndarray) else v
                         for v in _cohort((5, 11), 16, 8, 4))
@@ -249,14 +237,75 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(case):
             grouped_lora(x, w_strided, a, b, group_sizes=(5, 11),
                          scales=(1.0, 1.0), mode="chunk")
         return
-    elif case == "device":
-        x, w, a, b = (v.to("meta") for v in (x, w, a, b))
     else:
-        k = gl_mod.direct_max_k(4) + 1
-        x, w, a = torch.zeros(16, k), torch.zeros(k, 8), torch.zeros(2, 4, k)
-        kw["mode"] = "direct"
+        x, w, a, b = (v.to("meta") for v in (x, w, a, b))
     with pytest.raises(err):
         grouped_lora_matmul(x, w, a, b, **kw)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("k,n", [(512, 96), (96, 770)], ids=["K512", "N770"])
+def test_direct_mode_takes_every_k_against_jax_pallas(k, n, dtype):
+    """Explicit ``mode="direct"`` at a K of 512 and, through the backward's
+    dx call (which contracts over N), at an N of 770: forward and VJP
+    against the reference's Pallas direct mode (interpret mode), which
+    takes any K.  float32 at this file's tolerance; bfloat16 (the same
+    bf16 values on both sides) at the bf16 tests' 3e-2
+    (tests/test_torch_bf16_lora.py): both round y to bf16 once."""
+    jax = pytest.importorskip("jax")
+    import jax.numpy as jnp
+    from repro.kernels import ops as jops
+
+    sizes = (40, 100, 17)
+    x, w, a, b, gy, scales = _cohort(sizes, k, n, 6, seed=k + n)
+    if dtype == "bfloat16":
+        x, w, a, b, gy = (torch.from_numpy(v).bfloat16().float().numpy()
+                          for v in (x, w, a, b, gy))
+    jt, tt = getattr(jnp, dtype), getattr(torch, dtype)
+
+    def jf(x_, a_, b_):
+        return jops.grouped_lora_matmul(x_, jnp.asarray(w, jt), a_, b_, group_sizes=sizes,
+                                        scales=scales, mode="direct", interpret=True)
+
+    jy, vjp = jax.vjp(jf, *(jnp.asarray(v, jt) for v in (x, a, b)))
+    jdx, jda, jdb = vjp(jnp.asarray(gy, jt))
+    tx, ta, tb = (torch.from_numpy(v.copy()).to(tt).requires_grad_(True) for v in (x, a, b))
+    ty = grouped_lora_matmul(tx, torch.from_numpy(w).to(tt), ta, tb, group_sizes=sizes,
+                             scales=scales, mode="direct")
+    tdx, tda, tdb = torch.autograd.grad(ty, (tx, ta, tb), torch.from_numpy(gy).to(tt))
+    for got, want in ((ty, jy), (tdx, jdx), (tda, jda), (tdb, jdb)):
+        assert got.dtype == tt
+        if dtype == "float32":
+            _close(got, want)
+        else:
+            np.testing.assert_allclose(got.detach().float().numpy(),
+                                       np.asarray(want, np.float32), rtol=3e-2, atol=3e-2)
+
+
+def _choice_operands(dtype, k, n, which=""):
+    x = torch.zeros(64, k, dtype=dtype)
+    w, a, b = (torch.zeros(*s, dtype=dtype) for s in ((k, n), (2, 16, k), (2, n, 16)))
+    return (x, *_grouped_views(w, a, b, which))
+
+
+@pytest.mark.parametrize("dtype,k,n,which,resident", [
+    (torch.float32, 128, 768, "", True),          # the fp32 timed shape
+    (torch.float32, 96, 150, "wab", True),        # any layout: the 3xTF32 tile reads strides
+    (torch.float32, 129, 768, "", False),         # past the resident slab: the K sweep
+    (torch.float32, 770, 96, "", False),
+    (torch.bfloat16, 128, 2048, "", True),        # the bf16 timed shape: the wgmma tile
+    (torch.bfloat16, 64, 256, "wab", True),       # the dx call's views, TMA-describable
+    (torch.bfloat16, 136, 2048, "", False),       # past the resident slab
+    (torch.bfloat16, 96, 150, "", False),         # W's row stride 150: TMA cannot describe it
+    (torch.bfloat16, 130, 64, "", False),
+], ids=["f32-K128", "f32-views", "f32-K129", "f32-K770", "bf16-K128", "bf16-views",
+        "bf16-K136", "bf16-N150", "bf16-K130"])
+def test_direct_mode_chooses_resident_or_swept_body(dtype, k, n, which, resident):
+    """The wrapper's choice, before the launch, between a resident tile
+    (K <= DIRECT_MAX_K, and in bf16 operands TMA can describe) and the
+    chunk tiles' K sweep."""
+    assert gl_mod.DIRECT_MAX_K == 128
+    assert gl_mod.direct_resident(*_choice_operands(dtype, k, n, which)) is resident
 
 
 # ---------------------------------------------------------------- on the card
@@ -327,12 +376,9 @@ def test_cuda_kernel_backward_layouts_ragged_shapes_and_ranks(cuda_device, shape
     contiguous operands, on each of the backward's views, and on the dx
     call's own layout agrees with the plain version (normalized error
     <= 1e-4, chip_smoke.py's KERNEL_RTOL), and so do dx, dA and dB.  Direct
-    mode takes K and N up to its shared-memory limit (398 at r <= 16, 299
-    at r 33: both ragged)."""
+    mode takes every K: K 130 and 770, and the dx call's K of 770 (N
+    forward), run the K sweep; K 96 the resident tile."""
     sizes, k, n = shape
-    if mode == "direct":
-        # the dx call contracts over N: both K and N within what it holds
-        k, n = (min(v, gl_mod.direct_max_k(r)) for v in (k, n))
     x, w, a, b, gy, scales = (torch.from_numpy(v).to(cuda_device)
                               if isinstance(v, np.ndarray) else v
                               for v in _cohort(sizes, k, n, r, seed=r))
@@ -352,3 +398,40 @@ def test_cuda_kernel_backward_layouts_ragged_shapes_and_ranks(cuda_device, shape
         grads.append(torch.autograd.grad(yy, (xs, as_, bs), gy))
     for got, want in zip(*grads):
         assert _norm_err(got, want) <= 1e-4
+
+
+@pytest.mark.parametrize("sizes,k,n,r", [((33, 290), 770, 192, 8), ((33, 290), 128, 770, 16),
+                                         ((33, 290), 128, 192, 8), ((33, 290), 64, 256, 16),
+                                         ((1000, 1100), 128, 2048, 16)],
+                         ids=["K770", "N770", "K128-r8", "K64", "many-row-tiles"])
+def test_cuda_bf16_direct_mode_every_view(cuda_device, sizes, k, n, r):
+    """On the card, bf16 direct mode on contiguous operands, each of the
+    backward's views and the dx call's layout, each output row within
+    1e-2 of the plain version (chip_smoke.py's BF16_KERNEL_TOL): K 770 and
+    the dx call's K of 770 run the K sweep, K <= 128 the resident wgmma
+    tile (its A loaded by TMA or, on the B^T view at r 8 and 16, by hand).
+    At 17 row tiles x 16 N tiles a block walks pairs of several row tiles,
+    so it reloads the x slab and A_g, by TMA and by hand."""
+    x, w, a, b, gy, scales = (torch.from_numpy(v).to(cuda_device).to(torch.bfloat16)
+                              if isinstance(v, np.ndarray) else v
+                              for v in _cohort(sizes, k, n, r, seed=k))
+
+    def row_err(got, want):
+        got, want = got.float(), want.float()
+        return float((torch.linalg.vector_norm(got - want, dim=-1)
+                      / torch.linalg.vector_norm(want, dim=-1).clamp_min(1e-30)).max())
+
+    want = grouped_lora_matmul_ref(x, w, a, b, sizes, scales)
+    before = (grouped_lora_direct.launches_bf16, grouped_lora_direct.launches_swept)
+    for which in ("", "w", "a", "b", "wab"):
+        got = grouped_lora(x, *_grouped_views(w, a, b, which), group_sizes=sizes,
+                           scales=scales, mode="direct")
+        assert got.dtype == torch.bfloat16 and row_err(got, want) <= 1e-2, which
+    views = (w.t(), b.transpose(1, 2), a.transpose(1, 2))
+    got = grouped_lora(gy, *views, group_sizes=sizes, scales=scales, mode="direct")
+    assert row_err(got, grouped_lora_matmul_ref(gy, *views, sizes, scales)) <= 1e-2
+    swept = sum(not gl_mod.direct_resident(x, *_grouped_views(w, a, b, which))
+                for which in ("", "w", "a", "b", "wab"))
+    swept += not gl_mod.direct_resident(gy, *views)
+    assert (grouped_lora_direct.launches_bf16 - before[0],
+            grouped_lora_direct.launches_swept - before[1]) == (6, swept)
