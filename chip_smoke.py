@@ -65,7 +65,28 @@ Phases (any failed check raises and the script exits non-zero):
    its launches asserted by the main path's rule; and the paper's memory
    model (``server_memory_report``) for ours, sfl and sl printed beside
    each run's measured peak device memory;
-7. LM kernel check: the flash-attention kernel at the gemma-2b prefill
+7. event: the main path under the event-driven federation clock
+   (mode "event", sync FedAvg every 2 rounds, fused): each round's
+   simulated time within 1e-12 (relative) of the analytic engine's closed
+   form over the order the clock served (under scheduler "ours" the clock
+   serves by Alg. 2's online form, which may differ from the analytic
+   run's fixed order; both times are printed), its losses within 1e-6 of
+   the analytic fused run's, its lora_matmul launches equal to that run's;
+   then the reference example's async event setting at the same width:
+   buffered commits (two local rounds in flight) fused and einsum, and
+   staleness commits fused, over Gilbert-Elliott links sharing one
+   200 Mbps cell, adapter syncs routed through the network plane, int8
+   links, ragged chunks of up to 3 clients formed by the clock, and every
+   observability sink on (the Chrome trace written to a temporary
+   directory, loaded and summarised by track, the metrics counters and the
+   memory ledger's modelled peaks printed beside the measured peak); the
+   launches of lora_matmul, grouped_lora (chunk) and quantize_rows are
+   asserted by a rule over the clock's serve events
+   (``expected_event_launches``), the fused run's loss events, discarded
+   updates and simulated times must equal the einsum run's and its losses
+   agree within 1e-3, and at least one run must discard a local update
+   that a commit overtook;
+8. LM kernel check: the flash-attention kernel at the gemma-2b prefill
    shape (B 4, S = T 2048, H 8, K 1, D 256, causal) in bf16 and fp32 and
    at a GQA shape with a ragged T (2, 1000, 32 heads, 8 kv heads, 64;
    causal with window 256, and non-causal) and, in bf16, at D 64 and 128
@@ -78,7 +99,7 @@ Phases (any failed check raises and the script exits non-zero):
    version (flash: each query row's error over that row's own scale;
    WKV6: over the output's; <= 1e-5 in fp32, <= 1e-2 in bf16; the final
    state <= 1e-5);
-8. LM prefill: gemma-2b and rwkv6-3b at full width and depth in bf16 with
+9. LM prefill: gemma-2b and rwkv6-3b at full width and depth in bf16 with
    random weights, 4 prompts of 2048 tokens, under attn_impl / wkv_impl
    "chunked" (the kernels: 18 flash launches, 32 WKV6 launches) and under
    "naive" / "scan" (plain PyTorch, no launch); then every layer of both
@@ -90,14 +111,14 @@ Phases (any failed check raises and the script exits non-zero):
    and with two tenants' adapters stacked into a group (bf16 grouped_lora
    chunk, asserted the same way), each held layer by layer against the
    einsum prefill (per tenant for the group);
-9. LM serving: a ServingEngine per model with two tenants (every adapter
+10. LM serving: a ServingEngine per model with two tenants (every adapter
    leaf ~ N(0, 0.05), as in tests/test_serving.py), six greedy requests
    of 16-64 prompt tokens and 16 new tokens in 4 slots of a 128-token
    cache; every request completes, the stats hold, decode launches
    neither kernel; and for one prompt, every layer's decode, token by
    token from its own cache, agrees with that layer's prefill on the same
    input (LM_TOL);
-10. LM backward: the gradient of a token cross-entropy with respect to
+11. LM backward: the gradient of a token cross-entropy with respect to
    the adapters, gemma-2b and rwkv6-3b at full width and 4 layers, 2 x 512
    tokens, attn_impl / wkv_impl "chunked" (under grad the plain chunked
    forms run), fused (bf16 lora_matmul forward and dx, launches asserted,
@@ -106,13 +127,14 @@ Phases (any failed check raises and the script exits non-zero):
    gradients within 1e-1; and layer by layer from shared inputs, every
    adapter leaf's gradient within 5e-2 of fp32 where the einsum path is
    too (the other leaves listed, at least one held a layer);
-11. summary: one JSON line per ported kernel, then the device line last.
+12. summary: one JSON line per ported kernel, then the device line last.
 
 Every launch counter is set to 0 just before each path runs and read just
 after it.  ``--profile`` adds a phase before the summary: one warm round of
-the main path (fused and einsum) and of the cohort path (fused) under
+the main path (fused and einsum) and of the cohort path (fused), and a
+whole fused event run (sync, and buffered async), under
 ``torch.profiler``, with the device time by kernel, the host time by
-operator, and the device's busy share of the round's wall time.
+operator, and the device's busy share of the wall time.
 
     python3 chip_smoke.py --ab OLD_ROOT
 
@@ -142,6 +164,7 @@ import json
 import math
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -164,8 +187,9 @@ set_fp32_policy()   # TF32 off for matmuls and cuDNN: fp32 as in the reference
 
 from repro_torch.configs import REGISTRY  # noqa: E402
 from repro_torch.data import make_emotion_dataset  # noqa: E402
+from repro_torch.core.cost_model import lora_upload_bytes, makespan  # noqa: E402
 from repro_torch.fed import (PAPER_CLIENTS, PAPER_CUTS, AggConfig,  # noqa: E402
-                             EngineConfig, FedRunConfig, NetConfig, Simulator)
+                             EngineConfig, FedRunConfig, NetConfig, ObsConfig, Simulator)
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention_plain  # noqa: E402
@@ -325,6 +349,16 @@ FROZEN_INPUT_PROJECTIONS = {"dense": 3, "ssm": 4}
 LM_GRAD_LAYERS, LM_GRAD_BATCH, LM_GRAD_SEQ = 4, 2, 512
 
 ROUNDS, BATCH, SEQ, LR = 2, 16, 128, 1e-3
+# the event phase: the event-driven sync run against the analytic one, per
+# round (simulated seconds, relative; the clock and the closed form add the
+# same floats) and per-round mean loss (relative: the same kernels on the
+# same inputs per client; only the order the clients' losses are averaged
+# in may differ)
+EVENT_TIME_RTOL, EVENT_LOSS_RTOL = 1e-12, 1e-6
+# the async runs share one cell per direction of twice the nominal 100 Mbps
+# link (the reference's own shared-medium tests use 2-3x); clients fade by
+# Gilbert-Elliott; the clock forms chunks of up to 3 clients
+EVENT_CAPACITY_MBPS, EVENT_CHUNK = 200.0, 3
 N_TRAIN, N_TEST = 4000, 512
 SOURCES = ("lora_matmul", "grouped_lora", "quant", "flash_attention", "wkv6")
 WGMMA_SOURCES = ("lora_matmul", "grouped_lora", "flash_attention")
@@ -1052,7 +1086,8 @@ def path_run(cohort: bool, fused: bool, scheme: str = "ours",
                         net=NetConfig(quantize=cohort if quantize is None else quantize))
 
 
-def run_path(fused: bool, train, test, cohort: bool = False, scheme: str = "ours") -> dict:
+def run_path(fused: bool, train, test, cohort: bool = False, scheme: str = "ours",
+             tag: str = "") -> dict:
     cfg = REGISTRY["bert-base"]
     t0 = time.perf_counter()
     sim = Simulator(cfg, PAPER_CLIENTS, PAPER_CUTS, train, test,
@@ -1082,7 +1117,7 @@ def run_path(fused: bool, train, test, cohort: bool = False, scheme: str = "ours
     sim.run_training(on_round=on_round)
     total = read_counts()               # just after
     label = ("cohort:" if cohort else "sl:" if scheme == "sl" else "main:") + (
-        "fused" if fused else "einsum")
+        "fused" if fused else "einsum") + tag
     for row in rows:
         print(f"[{label}] round {row['round']} loss={row['loss']:.7f} "
               f"sim_time_s={row['sim_time_s']:.6f} accuracy={row['accuracy']} "
@@ -1109,6 +1144,7 @@ def run_path(fused: bool, train, test, cohort: bool = False, scheme: str = "ours
     if got != expected:
         raise AssertionError(f"{label}: launches per round {got}, expected {expected}")
     return {"rows": rows, "launches": total, "setup_s": setup_s,
+            "wall_s": sum(row["wall_s"] for row in rows),
             "memory_report": dataclasses.asdict(sim.server_memory_report())}
 
 
@@ -1135,20 +1171,9 @@ def pick(events, name: str) -> dict:
             "device_ms": sum(e.self_device_time_total for e in hits) / 1e3}
 
 
-def profile_round(fused: bool, train, test, cohort: bool = False) -> dict:
-    """One warm round (the second, with its aggregation) under the profiler."""
-    from torch.profiler import ProfilerActivity, profile
-
-    sim = Simulator(REGISTRY["bert-base"], PAPER_CLIENTS, PAPER_CUTS, train, test,
-                    path_run(cohort, fused), device="cuda")
-    sim.run_round(0)                                   # warm-up
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        sim.run_round(1)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    label = ("cohort:" if cohort else "") + ("fused" if fused else "einsum")
+def profile_report(prof, wall: float, label: str) -> dict:
+    """Device time by kernel, host time by operator, and the device's busy
+    share of ``wall``, from a finished profiler window."""
     averages = prof.key_averages()
     events = [e for e in averages
               if e.device_type == torch.autograd.DeviceType.CUDA]
@@ -1180,6 +1205,43 @@ def profile_round(fused: bool, train, test, cohort: bool = False) -> dict:
     for row in host_top:
         print(f"[profile:{label}] host {row['host_ms']:9.3f} ms {row['calls']:6d} x "
               f"{row['op']}", flush=True)
+    return out
+
+
+def profile_round(fused: bool, train, test, cohort: bool = False) -> dict:
+    """One warm round (the second, with its aggregation) under the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    sim = Simulator(REGISTRY["bert-base"], PAPER_CLIENTS, PAPER_CUTS, train, test,
+                    path_run(cohort, fused), device="cuda")
+    sim.run_round(0)                                   # warm-up
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        sim.run_round(1)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    label = ("cohort:" if cohort else "") + ("fused" if fused else "einsum")
+    return profile_report(prof, wall, label)
+
+
+def profile_event(policy: str, train, test) -> dict:
+    """A whole fused event-engine run (the clock has no separable warm
+    round) under the profiler, after the other phases warmed the card."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        sim = Simulator(REGISTRY["bert-base"], PAPER_CLIENTS, PAPER_CUTS, train, test,
+                        event_run(policy, True, None if policy == "sync" else tmp),
+                        device="cuda")
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            sim.run_training()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    out = profile_report(prof, wall, f"event:{policy}")
+    out["serves"] = len(sim.clock_result.serves)
     return out
 
 
@@ -2009,6 +2071,292 @@ def ab_measure() -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# [event] phase: the federation clock on the main path
+# ---------------------------------------------------------------------------
+
+def event_run(policy: str, fused: bool, trace_dir=None) -> FedRunConfig:
+    """``policy="sync"``: the main path under the event clock (barrier
+    waves, sync FedAvg every 2 rounds).  Otherwise the reference example's
+    event setting: async ``buffered`` or ``staleness`` commits with two
+    local rounds in flight, Gilbert-Elliott links on one shared cell with
+    plane-routed adapter syncs, int8 links, clock-formed ragged chunks of up
+    to EVENT_CHUNK clients, and every obs sink on."""
+    if policy == "sync":
+        return FedRunConfig(rounds=ROUNDS, batch_size=BATCH, seq_len=SEQ, lr=LR, seed=0,
+                            engine=EngineConfig(mode="event", fused_lora=fused),
+                            agg=AggConfig(policy="sync", interval=2))
+    return FedRunConfig(
+        rounds=ROUNDS, batch_size=BATCH, seq_len=SEQ, lr=LR, seed=0,
+        engine=EngineConfig(mode="event", fused_lora=fused, cohort_chunk=EVENT_CHUNK,
+                            cohort_impl="ragged"),
+        agg=AggConfig(policy=policy, interval=1, max_inflight=2, transport="plane"),
+        net=NetConfig(link_model="gilbert", shared=True,
+                      capacity_mbps=EVENT_CAPACITY_MBPS, quantize=True),
+        obs=ObsConfig(trace=True, metrics=True, memory_ledger=True, trace_dir=trace_dir))
+
+
+def expected_event_launches(cfg, cuts, serves, n_evals: int, n_eval_batches: int,
+                            fused: bool, quantized: bool) -> dict:
+    """Launches of a whole event-engine run, from the clock's served
+    ``ServeEvent``s and the evaluations.  With T adapted projections per
+    layer and L layers, each client u of a serve event runs its forward and
+    backward at its cut: 2*T*cut_u - 3 ``lora_matmul`` (no dx into the frozen
+    embedding, as on the main path) and, under int8 links, 2
+    ``quantize_rows`` (uplink activations, downlink gradient; fused or
+    not).  The server side of an event of one client is the sequential
+    step, 2*T*(L - cut) ``lora_matmul`` (forward and dx); of a chunk, the
+    ragged step, one ``grouped_lora`` chunk-mode launch forward and one for
+    dx per projection of each distinct cut's layers, 2*T*(L - cut) per
+    distinct cut.  Each evaluation runs T*L ``lora_matmul`` per test batch.
+    The einsum run launches neither LoRA kernel."""
+    t, nl = len(cfg.lora.targets), cfg.n_layers
+    lm = gl = q = 0
+    for ev in serves:
+        lm += sum(2 * t * cuts[u] - 3 for u in ev.uids)
+        if len(ev.uids) == 1:
+            lm += 2 * t * (nl - cuts[ev.uids[0]])
+        else:
+            gl += sum(2 * t * (nl - c) for c in {cuts[u] for u in ev.uids})
+        q += 2 * len(ev.uids)
+    lm += n_evals * n_eval_batches * t * nl
+    return no_launches(lora_matmul=lm if fused else 0, grouped_lora_chunk=gl if fused else 0,
+                       quantize_rows=q if quantized else 0)
+
+
+def time_simulator_work(sim) -> dict:
+    """Host seconds the run spends in the Simulator's work (each serve
+    event's math, the commits' aggregation, the evaluations, the trace
+    export), counted at the outermost call: the rest of the run's wall time
+    is the clock's (its event loop, the network plane's integrators, the
+    obs recorders) and the Simulator's bookkeeping around the callbacks.  The
+    wrapped methods are instance attributes, which the clock's callbacks
+    look up at each call."""
+    acc = {"s": 0.0, "depth": 0}
+
+    def timed(fn):
+        def call(*args, **kwargs):
+            acc["depth"] += 1
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                acc["depth"] -= 1
+                if acc["depth"] == 0:
+                    acc["s"] += time.perf_counter() - t0
+        return call
+
+    for name in ("_serve_group", "_commit_sync", "_commit_async", "evaluate", "write_trace"):
+        setattr(sim, name, timed(getattr(sim, name)))
+    return acc
+
+
+def run_event(policy: str, fused: bool, train, test, trace_dir=None) -> dict:
+    """One event-engine run at the main path's full width, every counter
+    set to 0 just before ``run_training`` and read just after."""
+    cfg = REGISTRY["bert-base"]
+    label = f"event:{policy}:" + ("fused" if fused else "einsum")
+    t0 = time.perf_counter()
+    sim = Simulator(cfg, PAPER_CLIENTS, PAPER_CUTS, train, test,
+                    event_run(policy, fused, trace_dir), device="cuda")
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    work = time_simulator_work(sim)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()                      # just before the path runs
+    t0 = time.perf_counter()
+    sim.run_training()
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    counts = read_counts()              # just after
+    res = sim.clock_result
+    n_evals = sum(r.accuracy is not None for r in sim.history)
+    n_eval = min(32, len(test) // BATCH)
+    serves = list(res.serves)
+    expected = expected_event_launches(sim.cfg, sim.cuts, serves, n_evals, n_eval, fused,
+                                       sim.run.net.quantize)
+    out = {"label": label, "history": [dataclasses.astuple(r) for r in sim.history],
+           "loss_events": sim.loss_events, "discarded": sim.discarded_updates,
+           "chunk_sizes": [len(ev.uids) for ev in serves], "commits": len(res.commits),
+           "clock_events": len(res.events), "launches": counts, "expected": expected,
+           "n_evals": n_evals, "setup_s": setup_s, "wall_s": wall_s,
+           "clock_host_s": wall_s - work["s"],
+           "events_per_clock_host_s": len(res.events) / (wall_s - work["s"]),
+           "launches_per_serve": {k: v / len(serves) for k, v in counts.items() if v},
+           "max_mem_bytes": torch.cuda.max_memory_allocated(), "sim": sim}
+    for rec in sim.history:
+        print(f"[{label}] record {rec.round} loss={rec.mean_loss:.7f} "
+              f"sim_time_s={rec.sim_time_s!r} accuracy={rec.accuracy}", flush=True)
+    print(f"[{label}] setup_s={setup_s:.3f} wall_s={wall_s:.3f} "
+          f"clock_host_s={out['clock_host_s']:.4f} serves={len(serves)} "
+          f"chunk_sizes={out['chunk_sizes']} commits={out['commits']} "
+          f"clock_events={out['clock_events']} events_per_clock_host_s="
+          f"{out['events_per_clock_host_s']:.1f} discarded={sim.discarded_updates} "
+          f"launches={json.dumps(counts)} expected={json.dumps(expected)} "
+          f"launches_per_serve={json.dumps(out['launches_per_serve'])} "
+          f"max_mem_bytes={out['max_mem_bytes']}", flush=True)
+    if counts != expected:
+        raise AssertionError(f"{label}: launches {counts}, expected {expected}")
+    # every served client's loss is finite (a record's mean is nan only
+    # where no serve fell between two async commits)
+    if not sim.loss_events or not all(math.isfinite(e[3]) for e in sim.loss_events):
+        raise AssertionError(f"{label}: loss events {sim.loss_events}")
+    acc = sim.history[-1].accuracy
+    if acc is None or not 0.0 <= acc <= 1.0:
+        raise AssertionError(f"{label}: evaluation gave accuracy {acc}")
+    return out
+
+
+def check_event_sync(event: dict, analytic: dict) -> dict:
+    """The event-driven sync run against the analytic run of the same
+    config.  The clock serves each barrier wave by the online form of the
+    scheduler (Alg. 2's priority among the clients whose activations have
+    arrived), which may differ from the analytic engine's fixed Alg. 2
+    order: so each round's simulated time is held (EVENT_TIME_RTOL) against
+    the analytic engine's closed form over the order the clock served
+    (``cost_model.makespan`` plus the nominal aggregation charge), and the
+    analytic run's own times are printed beside it.  Losses are held
+    against the analytic run (EVENT_LOSS_RTOL): each client's math is the
+    same whatever the order."""
+    sim = event["sim"]
+    times = sim._adjusted_times()
+    commit = 2 * max(sim.link.transfer_s(lora_upload_bytes(sim.cfg, c)) for c in sim.cuts)
+    clock, out = 0.0, {"rounds": []}
+    for rnd, (res, rec, arow) in enumerate(zip(sim.clock_result.round_results, sim.history,
+                                               analytic["rows"])):
+        span, _, _ = makespan(times, res.order)
+        clock += span + (commit if (rnd + 1) % sim.run.agg.interval == 0 else 0.0)
+        t_gap = abs(rec.sim_time_s - clock) / clock
+        loss_gap = abs(rec.mean_loss - arow["loss"]) / abs(arow["loss"])
+        row = {"round": rnd, "event_order": res.order, "sim_time_s": rec.sim_time_s,
+               "closed_form_s": clock, "time_rel_gap": t_gap,
+               "analytic_sim_time_s": arow["sim_time_s"], "loss": rec.mean_loss,
+               "analytic_loss": arow["loss"], "loss_rel_gap": loss_gap}
+        out["rounds"].append(row)
+        print(f"[event:sync] {json.dumps(row)}", flush=True)
+        if not t_gap <= EVENT_TIME_RTOL:
+            raise AssertionError(f"event sync round {rnd}: {rec.sim_time_s} s against the "
+                                 f"closed form's {clock} s")
+        if not loss_gap <= EVENT_LOSS_RTOL:
+            raise AssertionError(f"event sync round {rnd}: loss {rec.mean_loss} against the "
+                                 f"analytic run's {arow['loss']}")
+    if len(sim.history) != len(analytic["rows"]):
+        raise AssertionError("event sync and analytic runs recorded different rounds")
+    out["max_loss_rel_gap"] = max(r["loss_rel_gap"] for r in out["rounds"])
+    return out
+
+
+def check_event_async(fused: dict, plain: dict) -> dict:
+    """The async fused run against the einsum run of the same config: the
+    simulated timeline is the clock's and does not depend on the kernels,
+    so loss events (time, uid, round), discards and every record's time are
+    equal exactly; per-commit losses within LOSS_RTOL (the cohort path's
+    limit, which allows for the int8 quantizer's whole-code steps)."""
+    keys = lambda run: [e[:3] for e in run["loss_events"]]  # noqa: E731
+    if keys(fused) != keys(plain):
+        raise AssertionError("async fused and einsum runs differ in their loss events")
+    if fused["discarded"] != plain["discarded"]:
+        raise AssertionError("async fused and einsum runs discarded different updates")
+    if [h[1] for h in fused["history"]] != [h[1] for h in plain["history"]]:
+        raise AssertionError("async fused and einsum runs differ in simulated times")
+    gaps = []
+    for f, p in zip(fused["history"], plain["history"]):
+        if math.isnan(p[2]) or math.isnan(f[2]):
+            if not (math.isnan(p[2]) and math.isnan(f[2])):
+                raise AssertionError(f"commit {f[0]}: loss {f[2]} against {p[2]}")
+            continue
+        gaps.append(abs(f[2] - p[2]) / abs(p[2]))
+        if not gaps[-1] <= LOSS_RTOL:
+            raise AssertionError(f"async commit {f[0]}: fused loss {f[2]} against "
+                                 f"einsum {p[2]} (rtol {LOSS_RTOL})")
+    out = {"commits": len(fused["history"]), "max_loss_rel_gap": max(gaps),
+           "loss_events": len(fused["loss_events"]), "discarded": fused["discarded"]}
+    print(f"[event:async] fused vs einsum {json.dumps(out)}", flush=True)
+    return out
+
+
+def trace_summary(run: dict) -> dict:
+    """The written Chrome trace, loaded with json: spans by track kind, the
+    metrics counters, and the memory ledger's modelled peaks beside the
+    run's measured peak device memory."""
+    from repro_torch.obs import TRACK_PIDS
+
+    sim = run["sim"]
+    path = Path(sim.run.obs.trace_dir) / "trace.json"
+    with open(path) as fh:
+        doc = json.load(fh)
+    kind_of = {pid: kind for kind, pid in TRACK_PIDS.items()}
+    spans = {}
+    for ev in doc["traceEvents"]:
+        if ev["ph"] == "X":
+            kind = kind_of.get(ev["pid"], str(ev["pid"]))
+            spans[kind] = spans.get(kind, 0) + 1
+    report = doc["otherData"]["memory"]
+    counters = doc["otherData"]["metrics"]["counters"]
+    out = {"trace_bytes": path.stat().st_size, "spans_by_track": spans,
+           "counters": counters, "stale_discard": counters.get("stale_discard", 0.0),
+           "modelled_worst_client_peak_bytes": report["worst_client_peak_bytes"],
+           "modelled_server_peak_bytes": report["server_peak_bytes"],
+           "modelled_fleet_peak_bytes": report["fleet_peak_bytes"],
+           "measured_max_mem_bytes": run["max_mem_bytes"]}
+    print(f"[event:trace] {run['label']} {json.dumps(out)}", flush=True)
+    if not spans or out["stale_discard"] != len(run["discarded"]):
+        raise AssertionError(f"{run['label']}: trace {spans}, stale_discard "
+                             f"{out['stale_discard']} against {len(run['discarded'])}")
+    return out
+
+
+def event_launches(event: dict, name: str) -> dict:
+    """A kernel's launches in each run of the event phase."""
+    return {key: run["launches"][name] for key, run in event.items() if "launches" in run}
+
+
+def event_phase(fused_main: dict, train, test) -> dict:
+    """[event]: the event-driven sync run (fused) against the analytic
+    main run; the paper example's async event setting, buffered fused and
+    einsum and staleness fused, with the obs plane on; at least one local
+    update must lose its race to a commit."""
+    sync = run_event("sync", True, train, test)
+    sync_check = check_event_sync(sync, fused_main)
+    # each run's peak memory is read from a clean card (the simulator and
+    # its clock refer to each other, so only the collector frees them)
+    del sync["sim"]
+    gc.collect()
+    if sync["launches"]["lora_matmul"] != fused_main["launches"]["lora_matmul"]:
+        raise AssertionError("event sync and analytic runs launched lora_matmul "
+                             f"{sync['launches']['lora_matmul']} and "
+                             f"{fused_main['launches']['lora_matmul']} times")
+    # wall time, analytic against event, in turns on a warm card (the main
+    # run above was the process's first full-width run)
+    walls = {"analytic": [fused_main["wall_s"]], "event": [sync["wall_s"]]}
+    for _ in range(2):
+        walls["analytic"].append(run_path(True, train, test, tag=":repeat")["wall_s"])
+        walls["event"].append(run_event("sync", True, train, test)["wall_s"])
+        gc.collect()
+    print(f"[event:sync] wall_s {json.dumps(walls)} (analytic: the first is the "
+          f"process's first full-width run)", flush=True)
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for policy, fused in (("buffered", True), ("buffered", False), ("staleness", True)):
+            key = f"{policy}:{'fused' if fused else 'einsum'}"
+            runs[key] = run_event(policy, fused, train, test, trace_dir=f"{tmp}/{key}")
+            runs[key]["trace"] = trace_summary(runs[key])
+            del runs[key]["sim"]
+            gc.collect()
+    async_check = check_event_async(runs["buffered:fused"], runs["buffered:einsum"])
+    if not any(run["discarded"] for run in runs.values()):
+        raise AssertionError("no async run discarded a local update")
+    keep = ("history", "discarded", "chunk_sizes", "commits", "clock_events", "launches",
+            "n_evals", "setup_s", "wall_s", "clock_host_s", "events_per_clock_host_s",
+            "launches_per_serve", "max_mem_bytes", "trace")
+    out = {"sync": {"check": sync_check, "walls": walls,
+                    **{k: sync[k] for k in keep if k in sync}},
+           "async": async_check,
+           **{key: {k: run[k] for k in keep if k in run} for key, run in runs.items()}}
+    print(f"[event] {json.dumps(out)}", flush=True)
+    return out
+
+
 def memory_lines(fused: dict, plain: dict, cohort: dict, sl: dict) -> dict:
     """The paper's memory model (``Simulator.server_memory_report``) for
     ours, sfl and sl at the paper cuts, printed beside the peak device
@@ -2199,6 +2547,7 @@ def main() -> None:
     compare_paths(cohort, cohort_plain, "cohort")
     sl = run_path(True, train, test, scheme="sl")
     memory_lines(fused, plain, cohort, sl)
+    event = event_phase(fused, train, test)
 
     del train, test
     gc.collect()
@@ -2211,6 +2560,8 @@ def main() -> None:
         test = make_emotion_dataset(N_TEST, seq_len=SEQ, vocab_size=30_522, seed=1)
         for fused_path, cohort_path in ((True, False), (False, False), (True, True)):
             profile_round(fused_path, train, test, cohort=cohort_path)
+        for policy in ("sync", "buffered"):
+            profile_event(policy, train, test)
 
     print(json.dumps({"lm": lm, "lm_grad": lm_grad}), flush=True)
     main_shape, ragged = checks[0], checks[1:]
@@ -2232,6 +2583,7 @@ def main() -> None:
               dx_call_device_ms=main_shape["dx_call_device_ms"],
               cohort_launches=cohort["launches"]["lora_matmul"],
               sl_launches=sl["launches"]["lora_matmul"],
+              event_launches=event_launches(event, "lora_matmul"),
               base_matmul_ms=main_shape["base_matmul_ms"],
               ragged={str(c["shape"]): {key: c[key] for key in
                                         ("fwd_err", "views_err", "dx_err", "da_err",
@@ -2241,6 +2593,7 @@ def main() -> None:
               "src/repro/kernels/grouped_lora.py:119",
               cohort["launches"]["grouped_lora_chunk"], grouped_path, path="cohort",
               design=DESIGNS["grouped_lora_chunk"],
+              event_launches=event_launches(event, "grouped_lora_chunk"),
               bound_tf32x3_ms=grouped_path["bound_tf32x3_ms"],
               dx_call_device_ms=grouped_path["dx_call_device_ms"],
               views_err=grouped_path["views_err"],
@@ -2359,6 +2712,7 @@ def main() -> None:
         entry("quantize_rows", csrc + "quant.cu", "src/repro/kernels/quant.py:33",
               cohort["launches"]["quantize_rows"], quant, path="cohort",
               bit_equal=True, design=DESIGNS["quantize_rows"], shape=quant["shape"],
+              event_launches=event_launches(event, "quantize_rows"),
               dtype="float32", body=quant["body"],
               bf16={key: quant["bfloat16"][key] for key in
                     ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "body",

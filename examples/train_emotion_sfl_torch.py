@@ -1,8 +1,9 @@
-"""End-to-end example on PyTorch, the twin of ``examples/train_emotion_sfl.py``'s
-default path: split-federated LoRA fine-tuning of a BERT-family model on the
-CARER-shaped emotion task across the paper's six heterogeneous devices,
-with the analytic engine and sync FedAvg, for the schemes ``ours``, ``sfl``
-and ``sl`` (a ``-fifo`` / ``-wf`` suffix picks a scheduling baseline).
+"""End-to-end example on PyTorch, the twin of ``examples/train_emotion_sfl.py``:
+split-federated LoRA fine-tuning of a BERT-family model on the CARER-shaped
+emotion task across the paper's six heterogeneous devices, for the schemes
+``ours``, ``sfl`` and ``sl`` (a ``-fifo`` / ``-wf`` suffix picks a scheduling
+baseline), with the analytic engine or the event-driven clock (sync, or
+async ``buffered`` / ``staleness`` federation) over the network plane.
 
 Default is a ~29M-parameter BERT-small sized model; ``--full`` selects the
 paper's exact BERT-base (110M) at the paper's cuts; ``--tiny`` a 2-layer
@@ -12,17 +13,26 @@ smoke model.  The run is on the CUDA card unless ``--device cpu``.
     PYTHONPATH=src python examples/train_emotion_sfl_torch.py --tiny --rounds 3 \
         --schemes ours,sfl,sl --device cpu
 
-The port covers the analytic engine with sync FedAvg over constant links,
-so the reference's event-engine, async, network-plane, control-plane,
-snapshot and trace flags are absent here (ROADMAP Queue A, item 8).
+Continuous-time async federation (the reference example's event setting):
+
+    PYTHONPATH=src python examples/train_emotion_sfl_torch.py --tiny --rounds 3 \
+        --engine event --agg-policy buffered --max-inflight-rounds 2 --device cpu
+
+The reference's control-plane and snapshot flags are absent here (ROADMAP
+Queue A, item 8).
 """
 import argparse
+
+import numpy as np
 
 from repro_torch.configs import REGISTRY, reduced
 from repro_torch.core.partition import assign_cuts
 from repro_torch.data import make_emotion_dataset
-from repro_torch.fed import (AggConfig, EngineConfig, FedRunConfig, PAPER_CLIENTS,
-                             PAPER_CUTS, Simulator, validate_run_config)
+from repro_torch.fed import (AggConfig, EngineConfig, FedRunConfig, NetConfig,
+                             ObsConfig, PAPER_CLIENTS, PAPER_CUTS, Simulator,
+                             validate_run_config)
+from repro_torch.fed.engine import AGG_POLICIES
+from repro_torch.net import bundled_trace
 from repro_torch.numerics import set_fp32_policy
 
 
@@ -31,8 +41,9 @@ def main():
     ap.add_argument("--full", action="store_true", help="paper's BERT-base 110M")
     ap.add_argument("--tiny", action="store_true", help="2-layer smoke model")
     ap.add_argument("--rounds", type=int, default=60)
-    ap.add_argument("--agg-interval", type=int, default=5,
-                    help="rounds per sync aggregation")
+    ap.add_argument("--agg-interval", type=int, default=None,
+                    help="rounds per sync aggregation (default 5; async "
+                    "policies commit per agg-buffer-k uploads, default 1)")
     ap.add_argument("--batch", type=int, default=16)
     ap.add_argument("--seq", type=int, default=64)
     ap.add_argument("--lr", type=float, default=1e-3)
@@ -41,6 +52,35 @@ def main():
     ap.add_argument("--alpha", type=float, default=0.5)
     ap.add_argument("--n-train", type=int, default=4000)
     ap.add_argument("--seed", type=int, default=0)
+    # -- server engine / continuous-time async federation
+    ap.add_argument("--engine", choices=("analytic", "event"), default="analytic",
+                    help="closed-form Eq. 10-12 vs event-driven clock")
+    ap.add_argument("--agg-policy", choices=AGG_POLICIES, default="sync",
+                    help="sync barrier | buffered k-of-U | staleness-weighted")
+    ap.add_argument("--max-inflight-rounds", type=int, default=1,
+                    help="local rounds a client may run past its last commit")
+    ap.add_argument("--agg-buffer-k", type=int, default=None,
+                    help="async commit threshold (distinct client uploads)")
+    ap.add_argument("--staleness-alpha", type=float, default=None,
+                    help="polynomial (1+s)^-alpha discount exponent "
+                    "(staleness policy only; default 0.5)")
+    # -- network plane
+    ap.add_argument("--link-model", choices=("constant", "trace", "gilbert"),
+                    default="constant",
+                    help="per-client link process (trace = the bundled 4G/5G "
+                    "bandwidth trace, per-client time-rotated; gilbert = seeded "
+                    "good/bad Markov fading; both need --engine event)")
+    ap.add_argument("--shared-medium", action="store_true",
+                    help="concurrent transfers split one cell per direction")
+    ap.add_argument("--medium-capacity-mbps", type=float, default=None,
+                    help="cell capacity (required with --shared-medium)")
+    ap.add_argument("--agg-transport", choices=("nominal", "plane"), default="nominal",
+                    help="route adapter syncs through the network plane "
+                    "instead of the scalar nominal link")
+    ap.add_argument("--trace-out", default=None, metavar="DIR",
+                    help="record spans + metrics + memory ledger and write a "
+                    "Perfetto-loadable trace.json under DIR (one subdir per "
+                    "--schemes entry; needs --engine event)")
     ap.add_argument("--cohort-impl", choices=("vmap", "ragged"), default="vmap",
                     help="batched server step of a cohort chunk (one client "
                     "per dispatch here, as in the reference's default)")
@@ -50,6 +90,8 @@ def main():
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                     help="where the models run (default: the CUDA card)")
     args = ap.parse_args()
+    if args.agg_interval is None:
+        args.agg_interval = 5 if args.agg_policy == "sync" else 1
     set_fp32_policy()
 
     if args.full:
@@ -82,6 +124,14 @@ def main():
     print(f"model: {cfg.name} ({cfg.param_count()/1e6:.0f}M params, "
           f"{cfg.n_layers} layers)  cuts={cuts}")
 
+    # "trace" drives every client from the bundled bandwidth trace,
+    # time-rotated per client so fades hit at different instants
+    link_traces = None
+    if args.link_model == "trace":
+        bp, rates = bundled_trace()
+        link_traces = [(bp, np.roll(rates, 17 * i).tolist())
+                       for i in range(len(PAPER_CLIENTS))]
+
     # validate every schemes entry up front, so a bad late entry does not
     # abort the script after earlier entries trained
     runs = []
@@ -91,10 +141,20 @@ def main():
                            batch_size=args.batch, seq_len=args.seq,
                            lr=args.lr, alpha=args.alpha, seed=args.seed,
                            eval_every=max(args.rounds // 10, 1),
-                           engine=EngineConfig(mode="analytic", scheduler=sched or "ours",
+                           engine=EngineConfig(mode=args.engine, scheduler=sched or "ours",
                                                cohort_impl=args.cohort_impl,
                                                fused_lora=args.fused_lora),
-                           agg=AggConfig(policy="sync", interval=args.agg_interval))
+                           agg=AggConfig(policy=args.agg_policy, interval=args.agg_interval,
+                                         buffer_k=args.agg_buffer_k,
+                                         max_inflight=args.max_inflight_rounds,
+                                         staleness_alpha=args.staleness_alpha,
+                                         transport=args.agg_transport),
+                           net=NetConfig(link_model=args.link_model, traces=link_traces,
+                                         shared=args.shared_medium,
+                                         capacity_mbps=args.medium_capacity_mbps),
+                           obs=(ObsConfig(trace=True, metrics=True, memory_ledger=True,
+                                          trace_dir=f"{args.trace_out}/{entry}")
+                                if args.trace_out else ObsConfig()))
         try:
             validate_run_config(run, len(PAPER_CLIENTS))
         except (KeyError, ValueError) as e:
@@ -106,8 +166,15 @@ def main():
         sim.run_training(verbose=True)
         acc, f1 = sim.evaluate()
         mem = sim.server_memory_report()
-        print(f"== {entry} [analytic/sync]: acc={acc:.4f} f1={f1:.4f} "
+        print(f"== {entry} [{args.engine}/{args.agg_policy}]: acc={acc:.4f} f1={f1:.4f} "
               f"sim_time={sim.sim_clock:.1f}s server_mem={mem.total_mb:.1f}MB")
+        if args.trace_out:
+            report = sim.obs.ledger.report()
+            print(f"   trace: {run.obs.trace_dir}/trace.json  worst client peak "
+                  f"{report['worst_client_peak_bytes'] / 2**20:.1f} MiB, "
+                  f"{report.get('client_reduction_vs_local', 0.0):.0%} below "
+                  f"local fine-tuning; {len(sim.discarded_updates)} local updates "
+                  f"lost a race to a commit")
         print()
 
 

@@ -54,8 +54,12 @@ def to_numpy(tree: PyTree) -> PyTree:
     return tree.detach().cpu().numpy()
 
 
-STATE_KEYS = ("params", "client_params", "client_lora", "server_lora",
-              "heads", "client_opt", "server_opt")
+PER_CLIENT_KEYS = ("client_params", "client_lora", "server_lora", "heads",
+                   "client_opt", "server_opt")
+# single trees: the frozen model and the standing global adapters and head
+# (the event engine's async commits merge into the latter two)
+SINGLE_KEYS = ("params", "_global_full", "_global_head")
+STATE_KEYS = SINGLE_KEYS + PER_CLIENT_KEYS
 
 
 def load_reference_state(sim, state: dict) -> None:
@@ -66,8 +70,9 @@ def load_reference_state(sim, state: dict) -> None:
     if missing:
         raise KeyError(f"reference state lacks {missing}")
     dev = sim.device
-    sim.params = to_torch(state["params"], dev)
-    for key in STATE_KEYS[1:]:
+    for key in SINGLE_KEYS:
+        setattr(sim, key, to_torch(state[key], dev))
+    for key in PER_CLIENT_KEYS:
         vals = [to_torch(v, dev) for v in state[key]]
         if len(vals) != sim.u:
             raise ValueError(f"{key}: {len(vals)} entries for {sim.u} clients")

@@ -1,9 +1,11 @@
 """Eqs. 6-9: dataset-size-weighted FedAvg of the full LoRA adapter lists,
 aggregating each A and each B matrix separately, then re-splitting at every
-client's (heterogeneous) cut point.  Port of the synchronous part of
-``src/repro/core/aggregation.py``; the staleness-discounted, anchored and
-hierarchical forms come with the async and population slices (ROADMAP
-Queue A, items 8 and 9).
+client's (heterogeneous) cut point.  Port of ``src/repro/core/aggregation.py``
+with the async policy layer of the event engine: polynomial staleness
+discounting of the Eq. 6-8 weights (:func:`staleness_weights`) and the
+anchored merge of a contributor buffer into the standing global adapters
+(:func:`merge_into_global`).  The hierarchical two-tier form comes with the
+population slice (ROADMAP Queue A, item 9).
 
 The weighted sum keeps the reference's operand order: it starts from the
 first client's weighted leaf and adds the others in client order, in f32.
@@ -50,6 +52,51 @@ def aggregate_full(full_loras: Sequence[PyTree], data_sizes: Sequence[int]) -> P
     if len(full_loras) != len(data_sizes):
         raise ValueError("one data size per client required")
     return aggregate_full_weighted(full_loras, [float(d) for d in data_sizes])
+
+
+def staleness_discount(staleness: int, alpha: float) -> float:
+    """Polynomial staleness discount ``(1 + s)^-alpha``; ``alpha = 0``
+    disables discounting (the ``buffered`` policy)."""
+    if staleness < 0:
+        raise ValueError("staleness must be >= 0")
+    if alpha < 0:
+        raise ValueError("staleness_alpha must be >= 0")
+    return float((1.0 + staleness) ** (-alpha))
+
+
+def staleness_weights(data_sizes: Sequence[int], staleness: Sequence[int],
+                      alpha: float) -> List[float]:
+    """Eq. 6-8 dataset-size weights, discounted per contributor by its
+    staleness and renormalized to sum to one."""
+    if len(data_sizes) != len(staleness):
+        raise ValueError("one staleness value per contributor required")
+    raw = [float(d) * staleness_discount(s, alpha)
+           for d, s in zip(data_sizes, staleness)]
+    return normalize_weights(raw)
+
+
+def composed_staleness_discount(client_staleness: int, edge_staleness: int,
+                                alpha: float) -> float:
+    """Two-tier discount ``(1+s_c)^-alpha * (1+s_e)^-alpha``: the flat
+    discount is the ``s_e = 0`` case."""
+    return (staleness_discount(client_staleness, alpha)
+            * staleness_discount(edge_staleness, alpha))
+
+
+def merge_into_global(global_full: PyTree, contrib_fulls: Sequence[PyTree],
+                      contrib_weights: Sequence[float],
+                      anchor_weight: float) -> PyTree:
+    """Async commit: fold a buffer of contributor adapters into the standing
+    global adapters.  ``anchor_weight`` is the data mass NOT represented in
+    the buffer, so a full-cohort zero-staleness commit is exact Eq. 6-8
+    FedAvg."""
+    if anchor_weight < 0:
+        raise ValueError("anchor_weight must be >= 0")
+    if not contrib_fulls:
+        raise ValueError("need at least one contribution to merge")
+    return aggregate_full_weighted(
+        [global_full] + list(contrib_fulls),
+        [float(anchor_weight)] + [float(w) for w in contrib_weights])
 
 
 def aggregation_round(client_loras: Sequence[PyTree],

@@ -10,14 +10,20 @@ Port of ``src/repro/fed/simulator.py`` for the paper's own experiment:
 
 Model math runs for real (client forward, server resume-at-cut,
 activation-gradient backprop, LoRA/AdamW updates, FedAvg aggregation);
-simulated wall-clock comes from the §IV analytical model, exactly as in the
-reference.  The slice covers the analytic engine with sync FedAvg over
-constant links; the server serves one client per dispatch, or cohort
-chunks of ``EngineConfig.cohort_chunk`` clients through the cut-grouped
-ragged step (``cohort_impl="ragged"``); ``NetConfig.quantize`` sends the
-activations (with error feedback) and the gradients as int8.  Every knob
-outside the slice raises ``NotImplementedError`` naming the ROADMAP item
-that brings it.
+simulated wall-clock comes from the §IV analytical model (``mode="analytic"``)
+or from the discrete-event ``FederationClock`` (``mode="event"``), exactly as
+in the reference.  Under the event engine the clock owns time and calls back
+into ``_serve_group`` at every server dispatch and into a commit handler at
+every aggregation: sync barrier waves, or async ``buffered`` / ``staleness``
+commits with in-flight rounds.  Transfers go through the network plane
+(constant, trace, Gilbert-Elliott or caller-supplied links, optionally over a
+shared cell); ``agg.transport="plane"`` routes the adapter syncs there too.
+The server serves one client per dispatch, or cohort chunks of clients
+through the cut-grouped ragged step (``cohort_impl="ragged"``);
+``NetConfig.quantize`` sends the activations (with error feedback) and the
+gradients as int8; ``ObsConfig`` records spans, metrics and the memory
+ledger without touching the timeline.  Every knob outside the port raises
+``NotImplementedError`` naming the ROADMAP item that brings it.
 
 State updates are functional: every optimizer step and every aggregation
 returns new tensors, so state the reference shares between clients (one
@@ -27,7 +33,8 @@ truncated view) is never written through.
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Sequence
+from pathlib import Path
+from typing import Dict, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -40,17 +47,28 @@ from repro_torch.core import memory_model, splitfl
 from repro_torch.core.cost_model import (DeviceProfile, LinkProfile, StepTimes,
                                          client_step_times, dtype_nbytes,
                                          lora_upload_bytes, makespan)
-from repro_torch.core.scheduling import resolve_order
+from repro_torch.core.scheduling import (ONLINE_DISCIPLINES, alg2_priorities,
+                                         resolve_online, resolve_order)
 from repro_torch.data import ClassificationLoader, EmotionDataset, dirichlet_partition
 from repro_torch.device import resolve_device
 from repro_torch.fed import metrics as M
 from repro_torch.fed.config import FedRunConfig, validate_run_config
 from repro_torch.fed.devices import LINK, SERVER
+from repro_torch.fed.engine import ClockConfig, FederationClock, RoundPlan, jobs_from_times
 from repro_torch.models import build_model
+from repro_torch.net import (ConstantLink, GilbertElliottLink, LinkModel,
+                             NetworkPlane, TraceLink)
+from repro_torch.obs import MemoryLedger, MetricsRegistry, Observability, Tracer
 from repro_torch.optim import AdamW
 from repro_torch.tree import tree_map
 
 SFL_FRAGMENTATION = 1.04   # multi-model GPU contention overhead (paper §V-B)
+
+# Gilbert-Elliott defaults for link_model="gilbert": the bad state drops to
+# a tenth of the nominal rate; dwell/transition values give ~1/3 bad time
+# at the 100 Mbps / ~0.5 s-transfer scale of the paper's setup
+GE_BAD_FRACTION = 0.1
+GE_P_GB, GE_P_BG, GE_DWELL_S = 0.2, 0.4, 0.5
 
 
 @dataclasses.dataclass
@@ -69,27 +87,14 @@ def _not_in_slice(knob: str, item: str) -> NotImplementedError:
 
 def check_slice(run: FedRunConfig) -> None:
     """Raise for every knob the port does not cover yet — none is ignored."""
-    # the control and obs planes run only under the event engine, so they
-    # are named before it
     if run.control.policy != "static":
         raise _not_in_slice(f"control policy={run.control.policy!r}", "8")
-    if run.obs.enabled:
-        raise _not_in_slice("observability (obs)", "8")
-    if run.engine.mode != "analytic":
-        raise _not_in_slice("engine mode='event'", "8")
-    if run.engine.cohort_chunk != 1 and run.engine.cohort_impl == "vmap":
-        raise _not_in_slice("engine cohort_chunk > 1 with cohort_impl='vmap' "
-                            "(the masked-scan cohort step)", "6")
-    if run.agg.policy != "sync":
-        raise _not_in_slice(f"agg policy={run.agg.policy!r}", "8")
-    if run.agg.transport != "nominal":
-        raise _not_in_slice("agg transport='plane'", "8")
-    if run.net.link_model != "constant" or run.net.shared:
-        raise _not_in_slice("the network plane (non-constant or shared links)",
-                            "8")
     if (run.snapshot_every is not None or run.resume_from is not None
             or run.preempt_at is not None):
         raise _not_in_slice("snapshots, resume and preemption", "8")
+    if run.engine.cohort_chunk != 1 and run.engine.cohort_impl == "vmap":
+        raise _not_in_slice("engine cohort_chunk > 1 with cohort_impl='vmap' "
+                            "(the masked-scan cohort step)", "6")
     if run.fleet.sampling != "full":
         raise _not_in_slice(f"fleet sampling={run.fleet.sampling!r}", "9")
     if run.fleet.edge_cells > 1:
@@ -104,9 +109,8 @@ class Simulator:
                  train: EmotionDataset = None,
                  test: EmotionDataset = None, run: FedRunConfig = None,
                  link: LinkProfile = LINK, server: DeviceProfile = SERVER,
-                 links=None, fleet=None, *, device="cuda"):
-        if links is not None:
-            raise _not_in_slice("per-client LinkModels (links=)", "8")
+                 links: Optional[Sequence[LinkModel]] = None, fleet=None, *,
+                 device="cuda"):
         if fleet is not None:
             raise _not_in_slice("FleetSpec fleets (fleet=)", "9")
         if devices is None or cuts is None or run is None:
@@ -123,6 +127,13 @@ class Simulator:
         self.devices, self.cuts = list(devices), [int(c) for c in cuts]
         self.link, self.server_dev = link, server
         self.u = len(devices)
+        # the network plane: per-client link models + optional shared medium
+        # (link_model="constant" keeps the analytic numbers bit-identical)
+        self.network = self._build_network(links)
+        if run.engine.mode == "analytic" and not self.network.constant_rate:
+            raise ValueError("the closed-form engine needs constant-rate "
+                             "links (custom LinkModels must be ConstantLink);"
+                             " set engine mode='event' for time-varying ones")
         self.model = build_model(cfg, self.device)
         gen = torch.Generator(device=self.device)
         self.params = self.model.init_params(gen.manual_seed(run.seed))
@@ -171,17 +182,78 @@ class Simulator:
             self._srv_step_batched = splitfl.make_server_step_cls_batched(
                 self.model, self.opt, impl=run.engine.cohort_impl)
 
-        # analytic per-step Eq.10 terms (fixed per client), at the nominal
-        # constant link rate
+        # analytic per-step Eq.10 terms (fixed per client); wireless terms
+        # use each client's NOMINAL link rate — the event engine re-times
+        # the transfers through the network plane from the payload bytes
         self.times: List[StepTimes] = [
-            client_step_times(cfg, cut, dev, server, LinkProfile(self.link.rate_mbps),
+            client_step_times(cfg, cut, dev, server,
+                              LinkProfile(self.network.nominal_mbps(u)),
                               run.batch_size, run.seq_len)
-            for cut, dev in zip(self.cuts, self.devices)]
+            for u, (cut, dev) in enumerate(zip(self.cuts, self.devices))]
+        # observability plane: tracing, metrics and the memory ledger only
+        # READ the clock's results, so a run with obs on follows the same
+        # timeline as one with obs off
+        self.obs: Optional[Observability] = None
+        if run.obs.enabled:
+            self.obs = Observability(
+                tracer=(Tracer(max_events=run.obs.max_events)
+                        if run.obs.trace else None),
+                metrics=MetricsRegistry() if run.obs.metrics else None,
+                ledger=(MemoryLedger.from_model(cfg, self.cuts,
+                                                run.batch_size, run.seq_len)
+                        if run.obs.memory_ledger else None))
         self.history: List[RoundRecord] = []
         self.sim_clock = 0.0
         self._ef_residual: List[Optional[torch.Tensor]] = [None] * self.u  # uplink EF
         self._quant_ratio: Optional[float] = None
         self._times_this_round: List[StepTimes] = self.times
+        # event-engine state: the standing global model (every commit
+        # updates it; the async policies merge INTO it) and the per-serve
+        # loss trace (t_server_done, uid, round, loss)
+        self._global_full = base_lora
+        self._global_head = head0
+        self.loss_events: List[tuple] = []
+        self._clock: Optional[FederationClock] = None
+        self._wave_losses: List[float] = []
+        self._on_round = None
+        # causal consistency for in-flight async rounds: the client-side
+        # state each (uid, round) pulled at round start, a per-client commit
+        # counter, and the local updates discarded because a commit
+        # refreshed the client while its round was still in flight
+        self._round_pull: dict = {}
+        self._client_version = [0] * self.u
+        self.discarded_updates: List[tuple] = []   # (uid, round)
+        self.clock_result = None
+
+    # --------------------------------------------------------------- network
+    def _build_network(self, links: Optional[Sequence[LinkModel]]) -> NetworkPlane:
+        """The run's network plane from the link knobs (or the caller's
+        LinkModels under link_model='custom')."""
+        run = self.run
+        if run.net.link_model == "custom":
+            if links is None:
+                raise ValueError("link_model='custom' needs Simulator("
+                                 "links=[LinkModel, ...])")
+            if len(links) != self.u:
+                raise ValueError("need one LinkModel per client")
+            ups = list(links)
+        elif links is not None:
+            raise ValueError("explicit links= require link_model='custom'")
+        elif run.net.link_model == "constant":
+            ups = [ConstantLink(self.link.rate_mbps) for _ in range(self.u)]
+        elif run.net.link_model == "trace":
+            # entries are (breakpoints, rates) tuples or bandwidth-CSV paths
+            ups = [TraceLink.from_csv(tr) if isinstance(tr, (str, Path))
+                   else TraceLink(tr[0], tr[1]) for tr in run.net.traces]
+        else:   # gilbert
+            base = self.link.rate_mbps
+            ups = [GilbertElliottLink(base, base * GE_BAD_FRACTION,
+                                      p_gb=GE_P_GB, p_bg=GE_P_BG,
+                                      dwell_s=GE_DWELL_S,
+                                      seed=run.seed * 7919 + u)
+                   for u in range(self.u)]
+        return NetworkPlane(ups, shared=run.net.shared,
+                            capacity_mbps=run.net.capacity_mbps)
 
     # ------------------------------------------------------------------ time
     def _transport_ratio(self) -> float:
@@ -193,16 +265,24 @@ class Simulator:
                                  / transport_bytes(shape, False, nb))
         return self._quant_ratio
 
-    def _adjusted_times(self) -> List[StepTimes]:
-        """Per-round Eq.10 terms: int8+EF transport shrinks both wireless
-        transfers ~4x (stragglers are outside the slice)."""
+    def _shrunk(self, st: StepTimes) -> StepTimes:
+        """int8+EF transport shrinks both wireless transfers ~4x, and their
+        payload bytes with them (the network plane integrates bytes)."""
         if not self.run.net.quantize:
-            return self.times
+            return st
         ratio = self._transport_ratio()
-        return [dataclasses.replace(st, t_fc=st.t_fc * ratio, t_bc=st.t_bc * ratio,
-                                    fc_bytes=st.fc_bytes * ratio,
-                                    bc_bytes=st.bc_bytes * ratio)
-                for st in self.times]
+        return dataclasses.replace(st, t_fc=st.t_fc * ratio, t_bc=st.t_bc * ratio,
+                                   fc_bytes=st.fc_bytes * ratio,
+                                   bc_bytes=st.bc_bytes * ratio)
+
+    def _adjusted_times(self) -> List[StepTimes]:
+        """Per-round Eq.10 terms (stragglers are outside the port)."""
+        return [self._shrunk(st) for st in self.times]
+
+    def _async_times(self, u: int, rnd: int) -> StepTimes:
+        """Eq.10 terms for ONE client's local round ``rnd`` — the async
+        clock's per-(client, round) counterpart of ``_adjusted_times``."""
+        return self._shrunk(self.times[u])
 
     def _service_plan(self) -> List[List[int]]:
         """This round's server dispatch groups in order: chunks of
@@ -236,7 +316,11 @@ class Simulator:
 
     # ------------------------------------------------------------------ round
     def run_round(self, rnd: int) -> RoundRecord:
-        """One closed-form (analytic-engine) barrier round."""
+        """One closed-form (analytic-engine) barrier round.  Event-engine
+        rounds are driven by the FederationClock inside ``run_training``."""
+        if self.run.engine.mode == "event":
+            raise RuntimeError("engine='event' rounds are owned by the "
+                               "FederationClock; call run_training()")
         self._times_this_round = self._adjusted_times()
         if self.run.scheme == "sl":
             losses, order = self._round_sl()
@@ -245,7 +329,7 @@ class Simulator:
         self.sim_clock += self._round_time(order)
         # aggregation phase (not for SL)
         if self.run.scheme != "sl" and (rnd + 1) % self.run.agg.interval == 0:
-            self.sim_clock += self._commit_sync()
+            self.sim_clock += self._commit_sync(None)
         mean_loss = float(np.mean(losses)) if losses else float("nan")
         rec = RoundRecord(rnd, self.sim_clock, mean_loss)
         self.history.append(rec)
@@ -360,27 +444,222 @@ class Simulator:
         w /= w.sum()
         return sum(float(wi) * h for wi, h in zip(w, self.heads))
 
-    def _commit_sync(self) -> float:
+    def _commit_sync(self, ev) -> Union[float, Dict[int, float]]:
         """Barrier aggregation (Alg. 1 l.17-30, Eqs. 5-9) over the whole
-        fleet; returns the adapter upload + download time at the nominal
-        link."""
+        fleet.  Shared by the analytic round loop (``ev`` None) and the sync
+        clock.  Returns the adapter upload + download time at the nominal
+        link; under ``agg.transport='plane'`` the clock routes the transfers
+        itself and nothing is added (an empty per-client mapping), and the
+        analytic engine prices both legs in closed form over the plane's
+        constant-rate links."""
         servers_split = [lora_lib.split_lora(self.server_lora[u], self.cuts[u])[1]
                          for u in range(self.u)]
-        new_c, new_s, _ = agg_lib.aggregation_round(
+        new_c, new_s, agg_full = agg_lib.aggregation_round(
             self.client_lora, servers_split, self.cuts, self.data_sizes)
-        up = max(self.link.transfer_s(lora_upload_bytes(self.cfg, cut))
-                 for cut in self.cuts)
         self.client_lora = new_c
         self.server_lora = [
             lora_lib.embed_in_full_shape(s, self.lora_spec, cut, "server")
             for s, cut in zip(new_s, self.cuts)]
         head = self._fedavg_head()
         self.heads = [head] * self.u
+        self._global_full, self._global_head = agg_full, head
         # optimizer states reset to match redistributed adapters
         self.client_opt = [self.opt.init(c) for c in self.client_lora]
         self.server_opt = [self.opt.init({"lora": s, "head": self.heads[u]})
                            for u, s in enumerate(self.server_lora)]
+        if self.run.agg.transport == "plane":
+            if ev is not None:
+                return {}
+            bytes_of = [lora_upload_bytes(self.cfg, cut) for cut in self.cuts]
+            up = max(self.network.uplinks[u].finish_time(0.0, bytes_of[u])
+                     for u in range(self.u))
+            return max(self.network.downlinks[u].finish_time(up, bytes_of[u])
+                       for u in range(self.u))
+        up = max(self.link.transfer_s(lora_upload_bytes(self.cfg, cut))
+                 for cut in self.cuts)
         return 2 * up
+
+    # ------------------------------------------------------- event engine
+    # Under engine="event" the FederationClock owns time and the simulator
+    # supplies the math: the clock calls back into ``_serve_group`` at every
+    # server dispatch and into a commit handler at every aggregation, and
+    # the simulator folds the results into history/loss_events.
+
+    def _resolved_buffer_k(self) -> int:
+        run = self.run
+        if run.agg.buffer_k is not None:
+            return run.agg.buffer_k
+        # buffered: semi-sync half-cohort; staleness: fully async (every
+        # upload commits, the discount keeps stale ones from dominating)
+        return 1 if run.agg.policy == "staleness" else max(1, self.u // 2)
+
+    def _run_event(self, verbose: bool = False):
+        run = self.run
+        if run.agg.policy == "sync":
+            policy = "fifo"              # per-wave RoundPlan carries the real
+            pri = None                   # discipline / fixed order
+        else:
+            policy, needs_pri = resolve_online(run.engine.scheduler)
+            pri = (alg2_priorities(self.cuts, [d.tflops for d in self.devices])
+                   if needs_pri else None)
+        ccfg = ClockConfig(policy=policy, slots=run.engine.slots,
+                           cohort_chunk=max(1, int(run.engine.cohort_chunk)),
+                           chunk_efficiency=run.engine.chunk_efficiency,
+                           deadline=run.engine.deadline,
+                           agg_policy=run.agg.policy,
+                           agg_interval=run.agg.interval,
+                           buffer_k=self._resolved_buffer_k(),
+                           max_inflight_rounds=run.agg.max_inflight)
+        agg_bytes_fn = None
+        if run.agg.transport == "plane":
+            agg_bytes_fn = lambda u: lora_upload_bytes(self.cfg, self.cuts[u])  # noqa: E731
+        clock = FederationClock(self.u, run.rounds, ccfg,
+                                times_fn=self._async_times, priorities=pri,
+                                network=self.network, agg_bytes_fn=agg_bytes_fn,
+                                obs=self.obs)
+        self._clock = clock
+        self._wave_losses = []
+        if run.agg.policy == "sync":
+            res = clock.run(plan_fn=self._plan_wave, on_serve=self._on_serve,
+                            on_commit=self._commit_sync,
+                            on_round_end=lambda rnd, r:
+                                self._on_round_end(rnd, r, verbose))
+        else:
+            res = clock.run(on_serve=self._on_serve,
+                            on_commit=lambda ev: self._commit_async(ev, verbose),
+                            on_round_start=self._on_round_start)
+            # final-state evaluation (the async analogue of the sync path's
+            # last-round eval)
+            if self.history and self.history[-1].accuracy is None:
+                rec = self.history[-1]
+                rec.accuracy, rec.f1 = self.evaluate()
+                if verbose:
+                    print(f"[{run.scheme}/{run.engine.scheduler}/{run.agg.policy}] "
+                          f"final t={rec.sim_time_s:9.1f}s "
+                          f"acc={rec.accuracy:.4f} f1={rec.f1:.4f}")
+        self.clock_result = res
+        self.sim_clock = clock.now
+        if run.obs.trace_dir is not None and self.obs is not None \
+                and self.obs.tracer is not None:
+            self.write_trace()
+        return self.history
+
+    def _on_round_start(self, u: int, rnd: int, t: float) -> None:
+        """A client pulls its model copy when it ENTERS a local round; the
+        lazily-executed math must use that copy, not whatever a later commit
+        redistributed mid-flight."""
+        self._round_pull[(u, rnd)] = (self.client_lora[u], self.client_opt[u],
+                                      self._client_version[u])
+
+    def _on_serve(self, ev) -> None:
+        # run each client's round on the state it pulled at round start
+        swapped = {}
+        for u, r in zip(ev.uids, ev.rounds):
+            pull = self._round_pull.pop((u, r), None)
+            if pull is not None:
+                swapped[u] = (r, pull[2], self.client_lora[u], self.client_opt[u])
+                self.client_lora[u], self.client_opt[u] = pull[0], pull[1]
+        losses = self._serve_group(list(ev.uids))
+        for u, (r, pull_version, cur_lora, cur_opt) in swapped.items():
+            if self._client_version[u] != pull_version:
+                # a commit refreshed u while this round was in flight: the
+                # stale local update loses the race — u continues from the
+                # redistributed global (its server-side half already serves
+                # from the post-commit state)
+                self.client_lora[u], self.client_opt[u] = cur_lora, cur_opt
+                self.discarded_updates.append((u, r))
+                if self.obs is not None and self.obs.metrics is not None:
+                    self.obs.metrics.inc("stale_discard")
+        self._wave_losses.extend(losses)
+        for u, r, ls in zip(ev.uids, ev.rounds, losses):
+            self.loss_events.append((ev.end, u, r, ls))
+
+    def _plan_wave(self, rnd: int) -> RoundPlan:
+        """One sync barrier wave: this round's jobs of the full cohort and
+        its discipline (or fixed order) — the analytic round's plan."""
+        run = self.run
+        self._times_this_round = t = self._adjusted_times()
+        tfl = [d.tflops for d in self.devices]
+        uids = list(range(self.u))
+        if run.engine.scheduler in ONLINE_DISCIPLINES:
+            policy, needs_pri = ONLINE_DISCIPLINES[run.engine.scheduler]
+            pri = alg2_priorities(self.cuts, tfl) if needs_pri else None
+            return RoundPlan(jobs=jobs_from_times(t, uids, priorities=pri),
+                             policy=policy)
+        # e.g. "optimal": no online form — replay its fixed order
+        order = resolve_order(run.engine.scheduler, t, self.cuts, tfl)
+        return RoundPlan(jobs=jobs_from_times(t, uids), order=order)
+
+    def _on_round_end(self, rnd: int, res, verbose: bool) -> bool:
+        self.sim_clock = self._clock.now
+        losses, self._wave_losses = self._wave_losses, []
+        mean_loss = float(np.mean(losses)) if losses else float("nan")
+        rec = RoundRecord(rnd, self.sim_clock, mean_loss)
+        self.history.append(rec)
+        stop = self._maybe_eval(rnd, rec, verbose)
+        if self._on_round is not None:
+            self._on_round(rec)
+        return not stop
+
+    def _commit_async(self, ev, verbose: bool = False) -> Union[float, Dict[int, float]]:
+        """Async commit: fold the buffered contributors into the standing
+        global adapters with staleness-discounted Eq. 6-8 weights, anchor
+        the absent data mass on the current global, and redistribute to the
+        contributors only (they re-enter at the new version; the rest keep
+        training until their own next commit)."""
+        run = self.run
+        contribs = list(ev.contributors)
+        fulls = [lora_lib.assemble_full(
+                     self.client_lora[u],
+                     lora_lib.split_lora(self.server_lora[u], self.cuts[u])[1],
+                     self.cuts[u])
+                 for u in contribs]
+        alpha = 0.0
+        if run.agg.policy == "staleness":
+            alpha = 0.5 if run.agg.staleness_alpha is None else run.agg.staleness_alpha
+        w = [self.data_sizes[u] * agg_lib.staleness_discount(s, alpha)
+             for u, s in zip(contribs, ev.staleness)]
+        anchor = float(sum(self.data_sizes)
+                       - sum(self.data_sizes[u] for u in contribs))
+        self._global_full = agg_lib.merge_into_global(
+            self._global_full, fulls, w, anchor)
+        self._global_head = agg_lib.aggregate_full_weighted(
+            [self._global_head] + [self.heads[u] for u in contribs],
+            [anchor] + w)
+        for u in contribs:
+            c, s = lora_lib.split_lora(self._global_full, self.cuts[u])
+            self.client_lora[u] = c
+            self.server_lora[u] = lora_lib.embed_in_full_shape(
+                s, self.lora_spec, self.cuts[u], "server")
+            self.heads[u] = self._global_head
+            self.client_opt[u] = self.opt.init(c)
+            self.server_opt[u] = self.opt.init(
+                {"lora": self.server_lora[u], "head": self._global_head})
+            self._client_version[u] += 1   # in-flight rounds of u now race
+        if run.agg.transport == "plane":
+            # the clock routes the adapter syncs itself
+            ret: Union[float, Dict[int, float]] = {}
+            effective = 0.0
+        else:
+            ret = effective = 2 * max(self.link.transfer_s(
+                lora_upload_bytes(self.cfg, self.cuts[u])) for u in contribs)
+        # one history record per commit (wall-clock-indexed, NOT per round)
+        losses, self._wave_losses = self._wave_losses, []
+        mean_loss = float(np.mean(losses)) if losses else float("nan")
+        self.sim_clock = ev.time + effective
+        rec = RoundRecord(len(self.history), self.sim_clock, mean_loss)
+        self.history.append(rec)
+        if len(self.history) % run.eval_every == 0:
+            rec.accuracy, rec.f1 = self.evaluate()
+            if verbose:
+                print(f"[{run.scheme}/{run.engine.scheduler}/{run.agg.policy}] "
+                      f"commit {ev.version:4d} t={rec.sim_time_s:9.1f}s "
+                      f"loss={rec.mean_loss:.4f} acc={rec.accuracy:.4f} "
+                      f"f1={rec.f1:.4f} "
+                      f"stale={float(np.mean(ev.staleness)):.2f}")
+        if self._on_round is not None:
+            self._on_round(rec)
+        return ret
 
     def _maybe_eval(self, rnd: int, rec: RoundRecord, verbose: bool) -> bool:
         """Per-round eval/early-stop; True means stop training."""
@@ -399,11 +678,14 @@ class Simulator:
     # ------------------------------------------------------------------ eval
     @torch.no_grad()
     def evaluate(self, max_batches: int = 32):
-        """Global model = aggregate of the current full adapters (ours/sfl)
-        or the traveling set (sl), evaluated centrally on the held-out
-        set."""
+        """Global model = aggregate of the current full adapters (ours/sfl),
+        the traveling set (sl), or the standing async global (buffered /
+        staleness policies), evaluated centrally on the held-out set."""
         params = dict(self.params)
-        if self.run.scheme == "sl":
+        if self.run.agg.policy != "sync":
+            full = self._global_full
+            params["cls_head"] = self._global_head
+        elif self.run.scheme == "sl":
             full = self.server_lora[0]
             params["cls_head"] = self.heads[0]
         else:
@@ -431,7 +713,12 @@ class Simulator:
     # ------------------------------------------------------------ training loop
     def run_training(self, verbose: bool = False, on_round=None):
         """Run the configured rounds; ``on_round(rec)`` is called after each
-        round and its evaluation (a hook for per-round measurements)."""
+        record (a round, or an async commit) and its evaluation — a hook for
+        per-round measurements."""
+        self._on_round = on_round
+        if self.run.engine.mode == "event":
+            # time is owned by the FederationClock
+            return self._run_event(verbose)
         for rnd in range(self.run.rounds):
             rec = self.run_round(rnd)
             stop = self._maybe_eval(rnd, rec, verbose)
@@ -447,3 +734,33 @@ class Simulator:
         return memory_model.server_memory(
             self.cfg, self.run.scheme, self.cuts,
             self.run.batch_size, self.run.seq_len)
+
+    # ------------------------------------------------------------------ obs
+    def obs_other_data(self) -> dict:
+        """Sidecar payload for the Chrome trace's ``otherData`` field:
+        the metrics summary and the memory-ledger report (JSON-able)."""
+        if self.obs is None:
+            return {}
+        out: dict = {}
+        if self.obs.metrics is not None:
+            out["metrics"] = self.obs.metrics.summary()
+        if self.obs.ledger is not None:
+            out["memory"] = self.obs.ledger.report()
+        return out
+
+    def write_trace(self, path: Optional[str] = None) -> str:
+        """Write the Chrome/Perfetto trace JSON (plus the metrics/ledger
+        sidecar under ``otherData``).  Default target is
+        ``run.obs.trace_dir/trace.json``."""
+        if self.obs is None or self.obs.tracer is None:
+            raise ValueError("write_trace needs ObsConfig(trace=True)")
+        if path is None:
+            if self.run.obs.trace_dir is None:
+                raise ValueError("pass path= or set ObsConfig(trace_dir=...)")
+            d = Path(self.run.obs.trace_dir)
+            d.mkdir(parents=True, exist_ok=True)
+            path = str(d / "trace.json")
+        else:
+            Path(path).parent.mkdir(parents=True, exist_ok=True)
+        self.obs.tracer.write_chrome(path, other_data=self.obs_other_data())
+        return path

@@ -2,7 +2,11 @@
 bert-base, gemma-2b and rwkv6-3b, data,
 cost model, scheduling, devices, metrics, run config, the wire-byte count of
 the transport compression, capacity-based partitioning) stay bit-equal to
-their originals on seeded inputs."""
+their originals on seeded inputs.  The copies of the network plane
+(``net/links``, ``net/plane``, ``net/topology``, the bundled trace), the
+observability plane (``obs/tracer``, ``obs/metrics``, ``obs/ledger``,
+``obs/des``) and the federation clock (``fed/engine``) are pinned in
+tests/test_torch_net_obs.py."""
 import os
 
 # the JAX reference runs on the CPU in these comparisons, also where its

@@ -41,10 +41,27 @@ def test_tiny_run_of_the_twin_exits_zero():
 
 
 def test_flags_outside_the_port_are_refused():
-    """The reference's event-engine and async flags are absent: argparse
-    refuses them rather than ignoring them."""
+    """The reference's control-plane flags are absent: argparse refuses
+    them rather than ignoring them."""
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    proc = subprocess.run([sys.executable, str(SCRIPT), "--tiny", "--engine", "event",
+    proc = subprocess.run([sys.executable, str(SCRIPT), "--tiny", "--controller", "periodic",
                            "--device", "cpu"],
                           env=env, capture_output=True, text=True, timeout=120)
     assert proc.returncode == 2 and "unrecognized arguments" in proc.stderr
+
+
+def test_tiny_async_run_of_the_twin_exits_zero(tmp_path):
+    """The reference example's event-engine setting: buffered async commits
+    with two local rounds in flight, traced."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="2")
+    proc = subprocess.run([sys.executable, str(SCRIPT), "--tiny", "--rounds", "2",
+                           "--device", "cpu", "--engine", "event", "--agg-policy", "buffered",
+                           "--max-inflight-rounds", "2", "--trace-out", str(tmp_path)],
+                          env=env, capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    out = proc.stdout
+    assert re.search(r"\[ours/ours/buffered\] commit +1 t= *[0-9.]+s loss=[0-9.na]+ "
+                     r"acc=[0-9.]+ f1=[0-9.]+", out), out
+    assert re.search(r"== ours \[event/buffered\]: acc=[0-9.]+ f1=[0-9.]+ "
+                     r"sim_time=[0-9.]+s server_mem=[0-9.]+MB", out), out
+    assert (tmp_path / "ours" / "trace.json").stat().st_size > 0

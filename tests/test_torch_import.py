@@ -18,11 +18,16 @@ ROOT = Path(__file__).resolve().parents[1]
 SRC = ROOT / "src"
 
 # modules of the later slices (decoder-LM serving; the memory model and
-# partitioning), which the walk below must reach
+# partitioning; the network and observability planes and the event engine),
+# which the walk below must reach
 _NEW_MODULES = ("repro_torch.configs.gemma_2b", "repro_torch.configs.rwkv6_3b",
                 "repro_torch.kernels.flash_attention", "repro_torch.kernels.wkv6",
                 "repro_torch.serving", "repro_torch.serving.engine",
-                "repro_torch.core.memory_model", "repro_torch.core.partition")
+                "repro_torch.core.memory_model", "repro_torch.core.partition",
+                "repro_torch.net", "repro_torch.net.links", "repro_torch.net.plane",
+                "repro_torch.net.topology", "repro_torch.obs", "repro_torch.obs.des",
+                "repro_torch.obs.ledger", "repro_torch.obs.metrics",
+                "repro_torch.obs.tracer", "repro_torch.fed.engine")
 
 _IMPORT_ALL = r"""
 import importlib, pkgutil, sys
@@ -46,7 +51,7 @@ def test_imports_without_jax_and_without_reference_package():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     n_modules, leaked = proc.stdout.split(" ", 1)
-    assert int(n_modules) >= 26 and leaked.strip() == "[]"
+    assert int(n_modules) >= 36 and leaked.strip() == "[]"
 
 
 _FORBIDDEN = re.compile(r"^\s*(import jax|from jax|import repro\.|from repro\.|"

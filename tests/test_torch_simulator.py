@@ -4,7 +4,8 @@ at reduced(bert-base, 4 layers, d 128), vocab 4096, seq 16, batch 4, the six
 paper clients at cuts (1,1,2,2,3,3), 2 rounds, aggregation every 2 — one
 aggregation and one evaluation — on the paper's sequential server and on
 the cohort-batched ragged server with int8+EF links.  Also: every knob
-outside the slice raises, and the numpy bridge round-trips.
+outside the port raises, and the numpy bridge round-trips.  The event
+engine's parity is tests/test_torch_event.py.
 """
 import os
 
@@ -178,15 +179,19 @@ def _run(**groups):
 
 
 @pytest.mark.parametrize("run,knob", [
-    pytest.param(_run(engine=EngineConfig(mode="event")), "mode='event'", id="event"),
+    # the event engine, obs and plane transport are ported: under each, a
+    # knob of a later item still raises
+    pytest.param(_run(engine=EngineConfig(mode="event"), snapshot_every=1.0,
+                      snapshot_dir="snapshots"), "snapshots", id="event"),
     pytest.param(_run(engine=EngineConfig(cohort_chunk=2)), "cohort_impl='vmap'",
                  id="cohort_chunk"),
     pytest.param(_run(engine=EngineConfig(mode="event"),
                       control=ControlConfig(policy="periodic")), "control policy",
                  id="control"),
-    pytest.param(_run(engine=EngineConfig(mode="event"), obs=ObsConfig(metrics=True)),
-                 "observability", id="obs"),
-    pytest.param(_run(agg=AggConfig(transport="plane")), "transport='plane'", id="plane"),
+    pytest.param(_run(engine=EngineConfig(mode="event"), obs=ObsConfig(metrics=True),
+                      preempt_at=0.5), "preemption", id="obs"),
+    pytest.param(_run(engine=EngineConfig(mode="event"), agg=AggConfig(transport="plane"),
+                      resume_from="snapshots"), "resume", id="plane"),
     pytest.param(_run(fleet=FleetConfig(sampling="uniform", rate=0.5)), "sampling",
                  id="sampling"),
     pytest.param(_run(fleet=FleetConfig(straggler_prob=0.1)), "straggler_prob",
@@ -200,12 +205,16 @@ def test_knobs_outside_the_slice_raise(run, knob):
 
 
 def test_memory_report_and_custom_links_raise():
-    """Custom links still raise; the memory report is ported (compared with
-    the reference's in tests/test_torch_sl.py) and reports this run."""
+    """FleetSpec fleets still raise; links= outside link_model='custom' is
+    refused as in the reference; the memory report is ported (compared
+    with the reference's in tests/test_torch_sl.py) and reports this run."""
     from repro_torch.core import memory_model
 
     train, test = _datasets(make_emotion_dataset)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A"):
+    with pytest.raises(NotImplementedError, match="fleet=.*ROADMAP Queue A"):
+        Simulator(_port_cfg(), train=train, test=test, run=_run(), fleet=object(),
+                  device="cpu")
+    with pytest.raises(ValueError, match="link_model='custom'"):
         Simulator(_port_cfg(), PAPER_CLIENTS, CUTS, train, test, _run(),
                   links=[object()] * 6, device="cpu")
     sim = Simulator(_port_cfg(), PAPER_CLIENTS, CUTS, train, test, _run(), device="cpu")
