@@ -86,7 +86,24 @@ Phases (any failed check raises and the script exits non-zero):
    updates and simulated times must equal the einsum run's and its losses
    agree within 1e-3, and at least one run must discard a local update
    that a commit overtook;
-8. LM kernel check: the flash-attention kernel at the gemma-2b prefill
+8. control: the cohort path under the event clock (chunks of up to 3 on
+   the ragged step, int8 links, every obs sink on) with a reactive
+   controller, fused and einsum: sync rounds with a commit after each, the
+   memory budget of client 4 (cut 3) cut before the run to below its
+   cut-3 footprint, so the first commit sheds a layer; and buffered async
+   commits (one local
+   round in flight, plane-routed adapter syncs) with client 4's link (cut
+   3) fading from 100 to 4 Mbps at 0.3 simulated s, so the fade trigger
+   re-plans it.  In each run at least one cut change is applied, the
+   migrated clients' frozen prefixes and steps follow the live cuts, the
+   decision log, simulated times, loss-event keys and discards equal the
+   CPU prediction (``--predict-control``, below) and the other
+   run's, the launches of lora_matmul, grouped_lora (chunk) and
+   quantize_rows equal ``expected_event_launches`` at the cuts in force at
+   each serve event (in the sync run they differ from the rule at the
+   initial cuts), losses agree within 1e-3, and the trace holds one
+   ``reassign`` span per decision;
+9. LM kernel check: the flash-attention kernel at the gemma-2b prefill
    shape (B 4, S = T 2048, H 8, K 1, D 256, causal) in bf16 and fp32 and
    at a GQA shape with a ragged T (2, 1000, 32 heads, 8 kv heads, 64;
    causal with window 256, and non-causal) and, in bf16, at D 64 and 128
@@ -99,7 +116,7 @@ Phases (any failed check raises and the script exits non-zero):
    version (flash: each query row's error over that row's own scale;
    WKV6: over the output's; <= 1e-5 in fp32, <= 1e-2 in bf16; the final
    state <= 1e-5);
-9. LM prefill: gemma-2b and rwkv6-3b at full width and depth in bf16 with
+10. LM prefill: gemma-2b and rwkv6-3b at full width and depth in bf16 with
    random weights, 4 prompts of 2048 tokens, under attn_impl / wkv_impl
    "chunked" (the kernels: 18 flash launches, 32 WKV6 launches) and under
    "naive" / "scan" (plain PyTorch, no launch); then every layer of both
@@ -111,14 +128,14 @@ Phases (any failed check raises and the script exits non-zero):
    and with two tenants' adapters stacked into a group (bf16 grouped_lora
    chunk, asserted the same way), each held layer by layer against the
    einsum prefill (per tenant for the group);
-10. LM serving: a ServingEngine per model with two tenants (every adapter
+11. LM serving: a ServingEngine per model with two tenants (every adapter
    leaf ~ N(0, 0.05), as in tests/test_serving.py), six greedy requests
    of 16-64 prompt tokens and 16 new tokens in 4 slots of a 128-token
    cache; every request completes, the stats hold, decode launches
    neither kernel; and for one prompt, every layer's decode, token by
    token from its own cache, agrees with that layer's prefill on the same
    input (LM_TOL);
-11. LM backward: the gradient of a token cross-entropy with respect to
+12. LM backward: the gradient of a token cross-entropy with respect to
    the adapters, gemma-2b and rwkv6-3b at full width and 4 layers, 2 x 512
    tokens, attn_impl / wkv_impl "chunked" (under grad the plain chunked
    forms run), fused (bf16 lora_matmul forward and dx, launches asserted,
@@ -127,7 +144,7 @@ Phases (any failed check raises and the script exits non-zero):
    gradients within 1e-1; and layer by layer from shared inputs, every
    adapter leaf's gradient within 5e-2 of fp32 where the einsum path is
    too (the other leaves listed, at least one held a layer);
-12. summary: one JSON line per ported kernel, then the device line last.
+13. summary: one JSON line per ported kernel, then the device line last.
 
 Every launch counter is set to 0 just before each path runs and read just
 after it.  ``--profile`` adds a phase before the summary: one warm round of
@@ -152,8 +169,17 @@ round under the profiler, the cohort server step fused against einsum,
 the cohort rounds' loss gap with int8 links on and off, a gemma-2b and an
 rwkv6-3b prefill, and the rwkv6-3b prefill with fused bf16 LoRA).
 
-Exits non-zero without a result when no CUDA device is available, or when
-run from a directory that does not hold the repository's ``src/``.
+    python3 chip_smoke.py --predict-control
+
+needs no card: it replays the ``[control]`` phase's two runs on the CPU
+(``predict_control``), prints each run's decision log, simulated times,
+served chunks, cuts and the launches the rule gives, and last
+``PREDICTED_CONTROL`` in the literal form this file holds, which the
+card's runs are held to.
+
+Without ``--predict-control``, exits non-zero without a result when no
+CUDA device is available, or when run from a directory that does not hold
+the repository's ``src/``.
 """
 from __future__ import annotations
 
@@ -162,6 +188,7 @@ import dataclasses
 import gc
 import json
 import math
+import pprint
 import subprocess
 import sys
 import tempfile
@@ -178,7 +205,8 @@ PORT_ROOT = (Path(sys.argv[sys.argv.index("--ab-one") + 1]).resolve()
              if "--ab-one" in sys.argv[:-1] else ROOT)
 sys.path.insert(0, str(PORT_ROOT / "src"))
 
-if not torch.cuda.is_available():
+# --predict-control runs on the CPU; everything else needs the card
+if not torch.cuda.is_available() and "--predict-control" not in sys.argv[1:]:
     sys.exit("chip_smoke: no CUDA device is available")
 
 from repro_torch.numerics import set_fp32_policy  # noqa: E402
@@ -188,8 +216,10 @@ set_fp32_policy()   # TF32 off for matmuls and cuDNN: fp32 as in the reference
 from repro_torch.configs import REGISTRY  # noqa: E402
 from repro_torch.data import make_emotion_dataset  # noqa: E402
 from repro_torch.core.cost_model import lora_upload_bytes, makespan  # noqa: E402
+from repro_torch.core.memory_model import client_memory  # noqa: E402
 from repro_torch.fed import (PAPER_CLIENTS, PAPER_CUTS, AggConfig,  # noqa: E402
-                             EngineConfig, FedRunConfig, NetConfig, ObsConfig, Simulator)
+                             ControlConfig, EngineConfig, FedRunConfig, NetConfig,
+                             ObsConfig, Simulator)
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention_plain  # noqa: E402
@@ -207,6 +237,7 @@ from repro_torch.kernels.ref import (grouped_lora_matmul_ref,  # noqa: E402
 from repro_torch.kernels.wkv6 import wkv6  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.models.layers import softmax_xent  # noqa: E402
+from repro_torch.net import ConstantLink, TraceLink  # noqa: E402
 from repro_torch.serving import Request, ServingEngine  # noqa: E402
 from repro_torch.tree import tree_leaves, tree_map  # noqa: E402
 
@@ -2096,23 +2127,22 @@ def event_run(policy: str, fused: bool, trace_dir=None) -> FedRunConfig:
         obs=ObsConfig(trace=True, metrics=True, memory_ledger=True, trace_dir=trace_dir))
 
 
-def expected_event_launches(cfg, cuts, serves, n_evals: int, n_eval_batches: int,
-                            fused: bool, quantized: bool) -> dict:
-    """Launches of a whole event-engine run, from the clock's served
-    ``ServeEvent``s and the evaluations.  With T adapted projections per
-    layer and L layers, each client u of a serve event runs its forward and
-    backward at its cut: 2*T*cut_u - 3 ``lora_matmul`` (no dx into the frozen
-    embedding, as on the main path) and, under int8 links, 2
-    ``quantize_rows`` (uplink activations, downlink gradient; fused or
-    not).  The server side of an event of one client is the sequential
+def launch_rule(cfg, serves, serve_cuts, n_evals: int, n_eval_batches: int) -> dict:
+    """Kernel launches of a whole event-engine run, from the clock's served
+    ``ServeEvent``s at the cuts in force at each (``serve_cuts``) and the
+    evaluations.  With T adapted projections per layer and L layers, each
+    client u of a serve event runs its forward and backward at its cut:
+    2*T*cut_u - 3 ``lora_matmul`` (no dx into the frozen embedding) and,
+    under int8 links, 2 ``quantize_rows`` (uplink activations, downlink
+    gradient).  The server side of an event of one client is the sequential
     step, 2*T*(L - cut) ``lora_matmul`` (forward and dx); of a chunk, the
     ragged step, one ``grouped_lora`` chunk-mode launch forward and one for
     dx per projection of each distinct cut's layers, 2*T*(L - cut) per
-    distinct cut.  Each evaluation runs T*L ``lora_matmul`` per test batch.
-    The einsum run launches neither LoRA kernel."""
+    distinct cut.  Each evaluation runs T*L ``lora_matmul`` per test batch,
+    whatever the cuts."""
     t, nl = len(cfg.lora.targets), cfg.n_layers
     lm = gl = q = 0
-    for ev in serves:
+    for ev, cuts in zip(serves, serve_cuts):
         lm += sum(2 * t * cuts[u] - 3 for u in ev.uids)
         if len(ev.uids) == 1:
             lm += 2 * t * (nl - cuts[ev.uids[0]])
@@ -2120,8 +2150,23 @@ def expected_event_launches(cfg, cuts, serves, n_evals: int, n_eval_batches: int
             gl += sum(2 * t * (nl - c) for c in {cuts[u] for u in ev.uids})
         q += 2 * len(ev.uids)
     lm += n_evals * n_eval_batches * t * nl
-    return no_launches(lora_matmul=lm if fused else 0, grouped_lora_chunk=gl if fused else 0,
-                       quantize_rows=q if quantized else 0)
+    return {"lora_matmul": lm, "grouped_lora_chunk": gl, "quantize_rows": q}
+
+
+def expected_event_launches(cfg, cuts, serves, n_evals: int, n_eval_batches: int,
+                            fused: bool, quantized: bool, serve_cuts=None) -> dict:
+    """Launches of a whole event-engine run by ``launch_rule`` (derivation
+    in its docstring), from the clock's served ``ServeEvent``s at ``cuts``
+    throughout the run, or at ``serve_cuts``, the cuts in force at each
+    serve event where a control plane moves them between commits.  The
+    einsum run launches neither LoRA kernel; ``quantize_rows`` runs under
+    int8 links, fused or not."""
+    if serve_cuts is None:
+        serve_cuts = [cuts] * len(serves)
+    n = launch_rule(cfg, serves, serve_cuts, n_evals, n_eval_batches)
+    return no_launches(lora_matmul=n["lora_matmul"] if fused else 0,
+                       grouped_lora_chunk=n["grouped_lora_chunk"] if fused else 0,
+                       quantize_rows=n["quantize_rows"] if quantized else 0)
 
 
 def time_simulator_work(sim) -> dict:
@@ -2357,6 +2402,374 @@ def event_phase(fused_main: dict, train, test) -> dict:
     return out
 
 
+# [control] phase: the control plane on the cohort path
+# ---------------------------------------------------------------------------
+
+# the sync run cuts client 4's memory budget (cut 3) to between its
+# footprints at cuts 2 and 3: the memory trigger sheds one layer at the
+# first commit, whatever the predicted gain, and round 2 serves the client
+# in a chunk with clients 5 and 1, where the launch counts depend on its
+# cut (shed to cut 1 it would arrive alone, and a single client's serve
+# launches 2*T*L - 3 whatever its cut).  The buffered run fades client 4's
+# link from 100 to 4 Mbps at FADE_AT simulated seconds, inside the first
+# commit's window; the fade trigger re-plans it at the first commit it
+# contributes to.  Client 0, the reference tests' faded client, stands at
+# the loop's min_cut 1, from which no fade can move it
+SHED_CLIENT, FADE_CLIENT, FADE_AT, CONTROL_HYSTERESIS, CONTROL_CHUNK = 4, 4, 0.3, 0.25, 3
+
+
+def control_run(kind: str, fused: bool = True, trace_dir=None) -> FedRunConfig:
+    """The cohort path under the event clock with a reactive controller:
+    ``kind="sync"`` barrier rounds with a commit after each, ``"buffered"``
+    async commits of three uploads with one local round in flight and
+    plane-routed adapter syncs over caller-supplied links.  Chunks of up to
+    CONTROL_CHUNK clients on the ragged step, int8 links, every obs sink on."""
+    engine = EngineConfig(mode="event", fused_lora=fused, cohort_chunk=CONTROL_CHUNK,
+                          cohort_impl="ragged")
+    obs = ObsConfig(trace=True, metrics=True, memory_ledger=True, trace_dir=trace_dir)
+    if kind == "sync":
+        return FedRunConfig(rounds=ROUNDS, batch_size=BATCH, seq_len=SEQ, lr=LR, seed=0,
+                            engine=engine, agg=AggConfig(policy="sync", interval=1),
+                            net=NetConfig(quantize=True),
+                            control=ControlConfig(policy="reactive"), obs=obs)
+    return FedRunConfig(rounds=ROUNDS, batch_size=BATCH, seq_len=SEQ, lr=LR, seed=0,
+                        engine=engine,
+                        agg=AggConfig(policy="buffered", interval=1, max_inflight=1,
+                                      transport="plane"),
+                        net=NetConfig(link_model="custom", quantize=True),
+                        control=ControlConfig(policy="reactive",
+                                              hysteresis=CONTROL_HYSTERESIS),
+                        obs=obs)
+
+
+def control_links() -> list:
+    """The buffered run's links: 100 Mbps each, client FADE_CLIENT's fading
+    to 4 Mbps at FADE_AT simulated seconds."""
+    links = [ConstantLink(100.0)] * len(PAPER_CLIENTS)
+    links[FADE_CLIENT] = TraceLink([0.0, FADE_AT], [100.0, 4.0])
+    return links
+
+
+def shed_budget() -> float:
+    """A memory budget between the shed client's footprints at cuts 2 and 3."""
+    full = REGISTRY["bert-base"]
+    return (client_memory(full, 2, BATCH, SEQ) + client_memory(full, 3, BATCH, SEQ)) / 2
+
+
+def control_simulator(kind: str, cfg, train, test, device: str, fused: bool = True,
+                      trace_dir=None) -> Simulator:
+    """One of the phase's two runs, built and primed (the sync run's
+    memory-pressure event), not yet run."""
+    sim = Simulator(cfg, PAPER_CLIENTS, PAPER_CUTS, train, test,
+                    control_run(kind, fused, trace_dir),
+                    links=None if kind == "sync" else control_links(), device=device)
+    if kind == "sync":
+        # another app took part of the RAM: negative headroom at the first commit
+        sim._control.telemetry.set_mem_budget(SHED_CLIENT, shed_budget())
+    return sim
+
+
+def cuts_at_serves(cuts0, serves, decisions) -> tuple:
+    """The cuts in force at each serve event (the initial cuts with every
+    applied decision of an earlier commit), and the cuts after the last
+    decision.  A client migrates only with no round in flight, so each of
+    its later serves starts after the commit."""
+    cuts, out, applied = list(cuts0), [], [d for d in decisions if d.applied]
+    for ev in serves:
+        while applied and applied[0].time < ev.start:
+            for u, (_old, new) in applied.pop(0).cut_changes.items():
+                cuts[u] = new
+        out.append(list(cuts))
+    for d in applied:
+        for u, (_old, new) in d.cut_changes.items():
+            cuts[u] = new
+    return out, cuts
+
+
+def full_width_timing() -> None:
+    """Point every quantity the control phase's timeline reads at
+    bert-base's full width, whatever the width of the model that runs: the
+    Simulator's ``client_step_times`` and ``lora_upload_bytes``, the int8
+    transport ratio at d 768, and the control loop's model."""
+    from repro_torch.comm import transport_bytes
+    from repro_torch.control import ControlLoop
+    from repro_torch.core.cost_model import dtype_nbytes
+    from repro_torch.fed import simulator as sim_mod
+
+    full = REGISTRY["bert-base"]
+    step_times, upload_bytes = sim_mod.client_step_times, sim_mod.lora_upload_bytes
+    sim_mod.client_step_times = lambda cfg, *a, **k: step_times(full, *a, **k)
+    sim_mod.lora_upload_bytes = lambda cfg, *a, **k: upload_bytes(full, *a, **k)
+    sim_mod.ControlLoop = lambda cfg, *a, **k: ControlLoop(full, *a, **k)
+
+    def ratio(self) -> float:
+        shape, nb = (BATCH, SEQ, full.d_model), dtype_nbytes(full.dtype)
+        return transport_bytes(shape, True, nb) / transport_bytes(shape, False, nb)
+    Simulator._transport_ratio = ratio
+
+
+def predict_control(kind: str, train, test) -> dict:
+    """One control run's timeline on the CPU (``--predict-control``).  The
+    control loop's decisions read only the network plane's rates at
+    simulated instants, the cost and memory models and the controller's
+    own state: no loss and no tensor.  So the decision log, the simulated
+    times, the served events, the loss-event keys and the discards follow
+    from the port's pinned clock, plane, cost model and control loop alone,
+    whatever device runs the model.  The run replays with the model cut to
+    a 12-layer bert-base of width 64 (the depth, and so every cut the loop
+    may choose, is bert-base's) under ``full_width_timing``."""
+    from repro_torch.configs import reduced
+
+    full = REGISTRY["bert-base"]
+    small = reduced(full, n_layers=full.n_layers, d_model=64).with_(
+        vocab_size=full.vocab_size, max_position=SEQ)
+    sim = control_simulator(kind, small, train, test, "cpu")
+    sim.run_training()
+    serves = sim.clock_result.serves
+    serve_cuts, _ = cuts_at_serves(PAPER_CUTS, serves, sim.control_events)
+    n_evals = sum(r.accuracy is not None for r in sim.history)
+    n_eval_batches = min(32, len(test) // BATCH)
+    counters = sim.obs.metrics.summary()["counters"]
+    return {
+        "decisions": [sim._control._enc_decision(d) for d in sim.control_events],
+        "sim_times": [r.sim_time_s for r in sim.history],
+        "loss_event_keys": [list(e[:3]) for e in sim.loss_events],
+        "discarded": [list(d) for d in sim.discarded_updates],
+        "chunk_sizes": [len(ev.uids) for ev in serves],
+        "serve_cuts": serve_cuts,
+        "final_cuts": list(sim.cuts),
+        "n_evals": n_evals,
+        "reassign_spans": sum(s.name == "reassign" for s in sim.obs.tracer.spans()),
+        "counters": {k: v for k, v in counters.items() if k.startswith("migration")},
+        "launches": launch_rule(full, serves, serve_cuts, n_evals, n_eval_batches),
+        "launches_at_initial_cuts": launch_rule(full, serves, [PAPER_CUTS] * len(serves),
+                                                n_evals, n_eval_batches),
+    }
+
+
+# the keys of each run that the card's runs are held to
+PINNED_CONTROL_KEYS = ("decisions", "sim_times", "loss_event_keys", "discarded",
+                       "chunk_sizes", "final_cuts")
+
+
+def predict_control_phase() -> None:
+    """``--predict-control``: both control runs on the CPU, each printed as
+    one ``[predict:KIND]`` line, then ``PREDICTED_CONTROL`` in the literal
+    form this file holds, ready to paste over it."""
+    torch.set_num_threads(4)
+    full_width_timing()
+    full = REGISTRY["bert-base"]
+    train = make_emotion_dataset(N_TRAIN, seq_len=SEQ, vocab_size=full.vocab_size, seed=0)
+    test = make_emotion_dataset(N_TEST, seq_len=SEQ, vocab_size=full.vocab_size, seed=1)
+    pinned = {}
+    for kind in ("sync", "buffered"):
+        pred = predict_control(kind, train, test)
+        print(f"[predict:{kind}] {json.dumps(pred)}", flush=True)
+        pinned[kind] = {k: pred[k] for k in PINNED_CONTROL_KEYS}
+    print("PREDICTED_CONTROL = " + pprint.pformat(pinned, sort_dicts=False), flush=True)
+
+
+# the decision logs and timelines of the phase's two runs, computed on the
+# CPU by ``python3 chip_smoke.py --predict-control`` before any chip run:
+# the decisions read no tensor, so the device cannot change them.  A change
+# to the clock, the plane, the cost or memory model, the control loop or the
+# settings above changes them: rerun that command and paste its last line
+PREDICTED_CONTROL = {'sync': {'decisions': [{'time': 0.9739208179203868,
+                         'version': 1,
+                         'trigger': 'memory',
+                         'cut': [[4, 3, 2]],
+                         'rank': [],
+                         'batch': [],
+                         'gain': 0.0,
+                         'mig': [[4, 0.03145728000000003]],
+                         'applied': True}],
+          'sim_times': [1.1941217779203868, 2.3605924861947964],
+          'loss_event_keys': [[0.23617270728255313, 3, 0],
+                              [0.3123017354020934, 5, 0],
+                              [0.3123017354020934, 1, 0],
+                              [0.3846245531676106, 4, 0],
+                              [0.3846245531676106, 2, 0],
+                              [0.4264952775814037, 0, 0],
+                              [1.43029448520294, 3, 1],
+                              [1.54448802738225, 4, 1],
+                              [1.54448802738225, 5, 1],
+                              [1.54448802738225, 1, 1],
+                              [1.6244232658558135, 0, 1],
+                              [1.6244232658558135, 2, 1]],
+          'discarded': [],
+          'chunk_sizes': [1, 2, 2, 1, 1, 3, 2],
+          'final_cuts': [1, 1, 2, 2, 2, 3]},
+ 'buffered': {'decisions': [{'time': 6.183653671677159,
+                             'version': 4,
+                             'trigger': 'fade',
+                             'cut': [[4, 3, 1]],
+                             'rank': [],
+                             'batch': [],
+                             'gain': 0.27000869780150083,
+                             'mig': [[4, 1.572864]],
+                             'applied': True}],
+              'sim_times': [0.7018680869446917,
+                            1.3151595141554775,
+                            2.1163820178422457,
+                            7.756517671677159,
+                            15.834286955345728],
+              'loss_event_keys': [[0.23617270728255313, 3, 0],
+                                  [0.3123017354020934, 5, 0],
+                                  [0.3123017354020934, 1, 0],
+                                  [0.3846245531676106, 4, 0],
+                                  [0.3846245531676106, 2, 0],
+                                  [0.4264952775814037, 0, 0],
+                                  [0.9763738722908157, 1, 1],
+                                  [1.014438386350586, 3, 1],
+                                  [1.048696690056333, 5, 1],
+                                  [1.6602572780909137, 2, 1],
+                                  [1.725442528738762, 0, 1],
+                                  [11.793202582509211, 4, 1]],
+              'discarded': [],
+              'chunk_sizes': [1, 2, 2, 1, 1, 1, 1, 1, 1, 1],
+              'final_cuts': [1, 1, 2, 2, 1, 3]}}
+
+
+def run_control(kind: str, fused: bool, train, test, trace_dir: str) -> dict:
+    """One controlled run at the main path's full width, every counter set
+    to 0 just before ``run_training`` and read just after.  Launches are
+    held against ``expected_event_launches`` at the cuts in force at each
+    serve event; the decision log, the records' simulated times, the loss
+    events' keys and the discards against the CPU prediction."""
+    label = f"control:{kind}:" + ("fused" if fused else "einsum")
+    t0 = time.perf_counter()
+    sim = control_simulator(kind, REGISTRY["bert-base"], train, test, "cuda",
+                            fused=fused, trace_dir=trace_dir)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()                      # just before the path runs
+    t0 = time.perf_counter()
+    sim.run_training()
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    counts = read_counts()              # just after
+    serves = list(sim.clock_result.serves)
+    serve_cuts, derived_cuts = cuts_at_serves(PAPER_CUTS, serves, sim.control_events)
+    n_evals = sum(r.accuracy is not None for r in sim.history)
+    n_eval = min(32, len(test) // BATCH)
+    expected = expected_event_launches(sim.cfg, None, serves, n_evals, n_eval, fused, True,
+                                       serve_cuts=serve_cuts)
+    # the same rule at the initial cuts: where it differs, the counters saw
+    # the migration
+    at_initial_cuts = expected_event_launches(sim.cfg, PAPER_CUTS, serves, n_evals, n_eval,
+                                              fused, True)
+    with open(Path(trace_dir) / "trace.json") as fh:
+        doc = json.load(fh)
+    counters = doc["otherData"]["metrics"]["counters"]
+    out = {"label": label,
+           "decisions": [sim._control._enc_decision(d) for d in sim.control_events],
+           "history": [dataclasses.astuple(r) for r in sim.history],
+           "sim_times": [r.sim_time_s for r in sim.history],
+           "loss_event_keys": [list(e[:3]) for e in sim.loss_events],
+           "discarded": [list(d) for d in sim.discarded_updates],
+           "chunk_sizes": [len(ev.uids) for ev in serves], "final_cuts": list(sim.cuts),
+           "serve_cuts": serve_cuts, "launches": counts, "expected": expected,
+           "expected_at_initial_cuts": at_initial_cuts,
+           "setup_s": setup_s, "wall_s": wall_s,
+           "max_mem_bytes": torch.cuda.max_memory_allocated(),
+           "migration_accepted": counters.get("migration_accepted", 0.0),
+           "migration_rejected": counters.get("migration_rejected", 0.0),
+           "reassign_spans": sum(ev["name"] == "reassign" for ev in doc["traceEvents"])}
+    for rec in sim.history:
+        print(f"[{label}] record {rec.round} loss={rec.mean_loss:.7f} "
+              f"sim_time_s={rec.sim_time_s!r} accuracy={rec.accuracy}", flush=True)
+    print(f"[{label}] setup_s={setup_s:.3f} wall_s={wall_s:.3f} "
+          f"max_mem_bytes={out['max_mem_bytes']} decisions={json.dumps(out['decisions'])} "
+          f"migration_accepted={out['migration_accepted']} "
+          f"migration_rejected={out['migration_rejected']} "
+          f"reassign_spans={out['reassign_spans']} chunk_sizes={out['chunk_sizes']} "
+          f"serve_cuts={json.dumps(serve_cuts)} launches={json.dumps(counts)} "
+          f"expected={json.dumps(expected)} "
+          f"expected_at_initial_cuts={json.dumps(at_initial_cuts)}", flush=True)
+    if counts != expected:
+        raise AssertionError(f"{label}: launches {counts}, expected {expected}")
+    if not any(d.applied and d.cut_changes for d in sim.control_events):
+        raise AssertionError(f"{label}: no cut change was applied")
+    # the migrated clients' frozen prefixes and steps follow the live cuts
+    for u, cut in enumerate(sim.cuts):
+        depth = tree_leaves(sim.client_params[u]["layers"])[0].shape[0]
+        if depth != cut or cut not in sim._cli_steps or cut not in sim._srv_steps:
+            raise AssertionError(f"{label}: client {u} at cut {cut} holds {depth} layers "
+                                 f"(steps at cuts {sorted(sim._cli_steps)})")
+    if derived_cuts != sim.cuts:
+        raise AssertionError(f"{label}: the decision log gives cuts {derived_cuts}, "
+                             f"the run holds {sim.cuts}")
+    for key, want in PREDICTED_CONTROL[kind].items():
+        if out[key] != want:
+            raise AssertionError(f"{label}: {key} {out[key]} against the CPU prediction "
+                                 f"{want} (if the model of the run changed, rerun "
+                                 f"`python3 chip_smoke.py --predict-control` and paste "
+                                 f"its PREDICTED_CONTROL)")
+    if out["reassign_spans"] != len(sim.control_events) or \
+            out["migration_accepted"] + out["migration_rejected"] != out["reassign_spans"]:
+        raise AssertionError(f"{label}: {out['reassign_spans']} reassign spans for "
+                             f"{len(sim.control_events)} decisions")
+    if not sim.loss_events or not all(math.isfinite(e[3]) for e in sim.loss_events):
+        raise AssertionError(f"{label}: loss events {sim.loss_events}")
+    acc = sim.history[-1].accuracy
+    if acc is None or not 0.0 <= acc <= 1.0:
+        raise AssertionError(f"{label}: evaluation gave accuracy {acc}")
+    del sim
+    gc.collect()
+    return out
+
+
+def check_control(fused: dict, plain: dict) -> dict:
+    """Fused against einsum: the decision log, simulated times, loss-event
+    keys and discards equal (each run already equals the CPU prediction);
+    per-record losses within LOSS_RTOL, the cohort path's limit, which
+    allows for the int8 quantizer's whole-code steps."""
+    for key in ("decisions", "sim_times", "loss_event_keys", "discarded"):
+        if fused[key] != plain[key]:
+            raise AssertionError(f"{fused['label']}: {key} differ from the einsum run's")
+    gaps = []
+    for f, p in zip(fused["history"], plain["history"]):
+        if math.isnan(p[2]) or math.isnan(f[2]):
+            if not (math.isnan(p[2]) and math.isnan(f[2])):
+                raise AssertionError(f"record {f[0]}: loss {f[2]} against {p[2]}")
+            continue
+        gaps.append(abs(f[2] - p[2]) / abs(p[2]))
+        if not gaps[-1] <= LOSS_RTOL:
+            raise AssertionError(f"{fused['label']} record {f[0]}: fused loss {f[2]} "
+                                 f"against einsum {p[2]} (rtol {LOSS_RTOL})")
+    out = {"records": len(fused["history"]), "max_loss_rel_gap": max(gaps)}
+    print(f"[control] {fused['label']} vs einsum {json.dumps(out)}", flush=True)
+    return out
+
+
+def control_phase(train, test) -> dict:
+    """[control]: the two controlled runs, fused and einsum each."""
+    keep = ("decisions", "sim_times", "chunk_sizes", "serve_cuts", "final_cuts",
+            "launches", "expected_at_initial_cuts", "setup_s", "wall_s", "max_mem_bytes",
+            "migration_accepted", "migration_rejected", "reassign_spans")
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for kind in ("sync", "buffered"):
+            runs = {fused: run_control(kind, fused, train, test,
+                                       f"{tmp}/{kind}-{'fused' if fused else 'einsum'}")
+                    for fused in (True, False)}
+            out[kind] = {"check": check_control(runs[True], runs[False]),
+                         **{("fused" if f else "einsum"): {k: run[k] for k in keep}
+                            for f, run in runs.items()}}
+    if all(out[kind]["fused"]["launches"] == out[kind]["fused"]["expected_at_initial_cuts"]
+           for kind in out):
+        raise AssertionError("no control run's launches depend on the migrated cuts")
+    print(f"[control] {json.dumps(out)}", flush=True)
+    return out
+
+
+def control_launches(control: dict, name: str) -> dict:
+    """A kernel's launches in each run of the control phase."""
+    return {f"{kind}:{path}": runs[path]["launches"][name]
+            for kind, runs in control.items() for path in ("fused", "einsum")}
+
+
 def memory_lines(fused: dict, plain: dict, cohort: dict, sl: dict) -> dict:
     """The paper's memory model (``Simulator.server_memory_report``) for
     ours, sfl and sl at the paper cuts, printed beside the peak device
@@ -2388,7 +2801,13 @@ def main() -> None:
                          "unpacked with git archive) with this one on this card, "
                          "in the order old, new, new, old, and do nothing else")
     ap.add_argument("--ab-one", type=Path, help=argparse.SUPPRESS)
+    ap.add_argument("--predict-control", action="store_true",
+                    help="compute the [control] phase's decision logs and timelines on "
+                         "the CPU, print them and PREDICTED_CONTROL, and do nothing else")
     args = ap.parse_args()
+    if args.predict_control:
+        predict_control_phase()
+        return
     if args.ab_one is not None:
         print("[ab]", json.dumps(ab_measure()), flush=True)
         return
@@ -2548,6 +2967,7 @@ def main() -> None:
     sl = run_path(True, train, test, scheme="sl")
     memory_lines(fused, plain, cohort, sl)
     event = event_phase(fused, train, test)
+    control = control_phase(train, test)
 
     del train, test
     gc.collect()
@@ -2584,6 +3004,7 @@ def main() -> None:
               cohort_launches=cohort["launches"]["lora_matmul"],
               sl_launches=sl["launches"]["lora_matmul"],
               event_launches=event_launches(event, "lora_matmul"),
+              control_launches=control_launches(control, "lora_matmul"),
               base_matmul_ms=main_shape["base_matmul_ms"],
               ragged={str(c["shape"]): {key: c[key] for key in
                                         ("fwd_err", "views_err", "dx_err", "da_err",
@@ -2594,6 +3015,7 @@ def main() -> None:
               cohort["launches"]["grouped_lora_chunk"], grouped_path, path="cohort",
               design=DESIGNS["grouped_lora_chunk"],
               event_launches=event_launches(event, "grouped_lora_chunk"),
+              control_launches=control_launches(control, "grouped_lora_chunk"),
               bound_tf32x3_ms=grouped_path["bound_tf32x3_ms"],
               dx_call_device_ms=grouped_path["dx_call_device_ms"],
               views_err=grouped_path["views_err"],
@@ -2713,6 +3135,7 @@ def main() -> None:
               cohort["launches"]["quantize_rows"], quant, path="cohort",
               bit_equal=True, design=DESIGNS["quantize_rows"], shape=quant["shape"],
               event_launches=event_launches(event, "quantize_rows"),
+              control_launches=control_launches(control, "quantize_rows"),
               dtype="float32", body=quant["body"],
               bf16={key: quant["bfloat16"][key] for key in
                     ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "body",

@@ -18,8 +18,12 @@ Continuous-time async federation (the reference example's event setting):
     PYTHONPATH=src python examples/train_emotion_sfl_torch.py --tiny --rounds 3 \
         --engine event --agg-policy buffered --max-inflight-rounds 2 --device cpu
 
-The reference's control-plane and snapshot flags are absent here (ROADMAP
-Queue A, item 8).
+Online cut re-assignment at commit boundaries (the control plane):
+
+    PYTHONPATH=src python examples/train_emotion_sfl_torch.py --tiny --rounds 3 \
+        --engine event --controller reactive --device cpu
+
+The reference's snapshot flags are absent here (ROADMAP Queue A, item 8).
 """
 import argparse
 
@@ -28,8 +32,9 @@ import numpy as np
 from repro_torch.configs import REGISTRY, reduced
 from repro_torch.core.partition import assign_cuts
 from repro_torch.data import make_emotion_dataset
-from repro_torch.fed import (AggConfig, EngineConfig, FedRunConfig, NetConfig,
-                             ObsConfig, PAPER_CLIENTS, PAPER_CUTS, Simulator,
+from repro_torch.control import CONTROLLERS
+from repro_torch.fed import (AggConfig, ControlConfig, EngineConfig, FedRunConfig,
+                             NetConfig, ObsConfig, PAPER_CLIENTS, PAPER_CUTS, Simulator,
                              validate_run_config)
 from repro_torch.fed.engine import AGG_POLICIES
 from repro_torch.net import bundled_trace
@@ -77,6 +82,15 @@ def main():
     ap.add_argument("--agg-transport", choices=("nominal", "plane"), default="nominal",
                     help="route adapter syncs through the network plane "
                     "instead of the scalar nominal link")
+    # -- adaptive control plane
+    ap.add_argument("--controller", choices=CONTROLLERS, default="static",
+                    help="online cut re-assignment at commit boundaries "
+                    "(needs --engine event)")
+    ap.add_argument("--resolve-every", type=int, default=1,
+                    help="periodic controller: commits between re-solves")
+    ap.add_argument("--hysteresis", type=float, default=None,
+                    help="reactive controller: relative rate band "
+                    "(default 0.25)")
     ap.add_argument("--trace-out", default=None, metavar="DIR",
                     help="record spans + metrics + memory ledger and write a "
                     "Perfetto-loadable trace.json under DIR (one subdir per "
@@ -152,6 +166,9 @@ def main():
                            net=NetConfig(link_model=args.link_model, traces=link_traces,
                                          shared=args.shared_medium,
                                          capacity_mbps=args.medium_capacity_mbps),
+                           control=ControlConfig(policy=args.controller,
+                                                 resolve_every=args.resolve_every,
+                                                 hysteresis=args.hysteresis),
                            obs=(ObsConfig(trace=True, metrics=True, memory_ledger=True,
                                           trace_dir=f"{args.trace_out}/{entry}")
                                 if args.trace_out else ObsConfig()))
@@ -175,6 +192,14 @@ def main():
                   f"{report.get('client_reduction_vs_local', 0.0):.0%} below "
                   f"local fine-tuning; {len(sim.discarded_updates)} local updates "
                   f"lost a race to a commit")
+        if args.controller != "static":
+            events = sim.control_events
+            print(f"   control ({args.controller}): {len(events)} decisions, "
+                  f"{sum(ev.applied for ev in events)} applied; cuts {sim.cuts}")
+            for ev in events:
+                print(f"     t={ev.time:.3f}s commit {ev.version} {ev.trigger}: "
+                      f"cuts {ev.cut_changes} gain {ev.predicted_gain_s:.4f}s "
+                      f"migration {ev.migration_s} applied={ev.applied}")
         print()
 
 

@@ -22,7 +22,11 @@ The server serves one client per dispatch, or cohort chunks of clients
 through the cut-grouped ragged step (``cohort_impl="ragged"``);
 ``NetConfig.quantize`` sends the activations (with error feedback) and the
 gradients as int8; ``ObsConfig`` records spans, metrics and the memory
-ledger without touching the timeline.  Every knob outside the port raises
+ledger without touching the timeline.  Under the event engine a
+``ControlConfig`` policy other than ``static`` attaches the control loop
+(``repro_torch.control``), which may move clients' cuts at commit
+boundaries: the commit re-slices the migrated clients' frozen prefixes and
+redistributes the aggregate at the new cuts.  Every knob outside the port raises
 ``NotImplementedError`` naming the ROADMAP item that brings it.
 
 State updates are functional: every optimizer step and every aggregation
@@ -34,13 +38,14 @@ from __future__ import annotations
 
 import dataclasses
 from pathlib import Path
-from typing import Dict, List, Optional, Sequence, Union
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
 from repro_torch.comm import dequantize, quantize, quantize_with_feedback, transport_bytes
 from repro_torch.configs.base import ModelConfig
+from repro_torch.control import ControlLoop
 from repro_torch.core import aggregation as agg_lib
 from repro_torch.core import lora as lora_lib
 from repro_torch.core import memory_model, splitfl
@@ -87,8 +92,6 @@ def _not_in_slice(knob: str, item: str) -> NotImplementedError:
 
 def check_slice(run: FedRunConfig) -> None:
     """Raise for every knob the port does not cover yet — none is ignored."""
-    if run.control.policy != "static":
-        raise _not_in_slice(f"control policy={run.control.policy!r}", "8")
     if (run.snapshot_every is not None or run.resume_from is not None
             or run.preempt_at is not None):
         raise _not_in_slice("snapshots, resume and preemption", "8")
@@ -190,6 +193,18 @@ class Simulator:
                               LinkProfile(self.network.nominal_mbps(u)),
                               run.batch_size, run.seq_len)
             for u, (cut, dev) in enumerate(zip(self.cuts, self.devices))]
+        # adaptive control plane: shares the LIVE self.cuts list (never
+        # rebound), so an accepted re-assignment is immediately visible to
+        # the wave planner, the per-round times and the aggregation byte
+        # accounting.  The static controller attaches nothing at all.
+        self._control: Optional[ControlLoop] = None
+        if run.control.policy != "static":
+            self._control = ControlLoop(
+                cfg, self.devices, server, self.network, self.cuts,
+                batch=run.batch_size, seq_len=run.seq_len,
+                controller=run.control.policy, resolve_every=run.control.resolve_every,
+                hysteresis=run.control.hysteresis, scheduler=run.engine.scheduler,
+                max_cut=cfg.n_layers - 1)
         # observability plane: tracing, metrics and the memory ledger only
         # READ the clock's results, so a run with obs on follows the same
         # timeline as one with obs off
@@ -202,6 +217,8 @@ class Simulator:
                 ledger=(MemoryLedger.from_model(cfg, self.cuts,
                                                 run.batch_size, run.seq_len)
                         if run.obs.memory_ledger else None))
+            if self._control is not None:
+                self._control.obs = self.obs    # reassign spans, accept/reject counters
         self.history: List[RoundRecord] = []
         self.sim_clock = 0.0
         self._ef_residual: List[Optional[torch.Tensor]] = [None] * self.u  # uplink EF
@@ -448,14 +465,31 @@ class Simulator:
         """Barrier aggregation (Alg. 1 l.17-30, Eqs. 5-9) over the whole
         fleet.  Shared by the analytic round loop (``ev`` None) and the sync
         clock.  Returns the adapter upload + download time at the nominal
-        link; under ``agg.transport='plane'`` the clock routes the transfers
-        itself and nothing is added (an empty per-client mapping), and the
-        analytic engine prices both legs in closed form over the plane's
-        constant-rate links."""
+        link (a per-client mapping once migrations apply); under
+        ``agg.transport='plane'`` the clock routes the transfers itself and
+        only the migration charges are returned, and the analytic engine
+        prices both legs in closed form over the plane's constant-rate links.
+
+        A control-plane decision lands here, at the barrier commit: the
+        aggregate is computed under the OLD cuts (what the clients trained),
+        then cuts may move, then the aggregate is redistributed re-split at
+        the NEW cuts."""
         servers_split = [lora_lib.split_lora(self.server_lora[u], self.cuts[u])[1]
                          for u in range(self.u)]
         new_c, new_s, agg_full = agg_lib.aggregation_round(
             self.client_lora, servers_split, self.cuts, self.data_sizes)
+        # the upload leg shipped the adapters the clients trained: price it
+        # at the pre-migration cuts, before any decision applies
+        up_old = max(self.link.transfer_s(lora_upload_bytes(self.cfg, cut))
+                     for cut in self.cuts)
+        mig: Dict[int, float] = {}
+        changes: Dict[int, Tuple[int, int]] = {}
+        if self._control is not None and ev is not None:
+            changes, mig = self._control.decide(ev.time, list(range(self.u)), ev.version)
+            if changes:
+                self._apply_cut_changes(changes)
+                for u in changes:     # re-split the aggregate at the new cut
+                    new_c[u], new_s[u] = lora_lib.split_lora(agg_full, self.cuts[u])
         self.client_lora = new_c
         self.server_lora = [
             lora_lib.embed_in_full_shape(s, self.lora_spec, cut, "server")
@@ -469,15 +503,21 @@ class Simulator:
                            for u, s in enumerate(self.server_lora)]
         if self.run.agg.transport == "plane":
             if ev is not None:
-                return {}
+                # the clock ships the adapters through the plane; only the
+                # migration charges are added, past each client's download
+                return mig
+            # the analytic engine runs the static controller: no cut moved
             bytes_of = [lora_upload_bytes(self.cfg, cut) for cut in self.cuts]
             up = max(self.network.uplinks[u].finish_time(0.0, bytes_of[u])
                      for u in range(self.u))
             return max(self.network.downlinks[u].finish_time(up, bytes_of[u])
                        for u in range(self.u))
-        up = max(self.link.transfer_s(lora_upload_bytes(self.cfg, cut))
-                 for cut in self.cuts)
-        return 2 * up
+        if changes:
+            # upload at the old cuts, download (the redistribute) at the new
+            down_new = max(self.link.transfer_s(lora_upload_bytes(self.cfg, cut))
+                           for cut in self.cuts)
+            return {u: up_old + down_new + mig.get(u, 0.0) for u in range(self.u)}
+        return 2 * up_old
 
     # ------------------------------------------------------- event engine
     # Under engine="event" the FederationClock owns time and the simulator
@@ -500,8 +540,15 @@ class Simulator:
             pri = None                   # discipline / fixed order
         else:
             policy, needs_pri = resolve_online(run.engine.scheduler)
-            pri = (alg2_priorities(self.cuts, [d.tflops for d in self.devices])
-                   if needs_pri else None)
+            if not needs_pri:
+                pri = None
+            elif self._control is not None:
+                # the control loop refreshes this list IN PLACE on every
+                # accepted re-assignment, so the online priority discipline
+                # orders by the live N_c/C ratios
+                pri = self._control.pri
+            else:
+                pri = alg2_priorities(self.cuts, [d.tflops for d in self.devices])
         ccfg = ClockConfig(policy=policy, slots=run.engine.slots,
                            cohort_chunk=max(1, int(run.engine.cohort_chunk)),
                            chunk_efficiency=run.engine.chunk_efficiency,
@@ -512,7 +559,12 @@ class Simulator:
                            max_inflight_rounds=run.agg.max_inflight)
         agg_bytes_fn = None
         if run.agg.transport == "plane":
-            agg_bytes_fn = lambda u: lora_upload_bytes(self.cfg, self.cuts[u])  # noqa: E731
+            # live cuts: a migrated client ships its NEW adapter payload,
+            # priced by the control loop's own accounting where one runs
+            if self._control is not None:
+                agg_bytes_fn = self._control.agg_bytes
+            else:
+                agg_bytes_fn = lambda u: lora_upload_bytes(self.cfg, self.cuts[u])  # noqa: E731
         clock = FederationClock(self.u, run.rounds, ccfg,
                                 times_fn=self._async_times, priorities=pri,
                                 network=self.network, agg_bytes_fn=agg_bytes_fn,
@@ -626,6 +678,21 @@ class Simulator:
         self._global_head = agg_lib.aggregate_full_weighted(
             [self._global_head] + [self.heads[u] for u in contribs],
             [anchor] + w)
+        # control decision: contributors stand at this commit boundary, but
+        # only those with NO in-flight local round may migrate (an in-flight
+        # round pulled client state shaped by the old cut).  The upload leg
+        # shipped OLD-cut adapters: price it before the decision applies.
+        up_old = max(self.link.transfer_s(lora_upload_bytes(self.cfg, self.cuts[u]))
+                     for u in contribs)
+        mig: Dict[int, float] = {}
+        changes: Dict[int, Tuple[int, int]] = {}
+        if self._control is not None:
+            inflight = {u for (u, _r) in self._round_pull}
+            changes, mig = self._control.decide(
+                ev.time, contribs, ev.version,
+                eligible=[u for u in contribs if u not in inflight])
+            if changes:
+                self._apply_cut_changes(changes)
         for u in contribs:
             c, s = lora_lib.split_lora(self._global_full, self.cuts[u])
             self.client_lora[u] = c
@@ -637,12 +704,18 @@ class Simulator:
                 {"lora": self.server_lora[u], "head": self._global_head})
             self._client_version[u] += 1   # in-flight rounds of u now race
         if run.agg.transport == "plane":
-            # the clock routes the adapter syncs itself
-            ret: Union[float, Dict[int, float]] = {}
-            effective = 0.0
+            # the clock routes the adapter syncs; migrations ride as
+            # per-client extras past each contributor's download
+            ret: Union[float, Dict[int, float]] = mig
+            effective = max(mig.values(), default=0.0)
+        elif changes:
+            # nominal charge: upload at the old cuts, redistribute at the new
+            down_new = max(self.link.transfer_s(lora_upload_bytes(self.cfg, self.cuts[u]))
+                           for u in contribs)
+            ret = {u: up_old + down_new + mig.get(u, 0.0) for u in contribs}
+            effective = max(ret.values())
         else:
-            ret = effective = 2 * max(self.link.transfer_s(
-                lora_upload_bytes(self.cfg, self.cuts[u])) for u in contribs)
+            ret = effective = 2 * up_old
         # one history record per commit (wall-clock-indexed, NOT per round)
         losses, self._wave_losses = self._wave_losses, []
         mean_loss = float(np.mean(losses)) if losses else float("nan")
@@ -660,6 +733,36 @@ class Simulator:
         if self._on_round is not None:
             self._on_round(rec)
         return ret
+
+    # ------------------------------------------------------- control plane
+    @property
+    def control_events(self):
+        """ReassignEvents recorded by the control loop (empty when static)."""
+        return [] if self._control is None else self._control.decisions
+
+    def _apply_cut_changes(self, changes: Dict[int, Tuple[int, int]]) -> None:
+        """The model side of a cut migration (commit boundaries only): the
+        live ``self.cuts`` entries are already updated by the control loop;
+        here the client's frozen prefix is re-sliced, the steps for the new
+        cut are ensured, the Eq. 10 terms refreshed and the memory ledger
+        told.  Adapters and optimizer states are NOT touched: the calling
+        commit redistributes them from the aggregated global at the new cut.
+        The ragged cohort step takes any cut and needs nothing."""
+        run = self.run
+        for u, (_old, new) in changes.items():
+            pc = dict(self.params)
+            pc["layers"] = lora_lib.slice_stack(self.params["layers"], 0, new)
+            self.client_params[u] = pc
+            if new not in self._srv_steps:
+                self._srv_steps[new] = splitfl.make_server_step_cls(
+                    self.model, self.opt, static_cut=new)
+                self._cli_steps[new] = splitfl.make_client_step(self.model, self.opt, new)
+            self.times[u] = client_step_times(
+                self.cfg, new, self.devices[u], self.server_dev,
+                LinkProfile(self.network.nominal_mbps(u)),
+                run.batch_size, run.seq_len)
+            if self.obs is not None and self.obs.ledger is not None:
+                self.obs.ledger.set_cut(u, new)
 
     def _maybe_eval(self, rnd: int, rec: RoundRecord, verbose: bool) -> bool:
         """Per-round eval/early-stop; True means stop training."""

@@ -6,7 +6,9 @@ their originals on seeded inputs.  The copies of the network plane
 (``net/links``, ``net/plane``, ``net/topology``, the bundled trace), the
 observability plane (``obs/tracer``, ``obs/metrics``, ``obs/ledger``,
 ``obs/des``) and the federation clock (``fed/engine``) are pinned in
-tests/test_torch_net_obs.py."""
+tests/test_torch_net_obs.py; those of the control plane
+(``control/telemetry``, ``control/controller``, ``control/solver``,
+``control/loop`` and ``control/__init__``) in tests/test_torch_control.py."""
 import os
 
 # the JAX reference runs on the CPU in these comparisons, also where its

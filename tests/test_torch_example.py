@@ -41,10 +41,10 @@ def test_tiny_run_of_the_twin_exits_zero():
 
 
 def test_flags_outside_the_port_are_refused():
-    """The reference's control-plane flags are absent: argparse refuses
-    them rather than ignoring them."""
+    """The reference's snapshot flags are absent: argparse refuses them
+    rather than ignoring them."""
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    proc = subprocess.run([sys.executable, str(SCRIPT), "--tiny", "--controller", "periodic",
+    proc = subprocess.run([sys.executable, str(SCRIPT), "--tiny", "--snapshot-every", "1.0",
                            "--device", "cpu"],
                           env=env, capture_output=True, text=True, timeout=120)
     assert proc.returncode == 2 and "unrecognized arguments" in proc.stderr
@@ -65,3 +65,18 @@ def test_tiny_async_run_of_the_twin_exits_zero(tmp_path):
     assert re.search(r"== ours \[event/buffered\]: acc=[0-9.]+ f1=[0-9.]+ "
                      r"sim_time=[0-9.]+s server_mem=[0-9.]+MB", out), out
     assert (tmp_path / "ours" / "trace.json").stat().st_size > 0
+
+
+def test_tiny_controlled_run_of_the_twin_exits_zero():
+    """The reference example's control-plane flags: a reactive controller on
+    the event engine runs to its end and prints its decision log."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="2")
+    proc = subprocess.run([sys.executable, str(SCRIPT), "--tiny", "--rounds", "2",
+                           "--device", "cpu", "--engine", "event", "--controller", "reactive"],
+                          env=env, capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    out = proc.stdout
+    assert re.search(r"== ours \[event/sync\]: acc=[0-9.]+ f1=[0-9.]+ "
+                     r"sim_time=[0-9.]+s server_mem=[0-9.]+MB", out), out
+    assert re.search(r"   control \(reactive\): [0-9]+ decisions, [0-9]+ applied; "
+                     r"cuts \[[0-9, ]+\]", out), out

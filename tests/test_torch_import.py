@@ -18,8 +18,8 @@ ROOT = Path(__file__).resolve().parents[1]
 SRC = ROOT / "src"
 
 # modules of the later slices (decoder-LM serving; the memory model and
-# partitioning; the network and observability planes and the event engine),
-# which the walk below must reach
+# partitioning; the network and observability planes and the event engine;
+# the control plane), which the walk below must reach
 _NEW_MODULES = ("repro_torch.configs.gemma_2b", "repro_torch.configs.rwkv6_3b",
                 "repro_torch.kernels.flash_attention", "repro_torch.kernels.wkv6",
                 "repro_torch.serving", "repro_torch.serving.engine",
@@ -27,7 +27,10 @@ _NEW_MODULES = ("repro_torch.configs.gemma_2b", "repro_torch.configs.rwkv6_3b",
                 "repro_torch.net", "repro_torch.net.links", "repro_torch.net.plane",
                 "repro_torch.net.topology", "repro_torch.obs", "repro_torch.obs.des",
                 "repro_torch.obs.ledger", "repro_torch.obs.metrics",
-                "repro_torch.obs.tracer", "repro_torch.fed.engine")
+                "repro_torch.obs.tracer", "repro_torch.fed.engine",
+                "repro_torch.control", "repro_torch.control.controller",
+                "repro_torch.control.loop", "repro_torch.control.solver",
+                "repro_torch.control.telemetry")
 
 _IMPORT_ALL = r"""
 import importlib, pkgutil, sys

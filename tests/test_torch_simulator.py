@@ -185,8 +185,10 @@ def _run(**groups):
                       snapshot_dir="snapshots"), "snapshots", id="event"),
     pytest.param(_run(engine=EngineConfig(cohort_chunk=2)), "cohort_impl='vmap'",
                  id="cohort_chunk"),
-    pytest.param(_run(engine=EngineConfig(mode="event"),
-                      control=ControlConfig(policy="periodic")), "control policy",
+    # the control plane is ported: it passes, and the vmap cohort step
+    # beside it still raises
+    pytest.param(_run(engine=EngineConfig(mode="event", cohort_chunk=2),
+                      control=ControlConfig(policy="periodic")), "cohort_impl='vmap'",
                  id="control"),
     pytest.param(_run(engine=EngineConfig(mode="event"), obs=ObsConfig(metrics=True),
                       preempt_at=0.5), "preemption", id="obs"),
