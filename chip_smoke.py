@@ -103,7 +103,23 @@ Phases (any failed check raises and the script exits non-zero):
    each serve event (in the sync run they differ from the rule at the
    initial cuts), losses agree within 1e-3, and the trace holds one
    ``reassign`` span per decision;
-9. LM kernel check: the flash-attention kernel at the gemma-2b prefill
+9. resume: the buffered event run of phase 7 and both controlled runs of
+   phase 8 (fused), each run again with a mid-flight snapshot every
+   ``RESUME_KNOBS`` simulated seconds into a temporary directory (removed
+   at the end) and preempted, then resumed from the latest snapshot in a
+   fresh Simulator: the clock's state_dict JSON, the history, loss events,
+   discards, control decisions and cuts, the obs outputs (trace, metrics,
+   ledger) and, by ``torch.equal``, the final global adapters and head
+   must equal the uninterrupted run's; the snapshot instants, the resumed
+   snapshot's instant, cuts, in-flight pulls, residuals and serves, and the
+   serves replayed between it and the kill must equal the CPU prediction
+   (``--predict-resume``, below); the resumed run's launches of
+   lora_matmul, grouped_lora (chunk) and quantize_rows must equal
+   ``launch_rule`` over the serves the resumed clock performed, at the
+   cuts in force at each; snapshot bytes beside the leaves' bytes from
+   their shapes, save and load wall times and the resumed run's peak
+   memory are printed;
+10. LM kernel check: the flash-attention kernel at the gemma-2b prefill
    shape (B 4, S = T 2048, H 8, K 1, D 256, causal) in bf16 and fp32 and
    at a GQA shape with a ragged T (2, 1000, 32 heads, 8 kv heads, 64;
    causal with window 256, and non-causal) and, in bf16, at D 64 and 128
@@ -116,7 +132,7 @@ Phases (any failed check raises and the script exits non-zero):
    version (flash: each query row's error over that row's own scale;
    WKV6: over the output's; <= 1e-5 in fp32, <= 1e-2 in bf16; the final
    state <= 1e-5);
-10. LM prefill: gemma-2b and rwkv6-3b at full width and depth in bf16 with
+11. LM prefill: gemma-2b and rwkv6-3b at full width and depth in bf16 with
    random weights, 4 prompts of 2048 tokens, under attn_impl / wkv_impl
    "chunked" (the kernels: 18 flash launches, 32 WKV6 launches) and under
    "naive" / "scan" (plain PyTorch, no launch); then every layer of both
@@ -128,14 +144,14 @@ Phases (any failed check raises and the script exits non-zero):
    and with two tenants' adapters stacked into a group (bf16 grouped_lora
    chunk, asserted the same way), each held layer by layer against the
    einsum prefill (per tenant for the group);
-11. LM serving: a ServingEngine per model with two tenants (every adapter
+12. LM serving: a ServingEngine per model with two tenants (every adapter
    leaf ~ N(0, 0.05), as in tests/test_serving.py), six greedy requests
    of 16-64 prompt tokens and 16 new tokens in 4 slots of a 128-token
    cache; every request completes, the stats hold, decode launches
    neither kernel; and for one prompt, every layer's decode, token by
    token from its own cache, agrees with that layer's prefill on the same
    input (LM_TOL);
-12. LM backward: the gradient of a token cross-entropy with respect to
+13. LM backward: the gradient of a token cross-entropy with respect to
    the adapters, gemma-2b and rwkv6-3b at full width and 4 layers, 2 x 512
    tokens, attn_impl / wkv_impl "chunked" (under grad the plain chunked
    forms run), fused (bf16 lora_matmul forward and dx, launches asserted,
@@ -144,7 +160,7 @@ Phases (any failed check raises and the script exits non-zero):
    gradients within 1e-1; and layer by layer from shared inputs, every
    adapter leaf's gradient within 5e-2 of fp32 where the einsum path is
    too (the other leaves listed, at least one held a layer);
-13. summary: one JSON line per ported kernel, then the device line last.
+14. summary: one JSON line per ported kernel, then the device line last.
 
 Every launch counter is set to 0 just before each path runs and read just
 after it.  ``--profile`` adds a phase before the summary: one warm round of
@@ -177,7 +193,13 @@ served chunks, cuts and the launches the rule gives, and last
 ``PREDICTED_CONTROL`` in the literal form this file holds, which the
 card's runs are held to.
 
-Without ``--predict-control``, exits non-zero without a result when no
+    python3 chip_smoke.py --predict-resume
+
+needs no card either: it replays the ``[resume]`` phase's three kills and
+resumes on the CPU the same way (``kill_and_resume``) and prints
+``PREDICTED_RESUME``.
+
+Without either, exits non-zero without a result when no
 CUDA device is available, or when run from a directory that does not hold
 the repository's ``src/``.
 """
@@ -188,6 +210,7 @@ import dataclasses
 import gc
 import json
 import math
+import os
 import pprint
 import subprocess
 import sys
@@ -205,8 +228,10 @@ PORT_ROOT = (Path(sys.argv[sys.argv.index("--ab-one") + 1]).resolve()
              if "--ab-one" in sys.argv[:-1] else ROOT)
 sys.path.insert(0, str(PORT_ROOT / "src"))
 
-# --predict-control runs on the CPU; everything else needs the card
-if not torch.cuda.is_available() and "--predict-control" not in sys.argv[1:]:
+# --predict-control and --predict-resume run on the CPU; everything else
+# needs the card
+if not torch.cuda.is_available() and not {"--predict-control",
+                                          "--predict-resume"} & set(sys.argv[1:]):
     sys.exit("chip_smoke: no CUDA device is available")
 
 from repro_torch.numerics import set_fp32_policy  # noqa: E402
@@ -214,6 +239,7 @@ from repro_torch.numerics import set_fp32_policy  # noqa: E402
 set_fp32_policy()   # TF32 off for matmuls and cuDNN: fp32 as in the reference
 
 from repro_torch.configs import REGISTRY  # noqa: E402
+from repro_torch.checkpointing import load_snapshot, unpack_json  # noqa: E402
 from repro_torch.data import make_emotion_dataset  # noqa: E402
 from repro_torch.core.cost_model import lora_upload_bytes, makespan  # noqa: E402
 from repro_torch.core.memory_model import client_memory  # noqa: E402
@@ -2252,6 +2278,25 @@ def run_event(policy: str, fused: bool, train, test, trace_dir=None) -> dict:
     return out
 
 
+def final_state(sim) -> dict:
+    """What a killed and resumed run must reproduce bit for bit: the
+    clock's state_dict JSON, the run log (history, loss events, discards),
+    the control decisions and cuts, the obs outputs (Chrome trace, metrics,
+    ledger) and copies of the final global adapters and head."""
+    out = {"clock": json.dumps(sim._clock.state_dict(), sort_keys=True),
+           "history": json.dumps([dataclasses.astuple(r) for r in sim.history]),
+           "loss_events": list(sim.loss_events), "discarded": list(sim.discarded_updates),
+           "decisions": [dataclasses.asdict(d) for d in sim.control_events],
+           "cuts": list(sim.cuts),
+           "global_full": tree_map(torch.clone, sim._global_full),
+           "global_head": tree_map(torch.clone, sim._global_head)}
+    if sim.obs is not None:
+        out["obs"] = [json.dumps(sim.obs.tracer.to_chrome(), sort_keys=True),
+                      sim.obs.metrics.to_json(),
+                      json.dumps(sim.obs.ledger.report(), sort_keys=True)]
+    return out
+
+
 def check_event_sync(event: dict, analytic: dict) -> dict:
     """The event-driven sync run against the analytic run of the same
     config.  The clock serves each barrier wave by the online form of the
@@ -2356,11 +2401,12 @@ def event_launches(event: dict, name: str) -> dict:
     return {key: run["launches"][name] for key, run in event.items() if "launches" in run}
 
 
-def event_phase(fused_main: dict, train, test) -> dict:
+def event_phase(fused_main: dict, train, test, finals: dict) -> dict:
     """[event]: the event-driven sync run (fused) against the analytic
     main run; the paper example's async event setting, buffered fused and
     einsum and staleness fused, with the obs plane on; at least one local
-    update must lose its race to a commit."""
+    update must lose its race to a commit.  The buffered fused run's
+    ``final_state`` goes into ``finals`` for the [resume] phase."""
     sync = run_event("sync", True, train, test)
     sync_check = check_event_sync(sync, fused_main)
     # each run's peak memory is read from a clean card (the simulator and
@@ -2386,6 +2432,8 @@ def event_phase(fused_main: dict, train, test) -> dict:
             key = f"{policy}:{'fused' if fused else 'einsum'}"
             runs[key] = run_event(policy, fused, train, test, trace_dir=f"{tmp}/{key}")
             runs[key]["trace"] = trace_summary(runs[key])
+            if key == "buffered:fused":
+                finals["event:buffered"] = final_state(runs[key]["sim"])
             del runs[key]["sim"]
             gc.collect()
     async_check = check_event_async(runs["buffered:fused"], runs["buffered:einsum"])
@@ -2457,11 +2505,12 @@ def shed_budget() -> float:
 
 
 def control_simulator(kind: str, cfg, train, test, device: str, fused: bool = True,
-                      trace_dir=None) -> Simulator:
+                      trace_dir=None, **knobs) -> Simulator:
     """One of the phase's two runs, built and primed (the sync run's
-    memory-pressure event), not yet run."""
+    memory-pressure event), not yet run; ``knobs`` (the snapshot, resume
+    and preemption fields of ``FedRunConfig``) go into its config."""
     sim = Simulator(cfg, PAPER_CLIENTS, PAPER_CUTS, train, test,
-                    control_run(kind, fused, trace_dir),
+                    dataclasses.replace(control_run(kind, fused, trace_dir), **knobs),
                     links=None if kind == "sync" else control_links(), device=device)
     if kind == "sync":
         # another app took part of the RAM: negative headroom at the first commit
@@ -2715,6 +2764,8 @@ def run_control(kind: str, fused: bool, train, test, trace_dir: str) -> dict:
     acc = sim.history[-1].accuracy
     if acc is None or not 0.0 <= acc <= 1.0:
         raise AssertionError(f"{label}: evaluation gave accuracy {acc}")
+    if fused:                           # the [resume] phase resumes the fused runs
+        out["final"] = final_state(sim)
     del sim
     gc.collect()
     return out
@@ -2743,8 +2794,10 @@ def check_control(fused: dict, plain: dict) -> dict:
     return out
 
 
-def control_phase(train, test) -> dict:
-    """[control]: the two controlled runs, fused and einsum each."""
+def control_phase(train, test, finals: dict) -> dict:
+    """[control]: the two controlled runs, fused and einsum each; each
+    fused run's ``final_state`` goes into ``finals`` for the [resume]
+    phase."""
     keep = ("decisions", "sim_times", "chunk_sizes", "serve_cuts", "final_cuts",
             "launches", "expected_at_initial_cuts", "setup_s", "wall_s", "max_mem_bytes",
             "migration_accepted", "migration_rejected", "reassign_spans")
@@ -2754,6 +2807,7 @@ def control_phase(train, test) -> dict:
             runs = {fused: run_control(kind, fused, train, test,
                                        f"{tmp}/{kind}-{'fused' if fused else 'einsum'}")
                     for fused in (True, False)}
+            finals[f"control:{kind}"] = runs[True].pop("final")
             out[kind] = {"check": check_control(runs[True], runs[False]),
                          **{("fused" if f else "einsum"): {k: run[k] for k in keep}
                             for f, run in runs.items()}}
@@ -2768,6 +2822,240 @@ def control_launches(control: dict, name: str) -> dict:
     """A kernel's launches in each run of the control phase."""
     return {f"{kind}:{path}": runs[path]["launches"][name]
             for kind, runs in control.items() for path in ("fused", "einsum")}
+
+
+# [resume] phase: kill and resume on the card
+# ---------------------------------------------------------------------------
+
+# each run's snapshot cadence and preemption instant (simulated seconds),
+# chosen on the CPU from the runs' timelines at bert-base's full-width
+# timing (``--predict-resume``; PERF.md §6).  The buffered event run
+# snapshots at 0.2 and 0.4 s, the second after the first serve (one
+# client's error-feedback residual, five rounds in flight), and is killed at
+# the first tick past 0.5 s, after two more serves, the chunks of two and
+# three, which the resumed run replays.  The controlled sync run snapshots
+# and is killed at its round-1 barrier, past the 0.974 s shed of client 4.
+# The controlled buffered run snapshots past the 6.18 s fade migration of
+# client 4 and at its next round start (one round in flight), and is
+# killed before that round's serve and the last record at 15.83 s
+RESUME_KNOBS = {"event:buffered": (0.2, 0.5), "control:sync": (1.0, 1.1),
+                "control:buffered": (4.0, 10.0)}
+
+
+def resume_simulator(key: str, cfg, train, test, device: str, **knobs) -> Simulator:
+    """The fused run ``key`` of the [event] or [control] phase, with the
+    snapshot, resume or preemption ``knobs`` in its config."""
+    family, policy = key.split(":")
+    if family == "event":
+        run = dataclasses.replace(event_run(policy, True), **knobs)
+        return Simulator(cfg, PAPER_CLIENTS, PAPER_CUTS, train, test, run, device=device)
+    return control_simulator(policy, cfg, train, test, device, **knobs)
+
+
+def snapshot_leaf_bytes(tree) -> int:
+    """The bytes a loaded snapshot's leaves hold, from their shapes and
+    dtypes (what the file must carry beside its header and padding)."""
+    if isinstance(tree, dict):
+        return sum(snapshot_leaf_bytes(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(snapshot_leaf_bytes(v) for v in tree)
+    if isinstance(tree, torch.Tensor):
+        return tree.numel() * tree.element_size()
+    return np.asarray(tree).nbytes
+
+
+def kill_and_resume(key: str, cfg, train, test, device: str, snap_dir: str) -> dict:
+    """Run ``key`` with periodic snapshots into ``snap_dir`` until its
+    preemption (RESUME_KNOBS), read the snapshot the resume will take, then
+    resume it in a fresh Simulator, every counter set to 0 just before the
+    resumed ``run_training`` and read just after.  ``info`` holds what the
+    clock decides (no tensor enters it, so the CPU predicts it): the
+    snapshot instants, the resumed snapshot's instant, cuts, in-flight pulls,
+    residuals and serves, the serves the resumed run replays, and the
+    launches ``launch_rule`` gives over the serves after the snapshot at the
+    cuts in force at each."""
+    every, kill = RESUME_KNOBS[key]
+    killed = resume_simulator(key, cfg, train, test, device, snapshot_every=every,
+                              snapshot_dir=snap_dir, preempt_at=kill)
+    saves = []                          # (instant, save wall s, file bytes)
+    save_one = killed._snapshotter.maybe_save
+
+    def timed_save(now, state_fn):
+        t0 = time.perf_counter()
+        path = save_one(now, state_fn)
+        if path is not None:
+            saves.append((now, time.perf_counter() - t0, os.path.getsize(path)))
+        return path
+    killed._snapshotter.maybe_save = timed_save
+    killed.run_training()
+    if not killed.clock_result.preempted or not saves:
+        raise AssertionError(f"[resume:{key}] the run was not preempted after a snapshot")
+    kill_time, killed_serves = killed._clock.now, len(killed.clock_result.serves)
+    del killed
+    gc.collect()
+
+    t0 = time.perf_counter()
+    snap = load_snapshot(snap_dir, device=device)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    clock = unpack_json(snap["des"])["clock"]
+    n_snap = len(clock["serves"])
+    info = {"snapshot_times": [t for t, _, _ in saves], "snapshot_time": clock["now"],
+            "kill_time": kill_time, "cuts": [int(c) for c in snap["cuts"]],
+            "round_pulls": len(snap["round_pull"]), "ef_residuals": len(snap["ef_residual"]),
+            "snapshot_serves": n_snap, "replayed_serves": killed_serves - n_snap}
+    measured = {"snapshot_bytes": saves[-1][2], "leaf_bytes": snapshot_leaf_bytes(snap),
+                "save_s": [s for _, s, _ in saves], "load_s": load_s}
+    del snap
+
+    resumed = resume_simulator(key, cfg, train, test, device, resume_from=snap_dir)
+    evals = {"n": 0}
+    evaluate = resumed.evaluate
+
+    def counted(*args, **kwargs):
+        evals["n"] += 1
+        return evaluate(*args, **kwargs)
+    resumed.evaluate = counted
+    if device == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    reset_counts()                      # just before the path runs
+    t0 = time.perf_counter()
+    resumed.run_training()
+    if device == "cuda":
+        torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    counts = read_counts()              # just after
+    serves = list(resumed.clock_result.serves)
+    serve_cuts, _ = cuts_at_serves(PAPER_CUTS, serves, resumed.control_events)
+    n_eval_batches = min(32, len(test) // BATCH)
+    info["resume_launches"] = launch_rule(REGISTRY["bert-base"], serves[n_snap:],
+                                          serve_cuts[n_snap:], evals["n"], n_eval_batches)
+    measured.update(wall_s=wall_s, evaluations=evals["n"])
+    if device == "cuda":
+        measured["max_mem_bytes"] = torch.cuda.max_memory_allocated()
+    return {"info": info, "measured": measured, "launches": counts, "sim": resumed}
+
+
+def check_resumed(key: str, run: dict, whole: dict) -> None:
+    """The resumed run against the uninterrupted one (``final_state``), bit
+    for bit; its clock's decisions against the CPU prediction; its launches
+    against the rule."""
+    got = final_state(run["sim"])
+    for field in ("clock", "history", "loss_events", "discarded", "decisions", "cuts", "obs"):
+        if got.get(field) != whole.get(field):
+            raise AssertionError(f"[resume:{key}] {field} differs from the uninterrupted run's")
+    for field in ("global_full", "global_head"):
+        pairs = list(zip(tree_leaves(got[field]), tree_leaves(whole[field])))
+        if len(pairs) != len(tree_leaves(whole[field])) or not all(
+                a.dtype == b.dtype and torch.equal(a, b) for a, b in pairs):
+            raise AssertionError(f"[resume:{key}] {field} differs from the uninterrupted run's")
+    if run["info"] != PREDICTED_RESUME[key]:
+        raise AssertionError(f"[resume:{key}] {run['info']} against the CPU prediction "
+                             f"{PREDICTED_RESUME[key]} (if the run's settings changed, rerun "
+                             f"`python3 chip_smoke.py --predict-resume` and paste its "
+                             f"PREDICTED_RESUME)")
+    expected = no_launches(**run["info"]["resume_launches"])
+    if run["launches"] != expected:
+        raise AssertionError(f"[resume:{key}] launches {run['launches']}, expected {expected}")
+    if not (run["launches"]["lora_matmul"] > 0 and run["launches"]["quantize_rows"] > 0):
+        raise AssertionError(f"[resume:{key}] the resumed run launched {run['launches']}")
+
+
+def resume_phase(train, test, finals: dict) -> dict:
+    """[resume]: each run of ``finals`` (the buffered event run and both
+    controlled runs, fused) killed after a snapshot and resumed in a fresh
+    Simulator, held bit for bit against its uninterrupted run."""
+    out, t0 = {}, time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        for key in RESUME_KNOBS:
+            run = kill_and_resume(key, REGISTRY["bert-base"], train, test, "cuda",
+                                  f"{tmp}/{key.replace(':', '-')}")
+            check_resumed(key, run, finals[key])
+            del run["sim"]
+            gc.collect()
+            out[key] = {k: run[k] for k in ("info", "measured", "launches")}
+            print(f"[resume:{key}] {json.dumps(out[key])}", flush=True)
+    # the snapshot instants read no tensor; the chunked kernel must have run
+    # after some resume (the controlled buffered run serves single clients
+    # after its migration, so it launches none there)
+    if not any(run["launches"]["grouped_lora_chunk"] for run in out.values()):
+        raise AssertionError("no resumed run launched grouped_lora")
+    print(f"[resume] {gpu_line()} phase_s={time.perf_counter() - t0:.3f} "
+          f"{json.dumps(out)}", flush=True)
+    return out
+
+
+def resume_launches(resume: dict, name: str) -> dict:
+    """A kernel's launches in each resumed run of the [resume] phase."""
+    return {key: run["launches"][name] for key, run in resume.items()}
+
+
+def predict_resume_phase() -> None:
+    """``--predict-resume``: the [resume] phase's three kills and resumes on
+    the CPU at bert-base's full-width timing (as ``predict_control``: the
+    model cut to width 64, its depth and every simulated time bert-base's),
+    each printed as one ``[predict:resume:KEY]`` line, then
+    ``PREDICTED_RESUME`` in the literal form this file holds."""
+    from repro_torch.configs import reduced
+
+    torch.set_num_threads(4)
+    full_width_timing()
+    full = REGISTRY["bert-base"]
+    small = reduced(full, n_layers=full.n_layers, d_model=64).with_(
+        vocab_size=full.vocab_size, max_position=SEQ)
+    train = make_emotion_dataset(N_TRAIN, seq_len=SEQ, vocab_size=full.vocab_size, seed=0)
+    test = make_emotion_dataset(N_TEST, seq_len=SEQ, vocab_size=full.vocab_size, seed=1)
+    pinned = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for key in RESUME_KNOBS:
+            run = kill_and_resume(key, small, train, test, "cpu",
+                                  f"{tmp}/{key.replace(':', '-')}")
+            print(f"[predict:resume:{key}] {json.dumps(run['info'])}", flush=True)
+            pinned[key] = run["info"]
+    print("PREDICTED_RESUME = " + pprint.pformat(pinned, sort_dicts=False), flush=True)
+
+
+# the [resume] phase's snapshot instants, restored state and launches after
+# the resume, computed on the CPU by ``python3 chip_smoke.py
+# --predict-resume`` before any chip run (no tensor enters them).  A change
+# to RESUME_KNOBS, the runs' settings, the clock, the plane, the cost model
+# or the control loop changes them: rerun that command and paste its last
+# line
+PREDICTED_RESUME = {'event:buffered': {'snapshot_times': [0.21047053016949152, 0.4054796992086564],
+                    'snapshot_time': 0.4054796992086564,
+                    'kill_time': 0.5958022695075069,
+                    'cuts': [1, 1, 2, 2, 3, 3],
+                    'round_pulls': 5,
+                    'ef_residuals': 1,
+                    'snapshot_serves': 1,
+                    'replayed_serves': 2,
+                    'resume_launches': {'lora_matmul': 2159,
+                                        'grouped_lora_chunk': 400,
+                                        'quantize_rows': 22}},
+ 'control:sync': {'snapshot_times': [1.1941217779203868],
+                  'snapshot_time': 1.1941217779203868,
+                  'kill_time': 1.1941217779203868,
+                  'cuts': [1, 1, 2, 2, 2, 3],
+                  'round_pulls': 0,
+                  'ef_residuals': 6,
+                  'snapshot_serves': 4,
+                  'replayed_serves': 0,
+                  'resume_launches': {'lora_matmul': 1686,
+                                      'grouped_lora_chunk': 408,
+                                      'quantize_rows': 12}},
+ 'control:buffered': {'snapshot_times': [7.756517671677159, 8.54294967167716],
+                      'snapshot_time': 8.54294967167716,
+                      'kill_time': 11.75133185809542,
+                      'cuts': [1, 1, 2, 2, 1, 3],
+                      'round_pulls': 1,
+                      'ef_residuals': 6,
+                      'snapshot_serves': 9,
+                      'replayed_serves': 0,
+                      'resume_launches': {'lora_matmul': 1629,
+                                          'grouped_lora_chunk': 0,
+                                          'quantize_rows': 2}}}
 
 
 def memory_lines(fused: dict, plain: dict, cohort: dict, sl: dict) -> dict:
@@ -2804,9 +3092,16 @@ def main() -> None:
     ap.add_argument("--predict-control", action="store_true",
                     help="compute the [control] phase's decision logs and timelines on "
                          "the CPU, print them and PREDICTED_CONTROL, and do nothing else")
+    ap.add_argument("--predict-resume", action="store_true",
+                    help="compute the [resume] phase's snapshot instants, restored state "
+                         "and launches on the CPU, print them and PREDICTED_RESUME, and "
+                         "do nothing else")
     args = ap.parse_args()
     if args.predict_control:
         predict_control_phase()
+        return
+    if args.predict_resume:
+        predict_resume_phase()
         return
     if args.ab_one is not None:
         print("[ab]", json.dumps(ab_measure()), flush=True)
@@ -2966,8 +3261,11 @@ def main() -> None:
     compare_paths(cohort, cohort_plain, "cohort")
     sl = run_path(True, train, test, scheme="sl")
     memory_lines(fused, plain, cohort, sl)
-    event = event_phase(fused, train, test)
-    control = control_phase(train, test)
+    finals = {}
+    event = event_phase(fused, train, test, finals)
+    control = control_phase(train, test, finals)
+    resume = resume_phase(train, test, finals)
+    del finals
 
     del train, test
     gc.collect()
@@ -3005,6 +3303,7 @@ def main() -> None:
               sl_launches=sl["launches"]["lora_matmul"],
               event_launches=event_launches(event, "lora_matmul"),
               control_launches=control_launches(control, "lora_matmul"),
+              resume_launches=resume_launches(resume, "lora_matmul"),
               base_matmul_ms=main_shape["base_matmul_ms"],
               ragged={str(c["shape"]): {key: c[key] for key in
                                         ("fwd_err", "views_err", "dx_err", "da_err",
@@ -3016,6 +3315,7 @@ def main() -> None:
               design=DESIGNS["grouped_lora_chunk"],
               event_launches=event_launches(event, "grouped_lora_chunk"),
               control_launches=control_launches(control, "grouped_lora_chunk"),
+              resume_launches=resume_launches(resume, "grouped_lora_chunk"),
               bound_tf32x3_ms=grouped_path["bound_tf32x3_ms"],
               dx_call_device_ms=grouped_path["dx_call_device_ms"],
               views_err=grouped_path["views_err"],
@@ -3136,6 +3436,7 @@ def main() -> None:
               bit_equal=True, design=DESIGNS["quantize_rows"], shape=quant["shape"],
               event_launches=event_launches(event, "quantize_rows"),
               control_launches=control_launches(control, "quantize_rows"),
+              resume_launches=resume_launches(resume, "quantize_rows"),
               dtype="float32", body=quant["body"],
               bf16={key: quant["bfloat16"][key] for key in
                     ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "body",

@@ -23,7 +23,18 @@ Online cut re-assignment at commit boundaries (the control plane):
     PYTHONPATH=src python examples/train_emotion_sfl_torch.py --tiny --rounds 3 \
         --engine event --controller reactive --device cpu
 
-The reference's snapshot flags are absent here (ROADMAP Queue A, item 8).
+Kill and resume (a mid-flight snapshot every 0.02 simulated s, the server
+preempted at 0.05 s, then the run continued from the latest snapshot; the
+resumed run ends as the uninterrupted one would):
+
+    PYTHONPATH=src python examples/train_emotion_sfl_torch.py --tiny --rounds 3 \
+        --engine event --agg-policy buffered --max-inflight-rounds 2 --device cpu \
+        --snapshot-every 0.02 --snapshot-dir snaps --kill-at 0.05
+    PYTHONPATH=src python examples/train_emotion_sfl_torch.py --tiny --rounds 3 \
+        --engine event --agg-policy buffered --max-inflight-rounds 2 --device cpu \
+        --resume-from snaps
+
+The script takes every flag of the reference's, and ``--device``.
 """
 import argparse
 
@@ -91,6 +102,18 @@ def main():
     ap.add_argument("--hysteresis", type=float, default=None,
                     help="reactive controller: relative rate band "
                     "(default 0.25)")
+    # -- mid-flight checkpoint / resume
+    ap.add_argument("--snapshot-every", type=float, default=None,
+                    help="write a full mid-flight snapshot every N SIMULATED "
+                    "seconds (needs --snapshot-dir and --engine event)")
+    ap.add_argument("--snapshot-dir", default=None,
+                    help="rotated snapshot directory (atomic writes)")
+    ap.add_argument("--resume-from", default=None,
+                    help="resume from a snapshot file or directory written "
+                    "by an identically configured run")
+    ap.add_argument("--kill-at", type=float, default=None,
+                    help="fault injection: preempt the server at this "
+                    "simulated instant (resume later with --resume-from)")
     ap.add_argument("--trace-out", default=None, metavar="DIR",
                     help="record spans + metrics + memory ledger and write a "
                     "Perfetto-loadable trace.json under DIR (one subdir per "
@@ -106,6 +129,12 @@ def main():
     args = ap.parse_args()
     if args.agg_interval is None:
         args.agg_interval = 5 if args.agg_policy == "sync" else 1
+    if (args.snapshot_dir or args.resume_from or args.kill_at) \
+            and len(args.schemes.split(",")) > 1:
+        # entries would share one snapshot directory: a later entry's
+        # rotation deletes an earlier preempted entry's snapshots
+        ap.error("--snapshot-dir/--resume-from/--kill-at work with a "
+                 "single --schemes entry")
     set_fp32_policy()
 
     if args.full:
@@ -155,6 +184,10 @@ def main():
                            batch_size=args.batch, seq_len=args.seq,
                            lr=args.lr, alpha=args.alpha, seed=args.seed,
                            eval_every=max(args.rounds // 10, 1),
+                           snapshot_every=args.snapshot_every,
+                           snapshot_dir=args.snapshot_dir,
+                           resume_from=args.resume_from,
+                           preempt_at=args.kill_at,
                            engine=EngineConfig(mode=args.engine, scheduler=sched or "ours",
                                                cohort_impl=args.cohort_impl,
                                                fused_lora=args.fused_lora),
@@ -181,6 +214,11 @@ def main():
     for entry, run in runs:
         sim = Simulator(cfg, PAPER_CLIENTS, cuts, train, test, run, device=args.device)
         sim.run_training(verbose=True)
+        if sim.clock_result is not None and sim.clock_result.preempted:
+            print(f"== {entry}: PREEMPTED at t={sim.sim_clock:.3f}s "
+                  f"(snapshots in {run.snapshot_dir}; rerun with "
+                  f"--resume-from to continue)\n")
+            continue
         acc, f1 = sim.evaluate()
         mem = sim.server_memory_report()
         print(f"== {entry} [{args.engine}/{args.agg_policy}]: acc={acc:.4f} f1={f1:.4f} "

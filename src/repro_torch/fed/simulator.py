@@ -26,7 +26,11 @@ ledger without touching the timeline.  Under the event engine a
 ``ControlConfig`` policy other than ``static`` attaches the control loop
 (``repro_torch.control``), which may move clients' cuts at commit
 boundaries: the commit re-slices the migrated clients' frozen prefixes and
-redistributes the aggregate at the new cuts.  Every knob outside the port raises
+redistributes the aggregate at the new cuts.  ``snapshot_every`` /
+``snapshot_dir`` write mid-flight snapshots from the clock's tick callback
+(``repro_torch.checkpointing``), ``preempt_at`` stops the clock at a
+simulated instant, and ``resume_from`` (or ``resume``) continues a snapshot
+in a fresh Simulator bit for bit.  Every knob outside the port raises
 ``NotImplementedError`` naming the ROADMAP item that brings it.
 
 State updates are functional: every optimizer step and every aggregation
@@ -37,12 +41,16 @@ truncated view) is never written through.
 from __future__ import annotations
 
 import dataclasses
+import hashlib
+import json
 from pathlib import Path
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
+from repro_torch.checkpointing import (PeriodicSnapshotter, load_snapshot, pack_json,
+                                       unpack_json)
 from repro_torch.comm import dequantize, quantize, quantize_with_feedback, transport_bytes
 from repro_torch.configs.base import ModelConfig
 from repro_torch.control import ControlLoop
@@ -53,7 +61,8 @@ from repro_torch.core.cost_model import (DeviceProfile, LinkProfile, StepTimes,
                                          client_step_times, dtype_nbytes,
                                          lora_upload_bytes, makespan)
 from repro_torch.core.scheduling import (ONLINE_DISCIPLINES, alg2_priorities,
-                                         resolve_online, resolve_order)
+                                         refresh_priorities, resolve_online,
+                                         resolve_order)
 from repro_torch.data import ClassificationLoader, EmotionDataset, dirichlet_partition
 from repro_torch.device import resolve_device
 from repro_torch.fed import metrics as M
@@ -92,9 +101,6 @@ def _not_in_slice(knob: str, item: str) -> NotImplementedError:
 
 def check_slice(run: FedRunConfig) -> None:
     """Raise for every knob the port does not cover yet — none is ignored."""
-    if (run.snapshot_every is not None or run.resume_from is not None
-            or run.preempt_at is not None):
-        raise _not_in_slice("snapshots, resume and preemption", "8")
     if run.engine.cohort_chunk != 1 and run.engine.cohort_impl == "vmap":
         raise _not_in_slice("engine cohort_chunk > 1 with cohort_impl='vmap' "
                             "(the masked-scan cohort step)", "6")
@@ -104,6 +110,12 @@ def check_slice(run: FedRunConfig) -> None:
         raise _not_in_slice("fleet edge_cells > 1", "9")
     if run.fleet.straggler_prob > 0:
         raise _not_in_slice("fleet straggler_prob > 0", "9")
+
+
+def _like(live, saved):
+    """``saved`` (a loaded tree: dicts in sorted key order, named tuples as
+    plain tuples) rebuilt in ``live``'s key order and container types."""
+    return tree_map(lambda _live, leaf: leaf, live, saved)
 
 
 class Simulator:
@@ -128,6 +140,7 @@ class Simulator:
             cfg = cfg.with_(lora=dataclasses.replace(cfg.lora, impl="fused"))
         self.cfg, self.run = cfg, run
         self.devices, self.cuts = list(devices), [int(c) for c in cuts]
+        self._init_cuts = [int(c) for c in cuts]   # fingerprint anchor
         self.link, self.server_dev = link, server
         self.u = len(devices)
         # the network plane: per-client link models + optional shared medium
@@ -221,6 +234,11 @@ class Simulator:
                 self._control.obs = self.obs    # reassign spans, accept/reject counters
         self.history: List[RoundRecord] = []
         self.sim_clock = 0.0
+        # the reference's participation and straggler streams: nothing in
+        # the port draws from them yet (they come with population scale),
+        # but a snapshot carries their positions as the reference's does
+        self._round_rng = np.random.default_rng(run.seed + 7777)
+        self._async_rng = np.random.default_rng(run.seed + 4242)
         self._ef_residual: List[Optional[torch.Tensor]] = [None] * self.u  # uplink EF
         self._quant_ratio: Optional[float] = None
         self._times_this_round: List[StepTimes] = self.times
@@ -240,6 +258,15 @@ class Simulator:
         self._round_pull: dict = {}
         self._client_version = [0] * self.u
         self.discarded_updates: List[tuple] = []   # (uid, round)
+        # mid-flight checkpoint/resume: the periodic snapshotter rides the
+        # clock's tick callback, a loaded clock snapshot waits here until
+        # _run_event builds the clock, and clock_result records the last
+        # run (preemption included)
+        self._snapshotter: Optional[PeriodicSnapshotter] = None
+        if run.snapshot_every is not None:
+            self._snapshotter = PeriodicSnapshotter(run.snapshot_dir, run.snapshot_every)
+        self._pending_clock_state: Optional[dict] = None
+        self._resumed = False
         self.clock_result = None
 
     # --------------------------------------------------------------- network
@@ -570,19 +597,33 @@ class Simulator:
                                 network=self.network, agg_bytes_fn=agg_bytes_fn,
                                 obs=self.obs)
         self._clock = clock
-        self._wave_losses = []
+        if self._pending_clock_state is not None:
+            # resuming a mid-flight snapshot: the clock continues the
+            # restored event loop instead of starting at t=0, and the
+            # snapshot cadence continues past the resume point
+            clock.load_state_dict(self._pending_clock_state)
+            self._pending_clock_state = None
+            if self._snapshotter is not None:
+                self._snapshotter.fast_forward(clock.now)
+        else:
+            self._wave_losses = []
+        tick = self._on_tick if (self._snapshotter is not None
+                                 or run.preempt_at is not None) else None
         if run.agg.policy == "sync":
             res = clock.run(plan_fn=self._plan_wave, on_serve=self._on_serve,
                             on_commit=self._commit_sync,
                             on_round_end=lambda rnd, r:
-                                self._on_round_end(rnd, r, verbose))
+                                self._on_round_end(rnd, r, verbose),
+                            on_tick=tick)
         else:
             res = clock.run(on_serve=self._on_serve,
                             on_commit=lambda ev: self._commit_async(ev, verbose),
-                            on_round_start=self._on_round_start)
+                            on_round_start=self._on_round_start, on_tick=tick)
             # final-state evaluation (the async analogue of the sync path's
-            # last-round eval)
-            if self.history and self.history[-1].accuracy is None:
+            # last-round eval) — not for preempted runs, which are resumed
+            # from the last snapshot rather than finished here
+            if not res.preempted and self.history \
+                    and self.history[-1].accuracy is None:
                 rec = self.history[-1]
                 rec.accuracy, rec.f1 = self.evaluate()
                 if verbose:
@@ -595,6 +636,17 @@ class Simulator:
                 and self.obs.tracer is not None:
             self.write_trace()
         return self.history
+
+    def _on_tick(self, now: float) -> bool:
+        """Clock tick callback (every event under async policies, every
+        barrier under sync): write a due snapshot, then apply the
+        fault-injection preemption knob.  Snapshots are pure reads — a run
+        with snapshotting enabled follows the identical timeline."""
+        if self._snapshotter is not None:
+            self._snapshotter.maybe_save(now, self.state_dict)
+        if self.run.preempt_at is not None and now >= self.run.preempt_at:
+            return False
+        return True
 
     def _on_round_start(self, u: int, rnd: int, t: float) -> None:
         """A client pulls its model copy when it ENTERS a local round; the
@@ -819,6 +871,8 @@ class Simulator:
         record (a round, or an async commit) and its evaluation — a hook for
         per-round measurements."""
         self._on_round = on_round
+        if self.run.resume_from is not None and not self._resumed:
+            self.resume(self.run.resume_from)
         if self.run.engine.mode == "event":
             # time is owned by the FederationClock
             return self._run_event(verbose)
@@ -830,6 +884,180 @@ class Simulator:
             if stop:
                 break
         return self.history
+
+    # ------------------------------------------------------------------ state
+    def _fingerprint(self) -> str:
+        """Identity hash of everything a snapshot is only valid against:
+        model shape, initial assignment, fleet size, and every run knob
+        except the snapshot/resume/preemption ones (the resuming config
+        legitimately differs in exactly those).  For the same configuration
+        it equals the reference's digest."""
+        run = dataclasses.asdict(self.run)
+        for k in ("snapshot_every", "snapshot_dir", "resume_from",
+                  "preempt_at", "obs"):
+            # obs is popped too: observability is pure reads, so a resuming
+            # run may legitimately turn tracing on or off
+            run.pop(k, None)
+        doc = {"model": self.cfg.name, "n_layers": self.cfg.n_layers,
+               "d_model": self.cfg.d_model, "cuts": self._init_cuts,
+               "n_clients": self.u, "run": run}
+        return hashlib.sha256(json.dumps(doc, sort_keys=True,
+                                         default=str).encode()).hexdigest()
+
+    def _des_state(self) -> dict:
+        """JSON-able discrete-event-side state for a mid-flight snapshot:
+        the clock (event heap, buffers, credits, cells), the network
+        plane's rate processes, the control plane, both RNG streams, and
+        the run log (history, pending wave losses, discard log)."""
+        return {
+            "clock": (self._clock.state_dict()
+                      if self._clock is not None else None),
+            "net": self.network.state_dict(),
+            "control": (self._control.state_dict()
+                        if self._control is not None else None),
+            "round_rng": self._round_rng.bit_generator.state,
+            "async_rng": self._async_rng.bit_generator.state,
+            "history": [[r.round, r.sim_time_s, r.mean_loss, r.accuracy,
+                         r.f1] for r in self.history],
+            "wave_losses": list(self._wave_losses),
+            "discarded": [list(d) for d in self.discarded_updates],
+            "obs": (self.obs.state_dict() if self.obs is not None else None),
+        }
+
+    def state_dict(self) -> dict:
+        """Whole-fleet training state for ``CheckpointManager.save`` /
+        ``resume``, including the MID-FLIGHT state of an event-engine run:
+        the clock's event loop, in-flight round pulls, RNG stream positions,
+        link/cell processes and the control plane — the reference's keys.
+        A pure read: live tensors go into the tree as they are (the writer
+        copies them to the host), nothing draws from an RNG or advances
+        the clock.  Loading it into an identically configured Simulator and
+        calling ``run_training`` continues the run bit for bit.  The frozen
+        base weights are not in it: a fresh Simulator rebuilds them from
+        ``run.seed``."""
+        return {
+            "schema_version": np.int64(2),
+            "fingerprint": pack_json(self._fingerprint()),
+            "round": np.int64(len(self.history)),
+            "sim_clock": np.float64(self.sim_clock),
+            "cuts": np.asarray(self.cuts, np.int64),
+            "client_lora": self.client_lora,
+            "server_lora": self.server_lora,
+            "heads": self.heads,
+            "client_opt": [tuple(o) for o in self.client_opt],
+            "server_opt": [tuple(o) for o in self.server_opt],
+            "loader_state": np.asarray([ld.state() for ld in self.loaders],
+                                       np.int64),
+            "global_full": self._global_full,
+            "global_head": self._global_head,
+            "loss_events": (np.asarray(self.loss_events, np.float64)
+                            if self.loss_events
+                            else np.zeros((0, 4), np.float64)),
+            "des": pack_json(self._des_state()),
+            "client_version": np.asarray(self._client_version, np.int64),
+            # in-flight round pulls: the client-side state each live
+            # (uid, round) took at round start — trees, so they ride the
+            # checkpoint next to the adapters (each leaf stored on its own,
+            # also where it aliases a live adapter)
+            "round_pull": {
+                f"{u}:{r}": {"lora": lora, "opt": tuple(opt),
+                             "ver": np.int64(ver)}
+                for (u, r), (lora, opt, ver) in self._round_pull.items()},
+            "ef_residual": {str(u): arr
+                            for u, arr in enumerate(self._ef_residual)
+                            if arr is not None},
+        }
+
+    def load_state_dict(self, st: dict) -> int:
+        """Restore a :meth:`state_dict` (as ``checkpointing.load`` returns
+        it, tensors on this Simulator's device); returns the number of
+        history records restored.  Restored trees take the live trees' key
+        order and container types."""
+        self.sim_clock = float(st["sim_clock"])
+        if "cuts" in st:    # a control plane may have migrated cuts mid-run
+            saved = [int(c) for c in np.asarray(st["cuts"])]
+            changes = {u: (self.cuts[u], c) for u, c in enumerate(saved)
+                       if c != self.cuts[u]}
+            if changes:
+                for u, (_, c) in changes.items():
+                    self.cuts[u] = c      # in place: shared with the loop
+                self._apply_cut_changes(changes)
+                if self._control is not None:
+                    # the online priority discipline must order by the
+                    # RESTORED cuts, not the setup-phase ratios
+                    refresh_priorities(self._control.pri, self.cuts,
+                                       [d.tflops for d in self.devices])
+        lora_like, opt_like = self.client_lora[0], self.client_opt[0]
+        self.client_lora = [_like(lora_like, t) for t in st["client_lora"]]
+        self.server_lora = [_like(self.server_lora[0], t) for t in st["server_lora"]]
+        self.heads = [_like(self.heads[0], t) for t in st["heads"]]
+        self.client_opt = [_like(opt_like, o) for o in st["client_opt"]]
+        self.server_opt = [_like(self.server_opt[0], o) for o in st["server_opt"]]
+        if "loader_state" in st:
+            for ld, s in zip(self.loaders, np.asarray(st["loader_state"])):
+                ld.restore(s)
+        if "global_full" in st:   # event-engine state
+            self._global_full = _like(self._global_full, st["global_full"])
+            self._global_head = _like(self._global_head, st["global_head"])
+            self.loss_events = [(float(t), int(u), int(r), float(ls))
+                                for t, u, r, ls in np.asarray(st["loss_events"])]
+        # ---- mid-flight state (snapshot schema >= 2)
+        if "des" in st:
+            des = unpack_json(st["des"])
+            self.network.load_state_dict(des["net"])
+            if des["control"] is not None:
+                if self._control is None:
+                    raise ValueError("snapshot carries control-plane state "
+                                     "but this run has controller='static'")
+                self._control.load_state_dict(des["control"])
+            self._round_rng.bit_generator.state = des["round_rng"]
+            self._async_rng.bit_generator.state = des["async_rng"]
+            self.history = [
+                RoundRecord(int(r), float(t), float(l),
+                            None if a is None else float(a),
+                            None if f1 is None else float(f1))
+                for r, t, l, a, f1 in des["history"]]
+            self._wave_losses = [float(x) for x in des["wave_losses"]]
+            self.discarded_updates = [tuple(d) for d in des["discarded"]]
+            if des.get("obs") is not None and self.obs is not None:
+                # snapshots written without obs (or loaded into a run that
+                # turned it off) skip this: obs never gates a resume
+                self.obs.load_state_dict(des["obs"])
+            # the clock is rebuilt by _run_event; its restored event loop
+            # waits here until then
+            self._pending_clock_state = des["clock"]
+        if "client_version" in st:
+            self._client_version = [int(v)
+                                    for v in np.asarray(st["client_version"])]
+        self._round_pull = {}
+        for key, rec in (st.get("round_pull") or {}).items():
+            u, r = (int(x) for x in key.split(":"))
+            self._round_pull[(u, r)] = (_like(lora_like, rec["lora"]),
+                                        _like(opt_like, rec["opt"]),
+                                        int(np.asarray(rec["ver"])))
+        for u_str, arr in (st.get("ef_residual") or {}).items():
+            self._ef_residual[int(u_str)] = arr
+        return int(st["round"])
+
+    def resume(self, path: str) -> int:
+        """Load a snapshot (checkpoint file, or a rotated snapshot
+        directory — resolves to the latest) written by an identically
+        configured run, and position this simulator to continue it.  The
+        snapshot's config fingerprint must match; the snapshot/resume/
+        preemption knobs are allowed to differ.  Returns the number of
+        history records restored."""
+        st = load_snapshot(path, device=self.device)
+        if "fingerprint" in st:
+            want = unpack_json(st["fingerprint"])
+            if want != self._fingerprint():
+                raise ValueError(
+                    "snapshot fingerprint mismatch: it was written by a "
+                    "differently configured run (model/fleet/knobs); "
+                    "rebuild the Simulator with the original configuration "
+                    "to resume")
+        rnd = self.load_state_dict(st)
+        self._resumed = True
+        return rnd
 
     def server_memory_report(self) -> memory_model.ServerMemoryReport:
         """The modelled server bytes of this run's scheme at its cuts

@@ -41,10 +41,20 @@ def test_tiny_run_of_the_twin_exits_zero():
 
 
 def test_flags_outside_the_port_are_refused():
-    """The reference's snapshot flags are absent: argparse refuses them
-    rather than ignoring them."""
+    """The twin takes exactly the reference example's flags and --device
+    (every flag of the reference is ported), and argparse still refuses a
+    flag it does not know rather than ignoring it."""
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    proc = subprocess.run([sys.executable, str(SCRIPT), "--tiny", "--snapshot-every", "1.0",
+    reference = (ROOT / "examples" / "train_emotion_sfl.py").read_text()
+    want = set(re.findall(r'add_argument\(\s*"(--[a-z0-9-]+)"', reference))
+    proc = subprocess.run([sys.executable, str(SCRIPT), "--help"],
+                          env=env, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    options = proc.stdout[proc.stdout.index("options:"):]
+    listed = set(re.findall(r"^ {2}(?:-h, )?(--[a-z0-9-]+)", options, re.M))
+    assert {"--snapshot-every", "--snapshot-dir", "--resume-from", "--kill-at"} <= want
+    assert listed == want | {"--help", "--device"}
+    proc = subprocess.run([sys.executable, str(SCRIPT), "--tiny", "--no-such-flag",
                            "--device", "cpu"],
                           env=env, capture_output=True, text=True, timeout=120)
     assert proc.returncode == 2 and "unrecognized arguments" in proc.stderr
@@ -80,3 +90,31 @@ def test_tiny_controlled_run_of_the_twin_exits_zero():
                      r"sim_time=[0-9.]+s server_mem=[0-9.]+MB", out), out
     assert re.search(r"   control \(reactive\): [0-9]+ decisions, [0-9]+ applied; "
                      r"cuts \[[0-9, ]+\]", out), out
+
+
+def test_tiny_killed_and_resumed_twin_matches(tmp_path):
+    """The reference example's kill-and-resume flags on the async event
+    setting: the run killed at 0.05 simulated s prints the preemption
+    message, and the run resumed from its snapshots prints the
+    uninterrupted run's records from the resume point on and its final
+    line."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="2")
+    base = [sys.executable, str(SCRIPT), "--tiny", "--rounds", "3", "--device", "cpu",
+            "--engine", "event", "--agg-policy", "buffered", "--max-inflight-rounds", "2"]
+    snaps = str(tmp_path / "snaps")
+    runs = {}
+    for name, extra in (("whole", []),
+                        ("killed", ["--snapshot-every", "0.02", "--snapshot-dir", snaps,
+                                    "--kill-at", "0.05"]),
+                        ("resumed", ["--resume-from", snaps])):
+        proc = subprocess.run(base + extra, env=env, capture_output=True, text=True,
+                              timeout=600)
+        assert proc.returncode == 0, (name, proc.stderr[-2000:])
+        runs[name] = [line for line in proc.stdout.splitlines() if line.strip()]
+    assert re.search(r"== ours: PREEMPTED at t=[0-9.]+s \(snapshots in .*snaps; rerun "
+                     r"with --resume-from to continue\)", "\n".join(runs["killed"]))
+    final = [line for line in runs["whole"] if line.startswith("== ours [event/buffered]")]
+    assert len(final) == 1 and runs["resumed"][-1] == final[0]
+    resumed_records = [line for line in runs["resumed"] if line.startswith("[ours/")]
+    whole_records = [line for line in runs["whole"] if line.startswith("[ours/")]
+    assert resumed_records and whole_records[-len(resumed_records):] == resumed_records

@@ -179,10 +179,11 @@ def _run(**groups):
 
 
 @pytest.mark.parametrize("run,knob", [
-    # the event engine, obs and plane transport are ported: under each, a
-    # knob of a later item still raises
-    pytest.param(_run(engine=EngineConfig(mode="event"), snapshot_every=1.0,
-                      snapshot_dir="snapshots"), "snapshots", id="event"),
+    # the event engine, obs, plane transport and the snapshot, resume and
+    # preemption knobs are ported: beside each, a knob of a later item
+    # still raises
+    pytest.param(_run(engine=EngineConfig(mode="event", cohort_chunk=2), snapshot_every=1.0,
+                      snapshot_dir="snapshots"), "cohort_impl='vmap'", id="event"),
     pytest.param(_run(engine=EngineConfig(cohort_chunk=2)), "cohort_impl='vmap'",
                  id="cohort_chunk"),
     # the control plane is ported: it passes, and the vmap cohort step
@@ -191,9 +192,11 @@ def _run(**groups):
                       control=ControlConfig(policy="periodic")), "cohort_impl='vmap'",
                  id="control"),
     pytest.param(_run(engine=EngineConfig(mode="event"), obs=ObsConfig(metrics=True),
-                      preempt_at=0.5), "preemption", id="obs"),
+                      preempt_at=0.5, fleet=FleetConfig(straggler_prob=0.1)),
+                 "straggler_prob", id="obs"),
     pytest.param(_run(engine=EngineConfig(mode="event"), agg=AggConfig(transport="plane"),
-                      resume_from="snapshots"), "resume", id="plane"),
+                      resume_from="snapshots", fleet=FleetConfig(edge_cells=2)),
+                 "edge_cells", id="plane"),
     pytest.param(_run(fleet=FleetConfig(sampling="uniform", rate=0.5)), "sampling",
                  id="sampling"),
     pytest.param(_run(fleet=FleetConfig(straggler_prob=0.1)), "straggler_prob",
