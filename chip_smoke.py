@@ -60,6 +60,12 @@ Phases (any failed check raises and the script exits non-zero):
    (net quantize=True), fused and then einsum; the launches of every
    kernel per round must equal the counts derived in PERF.md, the losses
    of the two runs must agree and their simulated times be equal;
+   then the same cohort path on the vmap cohort step (cohort_impl="vmap":
+   one masked dispatch of all six lanes over every layer, each lane at its
+   own cut), fused and einsum: the grouped kernel once per projection of
+   each layer a round whatever the cuts (2*T*L, asserted), its losses
+   within 1e-3 of the ragged run's on the same data and its simulated
+   times equal, wall time and peak memory printed beside the ragged run's;
    then the split-learning baseline (scheme "sl": one traveling adapter
    set, clients one after the other), 2 rounds through the fused kernel,
    its launches asserted by the main path's rule; and the paper's memory
@@ -160,7 +166,23 @@ Phases (any failed check raises and the script exits non-zero):
    gradients within 1e-1; and layer by layer from shared inputs, every
    adapter leaf's gradient within 5e-2 of fp32 where the einsum path is
    too (the other leaves listed, at least one held a layer);
-14. summary: one JSON line per ported kernel, then the device line last.
+14. LM training: gemma-2b at full width and depth and rwkv6-3b at full
+   width and 4 layers, bf16, fused LoRA, 2 x 512 tokens, a mid cut: the
+   LM server step on the sliced path against the scan path on the same
+   inputs, bit for bit; three split steps (client forward, server step,
+   client backward) on one repeated batch, whose loss must fall; the full
+   train step with remat off and on for two steps, equal losses; and the
+   LM cohort step over three lanes at three cuts, vmap and ragged against
+   the three sequential steps (losses, dv and each lane's adapter
+   gradients, read from its optimizer state); every call's bf16
+   lora_matmul or grouped
+   launches asserted (all on the wgmma tile), its wall s, peak bytes and
+   device s printed;
+15. launch: ``python -m repro_torch.launch.train`` in central mode on
+   gemma-2b at full width for three steps in a process of its own, with
+   the warmup-cosine schedule, weight decay and gradient clipping, which
+   must print the reference's lines with a finite loss;
+16. summary: one JSON line per ported kernel, then the device line last.
 
 Every launch counter is set to 0 just before each path runs and read just
 after it.  ``--profile`` adds a phase before the summary: one warm round of
@@ -242,6 +264,7 @@ from repro_torch.configs import REGISTRY  # noqa: E402
 from repro_torch.checkpointing import load_snapshot, unpack_json  # noqa: E402
 from repro_torch.data import make_emotion_dataset  # noqa: E402
 from repro_torch.core.cost_model import lora_upload_bytes, makespan  # noqa: E402
+from repro_torch.core import lora as lora_lib  # noqa: E402
 from repro_torch.core.memory_model import client_memory  # noqa: E402
 from repro_torch.fed import (PAPER_CLIENTS, PAPER_CUTS, AggConfig,  # noqa: E402
                              ControlConfig, EngineConfig, FedRunConfig, NetConfig,
@@ -416,6 +439,16 @@ EVENT_TIME_RTOL, EVENT_LOSS_RTOL = 1e-12, 1e-6
 # link (the reference's own shared-medium tests use 2-3x); clients fade by
 # Gilbert-Elliott; the clock forms chunks of up to 3 clients
 EVENT_CAPACITY_MBPS, EVENT_CHUNK = 200.0, 3
+VMAP_CHUNK = 6          # the cohort paths' chunk: all six clients
+# [lm-train]: 2 sequences of 512 tokens, gemma-2b at its full 18 layers and
+# rwkv6-3b cut to 4 (both at full width), a mid cut, three lanes at three
+# cuts for the cohort steps, three split steps, two full steps
+LM_TRAIN_LAYERS = {"gemma-2b": 18, "rwkv6-3b": 4}
+LM_TRAIN_LANE_CUTS = {"gemma-2b": (3, 9, 15), "rwkv6-3b": (1, 2, 3)}
+LM_TRAIN_BATCH, LM_TRAIN_SEQ, LM_TRAIN_STEPS = 2, 512, 3
+LAUNCH_ARGS = ("--mode", "central", "--arch", "gemma-2b", "--steps", "3", "--batch", "2",
+               "--seq", "512", "--log-every", "1", "--schedule", "warmup-cosine",
+               "--warmup", "1", "--weight-decay", "0.01", "--grad-clip", "1.0")
 N_TRAIN, N_TEST = 4000, 512
 SOURCES = ("lora_matmul", "grouped_lora", "quant", "flash_attention", "wkv6")
 WGMMA_SOURCES = ("lora_matmul", "grouped_lora", "flash_attention")
@@ -1107,18 +1140,23 @@ def expected_launches(cfg, cuts, n_eval_batches: int, rounds: int) -> list:
 
 
 def expected_cohort_launches(cfg, cuts, n_eval_batches: int, rounds: int,
-                             fused: bool) -> list:
+                             fused: bool, impl: str = "ragged") -> list:
     """Launches per round and kernel on the cohort path (derivation in
     PERF.md).  With T adapted projections per layer and L layers:
     lora_matmul runs only on the client side, 2*T*cut - 3 per client, plus
     T*L per evaluation batch after the last round; the grouped kernel
     (chunk mode, K = 768) runs forward and dx once per projection of each
-    cut group's server layers, 2*T*(L - cut) per distinct cut; the
-    quantize kernel runs twice per client (uplink activations, downlink
-    gradient), fused or not."""
+    cut group's server layers under ragged, 2*T*(L - cut) per distinct cut,
+    and under vmap once per projection of EVERY layer a chunk, 2*T*L a
+    chunk whatever the cuts (the masked layers run too, and dv needs dx
+    through each); the quantize kernel runs twice per client (uplink
+    activations, downlink gradient), fused or not."""
     t, nl = len(cfg.lora.targets), cfg.n_layers
     lm = sum(2 * t * cut - 3 for cut in cuts)
-    gl = sum(2 * t * (nl - cut) for cut in sorted(set(cuts)))
+    if impl == "vmap":
+        gl = 2 * t * nl * math.ceil(len(cuts) / VMAP_CHUNK)
+    else:
+        gl = sum(2 * t * (nl - cut) for cut in sorted(set(cuts)))
     rows = [no_launches(lora_matmul=lm if fused else 0,
                         grouped_lora_chunk=gl if fused else 0,
                         quantize_rows=2 * len(cuts))
@@ -1129,14 +1167,16 @@ def expected_cohort_launches(cfg, cuts, n_eval_batches: int, rounds: int,
 
 
 def path_run(cohort: bool, fused: bool, scheme: str = "ours",
-             quantize=None) -> FedRunConfig:
+             quantize=None, impl: str = "ragged") -> FedRunConfig:
     """The main path, or with ``cohort`` the cohort path: the six clients in
-    one ragged dispatch chunk and int8+EF links (``quantize`` overrides the
-    links' int8); ``scheme="sl"`` the split-learning baseline's path."""
+    one dispatch chunk of the ``impl`` cohort step (ragged: cut-grouped;
+    vmap: the masked step over every layer) and int8+EF links
+    (``quantize`` overrides the links' int8); ``scheme="sl"`` the
+    split-learning baseline's path."""
     engine = EngineConfig(mode="analytic", fused_lora=fused)
     if cohort:
-        engine = EngineConfig(mode="analytic", fused_lora=fused, cohort_chunk=6,
-                              cohort_impl="ragged")
+        engine = EngineConfig(mode="analytic", fused_lora=fused, cohort_chunk=VMAP_CHUNK,
+                              cohort_impl=impl)
     return FedRunConfig(scheme=scheme, rounds=ROUNDS, batch_size=BATCH,
                         seq_len=SEQ, lr=LR, seed=0, engine=engine,
                         agg=AggConfig(policy="sync", interval=2),
@@ -1144,11 +1184,11 @@ def path_run(cohort: bool, fused: bool, scheme: str = "ours",
 
 
 def run_path(fused: bool, train, test, cohort: bool = False, scheme: str = "ours",
-             tag: str = "") -> dict:
+             tag: str = "", impl: str = "ragged") -> dict:
     cfg = REGISTRY["bert-base"]
     t0 = time.perf_counter()
     sim = Simulator(cfg, PAPER_CLIENTS, PAPER_CUTS, train, test,
-                    path_run(cohort, fused, scheme), device="cuda")
+                    path_run(cohort, fused, scheme, impl=impl), device="cuda")
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
     rows = []
@@ -1173,7 +1213,8 @@ def run_path(fused: bool, train, test, cohort: bool = False, scheme: str = "ours
     mark["t"] = time.perf_counter()
     sim.run_training(on_round=on_round)
     total = read_counts()               # just after
-    label = ("cohort:" if cohort else "sl:" if scheme == "sl" else "main:") + (
+    label = (("vmap:" if impl == "vmap" else "cohort:") if cohort
+             else "sl:" if scheme == "sl" else "main:") + (
         "fused" if fused else "einsum") + tag
     for row in rows:
         print(f"[{label}] round {row['round']} loss={row['loss']:.7f} "
@@ -1188,7 +1229,8 @@ def run_path(fused: bool, train, test, cohort: bool = False, scheme: str = "ours
         raise AssertionError(f"evaluation gave accuracy {acc}")
     n_eval = min(32, len(test) // BATCH)
     if cohort:
-        expected = expected_cohort_launches(sim.cfg, sim.cuts, n_eval, ROUNDS, fused)
+        expected = expected_cohort_launches(sim.cfg, sim.cuts, n_eval, ROUNDS, fused,
+                                            impl=impl)
     else:
         # an sl round (Simulator._round_sl) runs each client's forward, its
         # server step and its backward one client after the other: the same
@@ -1930,7 +1972,6 @@ def cohort_step_gap(train, test) -> dict:
     AdamW's first step, where an element whose gradient is near zero can
     move by about lr either way (a flip)."""
     from repro_torch.comm import quantize
-    from repro_torch.core import lora as lora_lib
     from repro_torch.core.splitfl import make_client_step, make_server_step_cls_batched
 
     sim = Simulator(REGISTRY["bert-base"], PAPER_CLIENTS, PAPER_CUTS, train, test,
@@ -3058,6 +3099,328 @@ PREDICTED_RESUME = {'event:buffered': {'snapshot_times': [0.21047053016949152, 0
                                           'quantize_rows': 2}}}
 
 
+def vmap_phase(train, test, ragged: dict) -> dict:
+    """The cohort path on the vmap cohort step (all six clients in one
+    masked dispatch a round), fused and einsum: launches by
+    ``expected_cohort_launches(impl="vmap")`` (asserted in ``run_path``),
+    the fused run's losses against the einsum run's, and each run's losses
+    against the ragged run of the same kernel setting within LOSS_RTOL,
+    simulated times equal; wall time and peak memory beside the ragged
+    run's (vmap keeps every lane's activations of all L layers)."""
+    runs = {"fused": run_path(True, train, test, cohort=True, impl="vmap"),
+            "einsum": run_path(False, train, test, cohort=True, impl="vmap")}
+    compare_paths(runs["fused"], runs["einsum"], "vmap")
+    out = {}
+    for label, run in runs.items():
+        rows = []
+        for rv, rr in zip(run["rows"], ragged[label]["rows"]):
+            gap = abs(rv["loss"] - rr["loss"]) / abs(rr["loss"])
+            rows.append({"round": rv["round"], "vmap_loss": rv["loss"],
+                         "ragged_loss": rr["loss"], "rel_gap": gap,
+                         "vmap_wall_s": rv["wall_s"], "ragged_wall_s": rr["wall_s"],
+                         "vmap_max_mem_bytes": rv["max_mem_bytes"],
+                         "ragged_max_mem_bytes": rr["max_mem_bytes"]})
+            if not gap <= LOSS_RTOL:
+                raise AssertionError(f"vmap {label}: round {rv['round']} loss "
+                                     f"{rv['loss']} against ragged {rr['loss']}")
+            if rv["sim_time_s"] != rr["sim_time_s"]:
+                raise AssertionError(f"vmap {label}: simulated time differs from ragged")
+        out[label] = {"rounds": rows, "launches": run["launches"],
+                      "ragged_launches": ragged[label]["launches"]}
+        print(f"[vmap:{label}] {json.dumps(out[label])}", flush=True)
+    if out["einsum"]["launches"]["grouped_lora_chunk"] or \
+            out["einsum"]["launches"]["lora_matmul"]:
+        raise AssertionError("vmap einsum launched a LoRA kernel")
+    return out
+
+
+def lm_train_model(arch: str, seed: int):
+    """An LM at full width, LM_TRAIN_LAYERS deep, bf16, fused LoRA, random
+    weights and adapters (every leaf ~ N(0, 0.05)), and a maker of batches
+    of LM_TRAIN_BATCH x LM_TRAIN_SEQ tokens."""
+    base = REGISTRY[arch].with_(n_layers=LM_TRAIN_LAYERS[arch], attn_impl="chunked",
+                                wkv_impl="chunked")
+    cfg = base.with_(lora=dataclasses.replace(base.lora, impl="fused"))
+    model = build_model(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    params = model.init_params(gen)
+    lora = model.init_lora(gen)
+    for leaf in _leaves(lora):
+        leaf.normal_(0.0, 0.05, generator=gen)
+    rs = np.random.default_rng(seed)
+
+    def batch():
+        return {key: torch.from_numpy(rs.integers(0, cfg.vocab_size,
+                                                  (LM_TRAIN_BATCH, LM_TRAIN_SEQ))
+                                      .astype(np.int32)).cuda()
+                for key in ("tokens", "targets")}
+
+    return model, params, lora, batch
+
+
+def counted(fn, profile: bool = False):
+    """One call of ``fn``: its result, wall s (host clock to a synchronize),
+    peak bytes and the launches of every kernel in it; with ``profile``,
+    the device s of a second call under the profiler (its launches not
+    counted)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()                                  # just before the path runs
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    row = {"wall_s": time.perf_counter() - t0,
+           "peak_bytes": torch.cuda.max_memory_allocated(),
+           "launches": read_counts()}               # just after
+    if profile:
+        row["device_s"] = device_time(fn, top=1)[0]
+    return out, row
+
+
+def _server_part(lora, cut: int):
+    _, s_part = lora_lib.split_lora(lora, cut)
+    return lora_lib.embed_in_full_shape(s_part, lora, cut, "server")
+
+
+def _client_part(params, lora, cut: int):
+    pc = dict(params)
+    pc["layers"] = lora_lib.slice_stack(params["layers"], 0, cut)
+    return pc, lora_lib.split_lora(lora, cut)[0]
+
+
+def _bits(a, b) -> bool:
+    return all(torch.equal(x, y) for x, y in zip(tree_leaves(a), tree_leaves(b)))
+
+
+def _max_abs(a, b) -> float:
+    return max(float((x.float() - y.float()).abs().max())
+               for x, y in zip(tree_leaves(a), tree_leaves(b)))
+
+
+def rel2(got: torch.Tensor, want: torch.Tensor) -> float:
+    """|got - want| / |want| in the 2-norm over the whole tensor (0 where
+    both are zero)."""
+    num = float(torch.linalg.vector_norm(got.double() - want.double()))
+    den = float(torch.linalg.vector_norm(want.double()))
+    return num / den if den else (0.0 if num == 0.0 else math.inf)
+
+
+def _worst_rel2(a, b) -> float:
+    return max(rel2(x, y) for x, y in zip(tree_leaves(a), tree_leaves(b)))
+
+
+def lm_train(arch: str, seed: int) -> dict:
+    """LM split training at full width (gemma-2b at its full depth, rwkv6-3b
+    at LM_TRAIN_LAYERS), bf16, fused LoRA (bf16 lora_matmul forward and dx;
+    the grouped kernel for 3-D adapters), a mid cut:
+
+    1. the LM server step on the sliced path against the scan path (the
+       cut a 0-d tensor on the card, so every layer runs masked) on the
+       same inputs: loss, dv, the new adapters and the optimizer's first
+       moment bit for bit;
+    2. LM_TRAIN_STEPS split steps (client forward, server step, client
+       backward) on one repeated batch: the loss falls;
+    3. ``make_full_train_step`` with remat off and on, two steps each from
+       the same state: equal losses;
+    4. ``make_server_step_batched`` over three lanes at LM_TRAIN_LANE_CUTS:
+       vmap and ragged against the three sequential steps, lane by lane
+       (losses within LM_GRAD_LOSS_RTOL; dv and each adapter leaf's
+       gradient within LM_GRAD_TOL in the relative 2-norm, the gradient
+       read from the returned optimizer state, whose step-1 first moment
+       is (1 - b1) g; adapters within 2 lr, all a step-1 update can move);
+
+    each call's launches asserted (with T adapted projections a layer, L
+    layers and F frozen-input ones in layer 0: sliced server step 2T(L-c),
+    scan 2TL, split step 2TL - F, full step 2TL - F and with remat 3TL - F
+    (each layer's forward again in the backward), vmap 2TL grouped, ragged
+    2T(L-c) grouped per cut; every bf16 launch on the wgmma tile), and
+    each call's wall s, peak bytes and (for the main calls) device s
+    printed."""
+    from repro_torch.core import splitfl
+    from repro_torch.optim import AdamW
+
+    model, params, lora, new_batch = lm_train_model(arch, seed)
+    cfg = model.cfg
+    nl, t = cfg.n_layers, lora_projections(lora) // cfg.n_layers
+    frozen = FROZEN_INPUT_PROJECTIONS[cfg.family]
+    cut = nl // 2
+    opt = AdamW(LR)
+    batch = new_batch()
+    rows, launches, checks = {}, {}, {}
+
+    def lm(n):
+        return no_launches(lora_matmul=n, lora_matmul_bf16=n, lora_matmul_wgmma=n)
+
+    def gl(n):
+        return no_launches(grouped_lora_chunk=n, grouped_lora_chunk_bf16=n,
+                           grouped_lora_chunk_wgmma=n)
+
+    def record(name, row, want):
+        rows[name] = {k: v for k, v in row.items() if k != "launches"}
+        launches[name] = row["launches"]
+        if row["launches"] != want:
+            raise AssertionError(f"{arch} {name}: launches {row['launches']}, "
+                                 f"expected {want}")
+
+    # 1. sliced against scan
+    pc, lc = _client_part(params, lora, cut)
+    fwd, bwd = splitfl.make_client_step(model, opt, cut)
+    v, tape = fwd(pc, lc, batch)
+    ls = _server_part(lora, cut)
+    sliced_step = splitfl.make_server_step(model, opt, static_cut=cut)
+    scan_step = splitfl.make_server_step(model, opt, path="scan")
+    a, row = counted(lambda: sliced_step(params, ls, opt.init(ls), v, batch), profile=True)
+    record("server_step_sliced", row, lm(2 * t * (nl - cut)))
+    cut_t = torch.tensor(cut, device=v.device)
+    b, row = counted(lambda: scan_step(params, ls, opt.init(ls), v, batch, cut_t),
+                     profile=True)
+    record("server_step_scan", row, lm(2 * t * nl))
+    checks["sliced_vs_scan"] = {
+        "bit_equal": {"loss": bool(torch.equal(a[0], b[0])),
+                      "dv": bool(torch.equal(a[3], b[3])), "adapters": _bits(a[1], b[1]),
+                      "first_moment": _bits(a[2].mu, b[2].mu)}}
+    if not all(checks["sliced_vs_scan"]["bit_equal"].values()):
+        raise AssertionError(f"{arch}: sliced and scan server steps differ: "
+                             f"{checks['sliced_vs_scan']}")
+    del a, b, tape
+
+    # 2. split steps on one repeated batch
+    state = {"ls": _server_part(lora, cut), "lc": lc}
+    state["so"], state["co"] = opt.init(state["ls"]), opt.init(lc)
+    losses = []
+
+    def split_step():
+        v, tape = fwd(pc, state["lc"], batch)
+        loss, state["ls"], state["so"], dv = sliced_step(params, state["ls"], state["so"],
+                                                         v, batch)
+        state["lc"], state["co"] = bwd(tape, state["co"], dv)
+        return loss
+
+    for i in range(LM_TRAIN_STEPS):
+        loss, row = counted(split_step)
+        record(f"split_step_{i}", row, lm(2 * t * nl - frozen))
+        losses.append(float(loss))
+    checks["split_losses"] = losses
+    if not (all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]):
+        raise AssertionError(f"{arch}: split-training loss did not fall: {losses}")
+    del state
+
+    # 3. the full step, remat off and on, from the same state
+    full = {}
+    for remat in (False, True):
+        step = splitfl.make_full_train_step(model, opt, remat=remat)
+        carry = {"lora": lora, "opt": opt.init(lora)}
+        seq = []
+
+        def full_step():
+            loss, carry["lora"], carry["opt"] = step(params, carry["lora"], carry["opt"],
+                                                     batch)
+            return loss
+
+        for i in range(2):
+            loss, row = counted(full_step)
+            record(f"full_step_remat_{remat}_{i}", row,
+                   lm((3 if remat else 2) * t * nl - frozen))
+            seq.append(loss)
+        full[remat] = seq
+    # device time of one full step at each setting (not counted)
+    for remat in (False, True):
+        step = splitfl.make_full_train_step(model, opt, remat=remat)
+        rows[f"full_step_remat_{remat}_0"]["device_s"] = device_time(
+            lambda: step(params, lora, opt.init(lora), batch), top=1)[0]
+    checks["full_step"] = {
+        "losses": {str(k): [float(x) for x in v] for k, v in full.items()},
+        "bit_equal": all(torch.equal(x, y) for x, y in zip(full[False], full[True]))}
+    if not all(abs(float(x) - float(y)) <= LM_GRAD_LOSS_RTOL * abs(float(y))
+               for x, y in zip(full[False], full[True])):
+        raise AssertionError(f"{arch}: full step with and without remat: {checks['full_step']}")
+
+    # 4. the LM cohort step over three lanes at three cuts
+    cuts = LM_TRAIN_LANE_CUTS[arch]
+    lanes = []
+    for c_ in cuts:
+        pc_, lc_ = _client_part(params, lora, c_)
+        b_ = new_batch()
+        with torch.no_grad():
+            v_ = splitfl.client_forward(model, pc_, lc_, b_, c_)
+        lanes.append((v_, b_, _server_part(lora, c_)))
+    stacked = (lora_lib.stack_trees([ls_ for _, _, ls_ in lanes]),
+               lora_lib.stack_trees([opt.init(ls_) for _, _, ls_ in lanes]),
+               torch.stack([v_ for v_, _, _ in lanes]),
+               lora_lib.stack_trees([b_ for _, b_, _ in lanes]))
+    outs = {}
+    for impl in ("vmap", "ragged"):
+        step = splitfl.make_server_step_batched(model, opt, impl=impl)
+        outs[impl], row = counted(lambda: step(params, *stacked, list(cuts)), profile=True)
+        record(f"batched_{impl}", row,
+               gl(2 * t * nl) if impl == "vmap" else
+               gl(sum(2 * t * (nl - c_) for c_ in cuts)))
+
+    def sequential():
+        return [splitfl.make_server_step(model, opt, static_cut=c_)(
+            params, ls_, opt.init(ls_), v_, b_) for c_, (v_, b_, ls_) in zip(cuts, lanes)]
+
+    seq, row = counted(sequential, profile=True)
+    record("sequential_steps", row, lm(sum(2 * t * (nl - c_) for c_ in cuts)))
+    lanes_out = []
+    for i in range(len(cuts)):
+        lane = {}
+        for impl, out in outs.items():
+            lane[impl] = {
+                "loss_rel": abs(float(out[0][i]) - float(seq[i][0])) / abs(float(seq[i][0])),
+                "dv_rel2": rel2(out[3][i], seq[i][3]),
+                "grad_rel2": _worst_rel2(lora_lib.unstack_tree(out[2].mu)[i], seq[i][2].mu),
+                "adapter_max_abs": _max_abs(lora_lib.unstack_tree(out[1])[i], seq[i][1])}
+            if not (lane[impl]["loss_rel"] <= LM_GRAD_LOSS_RTOL
+                    and lane[impl]["dv_rel2"] <= LM_GRAD_TOL
+                    and lane[impl]["grad_rel2"] <= LM_GRAD_TOL
+                    and lane[impl]["adapter_max_abs"] <= 2 * LR):
+                raise AssertionError(f"{arch} batched {impl}, lane {i} (cut {cuts[i]}) "
+                                     f"against its sequential step: {lane[impl]}")
+        lanes_out.append(lane)
+    checks["batched_vs_sequential"] = {"cuts": list(cuts), "lanes": lanes_out,
+                                       "grad_tolerance": LM_GRAD_TOL}
+    out = {"arch": arch, "layers": nl, "cut": cut, "batch": [LM_TRAIN_BATCH, LM_TRAIN_SEQ],
+           "projections_per_layer": t, "frozen_input": frozen, "steps": rows,
+           "launches": launches, "checks": checks}
+    print(f"[lm-train:{arch}] {json.dumps(out)}", flush=True)
+    del model, params, lora, outs, seq, lanes, stacked
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def lm_train_launches(run: dict, name: str) -> dict:
+    """One counter's launches in each call of an [lm-train] run."""
+    return {step: counts[name] for step, counts in run["launches"].items()}
+
+
+def launch_phase() -> dict:
+    """``python -m repro_torch.launch.train`` in central mode on gemma-2b at
+    full width and depth (LAUNCH_ARGS), in a process of its own: it prints
+    the reference's lines, and the loss it prints is finite."""
+    env = dict(os.environ, PYTHONPATH=str(PORT_ROOT / "src"))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.train", *LAUNCH_ARGS],
+                          cwd=PORT_ROOT, env=env, capture_output=True, text=True,
+                          timeout=600)
+    wall = time.perf_counter() - t0
+    for line in proc.stdout.splitlines():
+        print(f"[launch] {line}", flush=True)
+    if proc.returncode != 0:
+        raise AssertionError(f"launch/train.py exited {proc.returncode}: "
+                             f"{proc.stderr[-2000:]}")
+    final = [ln for ln in proc.stdout.splitlines() if ln.startswith("final loss ")]
+    steps = [ln for ln in proc.stdout.splitlines() if ln.startswith("step ")]
+    loss = float(final[-1].split()[2]) if final else float("nan")
+    out = {"args": list(LAUNCH_ARGS), "wall_s": wall, "final_loss": loss,
+           "step_lines": len(steps)}
+    print(f"[launch] {json.dumps(out)}", flush=True)
+    if not (math.isfinite(loss) and len(steps) == 3):
+        raise AssertionError(f"launch/train.py printed no finite loss: {proc.stdout}")
+    return out
+
+
 def memory_lines(fused: dict, plain: dict, cohort: dict, sl: dict) -> dict:
     """The paper's memory model (``Simulator.server_memory_report``) for
     ours, sfl and sl at the paper cuts, printed beside the peak device
@@ -3259,6 +3622,7 @@ def main() -> None:
     cohort = run_path(True, train, test, cohort=True)
     cohort_plain = run_path(False, train, test, cohort=True)
     compare_paths(cohort, cohort_plain, "cohort")
+    vmap = vmap_phase(train, test, {"fused": cohort, "einsum": cohort_plain})
     sl = run_path(True, train, test, scheme="sl")
     memory_lines(fused, plain, cohort, sl)
     finals = {}
@@ -3272,6 +3636,8 @@ def main() -> None:
     torch.cuda.empty_cache()
     lm = {arch: lm_phase(arch, seed=13 + i) for i, arch in enumerate(LM_ARCHS)}
     lm_grad = {arch: lm_backward(arch, seed=30 + i) for i, arch in enumerate(LM_ARCHS)}
+    lm_tr = {arch: lm_train(arch, seed=50 + i) for i, arch in enumerate(LM_ARCHS)}
+    launch = launch_phase()
 
     if args.profile:
         train = make_emotion_dataset(N_TRAIN, seq_len=SEQ, vocab_size=30_522, seed=0)
@@ -3281,7 +3647,8 @@ def main() -> None:
         for policy in ("sync", "buffered"):
             profile_event(policy, train, test)
 
-    print(json.dumps({"lm": lm, "lm_grad": lm_grad}), flush=True)
+    print(json.dumps({"lm": lm, "lm_grad": lm_grad, "lm_train": lm_tr, "launch": launch}),
+          flush=True)
     main_shape, ragged = checks[0], checks[1:]
 
     def entry(name, source, replaces, launches, c, **extra):
@@ -3300,6 +3667,7 @@ def main() -> None:
               bound_bytes_ms=main_shape["bound_bytes_ms"],
               dx_call_device_ms=main_shape["dx_call_device_ms"],
               cohort_launches=cohort["launches"]["lora_matmul"],
+              vmap_launches=vmap["fused"]["launches"]["lora_matmul"],
               sl_launches=sl["launches"]["lora_matmul"],
               event_launches=event_launches(event, "lora_matmul"),
               control_launches=control_launches(control, "lora_matmul"),
@@ -3313,6 +3681,7 @@ def main() -> None:
               "src/repro/kernels/grouped_lora.py:119",
               cohort["launches"]["grouped_lora_chunk"], grouped_path, path="cohort",
               design=DESIGNS["grouped_lora_chunk"],
+              vmap_launches=vmap["fused"]["launches"]["grouped_lora_chunk"],
               event_launches=event_launches(event, "grouped_lora_chunk"),
               control_launches=control_launches(control, "grouped_lora_chunk"),
               resume_launches=resume_launches(resume, "grouped_lora_chunk"),
@@ -3355,6 +3724,9 @@ def main() -> None:
                      for arch in LM_ARCHS},
                   **{f"{arch} backward ({LM_GRAD_LAYERS} layers)":
                      lm_grad[arch]["launches"]["fused"]["lora_matmul_bf16"]
+                     for arch in LM_ARCHS},
+                  **{f"{arch} lm-train ({LM_TRAIN_LAYERS[arch]} layers)":
+                     lm_train_launches(lm_tr[arch], "lora_matmul_bf16")
                      for arch in LM_ARCHS}},
               dx_call_device_ms=bf16_q["dx_call_device_ms"],
               base_matmul_ms=bf16_q["base_matmul_ms"],
@@ -3393,6 +3765,10 @@ def main() -> None:
               shape=[bf16_grouped["sizes"], bf16_grouped["k"], bf16_grouped["n"],
                      bf16_grouped["r"]],
               design=DESIGNS["grouped_lora_chunk_bf16"],
+              lm_train_launches={
+                  f"{arch} lm-train ({LM_TRAIN_LAYERS[arch]} layers)":
+                  lm_train_launches(lm_tr[arch], "grouped_lora_chunk_bf16")
+                  for arch in LM_ARCHS},
               dx_call_device_ms=bf16_grouped["dx_call_device_ms"],
               base_matmul_ms=bf16_grouped["base_matmul_ms"],
               bound_bytes_ms=bf16_grouped["bound_bytes_ms"],
@@ -3434,6 +3810,7 @@ def main() -> None:
         entry("quantize_rows", csrc + "quant.cu", "src/repro/kernels/quant.py:33",
               cohort["launches"]["quantize_rows"], quant, path="cohort",
               bit_equal=True, design=DESIGNS["quantize_rows"], shape=quant["shape"],
+              vmap_launches=vmap["fused"]["launches"]["quantize_rows"],
               event_launches=event_launches(event, "quantize_rows"),
               control_launches=control_launches(control, "quantize_rows"),
               resume_launches=resume_launches(resume, "quantize_rows"),

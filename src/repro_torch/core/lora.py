@@ -74,6 +74,63 @@ def embed_in_full_shape(part: PyTree, full_spec: PyTree, cut: int,
     return out
 
 
+def adapter_list(lora: PyTree):
+    """Depth-ordered flat list of (path, A, B) pairs — the paper's
+    {A_1,B_1,...,A_N,B_N} view. N = len(result)."""
+    out = []
+
+    def walk(node, path):
+        if isinstance(node, dict):
+            if set(node.keys()) == {"a", "b"}:
+                out.append(("/".join(path), node["a"], node["b"]))
+            else:
+                for k in sorted(node.keys()):
+                    walk(node[k], path + [k])
+
+    walk(lora, [])
+    return out
+
+
+def count_adapters(lora: PyTree) -> int:
+    n = 0
+    for _, a, _b in adapter_list(lora):
+        n += a.shape[0] if a.dim() == 3 else 1   # stacked (L, r, in)
+    return n
+
+
+def adapter_bytes(lora: PyTree) -> int:
+    return sum(x.numel() * x.element_size() for x in tree_leaves(lora))
+
+
+def merge_lora(params: PyTree, lora: PyTree, scale: float) -> PyTree:
+    """W' = W + scale * B A for every adapted weight (Eq. 1) — used for
+    export / merged-inference equivalence tests."""
+    def merge_into(pnode, lnode):
+        if not isinstance(lnode, dict):
+            return pnode
+        out = dict(pnode)
+        for key, lsub in lnode.items():
+            if key not in pnode:
+                continue
+            if isinstance(lsub, dict) and set(lsub.keys()) == {"a", "b"}:
+                w = pnode[key]
+                a, b = lsub["a"], lsub["b"]
+                if a.dim() == 3:   # stacked (L, r, in) x (L, out, r)
+                    delta = torch.einsum("lor,lri->lio", b, a)
+                else:
+                    delta = torch.einsum("or,ri->io", b, a)
+                out[key] = (w.float() + scale * delta).to(w.dtype)
+            elif isinstance(lsub, dict):
+                out[key] = merge_into(pnode[key], lsub)
+        return out
+
+    return merge_into(params, lora)
+
+
+def zeros_like_lora(lora: PyTree) -> PyTree:
+    return tree_map(torch.zeros_like, lora)
+
+
 def stack_trees(trees: Sequence[PyTree]) -> PyTree:
     """Stack same-structure trees along a new leading axis."""
     return tree_map(lambda *xs: torch.stack(xs, dim=0), *trees)

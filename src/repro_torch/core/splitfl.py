@@ -1,5 +1,5 @@
 """Algorithm 1 — the memory-efficient SFL training step, in PyTorch.  Port
-of the static-cut part of ``src/repro/core/splitfl.py``.
+of ``src/repro/core/splitfl.py``.
 
 The three computational pieces of one round:
 
@@ -8,13 +8,25 @@ The three computational pieces of one round:
                    model, update R_s^u, emit activation gradients
   client_backward  (Alg.1 l.15): update R_c^u from the activation gradients
 
+Two execution paths, identical semantics (tested against each other):
+  * path="sliced": a static cut, a Python loop over the owned layers only —
+    what the federated simulator and the client steps run;
+  * path="scan":   the masked loop over every layer with the cut as an
+    argument of each call (``models.decoder.DecoderModel.scan_forward``) —
+    the LM server step's ``path="scan"``, the full train step (which owns
+    every layer, so no layer is masked) and, with one cut per row, the
+    vmap cohort step.  At a Python int cut it runs the owned layers as the
+    sliced loop does, so only a tensor cut pays for the masks.
+
+The cohort-batched server steps run a chunk of clients in one dispatch,
+in either of the reference's forms: ``vmap`` concatenates the chunk's
+lanes into one batch and runs every layer, each lane masked at its own
+cut; ``ragged`` groups the lanes by cut and runs each group's own layers.
+Both hand every adapted projection cohort-grouped adapters, which go to
+the grouped LoRA kernel when ``cfg.lora.impl == 'fused'``.
+
 Only adapters and the classifier head require grad; the frozen base
 weights never do, so no backward pass forms a weight gradient for them.
-
-The cohort-batched classification server step is ported in its ``ragged``
-form (cut-grouped concat batches through the grouped LoRA kernel); the
-``vmap`` form and the LM batched step come with ROADMAP Queue A, items 6
-and 3.
 """
 from __future__ import annotations
 
@@ -37,13 +49,18 @@ def as_trainable(tree: PyTree) -> PyTree:
     return tree_map(lambda t: t.detach().requires_grad_(True), tree)
 
 
-def tree_grad(out: torch.Tensor, tree: PyTree, extra=(), grad_out=None):
+def _detached(tree: PyTree) -> PyTree:
+    return tree_map(torch.Tensor.detach, tree)
+
+
+def tree_grad(out: torch.Tensor, tree: PyTree, extra=(), grad_out=None,
+              retain_graph: bool = False):
     """Gradients of ``out`` (weighted by ``grad_out``) with respect to the
     leaves of ``tree`` and to the tensors in ``extra``: (grad tree, extras).
     Leaves ``out`` does not reach get zeros, as under ``jax.grad``."""
     leaves = tree_leaves(tree)
     gs = torch.autograd.grad(out, leaves + list(extra), grad_outputs=grad_out,
-                             materialize_grads=True)
+                             retain_graph=retain_graph, materialize_grads=True)
     return tree_unflatten(tree, list(gs[:len(leaves)])), gs[len(leaves):]
 
 
@@ -56,9 +73,43 @@ def client_forward(model, params_c: PyTree, lora_c: PyTree, batch: dict,
 
 
 def server_loss(model, params: PyTree, lora_s: PyTree, v: torch.Tensor,
-                batch: dict, cut: int):
+                batch: dict, cut, *, path: str = "sliced"):
     """Eq. 4 + loss: resume the full model at the cut with R_s^u."""
-    return model.loss(params, lora_s, batch, cut=cut, side="server", x0=v)
+    return model.loss(params, lora_s, batch, cut=cut, side="server", path=path, x0=v)
+
+
+def _server_grads(model, params, trainable, v, batch, cut, path, with_head):
+    """The server's loss and its gradients with respect to the trainable
+    tree ({"lora", "head"} or the bare adapters) and to ``v``."""
+    tr = as_trainable(trainable)
+    vv = v.detach().requires_grad_(True)
+    with torch.enable_grad():
+        pp = params
+        if with_head:
+            pp = dict(params)
+            pp["cls_head"] = tr["head"]
+        loss, _ = server_loss(model, pp, tr["lora"] if with_head else tr, vv, batch, cut,
+                              path=path)
+        g_tr, (g_v,) = tree_grad(loss, tr, extra=(vv,))
+    return loss.detach(), g_tr, g_v
+
+
+def make_server_step(model, opt: AdamW, *, path: str = "sliced",
+                     static_cut: Optional[int] = None):
+    """The LM server step.
+
+    signature: (params, lora_s, opt_state, v, batch, cut) ->
+               (loss, new_lora_s, new_opt_state, dv)
+    without ``cut`` when ``static_cut`` fixes it.  With path='scan' the cut
+    may change from call to call (an int, or a 0-d tensor on the device),
+    and every call runs the same masked loop over all layers."""
+    def step(params, lora_s, opt_state, v, batch, cut=static_cut):
+        loss, g_lora, g_v = _server_grads(model, params, lora_s, v, batch, cut, path,
+                                          with_head=False)
+        new_lora, new_opt = opt.update(g_lora, opt_state, _detached(lora_s))
+        return loss, new_lora, new_opt, g_v
+
+    return step
 
 
 def make_server_step_cls(model, opt: AdamW, *, static_cut: int):
@@ -70,30 +121,27 @@ def make_server_step_cls(model, opt: AdamW, *, static_cut: int):
     where opt_state is over the tree {"lora": ..., "head": ...} and ``dv`` is
     the gradient of the loss with respect to the received activations ``v``.
     """
-    cut = int(static_cut)
-
     def step(params, lora_s, head, opt_state, v, batch):
-        trainable = as_trainable({"lora": lora_s, "head": head})
-        vv = v.detach().requires_grad_(True)
-        with torch.enable_grad():
-            pp = dict(params)
-            pp["cls_head"] = trainable["head"]
-            loss, _ = server_loss(model, pp, trainable["lora"], vv, batch, cut)
-            g_tr, (g_v,) = tree_grad(loss, trainable, extra=(vv,))
-        new_tr, new_opt = opt.update(g_tr, opt_state,
-                                     tree_map(torch.Tensor.detach, trainable))
-        return loss.detach(), new_tr["lora"], new_tr["head"], new_opt, g_v
+        trainable = {"lora": lora_s, "head": head}
+        loss, g_tr, g_v = _server_grads(model, params, trainable, v, batch, static_cut,
+                                        "sliced", with_head=True)
+        new_tr, new_opt = opt.update(g_tr, opt_state, _detached(trainable))
+        return loss, new_tr["lora"], new_tr["head"], new_opt, g_v
 
     return step
 
 
 # ---------------------------------------------------------------------------
-# ragged cohort packing (impl="ragged" of the batched server step)
+# cohort packing (the batched server steps)
 # ---------------------------------------------------------------------------
 
 def _chunk_slices(u: int, cohort_chunk: Optional[int]):
     k = u if not cohort_chunk or cohort_chunk <= 0 else min(int(cohort_chunk), u)
     return [slice(lo, min(lo + k, u)) for lo in range(0, u, k)]
+
+
+def _tree_slice(tree: PyTree, sl: slice) -> PyTree:
+    return tree_map(lambda a: a[sl], tree)
 
 
 def _tree_take(tree: PyTree, idx: torch.Tensor) -> PyTree:
@@ -153,48 +201,83 @@ def _ragged_chunks(cuts: np.ndarray, cohort_chunk: Optional[int]):
     return chunks
 
 
-def _make_server_step_ragged(model, opt: AdamW, *,
-                             cohort_chunk: Optional[int] = None):
-    """impl="ragged" of the batched classification server step: the cohort
-    is grouped by cut value and each group runs ONE dispatch over the
-    concatenated (G*B, S, d) activation batch — only layers [cut, L) run,
-    and every adapted projection sees cohort-grouped (G, r, K) adapters,
-    which go to the grouped LoRA kernel when ``cfg.lora.impl == 'fused'``.
+def _make_group_step(model, opt: AdamW, *, with_head: bool, path: str):
+    """ONE dispatch over a group of G lanes: their (G, B, S, d) activations
+    concatenate into one (G*B, S, d) batch and the stacked (G, L, ...)
+    adapters go layer-major, so every adapted projection sees a
+    cohort-grouped (G, r, K) adapter — one grouped LoRA launch over all G
+    lanes.  ``path="sliced"`` (ragged: one cut for the group) runs only
+    layers [cut, L); ``path="scan"`` (vmap: a cut per lane) runs every layer
+    and masks each lane's rows at its own cut.
 
-    Per-client losses are exact: row segments are computationally
-    independent, so the gradient of the sum of per-client mean
-    cross-entropies gives each client its own gradients; the AdamW update
-    then advances each client's lane of the stacked state.
-    """
+    Per-lane losses are exact: row segments are computationally
+    independent, so the gradient of the sum of the lanes' losses gives each
+    lane its own gradients and ``dv``; the AdamW update then advances each
+    lane of the stacked state by its own update."""
     cfg = model.cfg
 
     def group_step(params, lora_g, heads_g, opt_g, v_g, batch_g, cut):
         gsz, bsz = v_g.shape[0], v_g.shape[1]
-        trainable = as_trainable({"lora": lora_g, "head": heads_g})
+        trainable = {"lora": lora_g, "head": heads_g} if with_head else lora_g
+        tr = as_trainable(trainable)
         vf = v_g.reshape((gsz * bsz,) + tuple(v_g.shape[2:])).detach().requires_grad_(True)
         batch_flat = _flatten_cohort(batch_g)
         with torch.enable_grad():
-            lo_lm = _cohort_to_layer_major(trainable["lora"])
-            h, _ = model.forward_hidden(params, lo_lm, batch_flat, cut=cut,
-                                        side="server", x0=vf)
-            h = L.apply_norm(cfg, params["final_norm"], h)
-            pooled = h.reshape((gsz, bsz) + tuple(h.shape[1:]))[:, :, 0, :]
-            logits = torch.einsum("gbd,gdc->gbc", pooled.float(),
-                                  trainable["head"])      # per-client heads
-            losses = torch.stack([L.softmax_xent(lg[:, None, :], lb[:, None])
-                                  for lg, lb in zip(logits, batch_g["label"])])
-            g_tr, (g_v,) = tree_grad(losses.sum(), trainable, extra=(vf,))
-        new_tr, new_opt = opt.update(g_tr, opt_g, tree_map(torch.Tensor.detach, trainable))
-        return (losses.detach(), new_tr["lora"], new_tr["head"], new_opt,
-                g_v.reshape(v_g.shape))
+            lo_lm = _cohort_to_layer_major(tr["lora"] if with_head else tr)
+            h, aux = model.forward_hidden(params, lo_lm, batch_flat, cut=cut,
+                                          side="server", path=path, x0=vf)
+            if with_head:
+                h = L.apply_norm(cfg, params["final_norm"], h)
+                pooled = h.reshape((gsz, bsz) + tuple(h.shape[1:]))[:, :, 0, :]
+                logits = torch.einsum("gbd,gdc->gbc", pooled.float(),
+                                      tr["head"])            # per-client heads
+                losses = torch.stack([L.softmax_xent(lg[:, None, :], lb[:, None])
+                                      for lg, lb in zip(logits, batch_g["label"])])
+            else:
+                logits = model.unembed(params, h)
+                logits = logits.reshape((gsz, bsz) + tuple(logits.shape[1:]))
+                losses = torch.stack([L.softmax_xent(lg, tg)
+                                      for lg, tg in zip(logits, batch_g["targets"])])
+            if aux.dim():                     # per row: each lane's own
+                losses = losses + aux.reshape(gsz, bsz)[:, 0]
+            else:
+                losses = losses + aux
+            g_tr, (g_v,) = tree_grad(losses.sum(), tr, extra=(vf,))
+        new_tr, new_opt = opt.update(g_tr, opt_g, _detached(tr))
+        dv = g_v.reshape(v_g.shape)
+        if with_head:
+            return losses.detach(), new_tr["lora"], new_tr["head"], new_opt, dv
+        return losses.detach(), new_tr, new_opt, dv
 
-    def step(params, lora_s, heads, opt_state, v, batch, cuts):
+    return group_step
+
+
+def _split_args(with_head: bool, rest):
+    if with_head:
+        heads, opt_state, v, batch, cuts = rest
+        return heads, opt_state, v, batch, cuts
+    opt_state, v, batch, cuts = rest
+    return None, opt_state, v, batch, cuts
+
+
+def _make_server_step_ragged(model, opt: AdamW, *,
+                             cohort_chunk: Optional[int] = None,
+                             with_head: bool = False):
+    """impl="ragged" of the batched server steps: the cohort is grouped by
+    cut value, split by ``cohort_chunk``, and each group runs ONE dispatch
+    (``_make_group_step`` on the sliced path: only layers [cut, L)).  Known
+    delta against the vmap impl, as in the reference: the sliced path
+    reports no aux loss."""
+    group_step = _make_group_step(model, opt, with_head=with_head, path="sliced")
+
+    def step(params, lora_s, *rest):
+        heads, opt_state, v, batch, cuts = _split_args(with_head, rest)
         cuts_np = _concrete_cuts(cuts)
         outs, perm = [], []
         for idx_list, cut in _ragged_chunks(cuts_np, cohort_chunk):
             idx = torch.as_tensor(idx_list, dtype=torch.long, device=v.device)
             outs.append(group_step(params, _tree_take(lora_s, idx),
-                                   heads.index_select(0, idx),
+                                   heads.index_select(0, idx) if with_head else None,
                                    _tree_take(opt_state, idx), v.index_select(0, idx),
                                    _tree_take(batch, idx), cut))
             perm.extend(idx_list)
@@ -205,39 +288,82 @@ def _make_server_step_ragged(model, opt: AdamW, *,
     return step
 
 
-def make_server_step_cls_batched(model, opt: AdamW, *,
-                                 cohort_chunk: Optional[int] = None,
-                                 impl: str = "ragged"):
-    """Cohort-batched classification server step (per-client heads train
-    alongside the server adapters).
+def _make_server_step_vmap(model, opt: AdamW, *,
+                           cohort_chunk: Optional[int] = None,
+                           with_head: bool = False):
+    """impl="vmap" of the batched server steps: the cohort splits into
+    chunks of ``cohort_chunk`` lanes in order (``_chunk_slices``), and each
+    chunk runs ONE dispatch (``_make_group_step`` on the masked path): all
+    L layers for every lane, each lane's rows masked at its own cut, which
+    is one cut per row.  This is the reference's ``jax.vmap`` of the scan
+    step over the chunk's lanes; the padded work below each lane's cut is
+    the reference's stated trade-off against ``ragged``."""
+    group_step = _make_group_step(model, opt, with_head=with_head, path="scan")
 
-    signature: (params, lora_s, heads, opt_state, v, batch, cuts) ->
-               (losses, new_lora_s, new_heads, new_opt_state, dv)
+    def step(params, lora_s, *rest):
+        heads, opt_state, v, batch, cuts = _split_args(with_head, rest)
+        cuts = torch.as_tensor(cuts, dtype=torch.long).to(v.device)
+        if cuts.dim() != 1 or cuts.shape[0] != v.shape[0]:
+            raise ValueError(f"cuts must be one per lane, got shape {tuple(cuts.shape)} "
+                             f"for {v.shape[0]} lanes")
+        bsz = v.shape[1]
+        outs = [group_step(params, _tree_slice(lora_s, sl),
+                           heads[sl] if with_head else None, _tree_slice(opt_state, sl),
+                           v[sl], _tree_slice(batch, sl),
+                           cuts[sl].repeat_interleave(bsz))
+                for sl in _chunk_slices(int(cuts.shape[0]), cohort_chunk)]
+        return _tree_concat(outs)
 
-    Every argument after ``params`` carries a leading cohort axis U: the
-    per-client full-shape server adapters (``lora.embed_in_full_shape`` +
-    ``lora.stack_trees``), heads, stacked optimizer states over
-    {"lora", "head"}, activations and batches; ``cuts`` is a vector of U
-    python ints.  ``cohort_chunk`` bounds how many clients of one cut
-    share a dispatch.  Only ``impl="ragged"`` is ported.
-    """
-    if impl == "vmap":
-        raise NotImplementedError(
-            "the vmap cohort step runs the masked-scan path, which the port "
-            "does not have yet (ROADMAP Queue A, item 6)")
-    if impl != "ragged":
+    return step
+
+
+_BATCHED_IMPLS = {"vmap": _make_server_step_vmap, "ragged": _make_server_step_ragged}
+
+
+def _batched(model, opt, cohort_chunk, impl, with_head):
+    if impl not in _BATCHED_IMPLS:
         raise KeyError(f"unknown batched-server impl {impl!r}; "
                        f"choose 'vmap' or 'ragged'")
-    return _make_server_step_ragged(model, opt, cohort_chunk=cohort_chunk)
+    return _BATCHED_IMPLS[impl](model, opt, cohort_chunk=cohort_chunk, with_head=with_head)
 
 
 def make_server_step_batched(model, opt: AdamW, *,
                              cohort_chunk: Optional[int] = None,
                              impl: str = "vmap"):
-    """The LM cohort-batched server step (no classifier head)."""
-    raise NotImplementedError(
-        "the LM batched server step needs the LM make_server_step (ROADMAP "
-        "Queue A, item 3) and comes with the cohort steps (item 6)")
+    """Cohort-batched LM server step: a chunk of clients advances in ONE
+    dispatch instead of U sequential ones.
+
+    signature: (params, lora_s, opt_state, v, batch, cuts) ->
+               (losses, new_lora_s, new_opt_state, dv)
+
+    Every argument after ``params`` carries a leading cohort axis U: the
+    per-client full-shape server adapters (``lora.embed_in_full_shape`` +
+    ``lora.stack_trees``), stacked optimizer states, activations and
+    batches; ``cuts`` holds one cut per client (Python ints, numpy, or a
+    tensor).  ``cohort_chunk`` bounds how many clients share a dispatch —
+    the paper's sequential server is ``cohort_chunk=1``.  ``impl`` selects
+    the execution path (EngineConfig.cohort_impl):
+
+      * "vmap" (default): chunks in cohort order; every lane runs all L
+        layers masked at its own cut (:func:`_make_server_step_vmap`);
+      * "ragged": cut-grouped chunks; each group runs only its own [cut, L)
+        suffix (:func:`_make_server_step_ragged`).
+    """
+    return _batched(model, opt, cohort_chunk, impl, with_head=False)
+
+
+def make_server_step_cls_batched(model, opt: AdamW, *,
+                                 cohort_chunk: Optional[int] = None,
+                                 impl: str = "vmap"):
+    """Cohort-batched classification server step (per-client heads train
+    alongside the server adapters).
+
+    signature: (params, lora_s, heads, opt_state, v, batch, cuts) ->
+               (losses, new_lora_s, new_heads, new_opt_state, dv)
+    with the conventions of :func:`make_server_step_batched`; ``opt_state``
+    is over the stacked tree {"lora": ..., "head": ...}.
+    """
+    return _batched(model, opt, cohort_chunk, impl, with_head=True)
 
 
 @dataclasses.dataclass
@@ -250,11 +376,26 @@ class ClientTape:
     lora: PyTree
 
 
-def client_vjp(tape: ClientTape, dv: torch.Tensor) -> PyTree:
+def client_vjp(tape: ClientTape, dv: torch.Tensor, retain_graph: bool = False) -> PyTree:
     """Gradients of the client's adapters given the activation gradient
-    ``dv`` (the reference's ``client_forward_with_vjp`` pullback)."""
-    g, _ = tree_grad(tape.v, tape.lora, grad_out=dv)
+    ``dv`` (the pullback of ``client_forward_with_vjp``)."""
+    g, _ = tree_grad(tape.v, tape.lora, grad_out=dv, retain_graph=retain_graph)
     return g
+
+
+def _client_tape(model, params_c, lora_c, batch, cut) -> ClientTape:
+    lc = as_trainable(lora_c)
+    with torch.enable_grad():
+        v = client_forward(model, params_c, lc, batch, cut)
+    return ClientTape(v, lc)
+
+
+def client_forward_with_vjp(model, params_c: PyTree, lora_c: PyTree,
+                            batch: dict, cut: int):
+    """Returns (v, vjp_fn) where vjp_fn(dv) -> grads w.r.t. lora_c; like
+    the reference's pullback it may be called more than once."""
+    tape = _client_tape(model, params_c, lora_c, batch, cut)
+    return tape.v.detach(), lambda dv: client_vjp(tape, dv, retain_graph=True)
 
 
 def make_client_step(model, opt: AdamW, cut: int):
@@ -264,13 +405,31 @@ def make_client_step(model, opt: AdamW, cut: int):
     backward: (tape, opt_state, dv)      -> (new_lora_c, new_opt)
     """
     def fwd(params_c, lora_c, batch):
-        lc = as_trainable(lora_c)
-        with torch.enable_grad():
-            v = client_forward(model, params_c, lc, batch, cut)
-        return v.detach(), ClientTape(v, lc)
+        tape = _client_tape(model, params_c, lora_c, batch, cut)
+        return tape.v.detach(), tape
 
     def bwd(tape: ClientTape, opt_state, dv):
-        return opt.update(client_vjp(tape, dv), opt_state,
-                          tree_map(torch.Tensor.detach, tape.lora))
+        return opt.update(client_vjp(tape, dv), opt_state, _detached(tape.lora))
 
     return fwd, bwd
+
+
+def make_full_train_step(model, opt: AdamW, *, remat: bool = False, path: str = "scan"):
+    """Centralized LoRA fine-tuning step (the cut-0 oracle and the central
+    training mode of ``launch/train.py``).  Side "full" owns every layer,
+    so ``path="scan"`` runs the sliced loop's operations, adds each
+    block's aux loss and honours ``remat``; ``path="sliced"`` ignores
+    ``remat``, as the reference's sliced path does.
+
+    signature: (params, lora, opt_state, batch) -> (loss, lora, opt_state)
+    """
+    def step(params, lora, opt_state, batch):
+        lo = as_trainable(lora)
+        with torch.enable_grad():
+            loss, _ = model.loss(params, lo, batch, cut=0, side="full", path=path,
+                                 remat=remat)
+            g, _ = tree_grad(loss, lo)
+        new_lora, new_opt = opt.update(g, opt_state, _detached(lo))
+        return loss.detach(), new_lora, new_opt
+
+    return step

@@ -19,7 +19,9 @@ commits with in-flight rounds.  Transfers go through the network plane
 (constant, trace, Gilbert-Elliott or caller-supplied links, optionally over a
 shared cell); ``agg.transport="plane"`` routes the adapter syncs there too.
 The server serves one client per dispatch, or cohort chunks of clients
-through the cut-grouped ragged step (``cohort_impl="ragged"``);
+in one dispatch: the masked-scan step over every layer with a cut per lane
+(``cohort_impl="vmap"``, the default) or the cut-grouped ragged step
+(``"ragged"``);
 ``NetConfig.quantize`` sends the activations (with error feedback) and the
 gradients as int8; ``ObsConfig`` records spans, metrics and the memory
 ledger without touching the timeline.  Under the event engine a
@@ -101,9 +103,6 @@ def _not_in_slice(knob: str, item: str) -> NotImplementedError:
 
 def check_slice(run: FedRunConfig) -> None:
     """Raise for every knob the port does not cover yet — none is ignored."""
-    if run.engine.cohort_chunk != 1 and run.engine.cohort_impl == "vmap":
-        raise _not_in_slice("engine cohort_chunk > 1 with cohort_impl='vmap' "
-                            "(the masked-scan cohort step)", "6")
     if run.fleet.sampling != "full":
         raise _not_in_slice(f"fleet sampling={run.fleet.sampling!r}", "9")
     if run.fleet.edge_cells > 1:
@@ -192,7 +191,8 @@ class Simulator:
             self._srv_steps[cut] = splitfl.make_server_step_cls(
                 self.model, self.opt, static_cut=cut)
             self._cli_steps[cut] = splitfl.make_client_step(self.model, self.opt, cut)
-        # cohort chunks: one cut-grouped ragged dispatch per cut of a chunk
+        # cohort chunks: one masked dispatch a chunk (vmap), or one
+        # cut-grouped dispatch per cut of a chunk (ragged)
         self._srv_step_batched = None
         if run.engine.cohort_chunk > 1:
             self._srv_step_batched = splitfl.make_server_step_cls_batched(
@@ -396,8 +396,9 @@ class Simulator:
     def _serve_group(self, grp: List[int]) -> List[float]:
         """The real math of one server dispatch: each client's batch draw
         and forward (with the int8+EF uplink under ``net.quantize``), then
-        the server step at its cut (one client) or ONE cut-grouped ragged
-        dispatch (a cohort chunk), then each client's backward.  Every
+        the server step at its cut (one client) or the batched step of
+        ``engine.cohort_impl`` over a cohort chunk (vmap: one masked
+        dispatch; ragged: one per cut), then each client's backward.  Every
         client keeps its forward's autograd tape until its backward, so a
         chunk's tapes are all alive at once."""
         batches, acts, tapes = {}, {}, {}
@@ -799,7 +800,7 @@ class Simulator:
         cut are ensured, the Eq. 10 terms refreshed and the memory ledger
         told.  Adapters and optimizer states are NOT touched: the calling
         commit redistributes them from the aggregated global at the new cut.
-        The ragged cohort step takes any cut and needs nothing."""
+        The cohort steps take any cut and need nothing."""
         run = self.run
         for u, (_old, new) in changes.items():
             pc = dict(self.params)

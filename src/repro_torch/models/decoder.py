@@ -2,12 +2,21 @@
 encoder family (BERT), the dense decoder LM (gemma) and the RWKV6 LM.
 Port of ``src/repro/models/decoder.py``.
 
-``side="full" | "client" | "server"`` with a static ``cut`` selects which
-layers run; the port runs the reference's ``sliced`` path, a Python loop
-over exactly the owned layers.  The masked-scan path (one compiled program
-for every cut) has no counterpart here: the reference's own tests pin it
-equal to the sliced path, and PyTorch runs eagerly.  Prefill and decode
-run the same loop over all layers (side "full").
+``side="full" | "client" | "server"`` with a ``cut`` selects which layers
+run, by one of the reference's two paths (identical semantics, tested
+against each other):
+
+* ``path="sliced"``: a static cut and a Python loop over exactly the owned
+  layers — what the federated simulator runs;
+* ``path="scan"``: the masked loop — every layer of the stack runs, and
+  its output is kept only where the layer is owned (``torch.where``), as
+  the reference's masked ``lax.scan`` does.  The cut may be a Python int,
+  a 0-d tensor, or one cut per batch row: the port's form of a vmapped
+  per-lane cut (one lane's cut repeated over its rows), so that one
+  batch of concatenated lanes runs each lane at its own cut.
+
+Prefill and decode run the same loop over all layers (side "full": the
+scan's prefill and decode modes with every layer owned).
 
 Params layout (as in the reference, layers stacked on a leading axis):
     {"embed": (V,d), ["pos_embed": (P,d)], "layers": <stacked (L,...)>,
@@ -20,6 +29,7 @@ from __future__ import annotations
 from typing import Any, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.lora import stack_trees
@@ -45,6 +55,25 @@ def build_lora_tree(gen: torch.Generator, params_one_layer: PyTree, targets,
         elif key in targets and val.dim() == 2:
             out[key] = L.lora_init(gen, val.shape[0], val.shape[1], rank, device)
     return out
+
+
+def _run_mask(side: str, idx: int, cut):
+    """Whether layer ``idx`` runs on this side of the cut: a Python bool for
+    an int cut or side "full", a bool tensor for a 0-d or per-row cut."""
+    if side == "full":
+        return True
+    if side not in ("client", "server"):
+        raise ValueError(side)
+    run = idx < cut if side == "client" else idx >= cut
+    return run if torch.is_tensor(run) else bool(run)
+
+
+def _where(pred: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``torch.where`` over a 0-d mask or one entry per leading (row) index
+    of ``a``."""
+    if pred.dim() == 1:
+        pred = pred.reshape(pred.shape + (1,) * (a.dim() - 1))
+    return torch.where(pred, a, b)
 
 
 class DecoderModel:
@@ -129,31 +158,76 @@ class DecoderModel:
             x, _ = self.block["train"](self.cfg, p_l, lo_l, x, ctx)
         return x
 
+    # -- backbone: masked (scan) path --------------------------------------------
+    def _masked_layer(self, p_l, lo_l, h, aux, ctx, run):
+        y, a = self.block["train"](self.cfg, p_l, lo_l, h, ctx)
+        if run is True:
+            return y, aux + a
+        return _where(run, y, h), aux + _where(run, a, torch.zeros_like(a))
+
+    def scan_forward(self, params, lora, x, ctx, cut, side, *, remat=False):
+        """Every layer of the stack runs; layer i's output is kept where it
+        is owned on ``side`` of ``cut`` and its aux loss added there (the
+        reference's masked scan in train mode).  A per-row ``cut`` masks
+        each row at its own cut, so the aux loss comes back per row; the
+        block's aux is one scalar over the whole batch, so per-row cuts
+        assume a block whose aux is zero, as every block of the port's
+        families returns (a batch-level aux, such as a MoE router loss,
+        would have to be computed per lane).  With a Python int cut the
+        mask of each layer is known here: an owned layer runs as on the
+        sliced path, with no ``torch.where``, and a layer that is not owned
+        is skipped (its output would be dropped, its gradients are zeros),
+        so the values equal the sliced path's bit for bit.
+        ``remat`` recomputes each layer in the backward instead of keeping
+        its activations (``jax.checkpoint`` of the scan body)."""
+        lora_layers = (lora or {}).get("layers", {})
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        for i in range(tree_leaves(params["layers"])[0].shape[0]):
+            run = _run_mask(side, i, cut)
+            if run is False:
+                continue
+            p_l = tree_map(lambda a: a[i], params["layers"])
+            lo_l = tree_map(lambda a: a[i], lora_layers)
+            if remat:
+                x, aux = checkpoint(self._masked_layer, p_l, lo_l, x, aux, ctx, run,
+                                    use_reentrant=False)
+            else:
+                x, aux = self._masked_layer(p_l, lo_l, x, aux, ctx, run)
+        return x, aux
+
     # -- public API ----------------------------------------------------------
-    def forward_hidden(self, params, lora, batch, *, cut: int = 0,
-                       side: str = "full", x0=None):
-        """Embedding (client/full only) + the owned layers; returns (h, aux)."""
+    def forward_hidden(self, params, lora, batch, *, cut=0, side: str = "full",
+                       remat: bool = False, path: str = "sliced", x0=None):
+        """Embedding (client/full only) + the owned layers; returns (h, aux).
+        ``path="sliced"`` (the default here, and what the simulator and the
+        split steps run) loops over exactly the owned layers at an int cut;
+        ``path="scan"`` is the masked loop of :meth:`scan_forward`."""
         x = self.embed(params, batch) if x0 is None else x0
         ctx = self.make_ctx(x.shape[1], x.device)
+        if path == "scan":
+            return self.scan_forward(params, lora, x, ctx, cut, side, remat=remat)
+        if path != "sliced":
+            raise KeyError(f"unknown path {path!r}; choose 'sliced' or 'scan'")
         nl = tree_leaves(params["layers"])[0].shape[0]
         rng = {"full": (0, nl), "client": (0, int(cut)),
                "server": (int(cut), nl)}[side]
         h = self.sliced_forward(params, lora, x, ctx, rng)
         return h, torch.zeros((), dtype=torch.float32, device=h.device)
 
-    def loss(self, params, lora, batch, *, cut: int = 0, side: str = "full",
-             x0=None):
+    def loss(self, params, lora, batch, *, cut=0, side: str = "full",
+             remat: bool = False, path: str = "sliced", x0=None):
         """Full loss (side='full') or server-side loss from activations x0:
         the CLS head's cross-entropy, or the LM's teacher-forced one
-        against ``batch['targets']``."""
+        against ``batch['targets']``, plus the aux loss (its mean over the
+        rows where the cut is per row)."""
         h, aux = self.forward_hidden(params, lora, batch, cut=cut, side=side,
-                                     x0=x0)
+                                     remat=remat, path=path, x0=x0)
         logits = self.unembed(params, h)
         if self.cfg.n_classes:
             loss = L.softmax_xent(logits[:, None, :], batch["label"][:, None])
         else:
             loss = L.softmax_xent(logits, batch["targets"])
-        return loss + aux, logits
+        return loss + (aux if aux.dim() == 0 else aux.mean()), logits
 
     # -- serving ---------------------------------------------------------------
     def init_cache(self, batch_size: int, cache_len: int) -> PyTree:

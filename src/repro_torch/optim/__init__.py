@@ -1,3 +1,4 @@
 from repro_torch.optim.adamw import AdamW, AdamWState
+from repro_torch.optim import schedules
 
-__all__ = ["AdamW", "AdamWState"]
+__all__ = ["AdamW", "AdamWState", "schedules"]

@@ -19,7 +19,8 @@ SRC = ROOT / "src"
 
 # modules of the later slices (decoder-LM serving; the memory model and
 # partitioning; the network and observability planes and the event engine;
-# the control plane; checkpointing), which the walk below must reach
+# the control plane; checkpointing; the schedules and the training
+# entry point), which the walk below must reach
 _NEW_MODULES = ("repro_torch.configs.gemma_2b", "repro_torch.configs.rwkv6_3b",
                 "repro_torch.kernels.flash_attention", "repro_torch.kernels.wkv6",
                 "repro_torch.serving", "repro_torch.serving.engine",
@@ -32,7 +33,8 @@ _NEW_MODULES = ("repro_torch.configs.gemma_2b", "repro_torch.configs.rwkv6_3b",
                 "repro_torch.control.loop", "repro_torch.control.solver",
                 "repro_torch.control.telemetry", "repro_torch.checkpointing",
                 "repro_torch.checkpointing.checkpoint",
-                "repro_torch.checkpointing.manager")
+                "repro_torch.checkpointing.manager", "repro_torch.optim.schedules",
+                "repro_torch.launch", "repro_torch.launch.train")
 
 _IMPORT_ALL = r"""
 import importlib, pkgutil, sys

@@ -3,7 +3,8 @@ from the reference's own initial state (``bridge.load_reference_state``),
 at reduced(bert-base, 4 layers, d 128), vocab 4096, seq 16, batch 4, the six
 paper clients at cuts (1,1,2,2,3,3), 2 rounds, aggregation every 2 — one
 aggregation and one evaluation — on the paper's sequential server and on
-the cohort-batched ragged server with int8+EF links.  Also: every knob
+the cohort-batched ragged server with int8+EF links (the vmap cohort step:
+tests/test_torch_vmap_simulator.py).  Also: every knob
 outside the port raises, and the numpy bridge round-trips.  The event
 engine's parity is tests/test_torch_event.py.
 """
@@ -179,17 +180,18 @@ def _run(**groups):
 
 
 @pytest.mark.parametrize("run,knob", [
-    # the event engine, obs, plane transport and the snapshot, resume and
-    # preemption knobs are ported: beside each, a knob of a later item
-    # still raises
+    # the event engine, obs, plane transport, the snapshot, resume and
+    # preemption knobs, the control plane and the vmap cohort step are
+    # ported: beside each, a knob of a later item still raises
     pytest.param(_run(engine=EngineConfig(mode="event", cohort_chunk=2), snapshot_every=1.0,
-                      snapshot_dir="snapshots"), "cohort_impl='vmap'", id="event"),
-    pytest.param(_run(engine=EngineConfig(cohort_chunk=2)), "cohort_impl='vmap'",
+                      snapshot_dir="snapshots", fleet=FleetConfig(edge_cells=2)),
+                 "edge_cells", id="event"),
+    pytest.param(_run(engine=EngineConfig(cohort_chunk=2),
+                      fleet=FleetConfig(sampling="uniform", rate=0.5)), "sampling",
                  id="cohort_chunk"),
-    # the control plane is ported: it passes, and the vmap cohort step
-    # beside it still raises
     pytest.param(_run(engine=EngineConfig(mode="event", cohort_chunk=2),
-                      control=ControlConfig(policy="periodic")), "cohort_impl='vmap'",
+                      control=ControlConfig(policy="periodic"),
+                      fleet=FleetConfig(straggler_prob=0.1)), "straggler_prob",
                  id="control"),
     pytest.param(_run(engine=EngineConfig(mode="event"), obs=ObsConfig(metrics=True),
                       preempt_at=0.5, fleet=FleetConfig(straggler_prob=0.1)),
@@ -254,3 +256,4 @@ def test_fused_and_einsum_runs_agree_on_cpu():
         hists.append([dataclasses.astuple(r) for r in sim.run_training()])
     assert hists[0] == hists[1]
     assert all(np.isfinite(r[2]) for r in hists[0])
+

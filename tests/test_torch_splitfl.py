@@ -367,11 +367,13 @@ def test_stacked_adamw_update_equals_the_per_lane_update():
 
 
 def test_batched_steps_outside_the_slice_raise(port):
+    """Both impls of both batched steps are ported (the vmap and LM steps:
+    tests/test_torch_scan.py, tests/test_torch_lm_train.py); an unknown
+    impl still raises."""
     tm = port[0]
-    with pytest.raises(NotImplementedError, match="Queue A, item 6"):
-        splitfl.make_server_step_cls_batched(tm, AdamW(LR), impl="vmap")
-    with pytest.raises(NotImplementedError, match="item 3"):
-        splitfl.make_server_step_batched(tm, AdamW(LR), impl="ragged")
+    for impl in ("vmap", "ragged"):
+        assert callable(splitfl.make_server_step_cls_batched(tm, AdamW(LR), impl=impl))
+        assert callable(splitfl.make_server_step_batched(tm, AdamW(LR), impl=impl))
     with pytest.raises(KeyError):
         splitfl.make_server_step_cls_batched(tm, AdamW(LR), impl="padded")
 
@@ -386,7 +388,7 @@ def test_ragged_chunking_splits_cut_groups_exactly(port):
     opt = AdamW(LR)
     state = lora_lib.stack_trees([opt.init({"lora": lo, "head": th[i]})
                                   for i, lo in enumerate(lora_lib.unstack_tree(tl))])
-    outs = [splitfl.make_server_step_cls_batched(tm, opt, cohort_chunk=chunk)(
+    outs = [splitfl.make_server_step_cls_batched(tm, opt, cohort_chunk=chunk, impl="ragged")(
                 params, tl, th, state, tv, tb, list(cuts)) for chunk in (None, 1)]
     assert [c for _, c in splitfl._ragged_chunks(np.asarray(cuts), 1)] == [1, 1, 2, 3]
     for whole, split in zip(outs[0][::4], outs[1][::4]):     # losses, dv
