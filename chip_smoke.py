@@ -35,7 +35,9 @@ Phases (any failed check raises and the script exits non-zero):
    peak, the mma.sync tile at the same shape (A misaligned by one
    element, which sends the call there) and the error against exact
    products, held within 5 % of the plain version's), at the reference's
-   sweep shapes and ranks and at ragged shapes, grouped_lora in chunk mode
+   sweep shapes and ranks and at ragged shapes; lora_matmul fp32 at the
+   MoE router's shapes over 8192 rows (qwen3-moe's d 2048 to 128 experts,
+   timed, whose dx call has K 128; grok-1's d 6144 to 8); grouped_lora in chunk mode
    (the 2-tenant prefill's q-projection, timed, and ragged cohorts) and
    direct mode, each also on the backward's views and for dx, dA and dB
    (each output row's error over its own scale, <= 1e-2); each result
@@ -45,7 +47,9 @@ Phases (any failed check raises and the script exits non-zero):
    the same inputs and the base product, the bf16 one's error against
    exact products held within 5 % of the plain version's, and at ragged
    shapes and K 770 (each result names its body: ``resident`` or the K
-   sweep, and its dx call's);
+   sweep, and its dx call's); fp32 direct mode also where the MoE cohort
+   steps run it, the router's dx call (three lanes of 1024 rows, K 128,
+   N 2048, timed);
 4. main path: the paper's split-federated round at the full width of
    bert-base (12 layers, d 768, vocab 30522, seq 128, batch 16) across the
    six paper clients at the paper cuts, scheme "ours", analytic engine,
@@ -129,7 +133,9 @@ Phases (any failed check raises and the script exits non-zero):
    shape (B 4, S = T 2048, H 8, K 1, D 256, causal) in bf16 and fp32 and
    at a GQA shape with a ragged T (2, 1000, 32 heads, 8 kv heads, 64;
    causal with window 256, and non-causal) and, in bf16, at D 64 and 128
-   (ragged S != T, and GQA with a window), beside PyTorch's
+   (ragged S != T, and GQA with a window), at qwen3-moe's prefill shape
+   (4 x 2048, 32 heads on 4 kv heads, D 128, causal; timed) and at
+   granite-3-2b's (32 on 8, D 64), beside PyTorch's
    scaled_dot_product_attention as the yardstick; the WKV6 kernel at the
    rwkv6-3b prefill shape (B 4, T 2048, H 40, D 64; bf16 r/k/v with an f32
    decay, and fp32) and at a ragged T of 1000, with slow decays and with
@@ -138,9 +144,10 @@ Phases (any failed check raises and the script exits non-zero):
    version (flash: each query row's error over that row's own scale;
    WKV6: over the output's; <= 1e-5 in fp32, <= 1e-2 in bf16; the final
    state <= 1e-5);
-11. LM prefill: gemma-2b and rwkv6-3b at full width and depth in bf16 with
-   random weights, 4 prompts of 2048 tokens, under attn_impl / wkv_impl
-   "chunked" (the kernels: 18 flash launches, 32 WKV6 launches) and under
+11. LM prefill: gemma-2b (at full depth) and rwkv6-3b (8 of its 32
+   layers, ``LM_PHASE_LAYERS``) at full width in bf16 with random weights,
+   4 prompts of 2048 tokens, under attn_impl / wkv_impl "chunked" (the
+   kernels: 18 flash launches, 8 WKV6 launches) and under
    "naive" / "scan" (plain PyTorch, no launch); then every layer of both
    settings on the same input (the plain run's), so that each layer's
    output, its cache leaves and the last-token logits are held together
@@ -150,6 +157,22 @@ Phases (any failed check raises and the script exits non-zero):
    and with two tenants' adapters stacked into a group (bf16 grouped_lora
    chunk, asserted the same way), each held layer by layer against the
    einsum prefill (per tenant for the group);
+11b. the MoE, VLM and dense completions, the same way at full width in
+   bf16 (``NEW_LM_PHASES``): qwen3-moe-30b-a3b at full depth, qwen1.5-4b
+   with random qkv biases, internvl2-26b on 1024 random vision embeddings
+   before 1024 text tokens, grok-1-314b cut to 2 layers; for the MoE family
+   each layer's output is held in the relative 2-norm over the whole
+   tensor and each layer's routing flips printed (``layerwise_prefill``),
+   the router's adapter runs fp32 lora_matmul (fused) or fp32 grouped_lora
+   chunk (two tenants), asserted by count; qwen3-moe also served with one
+   tenant (three requests), qwen1.5-4b also on an int8 KV cache, its
+   per-step logits within the reference's 5e-2 of the model-type cache's
+   over the steps both fed alike (``int8_cache_gap``), greedy agreement
+   printed;
+11c. build: every registered config through ``build_model`` on the card
+   (``build_phase``): the ported families at full width and 2 layers, a
+   128-token forward with finite hidden states; zamba2-7b and
+   whisper-large-v3 must raise, naming ROADMAP item 10;
 12. LM serving: a ServingEngine per model with two tenants (every adapter
    leaf ~ N(0, 0.05), as in tests/test_serving.py), six greedy requests
    of 16-64 prompt tokens and 16 new tokens in 4 slots of a 128-token
@@ -166,8 +189,13 @@ Phases (any failed check raises and the script exits non-zero):
    gradients within 1e-1; and layer by layer from shared inputs, every
    adapter leaf's gradient within 5e-2 of fp32 where the einsum path is
    too (the other leaves listed, at least one held a layer);
-14. LM training: gemma-2b at full width and depth and rwkv6-3b at full
-   width and 4 layers, bf16, fused LoRA, 2 x 512 tokens, a mid cut: the
+14. LM training: gemma-2b at full width and depth, rwkv6-3b at full
+   width and 4 layers and qwen3-moe-30b-a3b at full width and 8 layers,
+   bf16, fused LoRA, 2 x 512 tokens, a mid cut (for the MoE family the
+   rules of ``lm_train``'s docstring: logits bit for bit and the aux
+   rule for sliced against scan, remat on and off bit for bit, vmap lanes
+   against their own scan steps, the router's grouped dx call in direct
+   mode): the
    LM server step on the sliced path against the scan path on the same
    inputs, bit for bit; three split steps (client forward, server step,
    client backward) on one repeated batch, whose loss must fall; the full
@@ -179,10 +207,12 @@ Phases (any failed check raises and the script exits non-zero):
    launches asserted (all on the wgmma tile), its wall s, peak bytes and
    device s printed;
 15. launch: ``python -m repro_torch.launch.train`` in central mode on
-   gemma-2b at full width for three steps in a process of its own, with
+   granite-3-2b (its default arch) at full width for three steps in a
+   process of its own, with
    the warmup-cosine schedule, weight decay and gradient clipping, which
    must print the reference's lines with a finite loss;
-16. summary: one JSON line per ported kernel, then the device line last.
+16. summary: the phases' total wall time, one JSON line per ported
+   kernel, then the device line last.
 
 Every launch counter is set to 0 just before each path runs and read just
 after it.  ``--profile`` adds a phase before the summary: one warm round of
@@ -239,6 +269,7 @@ import sys
 import tempfile
 import time
 from pathlib import Path
+from typing import Optional
 
 import numpy as np
 import torch
@@ -284,8 +315,9 @@ from repro_torch.kernels.quant import quantize_rows  # noqa: E402
 from repro_torch.kernels.ref import (grouped_lora_matmul_ref,  # noqa: E402
                                      lora_matmul_ref, quantize_rows_ref, wkv6_ref)
 from repro_torch.kernels.wkv6 import wkv6  # noqa: E402
+from repro_torch.models import blocks as blocks_module  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
-from repro_torch.models.layers import softmax_xent  # noqa: E402
+from repro_torch.models.layers import softmax_xent, torch_dtype  # noqa: E402
 from repro_torch.net import ConstantLink, TraceLink  # noqa: E402
 from repro_torch.serving import Request, ServingEngine  # noqa: E402
 from repro_torch.tree import tree_leaves, tree_map  # noqa: E402
@@ -425,7 +457,9 @@ LM_GRAD_E2E_TOL = {"gemma-2b": 1e-1}
 # layer-0 projections whose input is a function of frozen tensors alone (the
 # embedding, norms and, in RWKV6, the token-shift mix), so autograd asks no
 # dx of them: dense wq, wk, wv; ssm time-mix wr, wk, wv, wg
-FROZEN_INPUT_PROJECTIONS = {"dense": 3, "ssm": 4}
+# (the MoE block's are the dense block's: the router's input follows the
+# attention, whose output adapter needs a dx)
+FROZEN_INPUT_PROJECTIONS = {"dense": 3, "moe": 3, "ssm": 4}
 LM_GRAD_LAYERS, LM_GRAD_BATCH, LM_GRAD_SEQ = 4, 2, 512
 
 ROUNDS, BATCH, SEQ, LR = 2, 16, 128, 1e-3
@@ -440,13 +474,16 @@ EVENT_TIME_RTOL, EVENT_LOSS_RTOL = 1e-12, 1e-6
 # Gilbert-Elliott; the clock forms chunks of up to 3 clients
 EVENT_CAPACITY_MBPS, EVENT_CHUNK = 200.0, 3
 VMAP_CHUNK = 6          # the cohort paths' chunk: all six clients
-# [lm-train]: 2 sequences of 512 tokens, gemma-2b at its full 18 layers and
-# rwkv6-3b cut to 4 (both at full width), a mid cut, three lanes at three
-# cuts for the cohort steps, three split steps, two full steps
-LM_TRAIN_LAYERS = {"gemma-2b": 18, "rwkv6-3b": 4}
-LM_TRAIN_LANE_CUTS = {"gemma-2b": (3, 9, 15), "rwkv6-3b": (1, 2, 3)}
+# [lm-train]: 2 sequences of 512 tokens, gemma-2b at its full 18 layers,
+# rwkv6-3b cut to 4 and qwen3-moe-30b-a3b to 8 (of 48, for time; all at
+# full width), a mid cut, three lanes at three cuts for the cohort steps,
+# three split steps, two full steps
+LM_TRAIN_LAYERS = {"gemma-2b": 18, "rwkv6-3b": 4, "qwen3-moe-30b-a3b": 8}
+LM_TRAIN_LANE_CUTS = {"gemma-2b": (3, 9, 15), "rwkv6-3b": (1, 2, 3),
+                      "qwen3-moe-30b-a3b": (2, 4, 6)}
+LM_TRAIN_ARCHS = tuple(LM_TRAIN_LAYERS)
 LM_TRAIN_BATCH, LM_TRAIN_SEQ, LM_TRAIN_STEPS = 2, 512, 3
-LAUNCH_ARGS = ("--mode", "central", "--arch", "gemma-2b", "--steps", "3", "--batch", "2",
+LAUNCH_ARGS = ("--mode", "central", "--arch", "granite-3-2b", "--steps", "3", "--batch", "2",
                "--seq", "512", "--log-every", "1", "--schedule", "warmup-cosine",
                "--warmup", "1", "--weight-decay", "0.01", "--grad-clip", "1.0")
 N_TRAIN, N_TEST = 4000, 512
@@ -459,6 +496,28 @@ RWKV6_PROJECTIONS = ((2560, 2560), (2560, 8960), (8960, 2560))
 # the LM slice: 4 prompts of 2048 tokens for the prefill; for the engine,
 # six requests of 16-64 prompt tokens and 16 new tokens in 4 slots
 LM_ARCHS = ("gemma-2b", "rwkv6-3b")
+# rwkv6-3b's [lm] phase at 8 of its 32 layers (cut for time: at 32 its
+# plain WKV scan, one step a token, made it 215 s of a 754 s run on one
+# H100 80GB HBM3 at 700 W)
+LM_PHASE_LAYERS = {"rwkv6-3b": 8}
+# the MoE, VLM and dense completions (the A10 slice), at full width:
+# qwen3-moe-30b-a3b at full depth (60.4 GB of bf16 weights), also served
+# with one tenant; qwen1.5-4b with random qkv biases, also served on an
+# int8 KV cache; internvl2-26b with 1024 random vision embeddings before
+# 1024 text tokens; grok-1-314b cut to 2 of its 64 layers (the whole model
+# would not fit one card)
+NEW_LM_PHASES = (("qwen3-moe-30b-a3b", {"one_tenant": True}),
+                 ("qwen1.5-4b", {"int8_cache": True}),
+                 ("internvl2-26b", {}),
+                 ("grok-1-314b", {"layers": 2}))
+# the [build] phase: every registered config through build_model on the
+# card at full width and this many layers, one forward of a prompt of
+# this many tokens
+BUILD_LAYERS, BUILD_SEQ = 2, 128
+# the int8 KV cache's decode logits against the model-type cache's: the
+# reference's bound (max |diff| over max |logit|,
+# tests/test_fused_lora_integration.py)
+INT8_CACHE_TOL = 5e-2
 PREFILL_BATCH, PREFILL_SEQ = 4, 2048
 SERVE_SLOTS, SERVE_CACHE, SERVE_NEW, SERVE_REQUESTS = 4, 128, 16, 6
 
@@ -1489,34 +1548,114 @@ def _layer(tree, i):
     return tree[i]
 
 
-def layerwise_prefill(model_k, model_p, params, lora, tokens) -> dict:
+class RouterLog:
+    """Records the expert ids of every MoE router call while active (the
+    blocks look ``_router`` up in their module at each call)."""
+
+    def __init__(self):
+        self.ids = []
+
+    def __enter__(self):
+        self._orig = blocks_module._router
+
+        def logged(cfg, p, lora, xg):
+            out = self._orig(cfg, p, lora, xg)
+            self.ids.append(out[1])
+            return out
+
+        blocks_module._router = logged
+        return self
+
+    def __exit__(self, *exc):
+        blocks_module._router = self._orig
+
+
+def kept_sets(cfg, eidx: torch.Tensor) -> torch.Tensor:
+    """Each token's experts that keep a slot at the capacity (one dispatch
+    group of ``eidx``'s tokens, the rule of ``blocks._moe_group_sorted``),
+    sorted, -1 where an entry drops."""
+    t, k = eidx.shape
+    n, e = t * k, cfg.moe.num_experts
+    cap = max(1, int(math.ceil(n / e * cfg.moe.capacity_factor)))
+    flat = eidx.reshape(-1)
+    order = torch.sort(flat, stable=True).indices
+    counts = torch.bincount(flat, minlength=e)
+    start = torch.cumsum(counts, 0) - counts
+    sorted_e = flat[order]
+    keep = torch.empty_like(flat, dtype=torch.bool)
+    keep[order] = torch.arange(n, device=flat.device) - start[sorted_e] < cap
+    return torch.where(keep, flat, -1).reshape(t, k).sort(dim=-1).values
+
+
+def routing_flips(cfg, got: torch.Tensor, want: torch.Tensor) -> dict:
+    """Tokens whose top-k expert set differs between two routings of one
+    group, and tokens whose kept (slotted) experts differ."""
+    return {"experts": int((got.sort(-1).values != want.sort(-1).values).any(-1).sum()),
+            "kept": int((kept_sets(cfg, got) != kept_sets(cfg, want)).any(-1).sum()),
+            "tokens": int(got.shape[0])}
+
+
+def layer_err(cfg, got: torch.Tensor, want: torch.Tensor) -> float:
+    """The per-layer reading held at LM_TOL: ``norm_err`` (the largest
+    element's error over the largest element), or for the MoE family the
+    relative 2-norm over the whole tensor: a token the two sides route to
+    another expert (its router sees a bf16-rounded input) changes its
+    output by O(1) of that token's, which the whole tensor's norm weighs
+    as one token of thousands, as it is."""
+    if cfg.family == "moe":
+        return rel2(got.float(), want.float())
+    return norm_err(got.float(), want.float())
+
+
+def layerwise_prefill(model_k, model_p, params, lora, batch) -> dict:
     """Every layer of the kernel model and of the plain model on the same
-    input (the plain model's), worst normalized error of each layer's
-    output and cache leaves, and of the last-token logits."""
+    input (the plain model's), worst error of each layer's output
+    (``layer_err``) and cache leaves (``norm_err``), and of the last-token
+    logits; for the MoE family also each layer's routing flips
+    (``routing_flips``) and the worst ``norm_err`` of an output."""
     cfg = model_p.cfg
-    x = model_p.embed(params, {"tokens": tokens})
+    x = model_p.embed(params, batch)
     ctx = model_p.make_ctx(x.shape[1], x.device)
-    worst = {"x": 0.0}
+    worst, flips = {"x": 0.0}, []
     for i in range(cfg.n_layers):
         p_l, lo_l = _layer(params["layers"], i), _layer(lora.get("layers", {}), i)
-        yk, ck, _ = model_k.block["prefill"](model_k.cfg, p_l, lo_l, x, ctx)
-        yp, cp, _ = model_p.block["prefill"](cfg, p_l, lo_l, x, ctx)
-        worst["x"] = max(worst["x"], norm_err(yk.float(), yp.float()))
+        with RouterLog() as log_k:
+            yk, ck, _ = model_k.block["prefill"](model_k.cfg, p_l, lo_l, x, ctx)
+        with RouterLog() as log_p:
+            yp, cp, _ = model_p.block["prefill"](cfg, p_l, lo_l, x, ctx)
+        worst["x"] = max(worst["x"], layer_err(cfg, yk, yp))
+        if cfg.family == "moe":
+            worst["x_norm_err"] = max(worst.get("x_norm_err", 0.0),
+                                      norm_err(yk.float(), yp.float()))
+            flips.append(routing_flips(cfg, log_k.ids[0], log_p.ids[0]))
         for key in cp:
             worst[key] = max(worst.get(key, 0.0), norm_err(ck[key].float(), cp[key].float()))
         x = yp
-    worst["logits"] = norm_err(model_k.unembed(params, yk[:, -1:]).float(),
-                               model_p.unembed(params, yp[:, -1:]).float())
+    worst["logits"] = layer_err(cfg, model_k.unembed(params, yk[:, -1:]),
+                                model_p.unembed(params, yp[:, -1:]))
+    if flips:
+        worst["routing_flips_by_layer"] = flips
     return worst
+
+
+def held_values(worst: dict) -> list:
+    """The readings of ``layerwise_prefill`` held at LM_TOL."""
+    return [v for key, v in worst.items() if key not in ("x_norm_err",
+                                                         "routing_flips_by_layer")]
 
 
 def layerwise_decode(model, params, lora, prompt) -> float:
     """For each layer: its prefill on the prompt's input to that layer, and
     its decode of the same input token by token from an empty cache of
-    SERVE_CACHE slots; worst normalized error of the outputs."""
+    SERVE_CACHE slots; worst error of the outputs (``layer_err``).  The
+    MoE block's decode computes every expert for every token (the
+    reference's dense fallback), so its prefill here does the same
+    (``moe_dense_fallback``): the prefill's capacity drops, which a
+    40-token prompt meets, are the dispatch's, not the cache's
+    (``lm_phase`` prints that reading too)."""
     cfg = model.cfg
     x = model.embed(params, {"tokens": prompt})
-    ctx = model.make_ctx(x.shape[1], x.device)
+    ctx = dict(model.make_ctx(x.shape[1], x.device), moe_dense_fallback=True)
     worst = 0.0
     for i in range(cfg.n_layers):
         p_l, lo_l = _layer(params["layers"], i), _layer(lora.get("layers", {}), i)
@@ -1528,7 +1667,7 @@ def layerwise_decode(model, params, lora, prompt) -> float:
             y_t, cache = model.block["decode"](cfg, p_l, lo_l, x[:, t:t + 1], cache, t,
                                                model.make_ctx(1, x.device, positions=pos))
             outs.append(y_t)
-        worst = max(worst, norm_err(torch.cat(outs, dim=1).float(), y.float()))
+        worst = max(worst, layer_err(cfg, torch.cat(outs, dim=1), y))
         x = y
     return worst
 
@@ -1541,30 +1680,158 @@ def _leaves(tree):
         yield tree
 
 
-def lm_phase(arch: str, seed: int) -> dict:
-    """Prefill and serving of one decoder LM at full width and depth in its
-    published bf16, random weights from ``seed``."""
+def seq_kernel(cfg) -> str:
+    """The sequence kernel of a family's prefill: WKV6 for RWKV6, flash
+    attention for every attention family."""
+    return "wkv6" if cfg.family == "ssm" else "flash_attention"
+
+
+def lm_batch(cfg, seed: int) -> dict:
+    """The prefill's input: PREFILL_BATCH prompts of PREFILL_SEQ tokens; for
+    the VLM, n_vision_tokens random vision embeddings (N(0, 1) in the
+    model's type) and PREFILL_SEQ - n_vision_tokens text tokens."""
+    rs = np.random.default_rng(seed)
+    n_text = PREFILL_SEQ - (cfg.n_vision_tokens if cfg.family == "vlm" else 0)
+    batch = {"tokens": torch.from_numpy(rs.integers(0, cfg.vocab_size,
+                                                    (PREFILL_BATCH, n_text))
+                                        .astype(np.int32)).cuda()}
+    if cfg.family == "vlm":
+        batch["vision_embeds"] = torch.from_numpy(rs.standard_normal(
+            (PREFILL_BATCH, cfg.n_vision_tokens, cfg.vision_embed_dim))
+            .astype(np.float32)).to(torch_dtype(cfg.dtype)).cuda()
+    return batch
+
+
+def random_biases(params, gen) -> int:
+    """qkv biases ~ N(0, 0.5) in place (they are zero at init): a check
+    with zero biases would not see them.  Returns how many were drawn."""
+    n = 0
+    for key in ("bq", "bk", "bv"):
+        leaf = params["layers"].get("attn", {}).get(key)
+        if leaf is not None:
+            leaf.normal_(0.0, 0.5, generator=gen)
+            n += leaf.numel()
+    return n
+
+
+def serve_requests(cfg, seed: int, tenants) -> list:
+    """SERVE_REQUESTS greedy requests of 16-64 prompt tokens and SERVE_NEW
+    new tokens, round-robin over ``tenants``."""
+    rs = np.random.default_rng(seed)
+    return [Request(uid=i, tenant=tenants[i % len(tenants)],
+                    prompt=rs.integers(2, cfg.vocab_size,
+                                       size=int(rs.integers(16, 65))).astype(np.int32),
+                    max_new_tokens=SERVE_NEW) for i in range(SERVE_REQUESTS)]
+
+
+def run_engine(cfg, params, adapters, reqs, seed: int, record: bool = False) -> dict:
+    """One ServingEngine run over ``reqs``: wall, stats, launches (counted
+    from just before ``run`` to just after), peak bytes; with ``record``
+    each step's token column and logits (on the host)."""
+    engine = ServingEngine(cfg, params, adapters, slots=SERVE_SLOTS, cache_len=SERVE_CACHE,
+                           seed=seed)
+    steps = []
+    if record:
+        inner = engine._step
+
+        def step(params_, lora_, cache_, tok_, pos_):
+            logits, cache_ = inner(params_, lora_, cache_, tok_, pos_)
+            steps.append((tok_.cpu(), logits[:, -1].float().cpu()))
+            return logits, cache_
+
+        engine._step = step
+    for r in reqs:
+        engine.submit(r)
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()                                  # just before the path runs
+        t0 = time.perf_counter()
+        done = engine.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts()                          # just after
+    # each tenant's requests drain in batches of SERVE_SLOTS, in order; a
+    # batch takes its longest prompt's steps and SERVE_NEW - 1 more
+    tenants = sorted({r.tenant for r in reqs})
+    queues = [[r for r in reqs if r.tenant == t] for t in tenants]
+    want_stats = {"decode_steps": sum(max(len(r.prompt) for r in q[i:i + SERVE_SLOTS])
+                                      + SERVE_NEW - 1
+                                      for q in queues for i in range(0, len(q), SERVE_SLOTS)),
+                  "adapter_switches": len(tenants), "completed": len(reqs)}
+    out = {"wall_s": wall, "stats": engine.stats, "launches": counts,
+           "tenants": len(tenants), "new_tokens": SERVE_NEW * len(done),
+           "prompt_tokens": sum(len(r.prompt) for r in reqs),
+           "tokens_per_s": SERVE_NEW * len(done) / wall,
+           "steps_per_s": engine.stats["decode_steps"] / wall,
+           "max_mem_bytes": torch.cuda.max_memory_allocated()}
+    if counts != {name: 0 for name in COUNTERS}:
+        raise AssertionError(f"{cfg.name} decode launched a kernel: {counts}")
+    if engine.stats != want_stats:
+        raise AssertionError(f"{cfg.name} engine stats {engine.stats}, expected {want_stats}")
+    if sorted(r.uid for r in done) != sorted(r.uid for r in reqs) or any(
+            r.output is None or len(r.output) != SERVE_NEW
+            or not ((r.output >= 0) & (r.output < cfg.vocab_size)).all() for r in done):
+        raise AssertionError(f"{cfg.name}: not every request completed with "
+                             f"{SERVE_NEW} tokens")
+    out["outputs"] = {r.uid: r.output.tolist() for r in done}
+    if record:
+        out["steps"] = steps
+    return out
+
+
+def int8_cache_gap(fp: dict, q: dict) -> dict:
+    """The int8-cache engine against the model-type cache engine on the same
+    requests: each step's logits gap (max |diff| over the float logits'
+    max |value|, the reference's reading in
+    tests/test_fused_lora_integration.py), over the steps whose token
+    column both engines fed alike (after the first greedy disagreement the
+    two decode different tokens); and greedy agreement."""
+    gaps, same = [], 0
+    for (tok_f, lf), (tok_q, lq) in zip(fp["steps"], q["steps"]):
+        if not torch.equal(tok_f, tok_q):
+            break
+        same += 1
+        gaps.append(float((lf - lq).abs().max() / lf.abs().max().clamp_min(1e-9)))
+    agree = [sum(int(a == b) for a, b in zip(fp["outputs"][uid], q["outputs"][uid]))
+             for uid in fp["outputs"]]
+    return {"steps_compared": same, "steps": len(fp["steps"]), "max_gap": max(gaps),
+            "mean_gap": sum(gaps) / len(gaps),
+            "greedy_tokens_agreeing": sum(agree),
+            "greedy_tokens": SERVE_NEW * len(agree), "tolerance": INT8_CACHE_TOL}
+
+
+def lm_phase(arch: str, seed: int, layers: Optional[int] = None,
+             one_tenant: bool = False, int8_cache: bool = False) -> dict:
+    """Prefill and serving of one decoder LM at full width (and depth, unless
+    ``layers`` cuts it) in its published bf16, random weights from
+    ``seed`` (qkv biases drawn too); with ``one_tenant`` also an engine
+    run with one tenant's requests, and with ``int8_cache`` the two-tenant
+    run again on an int8 KV cache against the model-type one."""
     base = REGISTRY[arch]
+    if layers is not None:
+        base = base.with_(n_layers=layers)
     kernels_cfg = base.with_(attn_impl="chunked", wkv_impl="chunked")
     plain_cfg = base.with_(attn_impl="naive", wkv_impl="scan")
-    expect = {name: 0 for name in COUNTERS}
-    expect["flash_attention" if base.family == "dense" else "wkv6"] = base.n_layers
+    expect = no_launches(**{seq_kernel(base): base.n_layers})
     gen = torch.Generator(device="cuda").manual_seed(seed)
     t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
     model = build_model(kernels_cfg)                    # on the card by default
     params = model.init_params(gen)
+    biases = random_biases(params, gen)
     adapters = lm_adapters(model, gen)
     torch.cuda.synchronize()
     n_params = sum(x.numel() for x in _leaves(params))
-    out = {"arch": arch, "dtype": base.dtype, "layers": base.n_layers,
+    out = {"arch": arch, "family": base.family, "dtype": base.dtype,
+           "layers": base.n_layers, "published_layers": REGISTRY[arch].n_layers,
            "d_model": base.d_model, "vocab": base.vocab_size, "params": n_params,
            "param_bytes": sum(x.numel() * x.element_size() for x in _leaves(params)),
-           "init_s": time.perf_counter() - t0}
+           "qkv_bias_values": biases, "init_s": time.perf_counter() - t0,
+           "init_peak_bytes": torch.cuda.max_memory_allocated()}
     print(f"[lm:{arch}] {json.dumps(out)}", flush=True)
 
-    rs = np.random.default_rng(seed)
-    tokens = torch.from_numpy(rs.integers(0, base.vocab_size, (PREFILL_BATCH, PREFILL_SEQ))
-                              .astype(np.int32)).cuda()
+    batch = lm_batch(base, seed)
     lora = adapters["client-a"]
     runs, prefill_rows = {}, {}
     for label, cfg in (("kernels", kernels_cfg), ("plain", plain_cfg)):
@@ -1574,13 +1841,13 @@ def lm_phase(arch: str, seed: int) -> dict:
             torch.cuda.reset_peak_memory_stats()
             reset_counts()                              # just before the path runs
             t0 = time.perf_counter()
-            logits, cache = m.prefill(params, lora, {"tokens": tokens})
+            logits, cache = m.prefill(params, lora, batch)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             counts = read_counts()                      # just after
             peak = torch.cuda.max_memory_allocated()
-            dev_s, top = device_time(lambda: m.prefill(params, lora, {"tokens": tokens}))
-        want = expect if label == "kernels" else {name: 0 for name in COUNTERS}
+            dev_s, top = device_time(lambda: m.prefill(params, lora, batch))
+        want = expect if label == "kernels" else no_launches()
         row = {"wall_s": wall, "device_s": dev_s, "busy_share": dev_s / wall,
                "max_mem_bytes": peak, "launches": counts,
                "tokens_per_s": PREFILL_BATCH * PREFILL_SEQ / wall, "top": top}
@@ -1596,41 +1863,27 @@ def lm_phase(arch: str, seed: int) -> dict:
         prefill_rows[label] = row
     (lk, ck, _), (lp, cp, _) = runs["kernels"], runs["plain"]
     free = {"logits_err": norm_err(lk.float(), lp.float()),
+            "logits_rel2": rel2(lk.float(), lp.float()),
             "cache_err": {key: norm_err(ck[key].float(), cp[key].float()) for key in ck},
             "argmax_equal": int((lk.argmax(-1) == lp.argmax(-1)).sum())}
     del runs, lk, ck, lp, cp, logits, cache
     with torch.no_grad():
         held = layerwise_prefill(build_model(kernels_cfg), build_model(plain_cfg),
-                                 params, lora, tokens)
+                                 params, lora, batch)
     cmp = {"free_running": free, "per_layer": held, "tolerance": LM_TOL}
     print(f"[lm:{arch}] prefill kernels vs plain {json.dumps(cmp)}", flush=True)
-    if not max(held.values()) <= LM_TOL:
+    if not max(held_values(held)) <= LM_TOL:
         raise AssertionError(f"{arch}: the kernel prefill and the plain prefill disagree "
                              f"layer by layer: {held}")
     out["prefill"] = {"kernels": prefill_rows["kernels"], "plain": prefill_rows["plain"],
                       **cmp}
-    out["lora_kernels"] = lm_lora_prefill(kernels_cfg, params, adapters, tokens)
+    out["lora_kernels"] = lm_lora_prefill(kernels_cfg, params, adapters, batch)
 
-    # serving: six greedy requests over two tenants
-    rs = np.random.default_rng(seed + 1)
+    # serving: six greedy requests over two tenants (and over one)
     tenants = ("client-a", "client-b")
-    reqs = [Request(uid=i, tenant=tenants[i % 2],
-                    prompt=rs.integers(2, base.vocab_size,
-                                       size=int(rs.integers(16, 65))).astype(np.int32),
-                    max_new_tokens=SERVE_NEW) for i in range(SERVE_REQUESTS)]
-    engine = ServingEngine(kernels_cfg, params, adapters, slots=SERVE_SLOTS,
-                           cache_len=SERVE_CACHE, seed=seed)
-    for r in reqs:
-        engine.submit(r)
+    reqs = serve_requests(base, seed + 1, tenants)
+    serve = run_engine(kernels_cfg, params, adapters, reqs, seed, record=int8_cache)
     with torch.no_grad():
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        reset_counts()                                  # just before the path runs
-        t0 = time.perf_counter()
-        done = engine.run()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        counts = read_counts()                          # just after
         serve_dev_s, serve_top = device_time(
             lambda: model.serve_step(params, adapters["client-a"],
                                      model.init_cache(SERVE_SLOTS, SERVE_CACHE),
@@ -1642,29 +1895,39 @@ def lm_phase(arch: str, seed: int) -> dict:
                          torch.ones((SERVE_SLOTS, 1), dtype=torch.int32, device="cuda"), 0)
         torch.cuda.synchronize()
         step_wall = time.perf_counter() - t1
-    steps = sum(max(len(r.prompt) for r in reqs if r.tenant == t) + SERVE_NEW - 1
-                for t in tenants)
-    want_stats = {"decode_steps": steps, "adapter_switches": 2, "completed": SERVE_REQUESTS}
-    serve = {"wall_s": wall, "stats": engine.stats, "launches": counts,
-             "new_tokens": SERVE_NEW * len(done),
-             "prompt_tokens": sum(len(r.prompt) for r in reqs),
-             "tokens_per_s": SERVE_NEW * len(done) / wall,
-             "steps_per_s": engine.stats["decode_steps"] / wall,
-             "max_mem_bytes": torch.cuda.max_memory_allocated(),
-             "one_step": {"wall_s": step_wall, "device_s": serve_dev_s,
-                          "busy_share": serve_dev_s / step_wall, "top": serve_top}}
+    serve["one_step"] = {"wall_s": step_wall, "device_s": serve_dev_s,
+                         "busy_share": serve_dev_s / step_wall, "top": serve_top}
+    steps = serve.pop("steps", None)
+    outputs = serve.pop("outputs")
     print(f"[lm:{arch}] serve {json.dumps(serve)}", flush=True)
-    if counts != {name: 0 for name in COUNTERS}:
-        raise AssertionError(f"{arch} decode launched a kernel: {counts}")
-    if engine.stats != want_stats:
-        raise AssertionError(f"{arch} engine stats {engine.stats}, expected {want_stats}")
-    if sorted(r.uid for r in done) != list(range(SERVE_REQUESTS)) or any(
-            r.output is None or len(r.output) != SERVE_NEW
-            or not ((r.output >= 0) & (r.output < base.vocab_size)).all() for r in done):
-        raise AssertionError(f"{arch}: not every request completed with "
-                             f"{SERVE_NEW} tokens")
-    print(f"[lm:{arch}] outputs " + json.dumps({r.uid: r.output[:8].tolist()
-                                                for r in done}), flush=True)
+    print(f"[lm:{arch}] outputs " + json.dumps({uid: o[:8] for uid, o in outputs.items()}),
+          flush=True)
+    out["serve"] = serve
+    if one_tenant:      # one batch of SERVE_SLOTS - 1 requests of one tenant
+        solo = run_engine(kernels_cfg, params, adapters,
+                          serve_requests(base, seed + 2, ("client-a",))[:SERVE_SLOTS - 1],
+                          seed)
+        solo.pop("outputs")
+        print(f"[lm:{arch}] serve one tenant {json.dumps(solo)}", flush=True)
+        out["serve_one_tenant"] = solo
+    if int8_cache:
+        q_cfg = kernels_cfg.with_(kv_cache_dtype="int8")
+        q = run_engine(q_cfg, params, adapters, serve_requests(base, seed + 1, tenants),
+                       seed, record=True)
+        gap = int8_cache_gap({"steps": steps, "outputs": outputs}, q)
+        q.pop("steps")
+        q.pop("outputs")
+        gap["engine"] = q
+        gap["cache_bytes"] = {
+            dt: sum(x.numel() * x.element_size() for x in _leaves(
+                build_model(c).init_cache(SERVE_SLOTS, SERVE_CACHE)))
+            for dt, c in (("model", kernels_cfg), ("int8", q_cfg))}
+        print(f"[lm:{arch}] serve int8 KV cache vs {base.dtype} cache {json.dumps(gap)}",
+              flush=True)
+        if not gap["max_gap"] < INT8_CACHE_TOL:
+            raise AssertionError(f"{arch}: the int8 KV cache's logits leave the reference's "
+                                 f"bound: {gap}")
+        out["int8_cache"] = gap
 
     # the reference's invariant, decode == the parallel forward: for one
     # request's prompt, through the entry points (reported) and layer by
@@ -1687,11 +1950,55 @@ def lm_phase(arch: str, seed: int) -> dict:
     if not held <= LM_TOL:
         raise AssertionError(f"{arch}: decode and prefill of one prompt disagree "
                              f"layer by layer: {inv}")
-    out["serve"] = serve
     out["decode_vs_prefill"] = inv
-    del model, params, adapters, lora, engine, cache, pre, dec
+    del model, params, adapters, lora, cache, pre, dec
     gc.collect()
     torch.cuda.empty_cache()
+    return out
+
+
+def build_phase() -> dict:
+    """Every registered config through ``build_model`` on the card: the
+    ported families (encoder, dense, moe, vlm, ssm) at full width and
+    BUILD_LAYERS layers in their published types, random weights, one
+    forward of BUILD_SEQ tokens without grad whose hidden states must be
+    finite; the hybrid and encdec families must raise NotImplementedError
+    naming ROADMAP item 10."""
+    out = {}
+    for name, cfg in REGISTRY.items():
+        if cfg.family in ("hybrid", "encdec"):
+            try:
+                build_model(cfg)
+            except NotImplementedError as exc:
+                if "ROADMAP Queue A, item 10" not in str(exc):
+                    raise
+                out[name] = {"family": cfg.family, "raises": str(exc)}
+                continue
+            raise AssertionError(f"{name}: build_model built the unported family "
+                                 f"{cfg.family}")
+        cut = cfg.with_(n_layers=min(cfg.n_layers, BUILD_LAYERS))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        model = build_model(cut)
+        params = model.init_params(torch.Generator(device="cuda").manual_seed(90))
+        tokens = torch.randint(0, cut.vocab_size, (1, BUILD_SEQ), device="cuda",
+                               generator=torch.Generator(device="cuda").manual_seed(91))
+        with torch.no_grad():
+            h, _ = model.forward_hidden(params, None, {"tokens": tokens})
+        torch.cuda.synchronize()
+        row = {"family": cfg.family, "dtype": cfg.dtype, "layers": cut.n_layers,
+               "d_model": cfg.d_model, "params": sum(x.numel() for x in _leaves(params)),
+               "wall_s": time.perf_counter() - t0,
+               "peak_bytes": torch.cuda.max_memory_allocated()}
+        if tuple(h.shape) != (1, BUILD_SEQ, cfg.d_model) or not bool(
+                torch.isfinite(h.float()).all()):
+            raise AssertionError(f"{name}: forward on the card gave {tuple(h.shape)}, "
+                                 f"finite {bool(torch.isfinite(h.float()).all())}")
+        out[name] = row
+        del model, params, h
+        torch.cuda.empty_cache()
+    print(f"[build-models] {json.dumps(out)}", flush=True)
     return out
 
 
@@ -1703,13 +2010,20 @@ def lora_projections(lora) -> int:
     return sum(lora_projections(v) for v in lora.values() if isinstance(v, dict))
 
 
-def _prefill_counted(model, params, lora, tokens) -> tuple:
+def router_projections(cfg) -> int:
+    """The f32 adapted projections a layer applies: the MoE router, when
+    the adapters target it (``wr_router``); every other adapted
+    projection is in the model's type."""
+    return int(cfg.family == "moe" and "wr_router" in cfg.lora.targets)
+
+
+def _prefill_counted(model, params, lora, batch) -> tuple:
     """One prefill, its wall time and the launches of every kernel in it."""
     with torch.no_grad():
         torch.cuda.synchronize()
         reset_counts()                                  # just before the path runs
         t0 = time.perf_counter()
-        logits, _ = model.prefill(params, lora, {"tokens": tokens})
+        logits, _ = model.prefill(params, lora, batch)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = read_counts()                          # just after
@@ -1718,76 +2032,84 @@ def _prefill_counted(model, params, lora, tokens) -> tuple:
     return logits, wall, counts
 
 
-def layerwise_grouped(model_g, model_p, params, lora_g, loras, tokens) -> list:
+def _rows(batch, lo: int, hi: int) -> dict:
+    return {key: v[lo:hi] for key, v in batch.items()}
+
+
+def layerwise_grouped(model_g, model_p, params, lora_g, loras, batch) -> list:
     """Every layer of the grouped model on the two tenants' prompts
-    concatenated (tenant i's adapters on rows of half i) against each
-    tenant's layer of the plain model on its half, from the same inputs
-    (the plain model's): worst normalized error of each half."""
+    concatenated (tenant i's adapters on rows of half i; for the MoE family
+    each half its own dispatch group, ``moe_groups=2``, as each tenant's
+    prefill alone has) against each tenant's layer of the plain model on
+    its half, from the same inputs (the plain model's): worst error
+    (``layer_err``) of each half."""
     cfg = model_p.cfg
-    h = tokens.shape[0] // 2
-    xs = [model_p.embed(params, {"tokens": tokens[i * h:(i + 1) * h]}) for i in range(2)]
-    ctx = model_p.make_ctx(tokens.shape[1], tokens.device)
+    h = batch["tokens"].shape[0] // 2
+    xs = [model_p.embed(params, _rows(batch, i * h, (i + 1) * h)) for i in range(2)]
+    seq = xs[0].shape[1]
+    ctx = model_p.make_ctx(seq, xs[0].device)
+    ctx_g = model_g.make_ctx(seq, xs[0].device, moe_groups=2)
     worst = [0.0, 0.0]
     for i in range(cfg.n_layers):
         p_l = _layer(params["layers"], i)
         yg, _, _ = model_g.block["prefill"](model_g.cfg, p_l, _layer(lora_g["layers"], i),
-                                            torch.cat(xs), ctx)
+                                            torch.cat(xs), ctx_g)
         ys = [model_p.block["prefill"](cfg, p_l, _layer(lo["layers"], i), x, ctx)[0]
               for lo, x in zip(loras, xs)]
         for half in range(2):
-            worst[half] = max(worst[half], norm_err(yg[half * h:(half + 1) * h].float(),
-                                                    ys[half].float()))
+            worst[half] = max(worst[half], layer_err(cfg, yg[half * h:(half + 1) * h],
+                                                     ys[half]))
         xs = ys
     return worst
 
 
-def lm_lora_prefill(kernels_cfg, params, adapters, tokens) -> dict:
+def lm_lora_prefill(kernels_cfg, params, adapters, batch) -> dict:
     """The bf16 LoRA kernels on an LM's prefill (4 x 2048 tokens, attention
     or WKV through its kernel): ``LoRAConfig(impl="fused")`` with one
-    tenant's adapters (lora_matmul, bf16) and with two tenants' adapters
-    stacked into a (G = 2, ...) group per layer, prompts 0-1 to the first
-    and 2-3 to the second (grouped_lora chunk, bf16); each held layer by
-    layer against the einsum prefill (per tenant for the group)."""
+    tenant's adapters (lora_matmul, bf16; the MoE router's adapter fp32)
+    and with two tenants' adapters stacked into a (G = 2, ...) group per
+    layer, prompts 0-1 to the first and 2-3 to the second (grouped_lora
+    chunk, bf16; the router fp32); each held layer by layer against the
+    einsum prefill (per tenant for the group)."""
     arch = kernels_cfg.name
     fused_cfg = kernels_cfg.with_(lora=dataclasses.replace(kernels_cfg.lora, impl="fused"))
     lora = adapters["client-a"]
     n_proj = lora_projections(lora)
-    seq_kernel = "flash_attention" if kernels_cfg.family == "dense" else "wkv6"
+    n_f32 = router_projections(kernels_cfg) * kernels_cfg.n_layers
+    n_bf16 = n_proj - n_f32
+    seq = {seq_kernel(kernels_cfg): kernels_cfg.n_layers}
     fused_model, einsum_model = build_model(fused_cfg), build_model(kernels_cfg)
-    out = {"adapted_projections": n_proj}
+    out = {"adapted_projections": n_proj, "f32_projections": n_f32}
 
-    _, wall_e, counts_e = _prefill_counted(einsum_model, params, lora, tokens)
-    logits_f, wall_f, counts_f = _prefill_counted(fused_model, params, lora, tokens)
+    _, wall_e, counts_e = _prefill_counted(einsum_model, params, lora, batch)
+    logits_f, wall_f, counts_f = _prefill_counted(fused_model, params, lora, batch)
     # every bf16 launch on the wgmma tile
-    want = no_launches(lora_matmul=n_proj, lora_matmul_bf16=n_proj, lora_matmul_wgmma=n_proj,
-                       **{seq_kernel: kernels_cfg.n_layers})
+    want = no_launches(lora_matmul=n_proj, lora_matmul_bf16=n_bf16, lora_matmul_wgmma=n_bf16,
+                       **seq)
     if counts_f != want:
         raise AssertionError(f"{arch} fused prefill: launches {counts_f}, expected {want}")
-    held = layerwise_prefill(fused_model, einsum_model, params, lora, tokens)
+    held = layerwise_prefill(fused_model, einsum_model, params, lora, batch)
     with torch.no_grad():
-        dev_f, top_f = device_time(lambda: fused_model.prefill(params, lora,
-                                                               {"tokens": tokens}))
-        dev_e, top_e = device_time(lambda: einsum_model.prefill(params, lora,
-                                                                {"tokens": tokens}))
+        dev_f, top_f = device_time(lambda: fused_model.prefill(params, lora, batch))
+        dev_e, top_e = device_time(lambda: einsum_model.prefill(params, lora, batch))
     out["fused"] = {"wall_s": wall_f, "einsum_wall_s": wall_e, "device_s": dev_f,
                     "einsum_device_s": dev_e, "top": top_f, "einsum_top": top_e,
                     "launches": counts_f, "per_layer": held, "tolerance": LM_TOL}
     print(f"[lm:{arch}] prefill fused LoRA vs einsum {json.dumps(out['fused'])}", flush=True)
-    if not max(held.values()) <= LM_TOL:
+    if not max(held_values(held)) <= LM_TOL:
         raise AssertionError(f"{arch}: the fused-LoRA prefill and the einsum prefill "
                              f"disagree layer by layer: {held}")
 
     loras = (adapters["client-a"], adapters["client-b"])
     grouped = tree_map(lambda u, v: torch.stack([u, v], dim=1), *loras)
-    logits_g, wall_g, counts_g = _prefill_counted(fused_model, params, grouped, tokens)
-    want = no_launches(grouped_lora_chunk=n_proj, grouped_lora_chunk_bf16=n_proj,
-                       grouped_lora_chunk_wgmma=n_proj, **{seq_kernel: kernels_cfg.n_layers})
+    logits_g, wall_g, counts_g = _prefill_counted(fused_model, params, grouped, batch)
+    want = no_launches(grouped_lora_chunk=n_proj, grouped_lora_chunk_bf16=n_bf16,
+                       grouped_lora_chunk_wgmma=n_bf16, **seq)
     if counts_g != want:
         raise AssertionError(f"{arch} grouped prefill: launches {counts_g}, expected {want}")
     with torch.no_grad():
-        halves = layerwise_grouped(fused_model, einsum_model, params, grouped, loras, tokens)
-        dev_g, _ = device_time(lambda: fused_model.prefill(params, grouped,
-                                                           {"tokens": tokens}))
+        halves = layerwise_grouped(fused_model, einsum_model, params, grouped, loras, batch)
+        dev_g, _ = device_time(lambda: fused_model.prefill(params, grouped, batch))
     out["grouped"] = {"wall_s": wall_g, "device_s": dev_g, "launches": counts_g,
                       "per_layer_per_tenant": halves, "tolerance": LM_TOL}
     print(f"[lm:{arch}] prefill 2-tenant grouped LoRA vs each tenant's einsum "
@@ -3211,49 +3533,69 @@ def _worst_rel2(a, b) -> float:
 
 def lm_train(arch: str, seed: int) -> dict:
     """LM split training at full width (gemma-2b at its full depth, rwkv6-3b
-    at LM_TRAIN_LAYERS), bf16, fused LoRA (bf16 lora_matmul forward and dx;
-    the grouped kernel for 3-D adapters), a mid cut:
+    and qwen3-moe-30b-a3b at LM_TRAIN_LAYERS), bf16, fused LoRA (bf16
+    lora_matmul forward and dx; the MoE router's adapter fp32; the grouped
+    kernel for 3-D adapters), a mid cut:
 
     1. the LM server step on the sliced path against the scan path (the
        cut a 0-d tensor on the card, so every layer runs masked) on the
        same inputs: loss, dv, the new adapters and the optimizer's first
-       moment bit for bit;
+       moment bit for bit; for the MoE family, whose scan path adds the
+       router's aux loss and the sliced path does not, the logits bit for
+       bit and the scan loss equal to the sliced loss plus the aux, bit for
+       bit (the steps run for their launches);
     2. LM_TRAIN_STEPS split steps (client forward, server step, client
        backward) on one repeated batch: the loss falls;
     3. ``make_full_train_step`` with remat off and on, two steps each from
-       the same state: equal losses;
+       the same state: equal losses (bit for bit for the MoE family);
     4. ``make_server_step_batched`` over three lanes at LM_TRAIN_LANE_CUTS:
        vmap and ragged against the three sequential steps, lane by lane
        (losses within LM_GRAD_LOSS_RTOL; dv and each adapter leaf's
        gradient within LM_GRAD_TOL in the relative 2-norm, the gradient
        read from the returned optimizer state, whose step-1 first moment
-       is (1 - b1) g; adapters within 2 lr, all a step-1 update can move);
+       is (1 - b1) g; adapters within 2 lr, all a step-1 update can move).
+       For the MoE family the sequential steps are scan steps at a 0-d cut
+       (each lane its own dispatch and aux, as a vmap lane has), and the
+       ragged lanes are printed, not held: the ragged step reports no aux
+       (the reference's);
 
-    each call's launches asserted (with T adapted projections a layer, L
-    layers and F frozen-input ones in layer 0: sliced server step 2T(L-c),
-    scan 2TL, split step 2TL - F, full step 2TL - F and with remat 3TL - F
-    (each layer's forward again in the backward), vmap 2TL grouped, ragged
-    2T(L-c) grouped per cut; every bf16 launch on the wgmma tile), and
-    each call's wall s, peak bytes and (for the main calls) device s
-    printed."""
+    each call's launches asserted (with T adapted projections a layer, R of
+    them the f32 router, L layers and F frozen-input ones in layer 0:
+    sliced server step 2T(L-c), scan 2TL, split step 2TL - F, full step
+    2TL - F and with remat 3TL - F (each layer's forward again in the
+    backward), vmap 2TL grouped, ragged 2T(L-c) grouped per cut, the R
+    ones on fp32 tiles and the router's grouped dx call (K = E <= 128) in
+    direct mode; every bf16 launch on the wgmma tile), and each call's
+    wall s, peak bytes and (for the main calls) device s printed."""
     from repro_torch.core import splitfl
     from repro_torch.optim import AdamW
 
     model, params, lora, new_batch = lm_train_model(arch, seed)
     cfg = model.cfg
+    moe = cfg.family == "moe"
     nl, t = cfg.n_layers, lora_projections(lora) // cfg.n_layers
+    tf = router_projections(cfg)
+    tb = t - tf
     frozen = FROZEN_INPUT_PROJECTIONS[cfg.family]
     cut = nl // 2
     opt = AdamW(LR)
     batch = new_batch()
     rows, launches, checks = {}, {}, {}
 
-    def lm(n):
-        return no_launches(lora_matmul=n, lora_matmul_bf16=n, lora_matmul_wgmma=n)
+    def lm(layers_fwd, layers_bwd, frozen_=0):
+        """lora_matmul launches: a forward over ``layers_fwd`` layers and a
+        dx over ``layers_bwd``, less the frozen-input dx calls."""
+        bf16 = tb * (layers_fwd + layers_bwd) - frozen_
+        return no_launches(lora_matmul=bf16 + tf * (layers_fwd + layers_bwd),
+                           lora_matmul_bf16=bf16, lora_matmul_wgmma=bf16)
 
-    def gl(n):
-        return no_launches(grouped_lora_chunk=n, grouped_lora_chunk_bf16=n,
-                           grouped_lora_chunk_wgmma=n)
+    def gl(layers):
+        """grouped launches of a forward and backward over ``layers`` layers."""
+        bf16 = 2 * tb * layers
+        direct = tf * layers if cfg.moe is None or cfg.moe.num_experts <= 128 else 0
+        return no_launches(grouped_lora_chunk=bf16 + 2 * tf * layers - direct,
+                           grouped_lora_chunk_bf16=bf16, grouped_lora_chunk_wgmma=bf16,
+                           grouped_lora_direct=direct)
 
     def record(name, row, want):
         rows[name] = {k: v for k, v in row.items() if k != "launches"}
@@ -3270,15 +3612,28 @@ def lm_train(arch: str, seed: int) -> dict:
     sliced_step = splitfl.make_server_step(model, opt, static_cut=cut)
     scan_step = splitfl.make_server_step(model, opt, path="scan")
     a, row = counted(lambda: sliced_step(params, ls, opt.init(ls), v, batch), profile=True)
-    record("server_step_sliced", row, lm(2 * t * (nl - cut)))
+    record("server_step_sliced", row, lm(nl - cut, nl - cut))
     cut_t = torch.tensor(cut, device=v.device)
     b, row = counted(lambda: scan_step(params, ls, opt.init(ls), v, batch, cut_t),
                      profile=True)
-    record("server_step_scan", row, lm(2 * t * nl))
-    checks["sliced_vs_scan"] = {
-        "bit_equal": {"loss": bool(torch.equal(a[0], b[0])),
-                      "dv": bool(torch.equal(a[3], b[3])), "adapters": _bits(a[1], b[1]),
-                      "first_moment": _bits(a[2].mu, b[2].mu)}}
+    record("server_step_scan", row, lm(nl, nl))
+    if moe:
+        with torch.no_grad():
+            la, ga = model.loss(params, ls, batch, cut=cut, side="server", x0=v)
+            lb, gb = model.loss(params, ls, batch, cut=cut_t, side="server", x0=v,
+                                path="scan")
+            _, aux = model.forward_hidden(params, ls, batch, cut=cut_t, side="server",
+                                          x0=v, path="scan")
+        checks["sliced_vs_scan"] = {
+            "bit_equal": {"logits": bool(torch.equal(ga, gb)),
+                          "loss_is_sliced_plus_aux": bool(torch.equal(lb, la + aux))},
+            "aux": float(aux), "step_losses": [float(a[0]), float(b[0])],
+            "dv_rel2": rel2(b[3], a[3])}
+    else:
+        checks["sliced_vs_scan"] = {
+            "bit_equal": {"loss": bool(torch.equal(a[0], b[0])),
+                          "dv": bool(torch.equal(a[3], b[3])), "adapters": _bits(a[1], b[1]),
+                          "first_moment": _bits(a[2].mu, b[2].mu)}}
     if not all(checks["sliced_vs_scan"]["bit_equal"].values()):
         raise AssertionError(f"{arch}: sliced and scan server steps differ: "
                              f"{checks['sliced_vs_scan']}")
@@ -3298,7 +3653,7 @@ def lm_train(arch: str, seed: int) -> dict:
 
     for i in range(LM_TRAIN_STEPS):
         loss, row = counted(split_step)
-        record(f"split_step_{i}", row, lm(2 * t * nl - frozen))
+        record(f"split_step_{i}", row, lm(nl, nl, frozen))
         losses.append(float(loss))
     checks["split_losses"] = losses
     if not (all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]):
@@ -3320,20 +3675,25 @@ def lm_train(arch: str, seed: int) -> dict:
         for i in range(2):
             loss, row = counted(full_step)
             record(f"full_step_remat_{remat}_{i}", row,
-                   lm((3 if remat else 2) * t * nl - frozen))
+                   lm(2 * nl if remat else nl, nl, frozen))
             seq.append(loss)
-        full[remat] = seq
+        full[remat] = (seq, carry["lora"])
     # device time of one full step at each setting (not counted)
     for remat in (False, True):
         step = splitfl.make_full_train_step(model, opt, remat=remat)
         rows[f"full_step_remat_{remat}_0"]["device_s"] = device_time(
             lambda: step(params, lora, opt.init(lora), batch), top=1)[0]
     checks["full_step"] = {
-        "losses": {str(k): [float(x) for x in v] for k, v in full.items()},
-        "bit_equal": all(torch.equal(x, y) for x, y in zip(full[False], full[True]))}
+        "losses": {str(k): [float(x) for x in v[0]] for k, v in full.items()},
+        "bit_equal": (all(torch.equal(x, y) for x, y in zip(full[False][0], full[True][0]))
+                      and _bits(full[False][1], full[True][1]))}
     if not all(abs(float(x) - float(y)) <= LM_GRAD_LOSS_RTOL * abs(float(y))
-               for x, y in zip(full[False], full[True])):
+               for x, y in zip(full[False][0], full[True][0])):
         raise AssertionError(f"{arch}: full step with and without remat: {checks['full_step']}")
+    if moe and not checks["full_step"]["bit_equal"]:
+        raise AssertionError(f"{arch}: the MoE full step with and without remat is not "
+                             f"bit for bit: {checks['full_step']}")
+    del full
 
     # 4. the LM cohort step over three lanes at three cuts
     cuts = LM_TRAIN_LANE_CUTS[arch]
@@ -3353,15 +3713,20 @@ def lm_train(arch: str, seed: int) -> dict:
         step = splitfl.make_server_step_batched(model, opt, impl=impl)
         outs[impl], row = counted(lambda: step(params, *stacked, list(cuts)), profile=True)
         record(f"batched_{impl}", row,
-               gl(2 * t * nl) if impl == "vmap" else
-               gl(sum(2 * t * (nl - c_) for c_ in cuts)))
+               gl(nl) if impl == "vmap" else gl(sum(nl - c_ for c_ in set(cuts))))
 
     def sequential():
+        if moe:   # each lane alone on the scan path: its own dispatch and aux
+            return [splitfl.make_server_step(model, opt, path="scan")(
+                params, ls_, opt.init(ls_), v_, b_, torch.tensor(c_, device=v_.device))
+                for c_, (v_, b_, ls_) in zip(cuts, lanes)]
         return [splitfl.make_server_step(model, opt, static_cut=c_)(
             params, ls_, opt.init(ls_), v_, b_) for c_, (v_, b_, ls_) in zip(cuts, lanes)]
 
     seq, row = counted(sequential, profile=True)
-    record("sequential_steps", row, lm(sum(2 * t * (nl - c_) for c_ in cuts)))
+    record("sequential_steps", row,
+           lm(len(cuts) * nl, len(cuts) * nl) if moe
+           else lm(sum(nl - c_ for c_ in cuts), sum(nl - c_ for c_ in cuts)))
     lanes_out = []
     for i in range(len(cuts)):
         lane = {}
@@ -3371,18 +3736,21 @@ def lm_train(arch: str, seed: int) -> dict:
                 "dv_rel2": rel2(out[3][i], seq[i][3]),
                 "grad_rel2": _worst_rel2(lora_lib.unstack_tree(out[2].mu)[i], seq[i][2].mu),
                 "adapter_max_abs": _max_abs(lora_lib.unstack_tree(out[1])[i], seq[i][1])}
-            if not (lane[impl]["loss_rel"] <= LM_GRAD_LOSS_RTOL
-                    and lane[impl]["dv_rel2"] <= LM_GRAD_TOL
-                    and lane[impl]["grad_rel2"] <= LM_GRAD_TOL
-                    and lane[impl]["adapter_max_abs"] <= 2 * LR):
+            held = not (moe and impl == "ragged")
+            lane[impl]["held"] = held
+            if held and not (lane[impl]["loss_rel"] <= LM_GRAD_LOSS_RTOL
+                             and lane[impl]["dv_rel2"] <= LM_GRAD_TOL
+                             and lane[impl]["grad_rel2"] <= LM_GRAD_TOL
+                             and lane[impl]["adapter_max_abs"] <= 2 * LR):
                 raise AssertionError(f"{arch} batched {impl}, lane {i} (cut {cuts[i]}) "
                                      f"against its sequential step: {lane[impl]}")
         lanes_out.append(lane)
     checks["batched_vs_sequential"] = {"cuts": list(cuts), "lanes": lanes_out,
+                                       "sequential_path": "scan" if moe else "sliced",
                                        "grad_tolerance": LM_GRAD_TOL}
     out = {"arch": arch, "layers": nl, "cut": cut, "batch": [LM_TRAIN_BATCH, LM_TRAIN_SEQ],
-           "projections_per_layer": t, "frozen_input": frozen, "steps": rows,
-           "launches": launches, "checks": checks}
+           "projections_per_layer": t, "f32_projections_per_layer": tf,
+           "frozen_input": frozen, "steps": rows, "launches": launches, "checks": checks}
     print(f"[lm-train:{arch}] {json.dumps(out)}", flush=True)
     del model, params, lora, outs, seq, lanes, stacked
     gc.collect()
@@ -3396,8 +3764,8 @@ def lm_train_launches(run: dict, name: str) -> dict:
 
 
 def launch_phase() -> dict:
-    """``python -m repro_torch.launch.train`` in central mode on gemma-2b at
-    full width and depth (LAUNCH_ARGS), in a process of its own: it prints
+    """``python -m repro_torch.launch.train`` in central mode on granite-3-2b
+    at full width and depth (LAUNCH_ARGS), in a process of its own: it prints
     the reference's lines, and the loss it prints is finite."""
     env = dict(os.environ, PYTHONPATH=str(PORT_ROOT / "src"))
     t0 = time.perf_counter()
@@ -3443,6 +3811,14 @@ def memory_lines(fused: dict, plain: dict, cohort: dict, sl: dict) -> dict:
     return out
 
 
+def phase(name: str, fn, *args, **kw):
+    """Run one phase of ``main`` and print its wall time (host clock)."""
+    t0 = time.perf_counter()
+    out = fn(*args, **kw)
+    print(f"[wall] {name} {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -3480,7 +3856,7 @@ def main() -> None:
                             str(Path(root).resolve())], check=True)
         return
 
-    t0 = time.perf_counter()
+    t0 = t_start = time.perf_counter()
     build.load_all(SOURCES)             # one nvcc per source, all at once
     print(f"[build] {', '.join(SOURCES)} ready in {time.perf_counter() - t0:.2f} s",
           flush=True)
@@ -3500,6 +3876,7 @@ def main() -> None:
     direct_sass = check_direct_sass()
     print(f"[build] grouped_lora direct mode's SASS {json.dumps(direct_sass)}", flush=True)
 
+    t_kernels = time.perf_counter()
     # the main path's shape (timed), then M, N, K off the tiles, the dx
     # call's K 770 (N 770 forward) and ranks 5, 16, 64
     checks = [check_lora_matmul(2048, 768, 768, 16, seed=0, timed=True),
@@ -3508,6 +3885,13 @@ def main() -> None:
               check_lora_matmul(2047, 770, 768, 64, seed=15)]
     for c in checks:
         print(f"[kernel] lora_matmul {json.dumps(c)}", flush=True)
+    # the MoE router's fp32 product over a prefill's 8192 rows: qwen3-moe's
+    # d 2048 to E 128 (timed; its dx call has K = E = 128) and grok-1's
+    # d 6144 to E 8 (its dx call K = 8), forward, views and backward
+    router_checks = [check_lora_matmul(8192, 2048, 128, 16, seed=60, timed=True),
+                     check_lora_matmul(8192, 6144, 8, 16, seed=61)]
+    for c in router_checks:
+        print(f"[kernel] lora_matmul router {json.dumps(c)}", flush=True)
     grouped_path = check_grouped((2048, 2048), 768, 768, 16, (2.0, 2.0), "chunk",
                                  seed=2, timed=True)
     grouped_ragged = check_grouped((37, 100, 5), 130, 100, 5, (0.5, 1.0, 1.5), "chunk",
@@ -3522,11 +3906,21 @@ def main() -> None:
                                          "direct", seed=4),
                            check_grouped((40, 100, 17), 770, 96, 6, (0.5, 1.0, 1.5),
                                          "direct", seed=19)]
+    # direct mode where the MoE cohort steps run it: the router's dx call
+    # over three lanes of 2 x 512 tokens, K = E 128 to N = d 2048 (timed);
+    # and the router's own product, d 2048 to E 128, whose dx call is that
+    # one on the views the backward passes (W^T, B^T, A^T; timed there)
+    grouped_router_dx = check_grouped((1024, 1024, 1024), 128, 2048, 16, (2.0, 2.0, 2.0),
+                                      "direct", seed=62, timed=True)
+    grouped_router = check_grouped((1024, 1024, 1024), 2048, 128, 16, (2.0, 2.0, 2.0),
+                                   "direct", seed=65, timed=True)
     grouped_one = check_grouped_single_group(seed=5)
     quant = check_quantize(2048, 768, seed=6)
     for label, c in (("grouped_lora chunk", grouped_path),
                      ("grouped_lora chunk", grouped_ragged),
                      ("grouped_lora direct", grouped_direct),
+                     ("grouped_lora direct (MoE router dx)", grouped_router_dx),
+                     ("grouped_lora direct (MoE router, dx call on views)", grouped_router),
                      *(("grouped_lora direct", c) for c in grouped_direct_more),
                      ("grouped_lora G=1", grouped_one), ("quantize_rows", quant)):
         print(f"[kernel] {label} {json.dumps(c)}", flush=True)
@@ -3594,6 +3988,12 @@ def main() -> None:
                        for b_, s_, t_, h_, kh_, causal, window in (
                            (1, 700, 900, 16, 4, False, None),
                            (2, 1000, 1000, 32, 8, True, 256))]
+    # the A10 slice's prefill shapes (4 x 2048, causal): qwen3-moe's head_dim
+    # 128 with GQA 8:1 (timed), and granite-3-2b's head_dim 64 with GQA 4:1
+    flash_gqa128 = check_flash(4, 2048, 2048, 32, 4, 128, True, None, torch.bfloat16,
+                               seed=63, timed=True)
+    flash_bf16_dims.append(check_flash(4, 2048, 2048, 32, 8, 64, True, None,
+                                       torch.bfloat16, seed=64))
     wkv_path = check_wkv(4, 2048, 40, 64, torch.bfloat16, torch.float32, seed=10,
                          timed=True)
     wkv_f32 = check_wkv(4, 2048, 40, 64, torch.float32, torch.float32, seed=11, timed=True)
@@ -3609,35 +4009,44 @@ def main() -> None:
                 for dtype, w_dtype in ((torch.float32, torch.float32),
                                        (torch.bfloat16, torch.float32),
                                        (torch.bfloat16, torch.bfloat16))]
-    for c in (flash_path, flash_f32, *flash_gqa, *flash_bf16_dims):
+    for c in (flash_path, flash_f32, *flash_gqa, *flash_bf16_dims, flash_gqa128):
         print(f"[kernel] flash_attention {json.dumps(c)}", flush=True)
     for c in (wkv_path, wkv_f32, *wkv_ragged, *wkv_fast, *wkv_dims):
         print(f"[kernel] wkv6 {json.dumps(c)}", flush=True)
 
+    print(f"[wall] kernel checks {time.perf_counter() - t_kernels:.1f} s", flush=True)
     train = make_emotion_dataset(N_TRAIN, seq_len=SEQ, vocab_size=30_522, seed=0)
     test = make_emotion_dataset(N_TEST, seq_len=SEQ, vocab_size=30_522, seed=1)
-    fused = run_path(True, train, test)
-    plain = run_path(False, train, test)
+    fused = phase("main:fused", run_path, True, train, test)
+    plain = phase("main:einsum", run_path, False, train, test)
     compare_paths(fused, plain, "main")
-    cohort = run_path(True, train, test, cohort=True)
-    cohort_plain = run_path(False, train, test, cohort=True)
+    cohort = phase("cohort:fused", run_path, True, train, test, cohort=True)
+    cohort_plain = phase("cohort:einsum", run_path, False, train, test, cohort=True)
     compare_paths(cohort, cohort_plain, "cohort")
-    vmap = vmap_phase(train, test, {"fused": cohort, "einsum": cohort_plain})
-    sl = run_path(True, train, test, scheme="sl")
+    vmap = phase("vmap", vmap_phase, train, test, {"fused": cohort, "einsum": cohort_plain})
+    sl = phase("sl", run_path, True, train, test, scheme="sl")
     memory_lines(fused, plain, cohort, sl)
     finals = {}
-    event = event_phase(fused, train, test, finals)
-    control = control_phase(train, test, finals)
-    resume = resume_phase(train, test, finals)
+    event = phase("event", event_phase, fused, train, test, finals)
+    control = phase("control", control_phase, train, test, finals)
+    resume = phase("resume", resume_phase, train, test, finals)
     del finals
 
     del train, test
     gc.collect()
     torch.cuda.empty_cache()
-    lm = {arch: lm_phase(arch, seed=13 + i) for i, arch in enumerate(LM_ARCHS)}
-    lm_grad = {arch: lm_backward(arch, seed=30 + i) for i, arch in enumerate(LM_ARCHS)}
-    lm_tr = {arch: lm_train(arch, seed=50 + i) for i, arch in enumerate(LM_ARCHS)}
-    launch = launch_phase()
+    lm = {arch: phase(f"lm:{arch}", lm_phase, arch, seed=13 + i,
+                      layers=LM_PHASE_LAYERS.get(arch))
+          for i, arch in enumerate(LM_ARCHS)}
+    lm_new = {arch: phase(f"lm:{arch}", lm_phase, arch, seed=70 + i, **kw)
+              for i, (arch, kw) in enumerate(NEW_LM_PHASES)}
+    built = phase("build-models", build_phase)
+    lm_grad = {arch: phase(f"lm-grad:{arch}", lm_backward, arch, seed=30 + i)
+               for i, arch in enumerate(LM_ARCHS)}
+    lm_tr = {arch: phase(f"lm-train:{arch}", lm_train, arch, seed=50 + i)
+             for i, arch in enumerate(LM_TRAIN_ARCHS)}
+    launch = phase("launch", launch_phase)
+    print(f"[wall] the phases took {time.perf_counter() - t_start:.1f} s", flush=True)
 
     if args.profile:
         train = make_emotion_dataset(N_TRAIN, seq_len=SEQ, vocab_size=30_522, seed=0)
@@ -3647,8 +4056,9 @@ def main() -> None:
         for policy in ("sync", "buffered"):
             profile_event(policy, train, test)
 
-    print(json.dumps({"lm": lm, "lm_grad": lm_grad, "lm_train": lm_tr, "launch": launch}),
-          flush=True)
+    print(json.dumps({"lm": {**lm, **lm_new}, "build_models": built, "lm_grad": lm_grad,
+                      "lm_train": lm_tr, "launch": launch}), flush=True)
+    all_lm = {**lm, **lm_new}
     main_shape, ragged = checks[0], checks[1:]
 
     def entry(name, source, replaces, launches, c, **extra):
@@ -3673,6 +4083,21 @@ def main() -> None:
               control_launches=control_launches(control, "lora_matmul"),
               resume_launches=resume_launches(resume, "lora_matmul"),
               base_matmul_ms=main_shape["base_matmul_ms"],
+              moe_router={str(c["shape"]): {key: c.get(key) for key in
+                                            ("fwd_err", "views_err", "dx_err", "da_err",
+                                             "db_err", "ms", "device_ms",
+                                             "dx_call_device_ms", "plain_ms",
+                                             "base_matmul_ms", "bound_ms", "bound_by")}
+                          for c in router_checks},
+              moe_router_launches={
+                  **{f"{arch} fused prefill": (
+                      all_lm[arch]["lora_kernels"]["fused"]["launches"]["lora_matmul"]
+                      - all_lm[arch]["lora_kernels"]["fused"]["launches"]["lora_matmul_bf16"])
+                     for arch in all_lm if REGISTRY[arch].family == "moe"},
+                  **{f"{arch} lm-train ({LM_TRAIN_LAYERS[arch]} layers)": {
+                      step: counts["lora_matmul"] - counts["lora_matmul_bf16"]
+                      for step, counts in lm_tr[arch]["launches"].items()}
+                     for arch in LM_TRAIN_ARCHS if REGISTRY[arch].family == "moe"}},
               ragged={str(c["shape"]): {key: c[key] for key in
                                         ("fwd_err", "views_err", "dx_err", "da_err",
                                          "db_err", "max_abs_err")}
@@ -3691,21 +4116,50 @@ def main() -> None:
               error_sources=grouped_path["error_sources"],
               dx_error_sources=grouped_path["dx_error_sources"],
               base_matmul_ms=grouped_path["base_matmul_ms"],
+              moe_router_launches={
+                  **{f"{arch} 2-tenant grouped prefill": (
+                      all_lm[arch]["lora_kernels"]["grouped"]["launches"]["grouped_lora_chunk"]
+                      - all_lm[arch]["lora_kernels"]["grouped"]["launches"][
+                          "grouped_lora_chunk_bf16"])
+                     for arch in all_lm if REGISTRY[arch].family == "moe"},
+                  **{f"{arch} lm-train ({LM_TRAIN_LAYERS[arch]} layers)": {
+                      step: counts["grouped_lora_chunk"] - counts["grouped_lora_chunk_bf16"]
+                      for step, counts in lm_tr[arch]["launches"].items()}
+                     for arch in LM_TRAIN_ARCHS if REGISTRY[arch].family == "moe"}},
               ragged_max_abs_err=grouped_ragged["max_abs_err"],
               single_group_err_vs_lora_matmul=grouped_one["err_vs_lora_matmul"]),
         entry("grouped_lora_direct", csrc + "grouped_lora.cu",
               "src/repro/kernels/grouped_lora.py:103",
-              cohort["launches"]["grouped_lora_direct"], grouped_direct, path=None,
-              tile=csrc + "tf32_lora_tile.cuh", body=grouped_direct["body"],
-              design=DESIGNS["grouped_lora_direct"], views_err=grouped_direct["views_err"],
-              shape=[grouped_direct["sizes"], grouped_direct["k"], grouped_direct["n"],
-                     grouped_direct["r"]],
-              chunk_device_ms=grouped_direct["chunk_device_ms"],
-              dx_call_device_ms=grouped_direct["dx_call_device_ms"],
-              dx_call_body=grouped_direct["dx_call_body"],
-              base_matmul_ms=grouped_direct["base_matmul_ms"],
-              bound_tf32x3_ms=grouped_direct["bound_tf32x3_ms"],
-              error_sources=grouped_direct["error_sources"],
+              sum(lm_tr[arch]["launches"][f"batched_{impl}"]["grouped_lora_direct"]
+                  for arch in LM_TRAIN_ARCHS for impl in ("vmap", "ragged")),
+              grouped_router_dx,
+              path="qwen3-moe-30b-a3b lm-train cohort steps (the router's dx call)",
+              tile=csrc + "tf32_lora_tile.cuh", body=grouped_router_dx["body"],
+              design=DESIGNS["grouped_lora_direct"], views_err=grouped_router_dx["views_err"],
+              shape=[grouped_router_dx["sizes"], grouped_router_dx["k"],
+                     grouped_router_dx["n"], grouped_router_dx["r"]],
+              launches_by_path={
+                  f"{arch} lm-train {step}": counts["grouped_lora_direct"]
+                  for arch in LM_TRAIN_ARCHS
+                  for step, counts in lm_tr[arch]["launches"].items()
+                  if counts["grouped_lora_direct"]},
+              cohort_path_launches=cohort["launches"]["grouped_lora_direct"],
+              chunk_device_ms=grouped_router_dx["chunk_device_ms"],
+              dx_call_device_ms=grouped_router_dx["dx_call_device_ms"],
+              dx_call_body=grouped_router_dx["dx_call_body"],
+              path_views={"shape": [grouped_router["sizes"], grouped_router["k"],
+                                    grouped_router["n"], grouped_router["r"]],
+                          "dx_call_body": grouped_router["dx_call_body"],
+                          "dx_call_device_ms": grouped_router["dx_call_device_ms"],
+                          "views_err": grouped_router["views_err"],
+                          "dx_err": grouped_router["dx_err"]},
+              base_matmul_ms=grouped_router_dx["base_matmul_ms"],
+              bound_tf32x3_ms=grouped_router_dx["bound_tf32x3_ms"],
+              error_sources=grouped_router_dx["error_sources"],
+              cohort_shape={key: grouped_direct[key] for key in
+                            ("sizes", "k", "n", "r", "body", "ms", "device_ms",
+                             "chunk_device_ms", "dx_call_device_ms", "plain_ms",
+                             "base_matmul_ms", "bound_ms", "bound_by", "error_sources")},
               more={f"{c['sizes']} K {c['k']} N {c['n']} r {c['r']}": {
                   key: c[key] for key in ("body", "dx_call_body", "fwd_err", "views_err",
                                           "dx_err", "da_err", "db_err")}
@@ -3713,21 +4167,21 @@ def main() -> None:
               sass=direct_sass),
         entry("lora_matmul_bf16", csrc + "lora_matmul.cu",
               "src/repro/kernels/lora_matmul.py:62",
-              sum(lm[arch]["lora_kernels"]["fused"]["launches"]["lora_matmul_wgmma"]
-                  for arch in LM_ARCHS), bf16_q,
-              path="gemma-2b and rwkv6-3b fused-LoRA prefill", dtype="bfloat16",
+              sum(all_lm[arch]["lora_kernels"]["fused"]["launches"]["lora_matmul_wgmma"]
+                  for arch in all_lm), bf16_q,
+              path="the LMs' fused-LoRA prefill", dtype="bfloat16",
               tile=csrc + "bf16_wgmma_tile.cuh",
               shape=bf16_q["shape"], design=DESIGNS["lora_matmul_bf16"],
               launches_by_path={
-                  **{f"{arch} fused prefill":
-                     lm[arch]["lora_kernels"]["fused"]["launches"]["lora_matmul_bf16"]
-                     for arch in LM_ARCHS},
+                  **{f"{arch} fused prefill ({all_lm[arch]['layers']} layers)":
+                     all_lm[arch]["lora_kernels"]["fused"]["launches"]["lora_matmul_bf16"]
+                     for arch in all_lm},
                   **{f"{arch} backward ({LM_GRAD_LAYERS} layers)":
                      lm_grad[arch]["launches"]["fused"]["lora_matmul_bf16"]
                      for arch in LM_ARCHS},
                   **{f"{arch} lm-train ({LM_TRAIN_LAYERS[arch]} layers)":
                      lm_train_launches(lm_tr[arch], "lora_matmul_bf16")
-                     for arch in LM_ARCHS}},
+                     for arch in LM_TRAIN_ARCHS}},
               dx_call_device_ms=bf16_q["dx_call_device_ms"],
               base_matmul_ms=bf16_q["base_matmul_ms"],
               bound_bytes_ms=bf16_q["bound_bytes_ms"],
@@ -3746,9 +4200,9 @@ def main() -> None:
                       for c in bf16_ragged}),
         entry("lora_matmul_bf16_mma_sync", csrc + "lora_matmul.cu",
               "src/repro/kernels/lora_matmul.py:62",
-              sum(lm[arch]["lora_kernels"]["fused"]["launches"]["lora_matmul_bf16"]
-                  - lm[arch]["lora_kernels"]["fused"]["launches"]["lora_matmul_wgmma"]
-                  for arch in LM_ARCHS),
+              sum(all_lm[arch]["lora_kernels"]["fused"]["launches"]["lora_matmul_bf16"]
+                  - all_lm[arch]["lora_kernels"]["fused"]["launches"]["lora_matmul_wgmma"]
+                  for arch in all_lm),
               {**bf16_q, "ms": bf16_q["mma_sync_ms"], "device_ms": bf16_q["mma_sync_device_ms"],
                "max_abs_err": bf16_q["mma_sync_max_abs_err"]},
               path=None, dtype="bfloat16", tile=csrc + "bf16_lora_tile.cuh",
@@ -3758,9 +4212,9 @@ def main() -> None:
                             for c in bf16_ragged}),
         entry("grouped_lora_chunk_bf16", csrc + "grouped_lora.cu",
               "src/repro/kernels/grouped_lora.py:119",
-              sum(lm[arch]["lora_kernels"]["grouped"]["launches"]["grouped_lora_chunk_wgmma"]
-                  for arch in LM_ARCHS), bf16_grouped,
-              path="gemma-2b and rwkv6-3b 2-tenant grouped prefill", dtype="bfloat16",
+              sum(all_lm[arch]["lora_kernels"]["grouped"]["launches"][
+                  "grouped_lora_chunk_wgmma"] for arch in all_lm), bf16_grouped,
+              path="the LMs' 2-tenant grouped prefill", dtype="bfloat16",
               tile=csrc + "bf16_wgmma_tile.cuh",
               shape=[bf16_grouped["sizes"], bf16_grouped["k"], bf16_grouped["n"],
                      bf16_grouped["r"]],
@@ -3768,7 +4222,7 @@ def main() -> None:
               lm_train_launches={
                   f"{arch} lm-train ({LM_TRAIN_LAYERS[arch]} layers)":
                   lm_train_launches(lm_tr[arch], "grouped_lora_chunk_bf16")
-                  for arch in LM_ARCHS},
+                  for arch in LM_TRAIN_ARCHS},
               dx_call_device_ms=bf16_grouped["dx_call_device_ms"],
               base_matmul_ms=bf16_grouped["base_matmul_ms"],
               bound_bytes_ms=bf16_grouped["bound_bytes_ms"],
@@ -3778,9 +4232,10 @@ def main() -> None:
                            for c in bf16_grouped_ragged]),
         entry("grouped_lora_chunk_bf16_mma_sync", csrc + "grouped_lora.cu",
               "src/repro/kernels/grouped_lora.py:119",
-              sum(lm[arch]["lora_kernels"]["grouped"]["launches"]["grouped_lora_chunk_bf16"]
-                  - lm[arch]["lora_kernels"]["grouped"]["launches"]["grouped_lora_chunk_wgmma"]
-                  for arch in LM_ARCHS),
+              sum(all_lm[arch]["lora_kernels"]["grouped"]["launches"]["grouped_lora_chunk_bf16"]
+                  - all_lm[arch]["lora_kernels"]["grouped"]["launches"][
+                      "grouped_lora_chunk_wgmma"]
+                  for arch in all_lm),
               {**bf16_grouped, "ms": bf16_grouped["mma_sync_ms"],
                "device_ms": bf16_grouped["mma_sync_device_ms"],
                "max_abs_err": bf16_grouped["mma_sync_max_abs_err"]},
@@ -3792,8 +4247,9 @@ def main() -> None:
               ragged_tiles=[c["tile"] for c in bf16_grouped_ragged]),
         entry("grouped_lora_direct_bf16", csrc + "grouped_lora.cu",
               "src/repro/kernels/grouped_lora.py:103",
-              sum(lm[arch]["lora_kernels"]["grouped"]["launches"]["grouped_lora_direct_bf16"]
-                  for arch in LM_ARCHS), bf16_direct, path=None, dtype="bfloat16",
+              sum(all_lm[arch]["lora_kernels"]["grouped"]["launches"][
+                  "grouped_lora_direct_bf16"] for arch in all_lm),
+              bf16_direct, path=None, dtype="bfloat16",
               shape=[bf16_direct["sizes"], bf16_direct["k"], bf16_direct["n"],
                      bf16_direct["r"]],
               design=DESIGNS["grouped_lora_direct_bf16"], body=bf16_direct["body"],
@@ -3830,6 +4286,14 @@ def main() -> None:
                        ("err", "ms", "device_ms", "plain_ms", "library_ms", "bound_ms",
                         "bound_by")},
                  gqa_errs=[c["err"] for c in flash_gqa],
+                 launches_by_path={f"{arch} prefill ({all_lm[arch]['layers']} layers)":
+                                   all_lm[arch]["prefill"]["kernels"]["launches"][
+                                       "flash_attention"]
+                                   for arch in all_lm if all_lm[arch]["family"] != "ssm"},
+                 head_dim_128_gqa_8={key: flash_gqa128[key] for key in
+                                     ("shape", "err", "ms", "device_ms", "plain_ms",
+                                      "library_ms", "library_err", "bound_ms",
+                                      "bound_by")},
                  library="torch.nn.functional.scaled_dot_product_attention",
                  library_err=flash_path["library_err"]),
          "library_ms": flash_path["library_ms"]},

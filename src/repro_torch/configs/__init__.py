@@ -1,13 +1,39 @@
-"""Config registry of the port: the paper's BERT-base and the decoder LMs
-of the serving slice (gemma-2b, rwkv6-3b).  The other model families join
-as their slices are ported."""
+"""Config registry of the port: the 10 assigned architectures and the
+paper's BERT-base, copies of the JAX package's configs.  The port builds
+the encoder (bert-base), dense (gemma-2b, granite-3-2b, granite-20b,
+qwen1.5-4b), ssm (rwkv6-3b), moe (qwen3-moe-30b-a3b, grok-1-314b) and vlm
+(internvl2-26b) families; zamba2-7b (hybrid) and whisper-large-v3
+(encdec) are registered, and building them raises until their slice of
+the port (ROADMAP Queue A, item 10)."""
 from __future__ import annotations
 
-from repro_torch.configs import bert_base, gemma_2b, rwkv6_3b
 from repro_torch.configs.base import LoRAConfig, ModelConfig, MoEConfig, SSMConfig, reduced
+from repro_torch.configs.shapes import ASSIGNED_SHAPES, SHAPES, InputShape, get_shape
 
-REGISTRY: dict[str, ModelConfig] = {m.CONFIG.name: m.CONFIG
-                                    for m in (gemma_2b, rwkv6_3b, bert_base)}
+from repro_torch.configs import (  # noqa: E402
+    bert_base,
+    gemma_2b,
+    granite_3_2b,
+    granite_20b,
+    grok_1_314b,
+    internvl2_26b,
+    qwen1_5_4b,
+    qwen3_moe_30b_a3b,
+    rwkv6_3b,
+    whisper_large_v3,
+    zamba2_7b,
+)
+
+REGISTRY: dict[str, ModelConfig] = {
+    m.CONFIG.name: m.CONFIG
+    for m in (
+        granite_20b, gemma_2b, granite_3_2b, grok_1_314b, whisper_large_v3,
+        qwen1_5_4b, internvl2_26b, rwkv6_3b, qwen3_moe_30b_a3b, zamba2_7b,
+        bert_base,
+    )
+}
+
+ASSIGNED_ARCHS = tuple(n for n in REGISTRY if n != "bert-base")
 
 
 def get_config(name: str) -> ModelConfig:
@@ -17,5 +43,8 @@ def get_config(name: str) -> ModelConfig:
         raise KeyError(f"unknown arch {name!r}; known: {sorted(REGISTRY)}") from None
 
 
-__all__ = ["LoRAConfig", "ModelConfig", "MoEConfig", "REGISTRY", "SSMConfig",
-           "get_config", "reduced"]
+__all__ = [
+    "ASSIGNED_ARCHS", "ASSIGNED_SHAPES", "InputShape", "LoRAConfig",
+    "ModelConfig", "MoEConfig", "REGISTRY", "SHAPES", "SSMConfig",
+    "get_config", "get_shape", "reduced",
+]

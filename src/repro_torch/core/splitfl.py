@@ -210,10 +210,18 @@ def _make_group_step(model, opt: AdamW, *, with_head: bool, path: str):
     layers [cut, L); ``path="scan"`` (vmap: a cut per lane) runs every layer
     and masks each lane's rows at its own cut.
 
-    Per-lane losses are exact: row segments are computationally
-    independent, so the gradient of the sum of the lanes' losses gives each
-    lane its own gradients and ``dv``; the AdamW update then advances each
-    lane of the stacked state by its own update."""
+    Per-lane losses are exact where the lanes' rows are computationally
+    independent: attention, the MLPs and the grouped projections never mix
+    rows, so the gradient of the sum of the lanes' losses gives each lane
+    its own gradients and ``dv``, and the AdamW update then advances each
+    lane of the stacked state by its own update.  The MoE dispatch does mix
+    the tokens it is given (one capacity, sort and router aux over them),
+    so the two paths keep the reference's two semantics: on the scan path
+    each lane is its own dispatch group (``moe_groups=G`` over the
+    lane-major rows) with its own aux, masked at its own cut, as each lane
+    of the reference's ``jax.vmap`` runs alone; on the sliced path the
+    group's lanes share one dispatch, and the sliced path reports no aux,
+    as the reference's ragged step does."""
     cfg = model.cfg
 
     def group_step(params, lora_g, heads_g, opt_g, v_g, batch_g, cut):
@@ -222,10 +230,12 @@ def _make_group_step(model, opt: AdamW, *, with_head: bool, path: str):
         tr = as_trainable(trainable)
         vf = v_g.reshape((gsz * bsz,) + tuple(v_g.shape[2:])).detach().requires_grad_(True)
         batch_flat = _flatten_cohort(batch_g)
+        ctx = model.make_ctx(vf.shape[1], vf.device, moe_groups=gsz) if path == "scan" \
+            else None
         with torch.enable_grad():
             lo_lm = _cohort_to_layer_major(tr["lora"] if with_head else tr)
             h, aux = model.forward_hidden(params, lo_lm, batch_flat, cut=cut,
-                                          side="server", path=path, x0=vf)
+                                          side="server", path=path, x0=vf, ctx=ctx)
             if with_head:
                 h = L.apply_norm(cfg, params["final_norm"], h)
                 pooled = h.reshape((gsz, bsz) + tuple(h.shape[1:]))[:, :, 0, :]
@@ -234,7 +244,7 @@ def _make_group_step(model, opt: AdamW, *, with_head: bool, path: str):
                 losses = torch.stack([L.softmax_xent(lg[:, None, :], lb[:, None])
                                       for lg, lb in zip(logits, batch_g["label"])])
             else:
-                logits = model.unembed(params, h)
+                logits = model.lm_logits(params, h, batch_flat["targets"])
                 logits = logits.reshape((gsz, bsz) + tuple(logits.shape[1:]))
                 losses = torch.stack([L.softmax_xent(lg, tg)
                                       for lg, tg in zip(logits, batch_g["targets"])])
@@ -266,8 +276,9 @@ def _make_server_step_ragged(model, opt: AdamW, *,
     """impl="ragged" of the batched server steps: the cohort is grouped by
     cut value, split by ``cohort_chunk``, and each group runs ONE dispatch
     (``_make_group_step`` on the sliced path: only layers [cut, L)).  Known
-    delta against the vmap impl, as in the reference: the sliced path
-    reports no aux loss."""
+    deltas against the vmap impl, as in the reference: the sliced path
+    reports no aux loss, and an MoE layer's capacity spans the group's
+    lanes."""
     group_step = _make_group_step(model, opt, with_head=with_head, path="sliced")
 
     def step(params, lora_s, *rest):

@@ -102,9 +102,8 @@ def run_sfl(args):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--mode", choices=("central", "sfl"), default="central")
-    ap.add_argument("--arch", default="gemma-2b",
-                    help="the port's LMs: gemma-2b or rwkv6-3b (the reference's "
-                         "default, granite-3-2b, comes with ROADMAP Queue A, item 10)")
+    ap.add_argument("--arch", default="granite-3-2b",
+                    help="a registered config of the dense, moe, vlm or ssm family")
     ap.add_argument("--scheme", default="ours", choices=("ours", "sfl", "sl"))
     ap.add_argument("--scheduler", default="ours",
                     choices=("ours", "fifo", "wf", "optimal"))

@@ -1,7 +1,9 @@
-"""Per-family residual blocks: the dense attention block (encoder and
-decoder LM) and the RWKV6 "Finch" block.  Port of
-``src/repro/models/blocks.py``; the MoE and Mamba2 blocks come with their
-slices (ROADMAP Queue A, item 10).
+"""Per-family residual blocks: the dense attention block (encoder, dense
+decoder LM and the VLM's language model, with an optional int8 KV cache),
+the MoE block (dense attention and a capacity-based top-k expert
+dispatch) and the RWKV6 "Finch" block.  Port of
+``src/repro/models/blocks.py``; the Mamba2 block comes with its slice
+(ROADMAP Queue A, item 10).
 
     init(gen, cfg, device)                   -> params for ONE layer (unstacked)
     train(cfg, p, lora, x, ctx)              -> (x, aux_loss)
@@ -9,14 +11,21 @@ slices (ROADMAP Queue A, item 10).
     init_cache(cfg, batch, cache_len, device) -> cache for one layer
     decode(cfg, p, lora, x, cache, pos, ctx) -> (x, cache)
 
-``ctx`` is a plain dict: positions, causal, window, and ``arange`` (the
-positions are 0..S-1, built so by the model).  ``decode`` writes the
+``ctx`` is a plain dict: positions, causal, window, ``arange`` (the
+positions are 0..S-1, built so by the model), and for the MoE block
+``moe_groups`` (the tokens split into that many equal dispatch groups,
+each with its own capacity, sort and aux loss), ``moe_dense_fallback``
+(every expert on every token, as decode runs) and ``moe_aux_rows`` (the
+aux loss returned per batch row, each row its group's, for groups that
+are whole rows: the port's form of a vmapped per-lane aux, which the
+masked scan sets for a per-row cut).  ``decode`` writes the
 new token's state into ``cache`` in place (a per-layer view of the
 model's stacked cache) and returns it: the reference returns an updated
 copy, which the caller then uses in place of the old one.
 """
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -66,13 +75,28 @@ def dense_train(cfg: ModelConfig, p: dict, lora, x: Tensor, ctx: dict):
 
 
 def dense_init_cache(cfg: ModelConfig, batch: int, cache_len: int, device) -> dict:
-    if cfg.kv_cache_dtype == "int8":
-        raise NotImplementedError("the int8 KV cache comes with a later slice "
-                                  "of the port (ROADMAP Queue A, item 10)")
+    """Zero K/V of (B, T, K, Dh) in the model's type; with
+    ``kv_cache_dtype="int8"`` int8 codes and one f32 absmax scale per
+    (token, head) instead (about 0.53x the bytes)."""
     shp = (batch, cache_len, cfg.n_kv_heads, cfg.head_dim)
+    if cfg.kv_cache_dtype == "int8":
+        sshp = (batch, cache_len, cfg.n_kv_heads)
+        return {"k": torch.zeros(shp, dtype=torch.int8, device=device),
+                "v": torch.zeros(shp, dtype=torch.int8, device=device),
+                "k_scale": torch.zeros(sshp, dtype=torch.float32, device=device),
+                "v_scale": torch.zeros(sshp, dtype=torch.float32, device=device)}
     dt = L.torch_dtype(cfg.dtype)
     return {"k": torch.zeros(shp, dtype=dt, device=device),
             "v": torch.zeros(shp, dtype=dt, device=device)}
+
+
+def _quant_rows(x: Tensor):
+    """x: (B,1,K,D) -> (int8 codes, (B,1,K) f32 scales): the per-row absmax
+    code of the reference, in plain PyTorch as there (round half to even)."""
+    xf = x.float()
+    scale = torch.clamp_min(xf.abs().amax(dim=-1) / 127.0, 1e-12)
+    q = torch.clamp(torch.round(xf / scale[..., None]), -127, 127).to(torch.int8)
+    return q, scale
 
 
 def _decode_attn(cfg: ModelConfig, p: dict, lora, h: Tensor, cache: dict,
@@ -81,16 +105,28 @@ def _decode_attn(cfg: ModelConfig, p: dict, lora, h: Tensor, cache: dict,
 
     Under a window the slot is ``pos % cache_len``; without one it is
     ``pos``, clamped to the last slot as ``jax.lax.dynamic_update_slice``
-    clamps an out-of-range start (there every slot is then valid)."""
+    clamps an out-of-range start (there every slot is then valid).  A cache
+    with ``k_scale`` holds int8 codes: the token's K/V are quantized per
+    (token, head) row, written with their scales, and the whole cache is
+    read back dequantized in ``h``'s type."""
     window = ctx.get("window")
     cache_len = cache["k"].shape[1]
     q, k, v = L.qkv_project(cfg, p, lora, h, ctx["positions"])
     slot = pos % cache_len if window is not None else min(pos, cache_len - 1)
-    cache["k"][:, slot] = k[:, 0].to(cache["k"].dtype)
-    cache["v"][:, slot] = v[:, 0].to(cache["v"].dtype)
+    if "k_scale" in cache:
+        for name, t in (("k", k), ("v", v)):
+            codes, scale = _quant_rows(t)
+            cache[name][:, slot] = codes[:, 0]
+            cache[name + "_scale"][:, slot] = scale[:, 0]
+        k_read, v_read = ((cache[name].float() * cache[name + "_scale"][..., None]).to(h.dtype)
+                          for name in ("k", "v"))
+    else:
+        cache["k"][:, slot] = k[:, 0].to(cache["k"].dtype)
+        cache["v"][:, slot] = v[:, 0].to(cache["v"].dtype)
+        k_read, v_read = cache["k"], cache["v"]
     idx = torch.arange(cache_len, device=h.device)
     valid = idx < min(pos + 1, cache_len) if window is not None else idx <= pos
-    return L.attention_decode(q, cache["k"], cache["v"], valid), cache
+    return L.attention_decode(q, k_read, v_read, valid), cache
 
 
 def dense_decode(cfg: ModelConfig, p: dict, lora, x: Tensor, cache: dict,
@@ -105,6 +141,192 @@ def dense_decode(cfg: ModelConfig, p: dict, lora, x: Tensor, cache: dict,
 
 DENSE = {"init": dense_init, "train": dense_train, "prefill": dense_prefill,
          "decode": dense_decode, "init_cache": dense_init_cache}
+
+
+# ===========================================================================
+# MoE block: dense attention + sorted capacity-based top-k expert dispatch
+# ===========================================================================
+
+def moe_init(gen: torch.Generator, cfg: ModelConfig, device) -> dict:
+    m = cfg.moe
+    d, ff, e = cfg.d_model, m.d_ff_expert, m.num_experts
+    dt = L.torch_dtype(cfg.dtype)
+    p = {"ln1": L.init_norm(cfg, device), "attn": L.attn_init(gen, cfg, device),
+         "ln2": L.init_norm(cfg, device)}
+    experts = {"we_u": (L._normal(gen, (e, d, ff), device) / math.sqrt(d)).to(dt),
+               "we_d": (L._normal(gen, (e, ff, d), device) / math.sqrt(ff)).to(dt)}
+    if cfg.activation in ("silu", "geglu"):      # gated
+        experts["we_g"] = (L._normal(gen, (e, d, ff), device) / math.sqrt(d)).to(dt)
+    p["wr_router"] = L.dense_init(gen, d, e, torch.float32, device)
+    p["experts"] = experts
+    return p
+
+
+def _router(cfg: ModelConfig, p: dict, lora, xg: Tensor):
+    """xg: (T, d) -> normalized top-k gates (T, k), expert ids (T, k) and the
+    router's probabilities (T, E), in f32 (the router and its adapter are
+    f32 whatever the model's type)."""
+    scale = cfg.lora.alpha / cfg.lora.rank
+    logits = L.lora_apply(xg.float(), p["wr_router"], (lora or {}).get("wr_router"),
+                          scale, impl=cfg.lora.impl)
+    probs = torch.softmax(logits, dim=-1)
+    gates, eidx = torch.topk(probs, cfg.moe.top_k, dim=-1)
+    gates = gates / gates.sum(dim=-1, keepdim=True).clamp_min(1e-9)
+    return gates, eidx, probs
+
+
+def _expert_ffn(cfg: ModelConfig, ex: dict, xec: Tensor) -> Tensor:
+    """xec: (E, C, d) -> (E, C, d), every expert's gated MLP on its slots."""
+    up = torch.bmm(xec, ex["we_u"].to(xec.dtype))
+    if "we_g" in ex:
+        up = L._act(cfg, torch.bmm(xec, ex["we_g"].to(xec.dtype))) * up
+    else:
+        up = L._act(cfg, up)
+    return torch.bmm(up, ex["we_d"].to(xec.dtype))
+
+
+def _expert_counts(flat_e: Tensor, e: int) -> Tensor:
+    """Entries routed to each of the e experts.  ``torch.bincount`` would
+    read the largest id back to the host to size its output (a sync per
+    layer and decode step); an integer scatter-add into e slots does not,
+    and integer sums do not depend on the order of the adds."""
+    return torch.zeros(e, dtype=torch.long, device=flat_e.device).scatter_add_(
+        0, flat_e, torch.ones_like(flat_e))
+
+
+def _aux_loss(cfg: ModelConfig, counts: Tensor, probs: Tensor) -> Tensor:
+    """Switch-style load-balance loss: E * <fraction routed, mean prob>."""
+    frac = counts.float() / counts.sum()
+    return cfg.moe.num_experts * torch.dot(frac, probs.mean(dim=0)) * cfg.moe.router_aux_coef
+
+
+def _moe_group_sorted(cfg: ModelConfig, p: dict, lora, xg: Tensor, routed=None):
+    """Capacity-based sorted dispatch within one group. xg: (T, d).
+
+    ``routed`` is the group's (gates, ids, probs) when the caller routed
+    every group at once (:func:`moe_mlp`), else the router runs here.  The
+    reference's scatter-adds become gathers: each (token, choice) entry,
+    sorted stably by expert, keeps slot ``pos_in_seg`` of its expert while
+    that is below the capacity (later ones drop); each kept slot takes its
+    one entry, each entry its one slot, and each token sums its k gated
+    results in choice order.  No index receives two contributions, so no
+    value depends on the order of atomic adds, forward or backward."""
+    m = cfg.moe
+    t, d = xg.shape
+    k, e = m.top_k, m.num_experts
+    gates, eidx, probs = routed if routed is not None else _router(cfg, p, lora, xg)
+    n = t * k
+    cap = max(1, int(math.ceil(n / e * m.capacity_factor)))
+    dev = xg.device
+
+    flat_e = eidx.reshape(-1)                          # (N,) entry t*k + j
+    order = torch.sort(flat_e, stable=True).indices    # sorted position -> entry
+    inv = torch.empty_like(order)
+    inv[order] = torch.arange(n, device=dev)           # entry -> sorted position
+    sorted_e = flat_e[order]
+    counts = _expert_counts(flat_e, e)
+    seg_start = torch.cumsum(counts, 0) - counts
+    pos_in_seg = torch.arange(n, device=dev) - seg_start[sorted_e]
+    keep = pos_in_seg < cap
+    dest = torch.where(keep, sorted_e * cap + pos_in_seg,
+                       torch.full_like(pos_in_seg, e * cap))   # e*cap: dropped
+
+    # dispatch: slot (expert, c) takes sorted entry seg_start + c while c is
+    # below its expert's count, else the zero row at index n
+    x_sel = xg[:, None, :].expand(t, k, d).reshape(n, d)[order]
+    slot = torch.arange(cap, device=dev)
+    src = torch.where(slot[None, :] < counts[:, None], seg_start[:, None] + slot[None, :],
+                      torch.full((e, cap), n, dtype=seg_start.dtype, device=dev))
+    buf = F.pad(x_sel, (0, 0, 0, 1))[src.reshape(-1)].reshape(e, cap, d)
+    y = _expert_ffn(cfg, p["experts"], buf).reshape(e * cap, d)
+    y_sorted = F.pad(y, (0, 0, 0, 1))[dest]            # dropped entries read zeros
+    g_sorted = gates.reshape(-1)[order].to(y_sorted.dtype)
+    contrib = (y_sorted * g_sorted[:, None])[inv].reshape(t, k, d)
+    out = contrib[:, 0]
+    for j in range(1, k):
+        out = out + contrib[:, j]
+    return out.to(xg.dtype), _aux_loss(cfg, counts, probs)
+
+
+def _moe_group_dense(cfg: ModelConfig, p: dict, lora, xg: Tensor, routed=None):
+    """Compute-all-experts fallback for tiny token counts (decode)."""
+    m = cfg.moe
+    t, d = xg.shape
+    gates, eidx, probs = routed if routed is not None else _router(cfg, p, lora, xg)
+    y_all = _expert_ffn(cfg, p["experts"], xg[None].expand(m.num_experts, t, d))
+    onehot = F.one_hot(eidx, m.num_experts).to(xg.dtype)          # (T,k,E)
+    comb = torch.einsum("tke,tk->te", onehot, gates.to(xg.dtype))
+    out = torch.einsum("etd,te->td", y_all, comb)
+    return out, _aux_loss(cfg, _expert_counts(eidx.reshape(-1), m.num_experts), probs)
+
+
+def moe_mlp(cfg: ModelConfig, p: dict, lora, x: Tensor, ctx: dict):
+    """The expert MLP over x (B, S, d): the tokens split into ``moe_groups``
+    equal groups (one when they do not divide), each dispatched alone as
+    the reference's ``jax.vmap`` over groups does.  The router runs once
+    over every token, so that a cohort-grouped (G, r, d) router adapter
+    meets its own lane's rows (the tokens are lane-major); the groups then
+    take their slices.  Returns (out, aux): aux the mean of the groups',
+    or with ``moe_aux_rows`` one per batch row, its group's.  The
+    reference's sharded form (``moe_mlp_sharded``, a ``shard_map`` over a
+    device mesh) is ROADMAP item 11's; without a mesh the reference runs
+    this one."""
+    b, s, d = x.shape
+    groups = max(1, ctx.get("moe_groups", 1))
+    tokens = b * s
+    if tokens % groups:
+        groups = 1
+    x2 = x.reshape(tokens, d)
+    gates, eidx, probs = _router(cfg, p, lora, x2)
+    fn = _moe_group_dense if ctx.get("moe_dense_fallback") else _moe_group_sorted
+    tg = tokens // groups
+    outs, auxs = [], []
+    for i in range(groups):
+        sl = slice(i * tg, (i + 1) * tg)
+        o, a = fn(cfg, p, lora, x2[sl], routed=(gates[sl], eidx[sl], probs[sl]))
+        outs.append(o)
+        auxs.append(a)
+    out = (outs[0] if groups == 1 else torch.cat(outs)).reshape(b, s, d)
+    aux = torch.stack(auxs)
+    if ctx.get("moe_aux_rows"):
+        if b % groups:
+            raise ValueError(f"moe_aux_rows needs groups of whole rows: {b} rows "
+                             f"in {groups} groups")
+        return out, aux.repeat_interleave(b // groups)
+    return out, aux.mean()
+
+
+def moe_prefill(cfg: ModelConfig, p: dict, lora, x: Tensor, ctx: dict):
+    """The training forward; also returns the roped K/V as the cache contents."""
+    pos = ctx["positions"]
+    h = L.apply_norm(cfg, p["ln1"], x)
+    q, k, v = L.qkv_project(cfg, p["attn"], _attn_lora(lora), h, pos)
+    a = L.attention_full(q, k, v, causal=ctx["causal"], window=ctx.get("window"),
+                         q_pos=pos, k_pos=pos, impl=cfg.attn_impl,
+                         arange=ctx.get("arange", False), chunk=cfg.attn_chunk)
+    x = x + L.attn_out(cfg, p["attn"], _attn_lora(lora), a)
+    h = L.apply_norm(cfg, p["ln2"], x)
+    y, aux = moe_mlp(cfg, p, lora, h, ctx)
+    return x + y, {"k": k, "v": v}, aux
+
+
+def moe_train(cfg: ModelConfig, p: dict, lora, x: Tensor, ctx: dict):
+    x, _, aux = moe_prefill(cfg, p, lora, x, ctx)
+    return x, aux
+
+
+def moe_decode(cfg: ModelConfig, p: dict, lora, x: Tensor, cache: dict,
+               pos: int, ctx: dict):
+    h = L.apply_norm(cfg, p["ln1"], x)
+    a, cache = _decode_attn(cfg, p["attn"], _attn_lora(lora), h, cache, pos, ctx)
+    x = x + L.attn_out(cfg, p["attn"], _attn_lora(lora), a)
+    h = L.apply_norm(cfg, p["ln2"], x)
+    y, _ = moe_mlp(cfg, p, lora, h, dict(ctx, moe_dense_fallback=True))
+    return x + y, cache
+
+
+MOE = {"init": moe_init, "train": moe_train, "prefill": moe_prefill,
+       "decode": moe_decode, "init_cache": dense_init_cache}
 
 
 # ===========================================================================
@@ -359,7 +581,7 @@ def rwkv_decode(cfg: ModelConfig, p: dict, lora, x: Tensor, cache: dict,
 RWKV = {"init": rwkv_init, "train": rwkv_train, "prefill": rwkv_prefill,
         "decode": rwkv_decode, "init_cache": rwkv_init_cache}
 
-BLOCKS = {"encoder": DENSE, "dense": DENSE, "ssm": RWKV}
+BLOCKS = {"encoder": DENSE, "dense": DENSE, "moe": MOE, "vlm": DENSE, "ssm": RWKV}
 
 
 def get_block(cfg: ModelConfig) -> dict:

@@ -1,6 +1,9 @@
 """Single-stack model with the paper's split execution built in — the
-encoder family (BERT), the dense decoder LM (gemma) and the RWKV6 LM.
-Port of ``src/repro/models/decoder.py``.
+encoder family (BERT), the dense decoder LMs (gemma, granite, qwen1.5),
+the MoE LMs (qwen3-moe, grok-1), the VLM (internvl2: a projector from
+precomputed vision embeddings into the dense LM) and the RWKV6 LM.  Port
+of ``src/repro/models/decoder.py``; the hybrid family (zamba2) comes with
+its slice (ROADMAP Queue A, item 10).
 
 ``side="full" | "client" | "server"`` with a ``cut`` selects which layers
 run, by one of the reference's two paths (identical semantics, tested
@@ -20,7 +23,8 @@ scan's prefill and decode modes with every layer owned).
 
 Params layout (as in the reference, layers stacked on a leading axis):
     {"embed": (V,d), ["pos_embed": (P,d)], "layers": <stacked (L,...)>,
-     "final_norm": {...}, ["head": (d,V) | "cls_head": (d,n_classes)]}
+     ["proj": (Dv,d)] (vlm), "final_norm": {...},
+     ["head": (d,V) | "cls_head": (d,n_classes)]}
 Caches stack the per-layer caches on a leading (L,) axis, as the
 reference's scan does; ``serve_step`` updates them in place.
 """
@@ -40,7 +44,7 @@ from repro_torch.tree import tree_leaves, tree_map
 
 PyTree = Any
 
-FAMILIES = ("encoder", "dense", "ssm")
+FAMILIES = ("encoder", "dense", "moe", "vlm", "ssm")
 
 
 def build_lora_tree(gen: torch.Generator, params_one_layer: PyTree, targets,
@@ -94,14 +98,31 @@ class DecoderModel:
         self.block = B.get_block(cfg)
 
     # -- init ---------------------------------------------------------------
+    def _init_layers(self, gen: torch.Generator) -> PyTree:
+        """Every layer's parameters, stacked on a leading (L,) axis and
+        filled layer by layer: one layer's tree is alive beside the stack,
+        never a list of them (the stack of a 30 B-parameter MoE would not
+        fit twice on one card).  The layers draw from ``gen`` in order, as
+        a list of per-layer inits stacked afterwards would."""
+        cfg, dev = self.cfg, self.device
+        layer = self.block["init"](gen, cfg, dev)
+        stacked = tree_map(lambda a: a.new_empty((cfg.n_layers,) + tuple(a.shape)), layer)
+        for i in range(cfg.n_layers):
+            if i:
+                layer = self.block["init"](gen, cfg, dev)
+            tree_map(lambda dst, src: dst[i].copy_(src), stacked, layer)
+            del layer
+        return stacked
+
     def init_params(self, gen: torch.Generator) -> PyTree:
         cfg, dev = self.cfg, self.device
         dt = L.torch_dtype(cfg.dtype)
         p: dict = {"embed": L.embed_init(gen, cfg.vocab_size, cfg.d_model, dt, dev)}
         if cfg.positional == "learned":
             p["pos_embed"] = L.embed_init(gen, cfg.max_position, cfg.d_model, dt, dev)
-        p["layers"] = stack_trees([self.block["init"](gen, cfg, dev)
-                                   for _ in range(cfg.n_layers)])
+        p["layers"] = self._init_layers(gen)
+        if cfg.family == "vlm":
+            p["proj"] = L.dense_init(gen, cfg.vision_embed_dim, cfg.d_model, dt, dev)
         p["final_norm"] = L.init_norm(cfg, dev)
         if cfg.n_classes:
             p["cls_head"] = L.dense_init(gen, cfg.d_model, cfg.n_classes,
@@ -121,8 +142,20 @@ class DecoderModel:
 
     # -- embedding / head -----------------------------------------------------
     def embed(self, params: PyTree, batch: dict) -> torch.Tensor:
+        """Token embeddings (a gather, or with ``embed_impl="onehot"`` the
+        one-hot product of the reference), preceded for the VLM by the
+        projected ``vision_embeds`` (B, Nv, Dv) when the batch has them;
+        learned positions over the whole sequence."""
         cfg = self.cfg
-        x = params["embed"][batch["tokens"].long()]
+        tokens = batch["tokens"].long()
+        if cfg.embed_impl == "onehot":
+            oh = torch.nn.functional.one_hot(tokens, cfg.vocab_size).to(params["embed"].dtype)
+            x = oh @ params["embed"]
+        else:
+            x = params["embed"][tokens]
+        if cfg.family == "vlm" and "vision_embeds" in batch:
+            vis = batch["vision_embeds"].to(x.dtype) @ params["proj"].to(x.dtype)
+            x = torch.cat([vis, x], dim=1)
         if cfg.positional == "learned":
             x = x + params["pos_embed"][torch.arange(x.shape[1], device=x.device)]
         return x
@@ -136,14 +169,17 @@ class DecoderModel:
         return x @ w.to(x.dtype)
 
     def make_ctx(self, seq_len: int, device, *, window: Optional[int] = None,
-                 positions: Optional[torch.Tensor] = None) -> dict:
+                 positions: Optional[torch.Tensor] = None, moe_groups: int = 1) -> dict:
+        """The blocks' context (``blocks`` module docstring); ``moe_groups``
+        splits the MoE dispatch into that many equal groups of tokens."""
         cfg = self.cfg
         arange = positions is None
         if arange:
             positions = torch.arange(seq_len, dtype=torch.int32, device=device)
         return {"positions": positions, "causal": cfg.causal,
                 "window": window if window is not None else cfg.sliding_window,
-                "arange": arange}
+                "arange": arange, "moe_groups": moe_groups or 1,
+                "moe_dense_fallback": False}
 
     # -- backbone: sliced (static-cut) path -------------------------------------
     def sliced_forward(self, params, lora, x, ctx, layer_range) -> torch.Tensor:
@@ -169,18 +205,23 @@ class DecoderModel:
         """Every layer of the stack runs; layer i's output is kept where it
         is owned on ``side`` of ``cut`` and its aux loss added there (the
         reference's masked scan in train mode).  A per-row ``cut`` masks
-        each row at its own cut, so the aux loss comes back per row; the
-        block's aux is one scalar over the whole batch, so per-row cuts
-        assume a block whose aux is zero, as every block of the port's
-        families returns (a batch-level aux, such as a MoE router loss,
-        would have to be computed per lane).  With a Python int cut the
-        mask of each layer is known here: an owned layer runs as on the
-        sliced path, with no ``torch.where``, and a layer that is not owned
-        is skipped (its output would be dropped, its gradients are zeros),
-        so the values equal the sliced path's bit for bit.
-        ``remat`` recomputes each layer in the backward instead of keeping
-        its activations (``jax.checkpoint`` of the scan body)."""
+        each row at its own cut, so the aux loss comes back per row, and
+        the blocks are asked for theirs per row (``moe_aux_rows``): the MoE
+        block's router loss is one per dispatch group, so a caller that
+        concatenates lanes (the vmap cohort step) also sets ``moe_groups``
+        to the number of lanes, and each lane gets its own capacity, drops
+        and aux, masked by its own cut, as under the reference's
+        ``jax.vmap``.  With a Python int cut the mask of each
+        layer is known here: an owned layer runs as on the sliced path,
+        with no ``torch.where``, and a layer that is not owned is skipped
+        (its output would be dropped, its gradients are zeros), so the
+        outputs equal the sliced path's bit for bit (only this path also
+        returns the owned layers' aux loss).  ``remat`` recomputes each layer
+        in the backward instead of keeping its activations
+        (``jax.checkpoint`` of the scan body)."""
         lora_layers = (lora or {}).get("layers", {})
+        if torch.is_tensor(cut) and cut.dim() == 1:
+            ctx = dict(ctx, moe_aux_rows=True)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for i in range(tree_leaves(params["layers"])[0].shape[0]):
             run = _run_mask(side, i, cut)
@@ -197,13 +238,17 @@ class DecoderModel:
 
     # -- public API ----------------------------------------------------------
     def forward_hidden(self, params, lora, batch, *, cut=0, side: str = "full",
-                       remat: bool = False, path: str = "sliced", x0=None):
+                       remat: bool = False, path: str = "sliced", x0=None,
+                       ctx: Optional[dict] = None):
         """Embedding (client/full only) + the owned layers; returns (h, aux).
         ``path="sliced"`` (the default here, and what the simulator and the
-        split steps run) loops over exactly the owned layers at an int cut;
-        ``path="scan"`` is the masked loop of :meth:`scan_forward`."""
+        split steps run) loops over exactly the owned layers at an int cut
+        and reports no aux loss, as the reference's sliced path does;
+        ``path="scan"`` is the masked loop of :meth:`scan_forward`.
+        ``ctx`` defaults to :meth:`make_ctx` over the sequence."""
         x = self.embed(params, batch) if x0 is None else x0
-        ctx = self.make_ctx(x.shape[1], x.device)
+        if ctx is None:
+            ctx = self.make_ctx(x.shape[1], x.device)
         if path == "scan":
             return self.scan_forward(params, lora, x, ctx, cut, side, remat=remat)
         if path != "sliced":
@@ -214,18 +259,28 @@ class DecoderModel:
         h = self.sliced_forward(params, lora, x, ctx, rng)
         return h, torch.zeros((), dtype=torch.float32, device=h.device)
 
+    def lm_logits(self, params, h: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+        """The LM head's logits over the positions that have targets: all of
+        them, or for the VLM the text tokens after the vision prefix."""
+        logits = self.unembed(params, h)
+        if self.cfg.family == "vlm":
+            logits = logits[:, -targets.shape[1]:, :]
+        return logits
+
     def loss(self, params, lora, batch, *, cut=0, side: str = "full",
-             remat: bool = False, path: str = "sliced", x0=None):
+             remat: bool = False, path: str = "sliced", x0=None,
+             ctx: Optional[dict] = None):
         """Full loss (side='full') or server-side loss from activations x0:
         the CLS head's cross-entropy, or the LM's teacher-forced one
         against ``batch['targets']``, plus the aux loss (its mean over the
         rows where the cut is per row)."""
         h, aux = self.forward_hidden(params, lora, batch, cut=cut, side=side,
-                                     remat=remat, path=path, x0=x0)
-        logits = self.unembed(params, h)
+                                     remat=remat, path=path, x0=x0, ctx=ctx)
         if self.cfg.n_classes:
+            logits = self.unembed(params, h)
             loss = L.softmax_xent(logits[:, None, :], batch["label"][:, None])
         else:
+            logits = self.lm_logits(params, h, batch["targets"])
             loss = L.softmax_xent(logits, batch["targets"])
         return loss + (aux if aux.dim() == 0 else aux.mean()), logits
 

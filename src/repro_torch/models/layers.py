@@ -1,5 +1,6 @@
 """Shared neural-net primitives: norms, RoPE, LoRA-aware projections,
-attention (GQA/MQA, sliding window, KV-cache decode), MLPs, cross-entropy.
+attention (GQA/MQA, qkv biases, sliding window, KV-cache decode), MLPs,
+cross-entropy.
 Port of ``src/repro/models/layers.py``.
 
 Pure functions over explicit parameter trees (dicts of tensors).  Weights
@@ -106,10 +107,11 @@ LORA_IMPLS = ("einsum", "fused")
 
 
 def _lora_apply_grouped(x: Tensor, w: Tensor, lora: dict, scale: float,
-                        impl: str) -> Tensor:
+                        bias: Optional[Tensor], impl: str) -> Tensor:
     """Cohort-grouped adapters: a (G, r, K), b (G, N, r) against a shared
     base w (K, N).  x's leading axes flatten into G equal row segments
-    (segment g owns adapter g) — the ragged server step arranges this."""
+    (segment g owns adapter g) — the ragged server step arranges this.
+    ``bias`` is added last, in the output's type, as the reference does."""
     a, b = lora["a"], lora["b"]
     g = a.shape[0]
     *lead, kdim = x.shape
@@ -122,33 +124,43 @@ def _lora_apply_grouped(x: Tensor, w: Tensor, lora: dict, scale: float,
         from repro_torch.kernels.ops import grouped_lora_matmul
         y2 = grouped_lora_matmul(x2.to(w.dtype), w, a.to(w.dtype), b.to(w.dtype),
                                  group_sizes=(m // g,) * g, scale=float(scale))
-        return y2.reshape(*lead, w.shape[1]).to(x.dtype)
-    y = x @ w.to(x.dtype)
-    xg = x2.reshape(g, m // g, kdim)
-    lo = torch.einsum("gmi,gri->gmr", xg, a.to(x.dtype))
-    up = torch.einsum("gmr,gor->gmo", lo, b.to(x.dtype))
-    return y + scale * up.reshape(*lead, -1)
+        y = y2.reshape(*lead, w.shape[1]).to(x.dtype)
+    else:
+        y = x @ w.to(x.dtype)
+        xg = x2.reshape(g, m // g, kdim)
+        lo = torch.einsum("gmi,gri->gmr", xg, a.to(x.dtype))
+        up = torch.einsum("gmr,gor->gmo", lo, b.to(x.dtype))
+        y = y + scale * up.reshape(*lead, -1)
+    if bias is not None:
+        y = y + bias.to(y.dtype)
+    return y
 
 
 def lora_apply(x: Tensor, w: Tensor, lora: Optional[dict], scale: float,
-               impl: Optional[str] = None) -> Tensor:
-    """y = x @ w + scale * (x @ a.T) @ b.T   with a:(r,in), b:(out,r).
+               bias: Optional[Tensor] = None, impl: Optional[str] = None) -> Tensor:
+    """y = x @ w [+ bias] + scale * (x @ a.T) @ b.T   with a:(r,in), b:(out,r).
 
     A 3-D adapter (G, r, in) / (G, out, r) is a cohort-grouped stack: x's
     rows split into G equal segments, each with its own adapter
-    (:func:`_lora_apply_grouped`)."""
+    (:func:`_lora_apply_grouped`).  The bias goes in where the reference
+    adds it: after the fused kernel, in w's type before the cast to x's;
+    on the plain path in x's type, before the adapter term."""
     if impl is None:
         impl = "einsum"
     elif impl not in LORA_IMPLS:
         raise KeyError(f"unknown lora impl {impl!r}; choose from {LORA_IMPLS}")
     if lora is not None and lora["a"].dim() == 3 and w.dim() == 2:
-        return _lora_apply_grouped(x, w, lora, scale, impl)
+        return _lora_apply_grouped(x, w, lora, scale, bias, impl)
     if impl == "fused" and lora is not None and w.dim() == 2:
         from repro_torch.kernels.ops import fused_lora_matmul
         y = fused_lora_matmul(x.to(w.dtype), w, lora["a"].to(w.dtype),
                               lora["b"].to(w.dtype), scale=float(scale))
+        if bias is not None:
+            y = y + bias.to(y.dtype)
         return y.to(x.dtype)
     y = x @ w.to(x.dtype)
+    if bias is not None:
+        y = y + bias.to(y.dtype)
     if lora is not None:
         lo = x @ lora["a"].to(x.dtype).t()
         y = y + scale * (lo @ lora["b"].to(x.dtype).t())
@@ -362,15 +374,18 @@ def mlp_apply(cfg: ModelConfig, p: dict, lora: Optional[dict], x: Tensor) -> Ten
 # ---------------------------------------------------------------------------
 
 def attn_init(gen: torch.Generator, cfg: ModelConfig, device) -> dict:
+    """wq, wk, wv, wo (in, out), and with ``qkv_bias`` the f32 biases bq,
+    bk, bv, zero at init as in the reference."""
     d = cfg.d_model
     dt = torch_dtype(cfg.dtype)
+    p = {"wq": dense_init(gen, d, cfg.attn_dim, dt, device),
+         "wk": dense_init(gen, d, cfg.kv_dim, dt, device),
+         "wv": dense_init(gen, d, cfg.kv_dim, dt, device),
+         "wo": dense_init(gen, cfg.attn_dim, d, dt, device)}
     if cfg.qkv_bias:
-        raise NotImplementedError("qkv biases come with a later slice "
-                                  "of the port (ROADMAP Queue A, item 10)")
-    return {"wq": dense_init(gen, d, cfg.attn_dim, dt, device),
-            "wk": dense_init(gen, d, cfg.kv_dim, dt, device),
-            "wv": dense_init(gen, d, cfg.kv_dim, dt, device),
-            "wo": dense_init(gen, cfg.attn_dim, d, dt, device)}
+        for key, n in (("bq", cfg.attn_dim), ("bk", cfg.kv_dim), ("bv", cfg.kv_dim)):
+            p[key] = torch.zeros((n,), dtype=torch.float32, device=device)
+    return p
 
 
 def qkv_project(cfg: ModelConfig, p: dict, lora: Optional[dict], x: Tensor,
@@ -379,9 +394,9 @@ def qkv_project(cfg: ModelConfig, p: dict, lora: Optional[dict], x: Tensor,
     impl = cfg.lora.impl
     lget = (lora or {}).get
     b, s, _ = x.shape
-    q = lora_apply(x, p["wq"], lget("wq"), scale, impl=impl)
-    k = lora_apply(x, p["wk"], lget("wk"), scale, impl=impl)
-    v = lora_apply(x, p["wv"], lget("wv"), scale, impl=impl)
+    q = lora_apply(x, p["wq"], lget("wq"), scale, p.get("bq"), impl=impl)
+    k = lora_apply(x, p["wk"], lget("wk"), scale, p.get("bk"), impl=impl)
+    v = lora_apply(x, p["wv"], lget("wv"), scale, p.get("bv"), impl=impl)
     q = q.reshape(b, s, cfg.n_heads, cfg.head_dim)
     k = k.reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
     v = v.reshape(b, s, cfg.n_kv_heads, cfg.head_dim)

@@ -1,5 +1,5 @@
-"""The port's copies of the JAX package's numpy-only modules (configs of
-bert-base, gemma-2b and rwkv6-3b, data,
+"""The port's copies of the JAX package's numpy-only modules (the eleven
+configs, ``reduced`` and the input shapes, data,
 cost model, scheduling, devices, metrics, run config, the wire-byte count of
 the transport compression, capacity-based partitioning) stay bit-equal to
 their originals on seeded inputs.  The copies of the network plane
@@ -66,6 +66,33 @@ def test_decoder_lm_configs_and_reduced(arch, kw):
     if kw:
         _same_config(j_configs.reduced(j, **kw), t_configs.reduced(t, **kw))
     assert t.param_count() == j.param_count()
+
+
+@pytest.mark.parametrize("arch", ["granite-3-2b", "granite-20b", "qwen1.5-4b",
+                                  "qwen3-moe-30b-a3b", "grok-1-314b", "internvl2-26b",
+                                  "zamba2-7b", "whisper-large-v3"])
+@pytest.mark.parametrize("kw", [{}, {"n_layers": 2, "d_model": 256},
+                                {"n_layers": 3, "d_model": 128, "seq_cap": 64}])
+def test_other_configs_and_reduced(arch, kw):
+    j, t = j_configs.REGISTRY[arch], t_configs.REGISTRY[arch]
+    _same_config(j, t)
+    if kw:
+        _same_config(j_configs.reduced(j, **kw), t_configs.reduced(t, **kw))
+    assert t.param_count() == j.param_count()
+    assert t.active_param_count() == j.active_param_count()
+
+
+def test_registry_and_shapes_match():
+    assert list(t_configs.REGISTRY) == list(j_configs.REGISTRY)
+    assert t_configs.ASSIGNED_ARCHS == j_configs.ASSIGNED_ARCHS
+    assert t_configs.ASSIGNED_SHAPES == j_configs.ASSIGNED_SHAPES
+    assert list(t_configs.SHAPES) == list(j_configs.SHAPES)
+    for name, shape in j_configs.SHAPES.items():
+        got = t_configs.get_shape(name)
+        assert dataclasses.asdict(got) == dataclasses.asdict(shape)
+        assert got.step_name == shape.step_name
+    with pytest.raises(KeyError, match="unknown input shape"):
+        t_configs.get_shape("train_1k")
 
 
 @pytest.mark.parametrize("seed", [0, 3])

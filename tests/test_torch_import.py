@@ -20,7 +20,8 @@ SRC = ROOT / "src"
 # modules of the later slices (decoder-LM serving; the memory model and
 # partitioning; the network and observability planes and the event engine;
 # the control plane; checkpointing; the schedules and the training
-# entry point), which the walk below must reach
+# entry point; the other families' configs and the input shapes), which
+# the walk below must reach
 _NEW_MODULES = ("repro_torch.configs.gemma_2b", "repro_torch.configs.rwkv6_3b",
                 "repro_torch.kernels.flash_attention", "repro_torch.kernels.wkv6",
                 "repro_torch.serving", "repro_torch.serving.engine",
@@ -34,7 +35,12 @@ _NEW_MODULES = ("repro_torch.configs.gemma_2b", "repro_torch.configs.rwkv6_3b",
                 "repro_torch.control.telemetry", "repro_torch.checkpointing",
                 "repro_torch.checkpointing.checkpoint",
                 "repro_torch.checkpointing.manager", "repro_torch.optim.schedules",
-                "repro_torch.launch", "repro_torch.launch.train")
+                "repro_torch.launch", "repro_torch.launch.train",
+                "repro_torch.configs.shapes", "repro_torch.configs.granite_3_2b",
+                "repro_torch.configs.granite_20b", "repro_torch.configs.qwen1_5_4b",
+                "repro_torch.configs.qwen3_moe_30b_a3b", "repro_torch.configs.grok_1_314b",
+                "repro_torch.configs.internvl2_26b", "repro_torch.configs.zamba2_7b",
+                "repro_torch.configs.whisper_large_v3")
 
 _IMPORT_ALL = r"""
 import importlib, pkgutil, sys

@@ -222,9 +222,15 @@ def test_bridge_carries_every_leaf(arch, dtype):
 
 @pytest.mark.parametrize("family", ["moe", "hybrid", "vlm", "encdec"])
 def test_families_outside_the_slice_raise(family):
+    """Since their slice the moe and vlm families build (tests/test_torch_moe.py
+    and tests/test_torch_families.py hold them against the reference); the
+    hybrid and encdec families still raise, naming their ROADMAP item."""
     tc = REGISTRY["gemma-2b"].with_(family=family)
     assert supports_decode(tc) == j_supports_decode(J_REGISTRY["gemma-2b"].with_(family=family))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    if family in ("moe", "vlm"):
+        assert build_model(tc, device="cpu").cfg.family == family
+        return
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue A, item 10"):
         build_model(tc, device="cpu")
 
 
@@ -234,11 +240,9 @@ def test_supports_decode_matches_reference():
 
 
 def test_unported_knobs_raise():
-    _, tc = _cfgs("gemma-2b")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(tc.with_(kv_cache_dtype="int8"), device="cpu").init_cache(1, 8)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(tc.with_(qkv_bias=True), device="cpu").init_params(torch.Generator())
+    """Unknown attention and WKV impls raise.  (The int8 KV cache and qkv
+    biases, which raised here before their slice, are held against the
+    reference in tests/test_torch_families.py.)"""
     # shifted positions and a given WKV state no longer raise under
     # "chunked": they take the plain chunked forms (tests/test_torch_chunked.py)
     q = torch.zeros(1, 4, 4, 64)
