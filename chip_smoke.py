@@ -34,7 +34,9 @@ Phases (any failed check raises and the script exits non-zero):
    (timed, with the bf16 base product, the bound at the bf16 tensor-core
    peak, the mma.sync tile at the same shape (A misaligned by one
    element, which sends the call there) and the error against exact
-   products, held within 5 % of the plain version's), at the reference's
+   products, held within 5 % of the plain version's), at zamba2-7b's
+   in_proj (K 3584, N 14576: the last 256-wide tile partial; timed, the
+   same readings), at the reference's
    sweep shapes and ranks and at ragged shapes; lora_matmul fp32 at the
    MoE router's shapes over 8192 rows (qwen3-moe's d 2048 to 128 experts,
    timed, whose dx call has K 128; grok-1's d 6144 to 8); grouped_lora in chunk mode
@@ -135,7 +137,10 @@ Phases (any failed check raises and the script exits non-zero):
    causal with window 256, and non-causal) and, in bf16, at D 64 and 128
    (ragged S != T, and GQA with a window), at qwen3-moe's prefill shape
    (4 x 2048, 32 heads on 4 kv heads, D 128, causal; timed) and at
-   granite-3-2b's (32 on 8, D 64), beside PyTorch's
+   granite-3-2b's (32 on 8, D 64), at zamba2-7b's shared attention (4 x
+   2048, 32 heads on 32, D 112: the 128-wide tile, zero past D; causal;
+   bf16 and fp32, timed) and at whisper-large-v3's encoder (4 x 1500, 20
+   heads, D 64, non-causal; timed), beside PyTorch's
    scaled_dot_product_attention as the yardstick; the WKV6 kernel at the
    rwkv6-3b prefill shape (B 4, T 2048, H 40, D 64; bf16 r/k/v with an f32
    decay, and fp32) and at a ragged T of 1000, with slow decays and with
@@ -169,10 +174,23 @@ Phases (any failed check raises and the script exits non-zero):
    per-step logits within the reference's 5e-2 of the model-type cache's
    over the steps both fed alike (``int8_cache_gap``), greedy agreement
    printed;
-11c. build: every registered config through ``build_model`` on the card
-   (``build_phase``): the ported families at full width and 2 layers, a
-   128-token forward with finite hidden states; zamba2-7b and
-   whisper-large-v3 must raise, naming ROADMAP item 10;
+11c. the hybrid and the encoder-decoder (``FAMILY_LM_PHASES``) at full
+   width and depth in bf16: zamba2-7b the same way as 11 (its plain
+   setting attn_impl "naive" with the same plain chunked SSD, which has no
+   kernel; 14 flash launches, one a segment; 218 fused and 218 grouped
+   bf16 LoRA launches; the layer-by-layer holds run the shared block after
+   each segment, and the LoRA prefills' every block held against fp32
+   (``Fp32Hold``), the einsum path's distance printed; the decode check also holds every Mamba2 layer's
+   conv history and state and every segment's K/V against the prefill's);
+   whisper-large-v3 on 4 x 1500 random frames and prompts of 448 tokens
+   (``lm_phase_encdec``: 32 flash launches, the encoder's; 384 fused and
+   384 grouped bf16 LoRA launches; held encoder and decoder layer by
+   layer; its decode from a fresh cache holding the prefill's
+   cross-attention K/V, every step's logits against the teacher-forced
+   ones; no ServingEngine: it has no frames to encode);
+11d. build: every registered config, all eleven, through ``build_model``
+   on the card (``build_phase``) at full width and 2 layers, a 128-token
+   forward (whisper-large-v3: its 1500 frames) with finite hidden states;
 12. LM serving: a ServingEngine per model with two tenants (every adapter
    leaf ~ N(0, 0.05), as in tests/test_serving.py), six greedy requests
    of 16-64 prompt tokens and 16 new tokens in 4 slots of a 128-token
@@ -190,19 +208,22 @@ Phases (any failed check raises and the script exits non-zero):
    adapter leaf's gradient within 5e-2 of fp32 where the einsum path is
    too (the other leaves listed, at least one held a layer);
 14. LM training: gemma-2b at full width and depth, rwkv6-3b at full
-   width and 4 layers and qwen3-moe-30b-a3b at full width and 8 layers,
-   bf16, fused LoRA, 2 x 512 tokens, a mid cut (for the MoE family the
+   width and 4 layers, qwen3-moe-30b-a3b at full width and 8 layers,
+   zamba2-7b at 12 (sliced against scan at cuts 6 and 3) and
+   whisper-large-v3 at 4 + 4 layers (cut 2, its one path: no scan or
+   cohort step), bf16, fused LoRA, 2 x 512 tokens, a mid cut (for the MoE family the
    rules of ``lm_train``'s docstring: logits bit for bit and the aux
    rule for sliced against scan, remat on and off bit for bit, vmap lanes
-   against their own scan steps, the router's grouped dx call in direct
-   mode): the
+   against their own scan steps, ragged lanes against sliced steps (neither
+   has the aux), the router's grouped dx call in direct mode): the
    LM server step on the sliced path against the scan path on the same
    inputs, bit for bit; three split steps (client forward, server step,
    client backward) on one repeated batch, whose loss must fall; the full
-   train step with remat off and on for two steps, equal losses; and the
+   train step with remat off and on for two steps, bit for bit; and the
    LM cohort step over three lanes at three cuts, vmap and ragged against
    the three sequential steps (losses, dv and each lane's adapter
-   gradients, read from its optimizer state); every call's bf16
+   gradients, read from its optimizer state; zamba2-7b's dv and gradients
+   held on the same steps run again in fp32); every call's bf16
    lora_matmul or grouped
    launches asserted (all on the wgmma tile), its wall s, peak bytes and
    device s printed;
@@ -345,7 +366,8 @@ DESIGNS = {
                    "strides",
     "flash_attention": "bf16: wgmma m64n64k16 (Q K^T) and m64nDk16 (P V, P from "
                        "registers), 2 consumer warpgroups x 64 query rows, TMA "
-                       "2-stage K/V ring on mbarriers; fp32: SIMT FMAs",
+                       "2-stage K/V ring on mbarriers; D 112 as the 128-wide tile, "
+                       "TMA zero-filling past D; fp32: SIMT FMAs",
     "grouped_lora_chunk": "lora_matmul's 3xTF32 mma.sync tile (shared header "
                           "tf32_lora_tile.cuh) per 128x96 tile of one group, from a "
                           "device tile table; 4-stage cp.async ring; W N- or "
@@ -456,10 +478,20 @@ LM_GRAD_LOSS_RTOL, LM_GRAD_TOL = 1e-2, 5e-2
 LM_GRAD_E2E_TOL = {"gemma-2b": 1e-1}
 # layer-0 projections whose input is a function of frozen tensors alone (the
 # embedding, norms and, in RWKV6, the token-shift mix), so autograd asks no
-# dx of them: dense wq, wk, wv; ssm time-mix wr, wk, wv, wg
-# (the MoE block's are the dense block's: the router's input follows the
-# attention, whose output adapter needs a dx)
-FROZEN_INPUT_PROJECTIONS = {"dense": 3, "moe": 3, "ssm": 4}
+# dx of them, by the side that runs them (the full step runs both): dense
+# wq, wk, wv; ssm time-mix wr, wk, wv, wg; the hybrid's in_proj (the MoE
+# block's are the dense block's: the router's input follows the attention,
+# whose output adapter needs a dx); the encoder-decoder's layer-0 wq, wk, wv
+# in the encoder (over the frames) and in the decoder (over the token
+# embeddings, on the server); elsewhere the server's first layer takes the
+# uploaded activations, which need a dx
+FROZEN_INPUT = {"dense": {"client": 3, "server": 0}, "moe": {"client": 3, "server": 0},
+                "ssm": {"client": 4, "server": 0}, "hybrid": {"client": 1, "server": 0},
+                "encdec": {"client": 3, "server": 3}}
+# the hybrid's cohort lanes in fp32 (``hybrid_fp32_lanes``): dv and the
+# worst adapter leaf's gradient against each lane's sequential step, in the
+# relative 2-norm
+HYBRID_FP32_LANE_TOL = 1e-3
 LM_GRAD_LAYERS, LM_GRAD_BATCH, LM_GRAD_SEQ = 4, 2, 512
 
 ROUNDS, BATCH, SEQ, LR = 2, 16, 128, 1e-3
@@ -478,9 +510,15 @@ VMAP_CHUNK = 6          # the cohort paths' chunk: all six clients
 # rwkv6-3b cut to 4 and qwen3-moe-30b-a3b to 8 (of 48, for time; all at
 # full width), a mid cut, three lanes at three cuts for the cohort steps,
 # three split steps, two full steps
-LM_TRAIN_LAYERS = {"gemma-2b": 18, "rwkv6-3b": 4, "qwen3-moe-30b-a3b": 8}
+# zamba2-7b at 12 layers (two segments of 6), its sliced and scan server
+# steps at cut 6 (a segment boundary: the client runs the first shared
+# block) and 3 (inside one); whisper-large-v3 at 4 encoder and 4 decoder
+# layers, cut 2 (encoder layers held by the client)
+LM_TRAIN_LAYERS = {"gemma-2b": 18, "rwkv6-3b": 4, "qwen3-moe-30b-a3b": 8,
+                   "zamba2-7b": 12, "whisper-large-v3": 4}
+LM_TRAIN_CUTS = {"zamba2-7b": (6, 3), "whisper-large-v3": (2,)}
 LM_TRAIN_LANE_CUTS = {"gemma-2b": (3, 9, 15), "rwkv6-3b": (1, 2, 3),
-                      "qwen3-moe-30b-a3b": (2, 4, 6)}
+                      "qwen3-moe-30b-a3b": (2, 4, 6), "zamba2-7b": (3, 6, 9)}
 LM_TRAIN_ARCHS = tuple(LM_TRAIN_LAYERS)
 LM_TRAIN_BATCH, LM_TRAIN_SEQ, LM_TRAIN_STEPS = 2, 512, 3
 LAUNCH_ARGS = ("--mode", "central", "--arch", "granite-3-2b", "--steps", "3", "--batch", "2",
@@ -510,6 +548,14 @@ NEW_LM_PHASES = (("qwen3-moe-30b-a3b", {"one_tenant": True}),
                  ("qwen1.5-4b", {"int8_cache": True}),
                  ("internvl2-26b", {}),
                  ("grok-1-314b", {"layers": 2}))
+# the hybrid and the encoder-decoder (the second part of the slice), at full
+# width and depth: zamba2-7b (81 Mamba2 layers, a shared attention block
+# after each of its 14 segments; plain setting attn_impl "naive" with the
+# same plain chunked SSD, which has no kernel) and whisper-large-v3 (32
+# encoder and 32 decoder layers, on 4 x 1500 random frames and prompts of
+# ENCDEC_PROMPT tokens, its decoder's own context)
+FAMILY_LM_PHASES = ("zamba2-7b", "whisper-large-v3")
+ENCDEC_PROMPT = 448
 # the [build] phase: every registered config through build_model on the
 # card at full width and this many layers, one forward of a prompt of
 # this many tokens
@@ -1607,47 +1653,150 @@ def layer_err(cfg, got: torch.Tensor, want: torch.Tensor) -> float:
     return norm_err(got.float(), want.float())
 
 
-def layerwise_prefill(model_k, model_p, params, lora, batch) -> dict:
+def fp32_block(block, cfg, p, lo, x, ctx) -> torch.Tensor:
+    """A block's prefill output in fp32 (plain attention, einsum LoRA) on
+    the same bf16-valued weights, adapters and input, upcast."""
+    cfg32 = cfg.with_(dtype="float32", attn_impl="naive",
+                      lora=dataclasses.replace(cfg.lora, impl="einsum"))
+    up = lambda t: tree_map(lambda a: a.float(), t)  # noqa: E731
+    return block["prefill"](cfg32, up(p), up(lo), x.float(), ctx)[0]
+
+
+class Fp32Hold:
+    """The hybrid's LoRA prefills held against fp32: for every block
+    application (each Mamba2 layer, each shared block), the kernel path's
+    output against the fp32 output of the same block on the same inputs
+    (``fp32_block``), by ``norm_err``, each held at LM_TOL; the einsum
+    path's distance to fp32 is printed.  The bf16 einsum path rounds
+    x @ A^T to bf16 before the up-projection, the fused kernels keep it in
+    f32, and the SSD's decays exp(dt * A) carry a rounding of dt_raw
+    through the whole sequence; so at random weights the two bf16 paths
+    can part by more than either parts from fp32."""
+
+    def __init__(self):
+        self.kernel, self.einsum = [], []
+
+    def add(self, yk, yp, y32) -> None:
+        self.kernel.append(norm_err(yk.float(), y32))
+        self.einsum.append(norm_err(yp.float(), y32))
+
+    def readings(self) -> dict:
+        return {"x_vs_fp32": max(self.kernel), "x_einsum_vs_fp32": max(self.einsum)}
+
+
+def layerwise_prefill(model_k, model_p, params, lora, batch, fp32: bool = False) -> dict:
     """Every layer of the kernel model and of the plain model on the same
     input (the plain model's), worst error of each layer's output
     (``layer_err``) and cache leaves (``norm_err``), and of the last-token
-    logits; for the MoE family also each layer's routing flips
-    (``routing_flips``) and the worst ``norm_err`` of an output."""
+    logits; the hybrid's shared block after each segment the same way; for
+    the MoE family also each layer's routing flips (``routing_flips``) and
+    the worst ``norm_err`` of an output; the encoder-decoder by
+    ``layerwise_encdec``.  With ``fp32`` (the hybrid's LoRA prefills) the
+    outputs are held against fp32 (``Fp32Hold``) and the kernel path's
+    distance to the einsum path's is printed as ``x_kernel_vs_plain``."""
     cfg = model_p.cfg
+    if cfg.family == "encdec":
+        return layerwise_encdec(model_k, model_p, params, lora, batch)
     x = model_p.embed(params, batch)
     ctx = model_p.make_ctx(x.shape[1], x.device)
-    worst, flips = {"x": 0.0}, []
+    worst, flips = {"x_kernel_vs_plain" if fp32 else "x": 0.0}, []
+    ends = model_p._segment_ends()
+    hold = Fp32Hold() if fp32 else None
+
+    def held(block, p, lo, yk, ck, yp, cp):
+        key_x = "x_kernel_vs_plain" if fp32 else "x"
+        worst[key_x] = max(worst[key_x], layer_err(cfg, yk, yp))
+        for key in cp:
+            worst[key] = max(worst.get(key, 0.0), norm_err(ck[key].float(), cp[key].float()))
+        if fp32:
+            hold.add(yk, yp, fp32_block(block, cfg, p, lo, x, ctx))
+
     for i in range(cfg.n_layers):
         p_l, lo_l = _layer(params["layers"], i), _layer(lora.get("layers", {}), i)
         with RouterLog() as log_k:
             yk, ck, _ = model_k.block["prefill"](model_k.cfg, p_l, lo_l, x, ctx)
         with RouterLog() as log_p:
             yp, cp, _ = model_p.block["prefill"](cfg, p_l, lo_l, x, ctx)
-        worst["x"] = max(worst["x"], layer_err(cfg, yk, yp))
+        held(model_p.block, p_l, lo_l, yk, ck, yp, cp)
         if cfg.family == "moe":
             worst["x_norm_err"] = max(worst.get("x_norm_err", 0.0),
                                       norm_err(yk.float(), yp.float()))
             flips.append(routing_flips(cfg, log_k.ids[0], log_p.ids[0]))
-        for key in cp:
-            worst[key] = max(worst.get(key, 0.0), norm_err(ck[key].float(), cp[key].float()))
         x = yp
+        if i in ends:       # the hybrid's shared block after the segment
+            p_s, lo_s = params["shared"], lora.get("shared")
+            yk, ck, _ = blocks_module.dense_prefill(model_k.cfg, p_s, lo_s, x, ctx)
+            yp, cp, _ = blocks_module.dense_prefill(cfg, p_s, lo_s, x, ctx)
+            held(blocks_module.DENSE, p_s, lo_s, yk, ck, yp, cp)
+            x = yp
     worst["logits"] = layer_err(cfg, model_k.unembed(params, yk[:, -1:]),
                                 model_p.unembed(params, yp[:, -1:]))
     if flips:
         worst["routing_flips_by_layer"] = flips
+    if fp32:
+        worst.update(hold.readings())
     return worst
+
+
+def _enc_ctx(t: int, device) -> dict:
+    return {"positions": torch.arange(t, dtype=torch.int32, device=device), "causal": False,
+            "window": None, "arange": True, "moe_groups": 1, "moe_dense_fallback": False}
+
+
+def layerwise_encdec(model_k, model_p, params, lora, batch) -> dict:
+    """``layerwise_prefill`` of the encoder-decoder: every encoder layer of
+    both models on the same input (the plain model's), then every decoder
+    layer against the plain model's encoder output: worst error of the
+    encoder's and the decoder's outputs, of the decoder's self- and
+    cross-attention K/V, and of the last-token logits."""
+    cfg = model_p.cfg
+    x = batch["frames"].to(torch_dtype(cfg.dtype)) + params["enc_pos"][:batch["frames"].shape[1]][None]
+    ctx = _enc_ctx(x.shape[1], x.device)
+    worst = {"enc_x": 0.0, "dec_x": 0.0}
+    lo_enc, lo_dec = lora.get("enc_layers", {}), lora.get("dec_layers", {})
+    for i in range(cfg.n_encoder_layers):
+        p_l = _layer(params["enc_layers"], i)
+        yk, _ = blocks_module.dense_train(model_k.cfg.with_(causal=False), p_l,
+                                          _layer(lo_enc, i), x, ctx)
+        yp, _ = blocks_module.dense_train(cfg.with_(causal=False), p_l, _layer(lo_enc, i),
+                                          x, ctx)
+        worst["enc_x"] = max(worst["enc_x"], norm_err(yk.float(), yp.float()))
+        x = yp
+    from repro_torch.models.layers import apply_norm
+    enc = apply_norm(cfg, params["enc_norm"], x)
+    h = model_p._dec_embed(params, batch["tokens"])
+    ctxd = model_p._dec_ctx(h.shape[1], h.device)
+    for i in range(cfg.n_layers):
+        p_l, lo_l = _layer(params["dec_layers"], i), _layer(lo_dec, i)
+        yk, ck = model_k._dec_layer(p_l, lo_l, h, enc, ctxd)
+        yp, cp = model_p._dec_layer(p_l, lo_l, h, enc, ctxd)
+        worst["dec_x"] = max(worst["dec_x"], norm_err(yk.float(), yp.float()))
+        for key in cp:
+            worst[key] = max(worst.get(key, 0.0), norm_err(ck[key].float(), cp[key].float()))
+        h = yp
+    worst["logits"] = norm_err(model_k._unembed(params, yk[:, -1:]).float(),
+                               model_p._unembed(params, yp[:, -1:]).float())
+    return worst
+
+
+# readings of ``layerwise_prefill`` printed and not held
+PRINTED_READINGS = ("x_norm_err", "routing_flips_by_layer", "x_kernel_vs_plain",
+                    "x_einsum_vs_fp32")
 
 
 def held_values(worst: dict) -> list:
     """The readings of ``layerwise_prefill`` held at LM_TOL."""
-    return [v for key, v in worst.items() if key not in ("x_norm_err",
-                                                         "routing_flips_by_layer")]
+    return [v for key, v in worst.items() if key not in PRINTED_READINGS]
 
 
-def layerwise_decode(model, params, lora, prompt) -> float:
+def layerwise_decode(model, params, lora, prompt):
     """For each layer: its prefill on the prompt's input to that layer, and
     its decode of the same input token by token from an empty cache of
     SERVE_CACHE slots; worst error of the outputs (``layer_err``).  The
+    hybrid's shared block after each segment the same way, and for the
+    hybrid also (worst error of the outputs, worst of each cache leaf after
+    the decode against the prefill's: every Mamba2 layer's conv history and
+    state, every segment's K/V).  The
     MoE block's decode computes every expert for every token (the
     reference's dense fallback), so its prefill here does the same
     (``moe_dense_fallback``): the prefill's capacity drops, which a
@@ -1656,20 +1805,33 @@ def layerwise_decode(model, params, lora, prompt) -> float:
     cfg = model.cfg
     x = model.embed(params, {"tokens": prompt})
     ctx = dict(model.make_ctx(x.shape[1], x.device), moe_dense_fallback=True)
-    worst = 0.0
-    for i in range(cfg.n_layers):
-        p_l, lo_l = _layer(params["layers"], i), _layer(lora.get("layers", {}), i)
-        y, _, _ = model.block["prefill"](cfg, p_l, lo_l, x, ctx)
-        cache = model.block["init_cache"](cfg, x.shape[0], SERVE_CACHE, x.device)
+    worst, worst_cache = 0.0, {}
+    ends = model._segment_ends()
+
+    def one(block, p_l, lo_l, x):
+        """The block's prefill and its token-by-token decode of ``x``."""
+        nonlocal worst
+        y, c_pre, _ = block["prefill"](cfg, p_l, lo_l, x, ctx)
+        cache = block["init_cache"](cfg, x.shape[0], SERVE_CACHE, x.device)
         outs = []
         for t in range(x.shape[1]):
             pos = torch.full((1,), t, dtype=torch.int32, device=x.device)
-            y_t, cache = model.block["decode"](cfg, p_l, lo_l, x[:, t:t + 1], cache, t,
-                                               model.make_ctx(1, x.device, positions=pos))
+            y_t, cache = block["decode"](cfg, p_l, lo_l, x[:, t:t + 1], cache, t,
+                                         model.make_ctx(1, x.device, positions=pos))
             outs.append(y_t)
         worst = max(worst, layer_err(cfg, torch.cat(outs, dim=1), y))
-        x = y
-    return worst
+        if ends:            # the hybrid's caches: conv/state, and K/V of the prompt's slots
+            for key, want in c_pre.items():
+                got = cache[key][:, :x.shape[1]] if key in ("k", "v") else cache[key]
+                worst_cache[key] = max(worst_cache.get(key, 0.0),
+                                       norm_err(got.float(), want.float()))
+        return y
+
+    for i in range(cfg.n_layers):
+        x = one(model.block, _layer(params["layers"], i), _layer(lora.get("layers", {}), i), x)
+        if i in ends:
+            x = one(blocks_module.DENSE, params["shared"], lora.get("shared"), x)
+    return (worst, worst_cache) if ends else worst
 
 
 def _leaves(tree):
@@ -1682,7 +1844,8 @@ def _leaves(tree):
 
 def seq_kernel(cfg) -> str:
     """The sequence kernel of a family's prefill: WKV6 for RWKV6, flash
-    attention for every attention family."""
+    attention for every attention family (the hybrid's shared block, the
+    encoder-decoder's encoder)."""
     return "wkv6" if cfg.family == "ssm" else "flash_attention"
 
 
@@ -1811,9 +1974,13 @@ def lm_phase(arch: str, seed: int, layers: Optional[int] = None,
     base = REGISTRY[arch]
     if layers is not None:
         base = base.with_(n_layers=layers)
+    if base.family == "encdec":
+        return lm_phase_encdec(base, seed)
     kernels_cfg = base.with_(attn_impl="chunked", wkv_impl="chunked")
-    plain_cfg = base.with_(attn_impl="naive", wkv_impl="scan")
-    expect = no_launches(**{seq_kernel(base): base.n_layers})
+    # the hybrid's SSD has no kernel: both settings run its plain chunked form
+    plain_cfg = base.with_(attn_impl="naive",
+                           wkv_impl="chunked" if base.family == "hybrid" else "scan")
+    expect = no_launches(**{seq_kernel(base): seq_launches(base)})
     gen = torch.Generator(device="cuda").manual_seed(seed)
     t0 = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
@@ -1864,7 +2031,8 @@ def lm_phase(arch: str, seed: int, layers: Optional[int] = None,
     (lk, ck, _), (lp, cp, _) = runs["kernels"], runs["plain"]
     free = {"logits_err": norm_err(lk.float(), lp.float()),
             "logits_rel2": rel2(lk.float(), lp.float()),
-            "cache_err": {key: norm_err(ck[key].float(), cp[key].float()) for key in ck},
+            "cache_err": {name: norm_err(a.float(), b.float()) for name, a, b in
+                          zip(_leaf_names(ck), tree_leaves(ck), tree_leaves(cp))},
             "argmax_equal": int((lk.argmax(-1) == lp.argmax(-1)).sum())}
     del runs, lk, ck, lp, cp, logits, cache
     with torch.no_grad():
@@ -1877,6 +2045,11 @@ def lm_phase(arch: str, seed: int, layers: Optional[int] = None,
                              f"layer by layer: {held}")
     out["prefill"] = {"kernels": prefill_rows["kernels"], "plain": prefill_rows["plain"],
                       **cmp}
+    if base.family == "hybrid":
+        out["ssd"] = ssd_share(model, params, lora, batch,
+                               prefill_rows["kernels"]["device_s"])
+        print(f"[lm:{arch}] the plain SSD's share of the prefill's device time "
+              f"{json.dumps(out['ssd'])}", flush=True)
     out["lora_kernels"] = lm_lora_prefill(kernels_cfg, params, adapters, batch)
 
     # serving: six greedy requests over two tenants (and over one)
@@ -1942,12 +2115,15 @@ def lm_phase(arch: str, seed: int, layers: Optional[int] = None,
             dec, cache = model.serve_step(params, lora, cache, prompt[:, i:i + 1], i)
         held = layerwise_decode(model, params, lora, prompt)
     torch.cuda.synchronize()
+    held, held_cache = held if isinstance(held, tuple) else (held, {})
     inv = {"prompt_len": int(prompt.shape[1]),
            "free_running": {"logits_err": norm_err(dec.float(), pre.float()),
                             "argmax_equal": bool(dec.argmax(-1) == pre.argmax(-1))},
            "per_layer_err": held, "tolerance": LM_TOL}
+    if held_cache:
+        inv["per_layer_cache_err"] = held_cache
     print(f"[lm:{arch}] decode vs prefill {json.dumps(inv)}", flush=True)
-    if not held <= LM_TOL:
+    if not max([held, *held_cache.values()]) <= LM_TOL:
         raise AssertionError(f"{arch}: decode and prefill of one prompt disagree "
                              f"layer by layer: {inv}")
     out["decode_vs_prefill"] = inv
@@ -1957,41 +2133,199 @@ def lm_phase(arch: str, seed: int, layers: Optional[int] = None,
     return out
 
 
+def ssd_share(model, params, lora, batch, prefill_device_s: float) -> dict:
+    """The plain SSD's share of a hybrid prefill's device time: the device
+    time of one ``ssd_apply`` call on layer 0's own inputs (captured from
+    that layer's prefill), times the layers, over the whole prefill's."""
+    cfg = model.cfg
+    seen = []
+    orig = blocks_module.ssd_apply
+
+    def capture(*args):
+        seen.append(args)
+        return orig(*args)
+
+    with torch.no_grad():
+        x = model.embed(params, batch)
+        blocks_module.ssd_apply = capture
+        try:
+            model.block["prefill"](cfg, _layer(params["layers"], 0),
+                                   _layer(lora["layers"], 0), x,
+                                   model.make_ctx(x.shape[1], x.device))
+        finally:
+            blocks_module.ssd_apply = orig
+        one, _ = device_time(lambda: orig(*seen[0]))
+    return {"ssd_device_s_one_layer": one, "ssd_device_s_all_layers": one * cfg.n_layers,
+            "prefill_device_s": prefill_device_s,
+            "share": one * cfg.n_layers / prefill_device_s}
+
+
+def encdec_batch(cfg, seed: int) -> dict:
+    """The encoder-decoder's prefill input: PREFILL_BATCH clips of
+    ``encoder_seq`` random frames (N(0, 1) in the model's type; the conv
+    frontend is the reference's stub) and prompts of ENCDEC_PROMPT tokens."""
+    rs = np.random.default_rng(seed)
+    frames = rs.standard_normal((PREFILL_BATCH, cfg.encoder_seq, cfg.d_model))
+    return {"frames": torch.from_numpy(frames.astype(np.float32))
+            .to(torch_dtype(cfg.dtype)).cuda(),
+            "tokens": torch.from_numpy(rs.integers(0, cfg.vocab_size,
+                                                   (PREFILL_BATCH, ENCDEC_PROMPT))
+                                       .astype(np.int32)).cuda()}
+
+
+def encdec_decode_check(model, params, lora, batch) -> dict:
+    """The encoder-decoder's decode against its teacher-forced forward on
+    one clip and prompt.  The prefill's cache holds the prompt's length and
+    cannot be decoded into, so a fresh ``init_cache`` takes the prefill's
+    cross-attention K/V and the prompt is fed token by token through
+    ``serve_step``; every step's logits are held against the teacher-forced
+    logits at that position (``norm_err`` over all of them, LM_TOL)."""
+    one = _rows(batch, 0, 1)
+    tokens = one["tokens"]
+    s = tokens.shape[1]
+    with torch.no_grad():
+        enc = model.encode(params, lora, one["frames"])
+        teacher = model.decode_train(params, lora, tokens, enc)
+        _, pre = model.prefill(params, lora, one)
+        cache = model.init_cache(1, s)
+        cache["xk"].copy_(pre["xk"])
+        cache["xv"].copy_(pre["xv"])
+        steps = []
+        for i in range(s):
+            lg, cache = model.serve_step(params, lora, cache, tokens[:, i:i + 1], i)
+            steps.append(lg)
+        dec = torch.cat(steps, dim=1)
+    torch.cuda.synchronize()
+    return {"prompt_len": s, "logits_err": norm_err(dec.float(), teacher.float()),
+            "logits_rel2": rel2(dec.float(), teacher.float()),
+            "argmax_equal": int((dec.argmax(-1) == teacher.argmax(-1)).sum()),
+            "tolerance": LM_TOL}
+
+
+def lm_phase_encdec(base, seed: int) -> dict:
+    """``lm_phase`` for the encoder-decoder (whisper-large-v3) at full width
+    and depth in bf16, random weights from ``seed``, on ``encdec_batch``:
+    the prefill under attn_impl "chunked" (the encoder's 32 non-causal
+    attentions through the flash kernel, launches asserted) and "naive"
+    (no launch), held layer by layer (``layerwise_encdec``); the fused and
+    the two-tenant grouped LoRA prefills (``lm_lora_prefill``: one bf16
+    launch per adapted projection, 4 an encoder layer and 8 a decoder
+    layer, every one on the wgmma tile); and the decode check
+    (``encdec_decode_check``: every step's logits against the
+    teacher-forced ones).  No ServingEngine run: the engine serves
+    token streams and has no frames to encode, as in the reference."""
+    arch = base.name
+    kernels_cfg = base.with_(attn_impl="chunked")
+    plain_cfg = base.with_(attn_impl="naive")
+    expect = no_launches(**{seq_kernel(base): seq_launches(base)})
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(kernels_cfg)                    # on the card by default
+    params = model.init_params(gen)
+    adapters = lm_adapters(model, gen)
+    torch.cuda.synchronize()
+    out = {"arch": arch, "family": base.family, "dtype": base.dtype,
+           "layers": base.n_encoder_layers + base.n_layers,
+           "published_layers": REGISTRY[arch].n_encoder_layers + REGISTRY[arch].n_layers,
+           "encoder_layers": base.n_encoder_layers, "decoder_layers": base.n_layers,
+           "d_model": base.d_model, "vocab": base.vocab_size,
+           "frames": [PREFILL_BATCH, base.encoder_seq], "prompt": ENCDEC_PROMPT,
+           "params": sum(x.numel() for x in _leaves(params)),
+           "param_bytes": sum(x.numel() * x.element_size() for x in _leaves(params)),
+           "init_s": time.perf_counter() - t0,
+           "init_peak_bytes": torch.cuda.max_memory_allocated()}
+    print(f"[lm:{arch}] {json.dumps(out)}", flush=True)
+    batch = encdec_batch(base, seed)
+    lora = adapters["client-a"]
+    runs, rows = {}, {}
+    for label, cfg in (("kernels", kernels_cfg), ("plain", plain_cfg)):
+        m = build_model(cfg)
+        with torch.no_grad():
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts()                              # just before the path runs
+            t0 = time.perf_counter()
+            logits, cache = m.prefill(params, lora, batch)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = read_counts()                      # just after
+            peak = torch.cuda.max_memory_allocated()
+            dev_s, top = device_time(lambda: m.prefill(params, lora, batch))
+        row = {"wall_s": wall, "device_s": dev_s, "busy_share": dev_s / wall,
+               "max_mem_bytes": peak, "launches": counts,
+               "tokens_per_s": PREFILL_BATCH * (ENCDEC_PROMPT + base.encoder_seq) / wall,
+               "top": top}
+        print(f"[lm:{arch}] prefill {label} ({cfg.attn_impl}) {json.dumps(row)}", flush=True)
+        want = expect if label == "kernels" else no_launches()
+        if counts != want:
+            raise AssertionError(f"{arch} prefill {label}: launches {counts}, expected {want}")
+        if tuple(logits.shape) != (PREFILL_BATCH, 1, base.vocab_size) or not bool(
+                torch.isfinite(logits.float()).all()):
+            raise AssertionError(f"{arch} prefill {label}: logits {tuple(logits.shape)}, "
+                                 f"finite {bool(torch.isfinite(logits.float()).all())}")
+        runs[label], rows[label] = (logits, cache), row
+    (lk, ck), (lp, cp) = runs["kernels"], runs["plain"]
+    free = {"logits_err": norm_err(lk.float(), lp.float()),
+            "logits_rel2": rel2(lk.float(), lp.float()),
+            "cache_err": {key: norm_err(ck[key].float(), cp[key].float()) for key in ck},
+            "argmax_equal": int((lk.argmax(-1) == lp.argmax(-1)).sum())}
+    del runs, lk, ck, lp, cp, logits, cache
+    with torch.no_grad():
+        held = layerwise_encdec(build_model(kernels_cfg), build_model(plain_cfg), params,
+                                lora, batch)
+    cmp = {"free_running": free, "per_layer": held, "tolerance": LM_TOL}
+    print(f"[lm:{arch}] prefill kernels vs plain {json.dumps(cmp)}", flush=True)
+    if not max(held.values()) <= LM_TOL:
+        raise AssertionError(f"{arch}: the kernel prefill and the plain prefill disagree "
+                             f"layer by layer: {held}")
+    out["prefill"] = {"kernels": rows["kernels"], "plain": rows["plain"], **cmp}
+    out["lora_kernels"] = lm_lora_prefill(kernels_cfg, params, adapters, batch)
+    inv = encdec_decode_check(model, params, lora, batch)
+    print(f"[lm:{arch}] decode vs teacher-forced {json.dumps(inv)}", flush=True)
+    if not inv["logits_err"] <= LM_TOL:
+        raise AssertionError(f"{arch}: decode and the teacher-forced decoder disagree: "
+                             f"{inv}")
+    out["decode_vs_teacher_forced"] = inv
+    del model, params, adapters, lora
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def build_phase() -> dict:
-    """Every registered config through ``build_model`` on the card: the
-    ported families (encoder, dense, moe, vlm, ssm) at full width and
-    BUILD_LAYERS layers in their published types, random weights, one
-    forward of BUILD_SEQ tokens without grad whose hidden states must be
-    finite; the hybrid and encdec families must raise NotImplementedError
-    naming ROADMAP item 10."""
+    """Every registered config (all eleven, of every family) through
+    ``build_model`` on the card at full width and BUILD_LAYERS layers (the
+    encoder-decoder: that many encoder and decoder layers) in their
+    published types, random weights, one forward without grad of BUILD_SEQ
+    tokens (the encoder-decoder: its ``encoder_seq`` random frames, side
+    "full"), whose hidden states must be finite."""
     out = {}
     for name, cfg in REGISTRY.items():
-        if cfg.family in ("hybrid", "encdec"):
-            try:
-                build_model(cfg)
-            except NotImplementedError as exc:
-                if "ROADMAP Queue A, item 10" not in str(exc):
-                    raise
-                out[name] = {"family": cfg.family, "raises": str(exc)}
-                continue
-            raise AssertionError(f"{name}: build_model built the unported family "
-                                 f"{cfg.family}")
-        cut = cfg.with_(n_layers=min(cfg.n_layers, BUILD_LAYERS))
+        cut = cfg.with_(n_layers=min(cfg.n_layers, BUILD_LAYERS),
+                        n_encoder_layers=min(cfg.n_encoder_layers, BUILD_LAYERS))
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         model = build_model(cut)
         params = model.init_params(torch.Generator(device="cuda").manual_seed(90))
-        tokens = torch.randint(0, cut.vocab_size, (1, BUILD_SEQ), device="cuda",
-                               generator=torch.Generator(device="cuda").manual_seed(91))
+        gen = torch.Generator(device="cuda").manual_seed(91)
+        batch = {"tokens": torch.randint(0, cut.vocab_size, (1, BUILD_SEQ), device="cuda",
+                                         generator=gen)}
+        seq = BUILD_SEQ
+        if cfg.family == "encdec":
+            seq = cfg.encoder_seq
+            batch["frames"] = torch.randn((1, seq, cfg.d_model), device="cuda",
+                                          generator=gen).to(torch_dtype(cfg.dtype))
         with torch.no_grad():
-            h, _ = model.forward_hidden(params, None, {"tokens": tokens})
+            h, _ = model.forward_hidden(params, None, batch, side="full")
         torch.cuda.synchronize()
         row = {"family": cfg.family, "dtype": cfg.dtype, "layers": cut.n_layers,
+               "encoder_layers": cut.n_encoder_layers,
                "d_model": cfg.d_model, "params": sum(x.numel() for x in _leaves(params)),
                "wall_s": time.perf_counter() - t0,
                "peak_bytes": torch.cuda.max_memory_allocated()}
-        if tuple(h.shape) != (1, BUILD_SEQ, cfg.d_model) or not bool(
+        if tuple(h.shape) != (1, seq, cfg.d_model) or not bool(
                 torch.isfinite(h.float()).all()):
             raise AssertionError(f"{name}: forward on the card gave {tuple(h.shape)}, "
                                  f"finite {bool(torch.isfinite(h.float()).all())}")
@@ -2003,11 +2337,44 @@ def build_phase() -> dict:
 
 
 def lora_projections(lora) -> int:
-    """The adapted projections a forward applies: one per {a, b} pair of
-    the model's LoRA tree, times the layers the tree stacks."""
+    """The adapted projections a pass over each layer once applies: one per
+    {a, b} pair of the model's LoRA tree, times the layers the tree stacks
+    (an unstacked pair, the hybrid's shared block's, counts once)."""
     if "a" in lora and not isinstance(lora["a"], dict):
-        return int(lora["a"].shape[0])
+        return int(lora["a"].shape[0]) if lora["a"].dim() == 3 else 1
     return sum(lora_projections(v) for v in lora.values() if isinstance(v, dict))
+
+
+def n_segments(cfg) -> int:
+    """The hybrid's segments: one shared-block application after each."""
+    return -(-cfg.n_layers // cfg.shared_attn_every) if cfg.family == "hybrid" else 0
+
+
+def prefill_projections(cfg, lora) -> int:
+    """The adapted projections one prefill applies: the shared block's
+    once a segment."""
+    n = lora_projections(lora)
+    if "shared" in lora:
+        n += (n_segments(cfg) - 1) * lora_projections(lora["shared"])
+    return n
+
+
+def seq_launches(cfg) -> int:
+    """Launches of the sequence kernel in one prefill: one a layer; the
+    hybrid's flash one a segment (its Mamba2 SSD has no kernel); the
+    encoder-decoder's one an encoder layer (the decoder's attention is
+    plain, as in the reference)."""
+    if cfg.family == "hybrid":
+        return n_segments(cfg)
+    if cfg.family == "encdec":
+        return cfg.n_encoder_layers
+    return cfg.n_layers
+
+
+def stack_tenants(loras) -> dict:
+    """Tenants' adapters as one cohort-grouped tree: a layer stack's leaves
+    (L, G, ...), the hybrid's shared block's (G, ...)."""
+    return tree_map(lambda *xs: torch.stack(xs, dim=1 if xs[0].dim() == 3 else 0), *loras)
 
 
 def router_projections(cfg) -> int:
@@ -2044,22 +2411,87 @@ def layerwise_grouped(model_g, model_p, params, lora_g, loras, batch) -> list:
     its half, from the same inputs (the plain model's): worst error
     (``layer_err``) of each half."""
     cfg = model_p.cfg
+    if cfg.family == "encdec":
+        return layerwise_grouped_encdec(model_g, model_p, params, lora_g, loras, batch)
     h = batch["tokens"].shape[0] // 2
     xs = [model_p.embed(params, _rows(batch, i * h, (i + 1) * h)) for i in range(2)]
     seq = xs[0].shape[1]
     ctx = model_p.make_ctx(seq, xs[0].device)
     ctx_g = model_g.make_ctx(seq, xs[0].device, moe_groups=2)
     worst = [0.0, 0.0]
+    ends = model_p._segment_ends()
+    # the hybrid is held against fp32, as its one-tenant prefill (Fp32Hold)
+    holds = [Fp32Hold(), Fp32Hold()] if ends else None
+
+    def held(block, p, los, yg, ys):
+        for half in range(2):
+            got = yg[half * h:(half + 1) * h]
+            worst[half] = max(worst[half], layer_err(cfg, got, ys[half]))
+            if holds:
+                holds[half].add(got, ys[half],
+                                fp32_block(block, cfg, p, los[half], xs[half], ctx))
+
     for i in range(cfg.n_layers):
         p_l = _layer(params["layers"], i)
+        los = [_layer(lo["layers"], i) for lo in loras]
         yg, _, _ = model_g.block["prefill"](model_g.cfg, p_l, _layer(lora_g["layers"], i),
                                             torch.cat(xs), ctx_g)
-        ys = [model_p.block["prefill"](cfg, p_l, _layer(lo["layers"], i), x, ctx)[0]
-              for lo, x in zip(loras, xs)]
-        for half in range(2):
-            worst[half] = max(worst[half], layer_err(cfg, yg[half * h:(half + 1) * h],
-                                                     ys[half]))
+        ys = [model_p.block["prefill"](cfg, p_l, lo, x, ctx)[0] for lo, x in zip(los, xs)]
+        held(model_p.block, p_l, los, yg, ys)
         xs = ys
+        if i in ends:       # the shared block, its adapters grouped (G, r, K)
+            los = [lo["shared"] for lo in loras]
+            yg, _, _ = blocks_module.dense_prefill(model_g.cfg, params["shared"],
+                                                   lora_g["shared"], torch.cat(xs), ctx_g)
+            ys = [blocks_module.dense_prefill(cfg, params["shared"], lo, x, ctx)[0]
+                  for lo, x in zip(los, xs)]
+            held(blocks_module.DENSE, params["shared"], los, yg, ys)
+            xs = ys
+    if holds:
+        return {"kernel_vs_plain": worst, "vs_fp32": [hd.readings() for hd in holds]}
+    return worst
+
+
+def layerwise_grouped_encdec(model_g, model_p, params, lora_g, loras, batch) -> list:
+    """``layerwise_grouped`` of the encoder-decoder: every encoder layer and
+    then every decoder layer (against each tenant's plain encoder output)
+    of the grouped model on the two tenants' rows concatenated, against
+    each tenant's layer of the plain model on its half."""
+    cfg = model_p.cfg
+    enc_cfg_g, enc_cfg_p = model_g.cfg.with_(causal=False), cfg.with_(causal=False)
+    h = batch["tokens"].shape[0] // 2
+    halves = [_rows(batch, i * h, (i + 1) * h) for i in range(2)]
+    t = batch["frames"].shape[1]
+    xs = [b_["frames"].to(torch_dtype(cfg.dtype)) + params["enc_pos"][:t][None]
+          for b_ in halves]
+    ctx = _enc_ctx(t, xs[0].device)
+    worst = [0.0, 0.0]
+
+    def held(yg, ys):
+        for half in range(2):
+            worst[half] = max(worst[half], norm_err(yg[half * h:(half + 1) * h].float(),
+                                                    ys[half].float()))
+
+    for i in range(cfg.n_encoder_layers):
+        p_l = _layer(params["enc_layers"], i)
+        yg, _ = blocks_module.dense_train(enc_cfg_g, p_l, _layer(lora_g["enc_layers"], i),
+                                          torch.cat(xs), ctx)
+        ys = [blocks_module.dense_train(enc_cfg_p, p_l, _layer(lo["enc_layers"], i), x, ctx)[0]
+              for lo, x in zip(loras, xs)]
+        held(yg, ys)
+        xs = ys
+    from repro_torch.models.layers import apply_norm
+    encs = [apply_norm(cfg, params["enc_norm"], x) for x in xs]
+    hs = [model_p._dec_embed(params, b_["tokens"]) for b_ in halves]
+    ctxd = model_p._dec_ctx(hs[0].shape[1], hs[0].device)
+    for i in range(cfg.n_layers):
+        p_l = _layer(params["dec_layers"], i)
+        yg, _ = model_g._dec_layer(p_l, _layer(lora_g["dec_layers"], i), torch.cat(hs),
+                                   torch.cat(encs), ctxd)
+        ys = [model_p._dec_layer(p_l, _layer(lo["dec_layers"], i), h_, e_, ctxd)[0]
+              for lo, h_, e_ in zip(loras, hs, encs)]
+        held(yg, ys)
+        hs = ys
     return worst
 
 
@@ -2074,10 +2506,10 @@ def lm_lora_prefill(kernels_cfg, params, adapters, batch) -> dict:
     arch = kernels_cfg.name
     fused_cfg = kernels_cfg.with_(lora=dataclasses.replace(kernels_cfg.lora, impl="fused"))
     lora = adapters["client-a"]
-    n_proj = lora_projections(lora)
+    n_proj = prefill_projections(kernels_cfg, lora)
     n_f32 = router_projections(kernels_cfg) * kernels_cfg.n_layers
     n_bf16 = n_proj - n_f32
-    seq = {seq_kernel(kernels_cfg): kernels_cfg.n_layers}
+    seq = {seq_kernel(kernels_cfg): seq_launches(kernels_cfg)}
     fused_model, einsum_model = build_model(fused_cfg), build_model(kernels_cfg)
     out = {"adapted_projections": n_proj, "f32_projections": n_f32}
 
@@ -2088,8 +2520,9 @@ def lm_lora_prefill(kernels_cfg, params, adapters, batch) -> dict:
                        **seq)
     if counts_f != want:
         raise AssertionError(f"{arch} fused prefill: launches {counts_f}, expected {want}")
-    held = layerwise_prefill(fused_model, einsum_model, params, lora, batch)
+    hybrid = kernels_cfg.family == "hybrid"
     with torch.no_grad():
+        held = layerwise_prefill(fused_model, einsum_model, params, lora, batch, fp32=hybrid)
         dev_f, top_f = device_time(lambda: fused_model.prefill(params, lora, batch))
         dev_e, top_e = device_time(lambda: einsum_model.prefill(params, lora, batch))
     out["fused"] = {"wall_s": wall_f, "einsum_wall_s": wall_e, "device_s": dev_f,
@@ -2101,7 +2534,7 @@ def lm_lora_prefill(kernels_cfg, params, adapters, batch) -> dict:
                              f"disagree layer by layer: {held}")
 
     loras = (adapters["client-a"], adapters["client-b"])
-    grouped = tree_map(lambda u, v: torch.stack([u, v], dim=1), *loras)
+    grouped = stack_tenants(loras)
     logits_g, wall_g, counts_g = _prefill_counted(fused_model, params, grouped, batch)
     want = no_launches(grouped_lora_chunk=n_proj, grouped_lora_chunk_bf16=n_bf16,
                        grouped_lora_chunk_wgmma=n_bf16, **seq)
@@ -2114,6 +2547,8 @@ def lm_lora_prefill(kernels_cfg, params, adapters, batch) -> dict:
                       "per_layer_per_tenant": halves, "tolerance": LM_TOL}
     print(f"[lm:{arch}] prefill 2-tenant grouped LoRA vs each tenant's einsum "
           f"{json.dumps(out['grouped'])}", flush=True)
+    if hybrid:
+        halves = [hd["x_vs_fp32"] for hd in halves["vs_fp32"]]
     if not max(halves) <= LM_TOL:
         raise AssertionError(f"{arch}: the grouped prefill and the tenants' einsum prefills "
                              f"disagree layer by layer: {halves}")
@@ -2213,7 +2648,7 @@ def lm_backward(arch: str, seed: int) -> dict:
                                    .astype(np.int32)).cuda() for key in ("tokens", "targets")}
     n_proj = lora_projections(lora)
     per_layer = n_proj // base.n_layers
-    frozen = FROZEN_INPUT_PROJECTIONS[base.family]
+    frozen = FROZEN_INPUT[base.family]["client"]
     models = {"fused": build_model(fused_cfg), "einsum": model}
     res = {}
     for label, m in models.items():
@@ -3457,11 +3892,15 @@ def vmap_phase(train, test, ragged: dict) -> dict:
 
 
 def lm_train_model(arch: str, seed: int):
-    """An LM at full width, LM_TRAIN_LAYERS deep, bf16, fused LoRA, random
-    weights and adapters (every leaf ~ N(0, 0.05)), and a maker of batches
-    of LM_TRAIN_BATCH x LM_TRAIN_SEQ tokens."""
-    base = REGISTRY[arch].with_(n_layers=LM_TRAIN_LAYERS[arch], attn_impl="chunked",
-                                wkv_impl="chunked")
+    """An LM at full width, LM_TRAIN_LAYERS deep (the encoder-decoder: that
+    many encoder and decoder layers), bf16, fused LoRA, random weights and
+    adapters (every leaf ~ N(0, 0.05)), and a maker of batches of
+    LM_TRAIN_BATCH x LM_TRAIN_SEQ tokens (the encoder-decoder's with
+    ``encoder_seq`` random frames a sequence)."""
+    layers = LM_TRAIN_LAYERS[arch]
+    base = REGISTRY[arch].with_(n_layers=layers, attn_impl="chunked", wkv_impl="chunked")
+    if base.family == "encdec":
+        base = base.with_(n_encoder_layers=layers)
     cfg = base.with_(lora=dataclasses.replace(base.lora, impl="fused"))
     model = build_model(cfg)
     gen = torch.Generator(device="cuda").manual_seed(seed)
@@ -3472,10 +3911,15 @@ def lm_train_model(arch: str, seed: int):
     rs = np.random.default_rng(seed)
 
     def batch():
-        return {key: torch.from_numpy(rs.integers(0, cfg.vocab_size,
-                                                  (LM_TRAIN_BATCH, LM_TRAIN_SEQ))
-                                      .astype(np.int32)).cuda()
-                for key in ("tokens", "targets")}
+        out = {key: torch.from_numpy(rs.integers(0, cfg.vocab_size,
+                                                 (LM_TRAIN_BATCH, LM_TRAIN_SEQ))
+                                     .astype(np.int32)).cuda()
+               for key in ("tokens", "targets")}
+        if cfg.family == "encdec":
+            out["frames"] = torch.from_numpy(rs.standard_normal(
+                (LM_TRAIN_BATCH, cfg.encoder_seq, cfg.d_model)).astype(np.float32)).to(
+                torch_dtype(cfg.dtype)).cuda()
+        return out
 
     return model, params, lora, batch
 
@@ -3506,17 +3950,61 @@ def _server_part(lora, cut: int):
 
 def _client_part(params, lora, cut: int):
     pc = dict(params)
-    pc["layers"] = lora_lib.slice_stack(params["layers"], 0, cut)
+    key = "enc_layers" if "enc_layers" in params else "layers"
+    pc[key] = lora_lib.slice_stack(params[key], 0, cut)
     return pc, lora_lib.split_lora(lora, cut)[0]
 
 
+def adapter_pairs(tree) -> int:
+    """The {a, b} pairs of a LoRA tree, stacked or not, each once."""
+    if "a" in tree and not isinstance(tree["a"], dict):
+        return 1
+    return sum(adapter_pairs(v) for v in tree.values() if isinstance(v, dict))
+
+
+def owned_projections(model, lora, side: str, cut: int) -> tuple:
+    """The adapted projections a forward on ``side`` of ``cut`` applies, read
+    from the LoRA tree, and how many of them are f32 (the MoE router's,
+    ``router_projections`` a layer): each stack's pairs a layer times the
+    layers of it the side owns (the client those below the cut, the server
+    the rest, "full" all); a server-only tree (``SERVER_ONLY_KEYS``: the
+    decoder's layers, the hybrid's shared block) none on the client, whose
+    shared blocks run without an adapter; the shared block's once after
+    each segment whose last layer the side owns."""
+    cfg = model.cfg
+
+    def owned(layers):
+        return sum(side == "full" or (i < cut if side == "client" else i >= cut)
+                   for i in layers)
+
+    apps = {"layers": owned(range(cfg.n_layers)),
+            "enc_layers": owned(range(cfg.n_encoder_layers)),
+            "dec_layers": cfg.n_layers,
+            "shared": owned(model._segment_ends()) if "shared" in lora else 0}
+    n = sum(adapter_pairs(tree) * apps[key] for key, tree in lora.items()
+            if not (side == "client" and key in lora_lib.SERVER_ONLY_KEYS))
+    return n, router_projections(cfg) * apps["layers"]
+
+
+def _named_pairs(a, b, name: str = ""):
+    """The leaves of two trees side by side, matched by key path (a tree
+    whose keys differ raises)."""
+    if isinstance(a, dict):
+        if set(a) != set(b):
+            raise AssertionError(f"trees differ at {name or '/'}: {sorted(a)} against "
+                                 f"{sorted(b)}")
+        for key in a:
+            yield from _named_pairs(a[key], b[key], f"{name}/{key}")
+    else:
+        yield name.lstrip("/"), a, b
+
+
 def _bits(a, b) -> bool:
-    return all(torch.equal(x, y) for x, y in zip(tree_leaves(a), tree_leaves(b)))
+    return all(torch.equal(x, y) for _, x, y in _named_pairs(a, b))
 
 
 def _max_abs(a, b) -> float:
-    return max(float((x.float() - y.float()).abs().max())
-               for x, y in zip(tree_leaves(a), tree_leaves(b)))
+    return max(float((x.float() - y.float()).abs().max()) for _, x, y in _named_pairs(a, b))
 
 
 def rel2(got: torch.Tensor, want: torch.Tensor) -> float:
@@ -3527,8 +4015,10 @@ def rel2(got: torch.Tensor, want: torch.Tensor) -> float:
     return num / den if den else (0.0 if num == 0.0 else math.inf)
 
 
-def _worst_rel2(a, b) -> float:
-    return max(rel2(x, y) for x, y in zip(tree_leaves(a), tree_leaves(b)))
+def _worst_rel2(a, b) -> tuple:
+    """The worst leaf's ``rel2`` of two trees, matched by key path, and its
+    path."""
+    return max((rel2(x, y), name) for name, x, y in _named_pairs(a, b))
 
 
 def lm_train(arch: str, seed: int) -> dict:
@@ -3547,55 +4037,95 @@ def lm_train(arch: str, seed: int) -> dict:
     2. LM_TRAIN_STEPS split steps (client forward, server step, client
        backward) on one repeated batch: the loss falls;
     3. ``make_full_train_step`` with remat off and on, two steps each from
-       the same state: equal losses (bit for bit for the MoE family);
+       the same state: bit for bit;
     4. ``make_server_step_batched`` over three lanes at LM_TRAIN_LANE_CUTS:
        vmap and ragged against the three sequential steps, lane by lane
-       (losses within LM_GRAD_LOSS_RTOL; dv and each adapter leaf's
-       gradient within LM_GRAD_TOL in the relative 2-norm, the gradient
-       read from the returned optimizer state, whose step-1 first moment
-       is (1 - b1) g; adapters within 2 lr, all a step-1 update can move).
-       For the MoE family the sequential steps are scan steps at a 0-d cut
-       (each lane its own dispatch and aux, as a vmap lane has), and the
-       ragged lanes are printed, not held: the ragged step reports no aux
-       (the reference's);
+       (``lane_readings``: losses within LM_GRAD_LOSS_RTOL; dv and each
+       adapter leaf's gradient within LM_GRAD_TOL in the relative 2-norm,
+       the gradient read from the returned optimizer state, whose step-1
+       first moment is (1 - b1) g; adapters within 2 lr, all a step-1
+       update can move).  For the MoE family the sequential steps are scan
+       steps at a 0-d cut (each lane its own dispatch and aux, as a vmap
+       lane has) for the vmap lanes, and sliced steps for the ragged lanes:
+       the ragged step reports no aux (the reference's), nor does a sliced
+       step.  The hybrid's lanes' dv and
+       gradients are held in fp32 instead (``hybrid_fp32_lanes``, within
+       HYBRID_FP32_LANE_TOL);
 
-    each call's launches asserted (with T adapted projections a layer, R of
-    them the f32 router, L layers and F frozen-input ones in layer 0:
-    sliced server step 2T(L-c), scan 2TL, split step 2TL - F, full step
-    2TL - F and with remat 3TL - F (each layer's forward again in the
-    backward), vmap 2TL grouped, ragged 2T(L-c) grouped per cut, the R
-    ones on fp32 tiles and the router's grouped dx call (K = E <= 128) in
-    direct mode; every bf16 launch on the wgmma tile), and each call's
-    wall s, peak bytes and (for the main calls) device s printed."""
+    each call's launches asserted (``owned_projections``, read from the
+    LoRA tree: P of a forward over the whole model, P_s of the server's at
+    cut c, P_c of the client's, whose shared blocks carry no adapter; R of
+    each the f32 router's; F_c and F_s frozen-input ones, ``FROZEN_INPUT``):
+    sliced server step 2 P_s - F_s, scan 2 P, split step 2 (P_c + P_s) -
+    F_c - F_s, full step 2 P - F_c - F_s and with remat 3 P - F_c - F_s
+    (each layer's forward again in the backward), vmap 2 P grouped, ragged
+    2 P_s grouped per cut; the R ones on fp32 tiles and the router's
+    grouped dx call (K = E <= 128) in direct mode; every bf16 launch on the
+    wgmma tile), and each call's wall s, peak bytes and (for the main
+    calls) device s printed.  The hybrid's sliced and scan steps run at
+    every cut of ``LM_TRAIN_CUTS``; the encoder-decoder runs 1-3 at its cut
+    (its encoder has one path)."""
     from repro_torch.core import splitfl
     from repro_torch.optim import AdamW
 
     model, params, lora, new_batch = lm_train_model(arch, seed)
     cfg = model.cfg
     moe = cfg.family == "moe"
-    nl, t = cfg.n_layers, lora_projections(lora) // cfg.n_layers
-    tf = router_projections(cfg)
-    tb = t - tf
-    frozen = FROZEN_INPUT_PROJECTIONS[cfg.family]
-    cut = nl // 2
+    nl = cfg.n_layers
     opt = AdamW(LR)
     batch = new_batch()
     rows, launches, checks = {}, {}, {}
+    frozen = FROZEN_INPUT[cfg.family]
 
-    def lm(layers_fwd, layers_bwd, frozen_=0):
-        """lora_matmul launches: a forward over ``layers_fwd`` layers and a
-        dx over ``layers_bwd``, less the frozen-input dx calls."""
-        bf16 = tb * (layers_fwd + layers_bwd) - frozen_
-        return no_launches(lora_matmul=bf16 + tf * (layers_fwd + layers_bwd),
-                           lora_matmul_bf16=bf16, lora_matmul_wgmma=bf16)
+    def proj(side, c=0, times=1):
+        n, n32 = owned_projections(model, lora, side, c)
+        return times * n, times * n32
 
-    def gl(layers):
-        """grouped launches of a forward and backward over ``layers`` layers."""
-        bf16 = 2 * tb * layers
-        direct = tf * layers if cfg.moe is None or cfg.moe.num_experts <= 128 else 0
-        return no_launches(grouped_lora_chunk=bf16 + 2 * tf * layers - direct,
+    def lm(fwd, dx, frozen_=0):
+        """lora_matmul launches: a forward and a dx over (all, f32)
+        projection applications, less the frozen-input dx calls."""
+        bf16 = fwd[0] - fwd[1] + dx[0] - dx[1] - frozen_
+        return no_launches(lora_matmul=bf16 + fwd[1] + dx[1], lora_matmul_bf16=bf16,
+                           lora_matmul_wgmma=bf16)
+
+    def gl(apps, frozen_=0):
+        """grouped launches of a forward and a dx over (all, f32) projection
+        applications, less the frozen-input dx calls: the router's dx call
+        (K = E <= 128) in direct mode."""
+        bf16 = 2 * (apps[0] - apps[1]) - frozen_
+        direct = apps[1] if cfg.moe is not None and cfg.moe.num_experts <= 128 else 0
+        return no_launches(grouped_lora_chunk=bf16 + 2 * apps[1] - direct,
                            grouped_lora_chunk_bf16=bf16, grouped_lora_chunk_wgmma=bf16,
                            grouped_lora_direct=direct)
+
+    def total(*apps):
+        return tuple(map(sum, zip(*apps)))
+
+    def split(c):   # the client's forward and dx, and the server step
+        both = total(proj("client", c), proj("server", c))
+        return lm(both, both, frozen["client"] + frozen["server"])
+
+    want = {"server_sliced": lambda c: lm(proj("server", c), proj("server", c),
+                                          frozen["server"]),
+            "server_scan": lambda c: lm(proj("full"), proj("full")),
+            "split": split,
+            "full": lambda remat: lm(proj("full", times=2 if remat else 1), proj("full"),
+                                     frozen["client"] + frozen["server"]),
+            "vmap": lambda cuts: gl(proj("full")),
+            "ragged": lambda cuts: gl(total(*(proj("server", c_) for c_ in set(cuts))),
+                                      len(set(cuts)) * frozen["server"]),
+            # the MoE family's sequential steps are scan steps (each lane its
+            # own dispatch and aux)
+            "sequential": lambda cuts: (
+                lm(proj("full", times=len(cuts)), proj("full", times=len(cuts))) if moe else
+                lm(total(*(proj("server", c_) for c_ in cuts)),
+                   total(*(proj("server", c_) for c_ in cuts)),
+                   len(cuts) * frozen["server"]))}
+    cuts_here = LM_TRAIN_CUTS.get(arch, (nl // 2,))
+    cut = cuts_here[0]
+    # the encoder-decoder has one path (the reference's encoder is one masked
+    # scan) and no cohort step here
+    has_scan = cfg.family != "encdec"
 
     def record(name, row, want):
         rows[name] = {k: v for k, v in row.items() if k != "launches"}
@@ -3604,20 +4134,45 @@ def lm_train(arch: str, seed: int) -> dict:
             raise AssertionError(f"{arch} {name}: launches {row['launches']}, "
                                  f"expected {want}")
 
-    # 1. sliced against scan
+    # 1. sliced against scan, at each cut (the first one's steps timed)
+    scan_step = splitfl.make_server_step(model, opt, path="scan")
+    for c_ in cuts_here[1:] if has_scan else ():
+        pc_, lc_ = _client_part(params, lora, c_)
+        with torch.no_grad():
+            v_ = splitfl.client_forward(model, pc_, lc_, batch, c_)
+        ls_ = _server_part(lora, c_)
+        a_, row = counted(lambda: splitfl.make_server_step(model, opt, static_cut=c_)(
+            params, ls_, opt.init(ls_), v_, batch))
+        record(f"server_step_sliced_cut_{c_}", row, want["server_sliced"](c_))
+        b_, row = counted(lambda: scan_step(params, ls_, opt.init(ls_), v_, batch,
+                                            torch.tensor(c_, device=v_.device)))
+        record(f"server_step_scan_cut_{c_}", row, want["server_scan"](c_))
+        checks[f"sliced_vs_scan_cut_{c_}"] = {"bit_equal": {
+            "loss": bool(torch.equal(a_[0], b_[0])), "dv": bool(torch.equal(a_[3], b_[3])),
+            "adapters": _bits(a_[1], b_[1]), "first_moment": _bits(a_[2].mu, b_[2].mu)}}
+        if not all(checks[f"sliced_vs_scan_cut_{c_}"]["bit_equal"].values()):
+            raise AssertionError(f"{arch}: sliced and scan server steps differ at cut {c_}: "
+                                 f"{checks[f'sliced_vs_scan_cut_{c_}']}")
+        del a_, b_, v_
     pc, lc = _client_part(params, lora, cut)
     fwd, bwd = splitfl.make_client_step(model, opt, cut)
     v, tape = fwd(pc, lc, batch)
     ls = _server_part(lora, cut)
     sliced_step = splitfl.make_server_step(model, opt, static_cut=cut)
-    scan_step = splitfl.make_server_step(model, opt, path="scan")
     a, row = counted(lambda: sliced_step(params, ls, opt.init(ls), v, batch), profile=True)
-    record("server_step_sliced", row, lm(nl - cut, nl - cut))
+    record("server_step_sliced", row, want["server_sliced"](cut))
     cut_t = torch.tensor(cut, device=v.device)
-    b, row = counted(lambda: scan_step(params, ls, opt.init(ls), v, batch, cut_t),
-                     profile=True)
-    record("server_step_scan", row, lm(nl, nl))
-    if moe:
+    if has_scan:
+        b, row = counted(lambda: scan_step(params, ls, opt.init(ls), v, batch, cut_t),
+                         profile=True)
+        record("server_step_scan", row, want["server_scan"](cut))
+    if not has_scan:
+        checks["server_step"] = {"loss": float(a[0]), "dv_finite": bool(
+            torch.isfinite(a[3].float()).all())}
+        if not checks["server_step"]["dv_finite"] or not math.isfinite(float(a[0])):
+            raise AssertionError(f"{arch}: the server step is not finite: "
+                                 f"{checks['server_step']}")
+    elif moe:
         with torch.no_grad():
             la, ga = model.loss(params, ls, batch, cut=cut, side="server", x0=v)
             lb, gb = model.loss(params, ls, batch, cut=cut_t, side="server", x0=v,
@@ -3634,10 +4189,12 @@ def lm_train(arch: str, seed: int) -> dict:
             "bit_equal": {"loss": bool(torch.equal(a[0], b[0])),
                           "dv": bool(torch.equal(a[3], b[3])), "adapters": _bits(a[1], b[1]),
                           "first_moment": _bits(a[2].mu, b[2].mu)}}
-    if not all(checks["sliced_vs_scan"]["bit_equal"].values()):
+    if has_scan and not all(checks["sliced_vs_scan"]["bit_equal"].values()):
         raise AssertionError(f"{arch}: sliced and scan server steps differ: "
                              f"{checks['sliced_vs_scan']}")
-    del a, b, tape
+    del a, tape
+    if has_scan:
+        del b
 
     # 2. split steps on one repeated batch
     state = {"ls": _server_part(lora, cut), "lc": lc}
@@ -3653,7 +4210,7 @@ def lm_train(arch: str, seed: int) -> dict:
 
     for i in range(LM_TRAIN_STEPS):
         loss, row = counted(split_step)
-        record(f"split_step_{i}", row, lm(nl, nl, frozen))
+        record(f"split_step_{i}", row, want["split"](cut))
         losses.append(float(loss))
     checks["split_losses"] = losses
     if not (all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]):
@@ -3674,8 +4231,7 @@ def lm_train(arch: str, seed: int) -> dict:
 
         for i in range(2):
             loss, row = counted(full_step)
-            record(f"full_step_remat_{remat}_{i}", row,
-                   lm(2 * nl if remat else nl, nl, frozen))
+            record(f"full_step_remat_{remat}_{i}", row, want["full"](remat))
             seq.append(loss)
         full[remat] = (seq, carry["lora"])
     # device time of one full step at each setting (not counted)
@@ -3687,13 +4243,21 @@ def lm_train(arch: str, seed: int) -> dict:
         "losses": {str(k): [float(x) for x in v[0]] for k, v in full.items()},
         "bit_equal": (all(torch.equal(x, y) for x, y in zip(full[False][0], full[True][0]))
                       and _bits(full[False][1], full[True][1]))}
-    if not all(abs(float(x) - float(y)) <= LM_GRAD_LOSS_RTOL * abs(float(y))
-               for x, y in zip(full[False][0], full[True][0])):
-        raise AssertionError(f"{arch}: full step with and without remat: {checks['full_step']}")
-    if moe and not checks["full_step"]["bit_equal"]:
-        raise AssertionError(f"{arch}: the MoE full step with and without remat is not "
+    if not checks["full_step"]["bit_equal"]:
+        raise AssertionError(f"{arch}: the full step with and without remat is not "
                              f"bit for bit: {checks['full_step']}")
     del full
+    if not has_scan:
+        out = {"arch": arch, "layers": nl, "encoder_layers": cfg.n_encoder_layers,
+               "cut": cut, "batch": [LM_TRAIN_BATCH, LM_TRAIN_SEQ],
+               "frames": cfg.encoder_seq, "projections": proj("full")[0],
+               "frozen_input": frozen, "steps": rows, "launches": launches,
+               "checks": checks}
+        print(f"[lm-train:{arch}] {json.dumps(out)}", flush=True)
+        del model, params, lora
+        gc.collect()
+        torch.cuda.empty_cache()
+        return out
 
     # 4. the LM cohort step over three lanes at three cuts
     cuts = LM_TRAIN_LANE_CUTS[arch]
@@ -3712,48 +4276,99 @@ def lm_train(arch: str, seed: int) -> dict:
     for impl in ("vmap", "ragged"):
         step = splitfl.make_server_step_batched(model, opt, impl=impl)
         outs[impl], row = counted(lambda: step(params, *stacked, list(cuts)), profile=True)
-        record(f"batched_{impl}", row,
-               gl(nl) if impl == "vmap" else gl(sum(nl - c_ for c_ in set(cuts))))
+        record(f"batched_{impl}", row, want[impl](cuts))
+
+    def sliced_steps():
+        return [splitfl.make_server_step(model, opt, static_cut=c_)(
+            params, ls_, opt.init(ls_), v_, b_) for c_, (v_, b_, ls_) in zip(cuts, lanes)]
 
     def sequential():
         if moe:   # each lane alone on the scan path: its own dispatch and aux
             return [splitfl.make_server_step(model, opt, path="scan")(
                 params, ls_, opt.init(ls_), v_, b_, torch.tensor(c_, device=v_.device))
                 for c_, (v_, b_, ls_) in zip(cuts, lanes)]
-        return [splitfl.make_server_step(model, opt, static_cut=c_)(
-            params, ls_, opt.init(ls_), v_, b_) for c_, (v_, b_, ls_) in zip(cuts, lanes)]
+        return sliced_steps()
 
     seq, row = counted(sequential, profile=True)
-    record("sequential_steps", row,
-           lm(len(cuts) * nl, len(cuts) * nl) if moe
-           else lm(sum(nl - c_ for c_ in cuts), sum(nl - c_ for c_ in cuts)))
-    lanes_out = []
+    record("sequential_steps", row, want["sequential"](cuts))
+    # the ragged step reports no aux (the reference's), nor does a sliced
+    # step: the MoE family's ragged lanes are held against sliced steps
+    seqs = {"vmap": seq, "ragged": sliced_steps() if moe else seq}
+    hybrid = cfg.family == "hybrid"
+    fp32 = hybrid_fp32_lanes(model, opt, params, cuts, lanes, stacked) if hybrid else None
+    lanes_out, failed = [], []
     for i in range(len(cuts)):
         lane = {}
         for impl, out in outs.items():
-            lane[impl] = {
-                "loss_rel": abs(float(out[0][i]) - float(seq[i][0])) / abs(float(seq[i][0])),
-                "dv_rel2": rel2(out[3][i], seq[i][3]),
-                "grad_rel2": _worst_rel2(lora_lib.unstack_tree(out[2].mu)[i], seq[i][2].mu),
-                "adapter_max_abs": _max_abs(lora_lib.unstack_tree(out[1])[i], seq[i][1])}
-            held = not (moe and impl == "ragged")
-            lane[impl]["held"] = held
-            if held and not (lane[impl]["loss_rel"] <= LM_GRAD_LOSS_RTOL
-                             and lane[impl]["dv_rel2"] <= LM_GRAD_TOL
-                             and lane[impl]["grad_rel2"] <= LM_GRAD_TOL
-                             and lane[impl]["adapter_max_abs"] <= 2 * LR):
-                raise AssertionError(f"{arch} batched {impl}, lane {i} (cut {cuts[i]}) "
-                                     f"against its sequential step: {lane[impl]}")
+            lane[impl] = r = lane_readings(out, seqs[impl], i)
+            ok = r["loss_rel"] <= LM_GRAD_LOSS_RTOL and r["adapter_max_abs"] <= 2 * LR
+            if hybrid:      # dv and gradients held in fp32 (hybrid_fp32_lanes)
+                r["fp32"] = r32 = lane_readings(fp32[impl], fp32["sequential"], i)
+                ok = ok and max(r32["dv_rel2"], r32["grad_rel2"]) <= HYBRID_FP32_LANE_TOL
+            else:
+                ok = ok and max(r["dv_rel2"], r["grad_rel2"]) <= LM_GRAD_TOL
+            if not ok:
+                failed.append(f"{impl}, lane {i} (cut {cuts[i]}): {r}")
         lanes_out.append(lane)
-    checks["batched_vs_sequential"] = {"cuts": list(cuts), "lanes": lanes_out,
-                                       "sequential_path": "scan" if moe else "sliced",
-                                       "grad_tolerance": LM_GRAD_TOL}
+    checks["batched_vs_sequential"] = {
+        "cuts": list(cuts), "lanes": lanes_out,
+        "sequential_path": {"vmap": "scan", "ragged": "sliced"} if moe else "sliced",
+        "grad_tolerance": LM_GRAD_TOL,
+        "fp32_tolerance": HYBRID_FP32_LANE_TOL if hybrid else None}
+    if failed:
+        print(f"[lm-train:{arch}] lanes {json.dumps(checks['batched_vs_sequential'])}",
+              flush=True)
+        raise AssertionError(f"{arch} batched steps against their sequential steps: "
+                             f"{failed}")
     out = {"arch": arch, "layers": nl, "cut": cut, "batch": [LM_TRAIN_BATCH, LM_TRAIN_SEQ],
-           "projections_per_layer": t, "f32_projections_per_layer": tf,
+           "projections": proj("full")[0], "f32_projections": proj("full")[1],
            "frozen_input": frozen, "steps": rows, "launches": launches, "checks": checks}
     print(f"[lm-train:{arch}] {json.dumps(out)}", flush=True)
-    del model, params, lora, outs, seq, lanes, stacked
+    del model, params, lora, outs, seq, seqs, lanes, stacked, fp32
     gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def lane_readings(out, seq, i: int) -> dict:
+    """Lane ``i`` of a cohort step's ``out`` against its sequential step
+    ``seq[i]``: the loss (relative), dv and the worst adapter leaf's
+    gradient (the relative 2-norm; the gradient read from the first moment,
+    (1 - b1) g after one step; leaves matched by name) and the adapters
+    after the update (max abs)."""
+    grad, leaf = _worst_rel2(lora_lib.unstack_tree(out[2].mu)[i], seq[i][2].mu)
+    return {"loss_rel": abs(float(out[0][i]) - float(seq[i][0])) / abs(float(seq[i][0])),
+            "dv_rel2": rel2(out[3][i], seq[i][3]), "grad_rel2": grad,
+            "grad_worst_leaf": leaf,
+            "adapter_max_abs": _max_abs(lora_lib.unstack_tree(out[1])[i], seq[i][1])}
+
+
+def hybrid_fp32_lanes(model, opt, params, cuts, lanes, stacked) -> dict:
+    """The hybrid's cohort steps again in fp32 (plain: einsum LoRA, the plain
+    chunked attention and SSD) on the bf16-valued weights, adapters,
+    activations and batches upcast: the vmap and the ragged step over the
+    three lanes, and each lane's sequential (sliced) step.  Their lanes'
+    dv and gradients are held against the sequential steps' (the bf16 run
+    gives the launches and times): in bf16 the plain SSD's backward carries
+    a rounding of its inputs through exp(dt * A) over the whole sequence, so
+    at random weights two bf16 paths that round at other points (one lane
+    alone, or three concatenated) part by up to 5.4 % on the H100 (PERF.md),
+    while a wrong backward is O(1)."""
+    from repro_torch.core import splitfl
+
+    cfg32 = model.cfg.with_(dtype="float32",
+                            lora=dataclasses.replace(model.cfg.lora, impl="einsum"))
+    model32 = build_model(cfg32)
+    up = lambda t: tree_map(lambda a: a.float() if a.is_floating_point() else a, t)  # noqa: E731
+    params32 = up(params)
+    lora_s, v_s, batch_s = up(stacked[0]), stacked[2].float(), stacked[3]
+    opt_s = lora_lib.stack_trees([opt.init(lo) for lo in lora_lib.unstack_tree(lora_s)])
+    out = {impl: splitfl.make_server_step_batched(model32, opt, impl=impl)(
+        params32, lora_s, opt_s, v_s, batch_s, list(cuts)) for impl in ("vmap", "ragged")}
+    out["sequential"] = [splitfl.make_server_step(model32, opt, static_cut=c_)(
+        params32, up(ls_), opt.init(up(ls_)), v_.float(), b_)
+        for c_, (v_, b_, ls_) in zip(cuts, lanes)]
+    del params32
     torch.cuda.empty_cache()
     return out
 
@@ -3939,7 +4554,10 @@ def main() -> None:
                    for r in (4, 16)]
     bf16_ragged += [check_lora_matmul_bf16(2047, 770, 768, 64, seed=23),
                     check_lora_matmul_bf16(2047, 768, 770, 5, seed=24)]
-    for c in (bf16_q, bf16_kv, *bf16_rwkv, *bf16_ragged):
+    # zamba2-7b's in_proj over the prefill's 8192 rows: N = 2*7168 + 2*64 +
+    # 112 = 14576, whose last 256-wide tile is partial (timed)
+    bf16_in_proj = check_lora_matmul_bf16(8192, 3584, 14576, 16, seed=81, timed=True)
+    for c in (bf16_q, bf16_kv, *bf16_rwkv, bf16_in_proj, *bf16_ragged):
         print(f"[kernel] lora_matmul bf16 {json.dumps(c)}", flush=True)
     # the 2-tenant grouped prefill's q-projection (timed); ragged cohorts in
     # chunk mode; direct mode at K <= 128, the reference's auto choice
@@ -3994,6 +4612,16 @@ def main() -> None:
                                seed=63, timed=True)
     flash_bf16_dims.append(check_flash(4, 2048, 2048, 32, 8, 64, True, None,
                                        torch.bfloat16, seed=64))
+    # zamba2-7b's shared attention at head_dim 112 (the 128-wide tile, zero
+    # past D), 4 x 2048, 32 heads on 32, causal, in both types (timed); and
+    # whisper-large-v3's encoder: 4 x 1500 frames, 20 heads, D 64,
+    # non-causal, T not a tile multiple (timed)
+    flash_112 = check_flash(4, 2048, 2048, 32, 32, 112, True, None, torch.bfloat16,
+                            seed=80, timed=True)
+    flash_112_f32 = check_flash(4, 2048, 2048, 32, 32, 112, True, None, torch.float32,
+                                seed=82, timed=True)
+    flash_whisper = check_flash(4, 1500, 1500, 20, 20, 64, False, None, torch.bfloat16,
+                                seed=83, timed=True)
     wkv_path = check_wkv(4, 2048, 40, 64, torch.bfloat16, torch.float32, seed=10,
                          timed=True)
     wkv_f32 = check_wkv(4, 2048, 40, 64, torch.float32, torch.float32, seed=11, timed=True)
@@ -4009,7 +4637,8 @@ def main() -> None:
                 for dtype, w_dtype in ((torch.float32, torch.float32),
                                        (torch.bfloat16, torch.float32),
                                        (torch.bfloat16, torch.bfloat16))]
-    for c in (flash_path, flash_f32, *flash_gqa, *flash_bf16_dims, flash_gqa128):
+    for c in (flash_path, flash_f32, *flash_gqa, *flash_bf16_dims, flash_gqa128, flash_112,
+              flash_112_f32, flash_whisper):
         print(f"[kernel] flash_attention {json.dumps(c)}", flush=True)
     for c in (wkv_path, wkv_f32, *wkv_ragged, *wkv_fast, *wkv_dims):
         print(f"[kernel] wkv6 {json.dumps(c)}", flush=True)
@@ -4040,6 +4669,8 @@ def main() -> None:
           for i, arch in enumerate(LM_ARCHS)}
     lm_new = {arch: phase(f"lm:{arch}", lm_phase, arch, seed=70 + i, **kw)
               for i, (arch, kw) in enumerate(NEW_LM_PHASES)}
+    lm_new.update({arch: phase(f"lm:{arch}", lm_phase, arch, seed=85 + i)
+                   for i, arch in enumerate(FAMILY_LM_PHASES)})
     built = phase("build-models", build_phase)
     lm_grad = {arch: phase(f"lm-grad:{arch}", lm_backward, arch, seed=30 + i)
                for i, arch in enumerate(LM_ARCHS)}
@@ -4131,7 +4762,8 @@ def main() -> None:
         entry("grouped_lora_direct", csrc + "grouped_lora.cu",
               "src/repro/kernels/grouped_lora.py:103",
               sum(lm_tr[arch]["launches"][f"batched_{impl}"]["grouped_lora_direct"]
-                  for arch in LM_TRAIN_ARCHS for impl in ("vmap", "ragged")),
+                  for arch in LM_TRAIN_ARCHS for impl in ("vmap", "ragged")
+                  if f"batched_{impl}" in lm_tr[arch]["launches"]),
               grouped_router_dx,
               path="qwen3-moe-30b-a3b lm-train cohort steps (the router's dx call)",
               tile=csrc + "tf32_lora_tile.cuh", body=grouped_router_dx["body"],
@@ -4197,7 +4829,12 @@ def main() -> None:
                                  for c in bf16_rwkv],
               ragged={str(c["shape"]): max(v for key, v in c.items()
                                            if key.endswith("_err") and key != "max_abs_err")
-                      for c in bf16_ragged}),
+                      for c in bf16_ragged},
+              zamba2_in_proj={key: bf16_in_proj[key] for key in
+                              ("shape", "tile", "ms", "device_ms", "dx_call_device_ms",
+                               "mma_sync_device_ms", "plain_ms", "base_matmul_ms",
+                               "bound_ms", "bound_by", "fwd_err", "views_err",
+                               "dx_call_err", "error_vs_exact")}),
         entry("lora_matmul_bf16_mma_sync", csrc + "lora_matmul.cu",
               "src/repro/kernels/lora_matmul.py:62",
               sum(all_lm[arch]["lora_kernels"]["fused"]["launches"]["lora_matmul_bf16"]
@@ -4294,6 +4931,13 @@ def main() -> None:
                                      ("shape", "err", "ms", "device_ms", "plain_ms",
                                       "library_ms", "library_err", "bound_ms",
                                       "bound_by")},
+                 **{label: {key: c[key] for key in
+                            ("shape", "dtype", "causal", "err", "max_abs_err", "ms",
+                             "device_ms", "plain_ms", "library_ms", "library_err",
+                             "bound_ms", "bound_by")}
+                    for label, c in (("zamba2_head_dim_112", flash_112),
+                                     ("zamba2_head_dim_112_fp32", flash_112_f32),
+                                     ("whisper_encoder", flash_whisper))},
                  library="torch.nn.functional.scaled_dot_product_attention",
                  library_err=flash_path["library_err"]),
          "library_ms": flash_path["library_ms"]},

@@ -1,10 +1,9 @@
 """Config registry of the port: the 10 assigned architectures and the
 paper's BERT-base, copies of the JAX package's configs.  The port builds
-the encoder (bert-base), dense (gemma-2b, granite-3-2b, granite-20b,
-qwen1.5-4b), ssm (rwkv6-3b), moe (qwen3-moe-30b-a3b, grok-1-314b) and vlm
-(internvl2-26b) families; zamba2-7b (hybrid) and whisper-large-v3
-(encdec) are registered, and building them raises until their slice of
-the port (ROADMAP Queue A, item 10)."""
+every family: encoder (bert-base), dense (gemma-2b, granite-3-2b,
+granite-20b, qwen1.5-4b), ssm (rwkv6-3b), moe (qwen3-moe-30b-a3b,
+grok-1-314b), vlm (internvl2-26b), hybrid (zamba2-7b) and encdec
+(whisper-large-v3)."""
 from __future__ import annotations
 
 from repro_torch.configs.base import LoRAConfig, ModelConfig, MoEConfig, SSMConfig, reduced

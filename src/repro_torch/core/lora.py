@@ -18,6 +18,9 @@ PyTree = Any
 
 # keys (per model family) holding layer-stacked, cut-splittable adapters
 STACKED_KEYS = ("layers", "enc_layers")
+# keys holding server-resident, non-splittable adapters: the hybrid's
+# shared attention block and the encoder-decoder's decoder
+SERVER_ONLY_KEYS = ("shared", "dec_layers")
 
 
 def split_lora(lora: PyTree, cut: int) -> Tuple[PyTree, PyTree]:

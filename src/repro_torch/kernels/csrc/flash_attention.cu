@@ -5,11 +5,12 @@
 // q (B, S, H, D) and k, v (B, T, K, D) in the model's layout, read through
 // their strides (the last dimension contiguous); G = H / K query heads
 // share one key/value head (GQA, MQA at K = 1).  out (B, S, H, D),
-// contiguous, in the input type.  Float32 or bfloat16; D in {32, 64, 128, 256}.
+// contiguous, in the input type.  Float32 or bfloat16; D in {32, 64, 112, 128, 256}.
 //
 // Replaces src/repro/kernels/flash_attention.py:flash_attention (the Pallas
 // TPU kernel, body _kernel), which the port's attention_full(impl="chunked")
-// runs on the prefill of the dense family.  Both paths below keep its
+// runs on the prefill of the attention families (zamba2's shared block at
+// D = 112, whisper's non-causal encoder included).  Both paths below keep its
 // numerics:
 //   * scores q.k in f32 times scale; masked scores are NEG_INF = -1e30 (not
 //     -inf), masks: causal (q_pos >= k_pos), window (q_pos - k_pos < window)
@@ -48,7 +49,13 @@
 // warpgroups in step.  TMA's zero fill
 // covers the ragged S and T edges, which the masks then exclude.  Shared
 // memory: 128 x D Q plus two stages of 64 x D K and V in bf16, 192 KB at
-// D = 256.
+// D = 256.  D = 112 (zamba2's shared attention) runs as the D = 128 tile
+// with its last 16 columns zero: the tensor maps' inner extent is 112, so
+// the second 64-column panel's box overhangs the row and TMA fills the
+// overhang with zeros (and still counts the whole box on the mbarrier);
+// Q K^T takes the 7 k16 slices that hold data, P V runs m64n128k16 over
+// the zero-padded V, and only the 112 real columns of O are stored.  q, k
+// and v are read in place: nothing is padded into a copy.
 //
 // float32: the CUDA cores (flash_f32_kernel), kept as it was first written:
 // one block of 256 threads (16 x 16) per (query tile of 64 rows,
@@ -268,14 +275,15 @@ constexpr int BQ = 128;            // query rows per block, 64 per warpgroup
 constexpr int BKV = 64;            // keys per tile
 
 template <int D> struct Cfg {
-  static constexpr int PW = D < 64 ? D : 64;          // columns of one swizzled panel
+  static constexpr int DP = D == 112 ? 128 : D;       // the tile's width: D, or 128 for 112
+  static constexpr int PW = DP < 64 ? DP : 64;        // columns of one swizzled panel
   static constexpr int ROWB = PW * 2;                 // its row: 128 or 64 bytes
-  static constexpr int NP = D / PW;                   // panels across D
+  static constexpr int NP = DP / PW;                  // panels across the tile
   static constexpr int SWIZZLE = ROWB;                // 128- or 64-byte swizzle
   static constexpr int LAYOUT = ROWB == 128 ? 1 : 2;  // wgmma descriptor code
   static constexpr int SBO = 8 * ROWB;                // bytes between 8-row groups
-  static constexpr int Q_BYTES = BQ * D * 2;
-  static constexpr int KV_BYTES = BKV * D * 2;        // one K or one V tile
+  static constexpr int Q_BYTES = BQ * DP * 2;
+  static constexpr int KV_BYTES = BKV * DP * 2;       // one K or one V tile
   static constexpr int Q_PANEL = BQ * ROWB;
   static constexpr int KV_PANEL = BKV * ROWB;
   // Q, two stages of K and V, and slack to align the base to 1024 bytes
@@ -415,7 +423,7 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant_
                   const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ o, int S,
                   int Tn, int H, int KH, int causal, int window, float scale) {
   using C = Cfg<D>;
-  constexpr int NO = D / 2;        // O accumulators a thread
+  constexpr int NO = C::DP / 2;    // O accumulators a thread
   extern __shared__ unsigned char smem_raw[];
   // Q; K/V stage 0 and 1 full (TMA bytes landed); stage 0 and 1 empty
   // (every thread of the block done reading it)
@@ -480,7 +488,7 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant_
     reg_fence(s);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
+    for (int kk = 0; kk < D / 16; ++kk) {   // the slices that hold data
       const int p = kk / (C::PW / 16), w = (kk % (C::PW / 16)) * 32;
       wgmma_qk(s, make_desc(q_wg + p * C::Q_PANEL + w, 16, C::SBO, C::LAYOUT),
                make_desc(k_s + p * C::KV_PANEL + w, 16, C::SBO, C::LAYOUT), kk > 0);
@@ -551,7 +559,8 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant_
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < BKV / 16; ++kk)
-      wgmma_pv<D>(acc, pa[kk], make_desc(v_s + kk * 16 * C::ROWB, C::KV_PANEL, C::SBO, C::LAYOUT));
+      wgmma_pv<C::DP>(acc, pa[kk],
+                      make_desc(v_s + kk * 16 * C::ROWB, C::KV_PANEL, C::SBO, C::LAYOUT));
     wgmma_commit();
     wgmma_wait_all();
     reg_fence(acc);
@@ -569,6 +578,7 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant_
     __nv_bfloat16* __restrict__ ob = o + (((long long)b * S + qi) * H + h) * D + 2 * t4;
 #pragma unroll
     for (int j = 0; j < NO / 4; ++j) {
+      if (8 * j >= D) break;         // the tile's zero columns past D
       const __nv_bfloat162 val = __floats2bfloat162_rn(acc[4 * j + 2 * half] / den,
                                                        acc[4 * j + 2 * half + 1] / den);
       *reinterpret_cast<__nv_bfloat162*>(ob + 8 * j) = val;
@@ -577,7 +587,8 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant_
 }
 
 // a 4-D map over (D, rows, heads, batch) of a bf16 tensor in the model
-// layout, boxes of one swizzled panel by ``box_rows`` rows
+// layout, boxes of one swizzled panel by ``box_rows`` rows (a box past D
+// is zero-filled)
 bool encode(CUtensorMap* map, const void* ptr, int D, int rows, int heads, int batch,
             long long s_row, long long s_head, long long s_batch, int pw, int box_rows,
             int swizzle) {
@@ -648,6 +659,7 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* o, in
     switch (D) {
       FLASH_CASE(f32, 32)
       FLASH_CASE(f32, 64)
+      FLASH_CASE(f32, 112)
       FLASH_CASE(f32, 128)
       FLASH_CASE(f32, 256)
       default: return (int)cudaErrorInvalidValue;
@@ -657,6 +669,7 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* o, in
     switch (D) {
       FLASH_CASE(bf16, 32)
       FLASH_CASE(bf16, 64)
+      FLASH_CASE(bf16, 112)
       FLASH_CASE(bf16, 128)
       FLASH_CASE(bf16, 256)
       default: return (int)cudaErrorInvalidValue;

@@ -7,7 +7,7 @@
 Query i and key j sit at positions i and j; the masks are causal
 (i >= j), window (i - j < window) and none.  GQA/MQA: query head h reads
 key/value head h // (H // K), with no repeated copy.  Float32 or
-bfloat16, D in {32, 64, 128, 256}; any strides with the last dimension
+bfloat16, D in {32, 64, 112, 128, 256}; any strides with the last dimension
 contiguous (bfloat16: 16-byte aligned, strides a multiple of 8, as TMA
 reads them).
 
@@ -27,7 +27,7 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.ref import flash_attention_ref
 
-HEAD_DIMS = (32, 64, 128, 256)
+HEAD_DIMS = (32, 64, 112, 128, 256)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 _launch = None

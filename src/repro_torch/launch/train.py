@@ -103,7 +103,7 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--mode", choices=("central", "sfl"), default="central")
     ap.add_argument("--arch", default="granite-3-2b",
-                    help="a registered config of the dense, moe, vlm or ssm family")
+                    help="a registered config of the dense, moe, vlm, ssm or hybrid family")
     ap.add_argument("--scheme", default="ours", choices=("ours", "sfl", "sl"))
     ap.add_argument("--scheduler", default="ours",
                     choices=("ours", "fifo", "wf", "optimal"))

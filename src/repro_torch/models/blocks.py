@@ -1,9 +1,8 @@
 """Per-family residual blocks: the dense attention block (encoder, dense
 decoder LM and the VLM's language model, with an optional int8 KV cache),
 the MoE block (dense attention and a capacity-based top-k expert
-dispatch) and the RWKV6 "Finch" block.  Port of
-``src/repro/models/blocks.py``; the Mamba2 block comes with its slice
-(ROADMAP Queue A, item 10).
+dispatch), the RWKV6 "Finch" block and the Mamba2 (SSD) block of the
+hybrid family's backbone.  Port of ``src/repro/models/blocks.py``.
 
     init(gen, cfg, device)                   -> params for ONE layer (unstacked)
     train(cfg, p, lora, x, ctx)              -> (x, aux_loss)
@@ -581,12 +580,212 @@ def rwkv_decode(cfg: ModelConfig, p: dict, lora, x: Tensor, cache: dict,
 RWKV = {"init": rwkv_init, "train": rwkv_train, "prefill": rwkv_prefill,
         "decode": rwkv_decode, "init_cache": rwkv_init_cache}
 
-BLOCKS = {"encoder": DENSE, "dense": DENSE, "moe": MOE, "vlm": DENSE, "ssm": RWKV}
+# ===========================================================================
+# Mamba2 (SSD) block — zamba2 backbone
+# ===========================================================================
+
+def _mamba_dims(cfg: ModelConfig):
+    s = cfg.ssm
+    d_in = s.expand * cfg.d_model
+    nh = d_in // s.head_dim
+    conv_ch = d_in + 2 * s.d_state
+    return d_in, nh, conv_ch
+
+
+def mamba_init(gen: torch.Generator, cfg: ModelConfig, device) -> dict:
+    """The Mamba2 layer: in/out projections in the model's type; the conv,
+    decay, skip and dt-bias leaves in f32, as in the reference."""
+    s = cfg.ssm
+    d = cfg.d_model
+    d_in, nh, conv_ch = _mamba_dims(cfg)
+    dt = L.torch_dtype(cfg.dtype)
+    f32 = torch.float32
+    return {
+        "ln": L.init_norm(cfg, device),
+        "in_proj": L.dense_init(gen, d, 2 * d_in + 2 * s.d_state + nh, dt, device),
+        "conv_w": L._normal(gen, (s.d_conv, conv_ch), device) / math.sqrt(s.d_conv),
+        "conv_b": torch.zeros((conv_ch,), dtype=f32, device=device),
+        "a_log": torch.log(torch.linspace(1.0, 16.0, nh, dtype=f32, device=device)),
+        "d_skip": torch.ones((nh,), dtype=f32, device=device),
+        "dt_bias": torch.zeros((nh,), dtype=f32, device=device),
+        "norm": L.init_norm(cfg, device, d_in),
+        "out_proj": L.dense_init(gen, d_in, d, dt, device),
+    }
+
+
+def _mamba_split(cfg: ModelConfig, p: dict, lora, x: Tensor):
+    scale = cfg.lora.alpha / cfg.lora.rank
+    s = cfg.ssm
+    d_in, nh, _ = _mamba_dims(cfg)
+    proj = L.lora_apply(x, p["in_proj"], (lora or {}).get("in_proj"), scale,
+                        impl=cfg.lora.impl)
+    return torch.split(proj, [d_in, d_in, s.d_state, s.d_state, nh], dim=-1)
+
+
+def _causal_conv(x: Tensor, w: Tensor, b: Tensor, x_hist: Optional[Tensor] = None):
+    """Depthwise causal conv1d. x: (B,S,C); w: (K,C); x_hist: (B,K-1,C).
+
+    The history (zeros in x's type, or the f32 cache) and x are joined in
+    f32, as the reference's concatenation promotes them; returns (the
+    output in x's type, the last K-1 inputs in f32: the next history)."""
+    kk = w.shape[0]
+    pad = torch.zeros_like(x[:, : kk - 1]) if x_hist is None else x_hist
+    xp = torch.cat([pad.float(), x.float()], dim=1)
+    out = xp[:, 0: x.shape[1]] * w[0]
+    for i in range(1, kk):
+        out = out + xp[:, i: i + x.shape[1]] * w[i]
+    return F.silu(out + b).to(x.dtype), xp[:, -(kk - 1):]
+
+
+def _softplus(x: Tensor) -> Tensor:
+    """``jax.nn.softplus``: log(1 + e^x) as ``logaddexp(x, 0)``, with no
+    switch to the identity at large x (``F.softplus`` has one at 20)."""
+    return torch.logaddexp(x, torch.zeros_like(x))
+
+
+def ssd_scan(xh: Tensor, bmat: Tensor, cmat: Tensor, dt: Tensor, a_log: Tensor,
+             d_skip: Tensor, state: Tensor):
+    """Mamba2 SSD recurrence, one step after the other, in f32.
+    xh: (B,S,H,P); bmat/cmat: (B,S,N); dt: (B,S,H); state: (B,H,P,N).
+    Returns (y (B,S,H,P) f32, final state f32)."""
+    a = -torch.exp(a_log)                              # (H,)
+    xh, bmat, cmat, dt = xh.float(), bmat.float(), cmat.float(), dt.float()
+    s = state.float()
+    ys = []
+    for t in range(xh.shape[1]):
+        xt, bt, ct, dtt = xh[:, t], bmat[:, t], cmat[:, t], dt[:, t]
+        da = torch.exp(dtt * a)                        # (B,H)
+        upd = torch.einsum("bhp,bn->bhpn", xt * dtt[..., None], bt)
+        s = da[..., None, None] * s + upd
+        ys.append(torch.einsum("bhpn,bn->bhp", s, ct) + d_skip[None, :, None] * xt)
+    return torch.stack(ys, dim=1), s
+
+
+def ssd_chunked(xh: Tensor, bmat: Tensor, cmat: Tensor, dt: Tensor, a_log: Tensor,
+                d_skip: Tensor, state: Tensor, chunk: int = 16):
+    """Chunk-parallel SSD in plain PyTorch: the reference's block
+    1-semiseparable form (per-head log-decay differences, all <= 0)
+
+      y_t = exp(lp_t)(S0.C_t) + sum_{j<=t} exp(lp_t-lp_j) (C_t.B_j) dt_j x_j + D x_t
+      S_C = exp(lp_C) S0 + sum_j exp(lp_C-lp_j) dt_j x_j (x) B_j
+
+    with every chunk's intra-chunk output and state contribution formed at
+    once over a chunk axis, and only the (B,H,P,N) state carried from chunk
+    to chunk in a loop.  S is padded to a multiple of ``chunk`` with zero
+    steps (dt 0: no decay, no input).  Returns (y (B,S,H,P) f32, final
+    state f32)."""
+    b, s, h, p = xh.shape
+    n = bmat.shape[-1]
+    a = -torch.exp(a_log)                              # (H,)
+    pad = (-s) % chunk
+    if pad:
+        xh, bmat, cmat, dt = (F.pad(t, (0, 0) * (t.dim() - 2) + (0, pad))
+                              for t in (xh, bmat, cmat, dt))
+    nc = (s + pad) // chunk
+
+    def chunks(t):   # (B,T,...) -> (B,nc,C,...)
+        return t.reshape((b, nc, chunk) + tuple(t.shape[2:])).float()
+
+    xc, bc, cc, dtc = map(chunks, (xh, bmat, cmat, dt))
+    tril = torch.tril(torch.ones((chunk, chunk), dtype=torch.float32, device=xh.device))
+    lp = torch.cumsum(dtc * a, dim=2)                  # log decay, (B,nc,C,H)
+    # A[t,j] = exp(lp_t - lp_j), j <= t: exponents <= 0, stable
+    amat = torch.exp(torch.clamp_max(lp[:, :, :, None] - lp[:, :, None, :], 0.0)) \
+        * tril[None, None, :, :, None]                 # (B,nc,C,C,H)
+    g = torch.einsum("bctn,bcjn->bctj", cc, bc)        # (B,nc,C,C), heads shared
+    y = torch.einsum("bctjh,bcjhp->bcthp", amat * g[..., None] * dtc[:, :, None], xc)
+    # each chunk's own state contribution, sum_j exp(lp_C - lp_j) dt_j x_j (x) B_j
+    kdec = torch.exp(lp[:, :, -1:] - lp)               # (B,nc,C,H), <= 1
+    contrib = torch.einsum("bcjhp,bcjn->bchpn", (kdec * dtc)[..., None] * xc, bc)
+    chunk_decay = torch.exp(lp[:, :, -1])[..., None, None]   # (B,nc,H,1,1)
+    s0 = state.float()
+    starts = []
+    for c in range(nc):
+        starts.append(s0)
+        s0 = chunk_decay[:, c] * s0 + contrib[:, c]
+    y_inter = torch.einsum("bchpn,bctn->bcthp", torch.stack(starts, dim=1), cc) \
+        * torch.exp(lp)[..., None]
+    y = y + y_inter + d_skip[None, None, None, :, None] * xc
+    return y.reshape(b, s + pad, h, p)[:, :s], s0
+
+
+def ssd_apply(cfg: ModelConfig, xh, bmat, cmat, dt, a_log, d_skip, state):
+    """The SSD over a sequence: ``wkv_impl`` governs both recurrent
+    families.  Plain PyTorch either way; the reference's SSD is plain JAX
+    too (no TPU kernel)."""
+    if cfg.wkv_impl not in WKV_IMPLS:
+        raise KeyError(f"unknown wkv impl {cfg.wkv_impl!r}; choose from {WKV_IMPLS}")
+    if cfg.wkv_impl == "chunked":
+        return ssd_chunked(xh, bmat, cmat, dt, a_log, d_skip, state, chunk=cfg.wkv_chunk)
+    return ssd_scan(xh, bmat, cmat, dt, a_log, d_skip, state)
+
+
+def _mamba_core(cfg: ModelConfig, p: dict, lora, x: Tensor,
+                conv_hist: Optional[Tensor] = None, state: Optional[Tensor] = None):
+    """in_proj, the causal conv over (x, B, C), the SSD from ``state``
+    (None: zeros), the gated RMSNorm (``norm``'s scale, in the model's
+    type) and out_proj.  Returns (out, the conv history f32, the state)."""
+    s = cfg.ssm
+    d_in, nh, _ = _mamba_dims(cfg)
+    b, sq, _ = x.shape
+    z, xc, bmat, cmat, dt_raw = _mamba_split(cfg, p, lora, x)
+    conv_in = torch.cat([xc, bmat, cmat], dim=-1)
+    conv_out, new_hist = _causal_conv(conv_in, p["conv_w"], p["conv_b"], conv_hist)
+    xc, bmat, cmat = torch.split(conv_out, [d_in, s.d_state, s.d_state], dim=-1)
+    dt = _softplus(dt_raw.float() + p["dt_bias"])
+    xh = xc.reshape(b, sq, nh, s.head_dim)
+    if state is None:
+        state = torch.zeros((b, nh, s.head_dim, s.d_state), dtype=torch.float32,
+                            device=x.device)
+    y, state = ssd_apply(cfg, xh, bmat, cmat, dt, p["a_log"], p["d_skip"], state)
+    y = y.reshape(b, sq, d_in).to(x.dtype)
+    y = L.rms_norm(y * F.silu(z), p["norm"]["scale"])
+    scale = cfg.lora.alpha / cfg.lora.rank
+    out = L.lora_apply(y, p["out_proj"], (lora or {}).get("out_proj"), scale,
+                       impl=cfg.lora.impl)
+    return out, new_hist, state
+
+
+def mamba_train(cfg: ModelConfig, p: dict, lora, x: Tensor, ctx: dict):
+    h = L.apply_norm(cfg, p["ln"], x)
+    out, _, _ = _mamba_core(cfg, p, lora, h)
+    return x + out, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def mamba_init_cache(cfg: ModelConfig, batch: int, cache_len: int, device) -> dict:
+    s = cfg.ssm
+    _, nh, conv_ch = _mamba_dims(cfg)
+    return {"conv": torch.zeros((batch, s.d_conv - 1, conv_ch), dtype=torch.float32,
+                                device=device),
+            "s": torch.zeros((batch, nh, s.head_dim, s.d_state), dtype=torch.float32,
+                             device=device)}
+
+
+def mamba_prefill(cfg: ModelConfig, p: dict, lora, x: Tensor, ctx: dict):
+    h = L.apply_norm(cfg, p["ln"], x)
+    out, hist, state = _mamba_core(cfg, p, lora, h)
+    return (x + out, {"conv": hist, "s": state},
+            torch.zeros((), dtype=torch.float32, device=x.device))
+
+
+def mamba_decode(cfg: ModelConfig, p: dict, lora, x: Tensor, cache: dict,
+                 pos: int, ctx: dict):
+    """One step from the cached conv history and state (through
+    ``ssd_apply``, as the reference's decode), both written back in place."""
+    h = L.apply_norm(cfg, p["ln"], x)
+    out, hist, state = _mamba_core(cfg, p, lora, h, conv_hist=cache["conv"],
+                                   state=cache["s"])
+    cache["conv"].copy_(hist)
+    cache["s"].copy_(state)
+    return x + out, cache
+
+
+MAMBA = {"init": mamba_init, "train": mamba_train, "prefill": mamba_prefill,
+         "decode": mamba_decode, "init_cache": mamba_init_cache}
+
+BLOCKS = {"dense": DENSE, "moe": MOE, "ssm": RWKV, "hybrid": MAMBA,
+          "vlm": DENSE, "encoder": DENSE, "encdec": DENSE}
 
 
 def get_block(cfg: ModelConfig) -> dict:
-    if cfg.family not in BLOCKS:
-        raise NotImplementedError(
-            f"family {cfg.family!r} comes with a later slice of the port "
-            "(ROADMAP Queue A, item 10)")
     return BLOCKS[cfg.family]

@@ -1,9 +1,10 @@
 """Single-stack model with the paper's split execution built in — the
 encoder family (BERT), the dense decoder LMs (gemma, granite, qwen1.5),
 the MoE LMs (qwen3-moe, grok-1), the VLM (internvl2: a projector from
-precomputed vision embeddings into the dense LM) and the RWKV6 LM.  Port
-of ``src/repro/models/decoder.py``; the hybrid family (zamba2) comes with
-its slice (ROADMAP Queue A, item 10).
+precomputed vision embeddings into the dense LM), the RWKV6 LM and the
+hybrid (zamba2: a Mamba2 stack with one shared attention block applied
+after each segment of ``shared_attn_every`` layers).  Port of
+``src/repro/models/decoder.py``.
 
 ``side="full" | "client" | "server"`` with a ``cut`` selects which layers
 run, by one of the reference's two paths (identical semantics, tested
@@ -21,12 +22,17 @@ against each other):
 Prefill and decode run the same loop over all layers (side "full": the
 scan's prefill and decode modes with every layer owned).
 
+The hybrid's shared block runs after layer ``s1 - 1`` of each segment
+``[s0, s1)`` (:meth:`DecoderModel._segments`), on a side only where that
+side owns the segment's last layer: both paths apply this one rule.
+
 Params layout (as in the reference, layers stacked on a leading axis):
     {"embed": (V,d), ["pos_embed": (P,d)], "layers": <stacked (L,...)>,
-     ["proj": (Dv,d)] (vlm), "final_norm": {...},
-     ["head": (d,V) | "cls_head": (d,n_classes)]}
+     ["shared": <dense block>] (hybrid), ["proj": (Dv,d)] (vlm),
+     "final_norm": {...}, ["head": (d,V) | "cls_head": (d,n_classes)]}
 Caches stack the per-layer caches on a leading (L,) axis, as the
-reference's scan does; ``serve_step`` updates them in place.
+reference's scan does (the hybrid's: {"mamba": (L,...), "attn": (n_seg,
+...)}); ``serve_step`` updates them in place.
 """
 from __future__ import annotations
 
@@ -44,7 +50,7 @@ from repro_torch.tree import tree_leaves, tree_map
 
 PyTree = Any
 
-FAMILIES = ("encoder", "dense", "moe", "vlm", "ssm")
+FAMILIES = ("encoder", "dense", "moe", "vlm", "ssm", "hybrid")
 
 
 def build_lora_tree(gen: torch.Generator, params_one_layer: PyTree, targets,
@@ -72,6 +78,29 @@ def _run_mask(side: str, idx: int, cut):
     return run if torch.is_tensor(run) else bool(run)
 
 
+def init_stacked(init_one, n: int) -> PyTree:
+    """``n`` layers' parameters, stacked on a leading (n,) axis and filled
+    layer by layer from ``init_one()``: one layer's tree is alive beside the
+    stack, never a list of them (the stack of a 30 B-parameter MoE would
+    not fit twice on one card).  The layers draw in order, as a list of
+    per-layer inits stacked afterwards would."""
+    layer = init_one()
+    stacked = tree_map(lambda a: a.new_empty((n,) + tuple(a.shape)), layer)
+    for i in range(n):
+        if i:
+            layer = init_one()
+        tree_map(lambda dst, src: dst[i].copy_(src), stacked, layer)
+        del layer
+    return stacked
+
+
+def model_device(device) -> torch.device:
+    """Where a model's init places its tensors: ``meta`` as asked, else the
+    card or the CPU (``resolve_device``)."""
+    return (torch.device("meta") if torch.device(device).type == "meta"
+            else resolve_device(device))
+
+
 def _where(pred: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``torch.where`` over a 0-d mask or one entry per leading (row) index
     of ``a``."""
@@ -89,38 +118,21 @@ class DecoderModel:
 
     def __init__(self, cfg: ModelConfig, device="cuda"):
         if cfg.family not in FAMILIES:
-            raise NotImplementedError(
-                f"family {cfg.family!r} comes with a later slice of the port "
-                "(ROADMAP Queue A, item 10)")
+            raise ValueError(f"DecoderModel does not handle family {cfg.family}")
         self.cfg = cfg
-        self.device = (torch.device("meta") if torch.device(device).type == "meta"
-                       else resolve_device(device))
+        self.device = model_device(device)
         self.block = B.get_block(cfg)
 
     # -- init ---------------------------------------------------------------
-    def _init_layers(self, gen: torch.Generator) -> PyTree:
-        """Every layer's parameters, stacked on a leading (L,) axis and
-        filled layer by layer: one layer's tree is alive beside the stack,
-        never a list of them (the stack of a 30 B-parameter MoE would not
-        fit twice on one card).  The layers draw from ``gen`` in order, as
-        a list of per-layer inits stacked afterwards would."""
-        cfg, dev = self.cfg, self.device
-        layer = self.block["init"](gen, cfg, dev)
-        stacked = tree_map(lambda a: a.new_empty((cfg.n_layers,) + tuple(a.shape)), layer)
-        for i in range(cfg.n_layers):
-            if i:
-                layer = self.block["init"](gen, cfg, dev)
-            tree_map(lambda dst, src: dst[i].copy_(src), stacked, layer)
-            del layer
-        return stacked
-
     def init_params(self, gen: torch.Generator) -> PyTree:
         cfg, dev = self.cfg, self.device
         dt = L.torch_dtype(cfg.dtype)
         p: dict = {"embed": L.embed_init(gen, cfg.vocab_size, cfg.d_model, dt, dev)}
         if cfg.positional == "learned":
             p["pos_embed"] = L.embed_init(gen, cfg.max_position, cfg.d_model, dt, dev)
-        p["layers"] = self._init_layers(gen)
+        p["layers"] = init_stacked(lambda: self.block["init"](gen, cfg, dev), cfg.n_layers)
+        if cfg.family == "hybrid":
+            p["shared"] = B.dense_init(gen, cfg, dev)
         if cfg.family == "vlm":
             p["proj"] = L.dense_init(gen, cfg.vision_embed_dim, cfg.d_model, dt, dev)
         p["final_norm"] = L.init_norm(cfg, dev)
@@ -138,7 +150,19 @@ class DecoderModel:
         per_layer = [build_lora_tree(gen, one, cfg.lora.targets, cfg.lora.rank,
                                      self.device)
                      for _ in range(cfg.n_layers)]
-        return {"layers": stack_trees(per_layer)}
+        lora = {"layers": stack_trees(per_layer)}
+        if cfg.family == "hybrid":
+            lora["shared"] = build_lora_tree(gen, B.dense_init(None, cfg, "meta"),
+                                             cfg.lora.targets, cfg.lora.rank, self.device)
+        return lora
+
+    def params_spec(self) -> PyTree:
+        """The parameters' shapes and dtypes: a ``meta``-device tree (the
+        port's stand-in for the reference's ``ShapeDtypeStruct``s)."""
+        return DecoderModel(self.cfg, "meta").init_params(None)
+
+    def lora_spec(self) -> PyTree:
+        return DecoderModel(self.cfg, "meta").init_lora(None)
 
     # -- embedding / head -----------------------------------------------------
     def embed(self, params: PyTree, batch: dict) -> torch.Tensor:
@@ -181,17 +205,41 @@ class DecoderModel:
                 "arange": arange, "moe_groups": moe_groups or 1,
                 "moe_dense_fallback": False}
 
+    # -- the hybrid's segments ----------------------------------------------------
+    def _segments(self) -> list:
+        """[(s0, s1)]: consecutive runs of ``shared_attn_every`` layers (the
+        last may be shorter); the shared block runs after each."""
+        cfg = self.cfg
+        every = cfg.shared_attn_every
+        segs, start = [], 0
+        while start < cfg.n_layers:
+            end = min(start + every, cfg.n_layers)
+            segs.append((start, end))
+            start = end
+        return segs
+
+    def _segment_ends(self) -> dict:
+        """{last layer of a segment: segment index}; empty outside the hybrid."""
+        if self.cfg.family != "hybrid":
+            return {}
+        return {s1 - 1: si for si, (_, s1) in enumerate(self._segments())}
+
     # -- backbone: sliced (static-cut) path -------------------------------------
     def sliced_forward(self, params, lora, x, ctx, layer_range) -> torch.Tensor:
-        """Python loop over exactly layers [lo, hi).  ``params['layers']``
+        """Python loop over exactly layers [lo, hi), each segment's last
+        layer followed by the shared block (hybrid).  ``params['layers']``
         may hold the full stack or a client's truncated stack; indices are
         relative to the stored stack."""
         lora_layers = (lora or {}).get("layers", {})
+        ends = self._segment_ends()
         lo, hi = layer_range
         for i in range(lo, hi):
             p_l = tree_map(lambda a: a[i], params["layers"])
             lo_l = tree_map(lambda a: a[i], lora_layers)
             x, _ = self.block["train"](self.cfg, p_l, lo_l, x, ctx)
+            if i in ends:   # segment boundary -> shared attention
+                x, _ = B.dense_train(self.cfg, params["shared"],
+                                     (lora or {}).get("shared"), x, ctx)
         return x
 
     # -- backbone: masked (scan) path --------------------------------------------
@@ -200,6 +248,12 @@ class DecoderModel:
         if run is True:
             return y, aux + a
         return _where(run, y, h), aux + _where(run, a, torch.zeros_like(a))
+
+    def _masked_shared(self, p_sh, lo_sh, h, ctx, run):
+        """The hybrid's shared block, kept where ``run`` (its aux, zero, is
+        not added: the reference drops it)."""
+        y, _ = B.dense_train(self.cfg, p_sh, lo_sh, h, ctx)
+        return y if run is True else _where(run, y, h)
 
     def scan_forward(self, params, lora, x, ctx, cut, side, *, remat=False):
         """Every layer of the stack runs; layer i's output is kept where it
@@ -218,8 +272,12 @@ class DecoderModel:
         outputs equal the sliced path's bit for bit (only this path also
         returns the owned layers' aux loss).  ``remat`` recomputes each layer
         in the backward instead of keeping its activations
-        (``jax.checkpoint`` of the scan body)."""
+        (``jax.checkpoint`` of the scan body).  The hybrid's shared block
+        runs after each segment's last layer, kept where the side owns that
+        layer, and under ``remat`` is recomputed on its own, as the
+        reference checkpoints it."""
         lora_layers = (lora or {}).get("layers", {})
+        ends = self._segment_ends()
         if torch.is_tensor(cut) and cut.dim() == 1:
             ctx = dict(ctx, moe_aux_rows=True)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -234,6 +292,10 @@ class DecoderModel:
                                     use_reentrant=False)
             else:
                 x, aux = self._masked_layer(p_l, lo_l, x, aux, ctx, run)
+            if i in ends:
+                args = (params["shared"], (lora or {}).get("shared"), x, ctx, run)
+                x = (checkpoint(self._masked_shared, *args, use_reentrant=False)
+                     if remat else self._masked_shared(*args))
         return x, aux
 
     # -- public API ----------------------------------------------------------
@@ -286,10 +348,23 @@ class DecoderModel:
 
     # -- serving ---------------------------------------------------------------
     def init_cache(self, batch_size: int, cache_len: int) -> PyTree:
-        """Zero caches of every layer, stacked on a leading (L,) axis."""
-        one = self.block["init_cache"](self.cfg, batch_size, cache_len, self.device)
-        return tree_map(lambda a: a[None].repeat(self.cfg.n_layers,
-                                                 *([1] * a.dim())), one)
+        """Zero caches of every layer, stacked on a leading (L,) axis; the
+        hybrid's are {"mamba": (L,...), "attn": the shared block's, one a
+        segment (n_seg,...)}."""
+        def stacked(one, n):
+            return tree_map(lambda a: a[None].repeat(n, *([1] * a.dim())), one)
+
+        cfg = self.cfg
+        layers = stacked(self.block["init_cache"](cfg, batch_size, cache_len, self.device),
+                         cfg.n_layers)
+        if cfg.family != "hybrid":
+            return layers
+        attn = B.dense_init_cache(cfg, batch_size, cache_len, self.device)
+        return {"mamba": layers, "attn": stacked(attn, len(self._segments()))}
+
+    def cache_spec(self, batch_size: int, cache_len: int) -> PyTree:
+        """The cache's shapes and dtypes as a ``meta``-device tree."""
+        return DecoderModel(self.cfg, "meta").init_cache(batch_size, cache_len)
 
     def prefill(self, params, lora, batch, *, ctx=None):
         """Run the prompt through every layer; returns (logits of the last
@@ -298,13 +373,20 @@ class DecoderModel:
         if ctx is None:
             ctx = self.make_ctx(x.shape[1], x.device)
         lora_layers = (lora or {}).get("layers", {})
-        caches = []
+        ends = self._segment_ends()
+        caches, attn = [], []
         for i in range(self.cfg.n_layers):
             p_l = tree_map(lambda a: a[i], params["layers"])
             lo_l = tree_map(lambda a: a[i], lora_layers)
             x, c_l, _ = self.block["prefill"](self.cfg, p_l, lo_l, x, ctx)
             caches.append(c_l)
+            if i in ends:
+                x, c_a, _ = B.dense_prefill(self.cfg, params["shared"],
+                                            (lora or {}).get("shared"), x, ctx)
+                attn.append(c_a)
         logits = self.unembed(params, x[:, -1:, :])
+        if ends:
+            return logits, {"mamba": stack_trees(caches), "attn": stack_trees(attn)}
         return logits, stack_trees(caches)
 
     def serve_step(self, params, lora, cache, token, pos, *, ctx=None,
@@ -320,9 +402,15 @@ class DecoderModel:
             positions = torch.full((1,), pos, dtype=torch.int32, device=x.device)
             ctx = self.make_ctx(1, x.device, window=window, positions=positions)
         lora_layers = (lora or {}).get("layers", {})
+        ends = self._segment_ends()
+        layer_cache = cache["mamba"] if ends else cache
         for i in range(self.cfg.n_layers):
             p_l = tree_map(lambda a: a[i], params["layers"])
             lo_l = tree_map(lambda a: a[i], lora_layers)
-            c_l = tree_map(lambda a: a[i], cache)
+            c_l = tree_map(lambda a: a[i], layer_cache)
             x, _ = self.block["decode"](self.cfg, p_l, lo_l, x, c_l, pos, ctx)
+            if i in ends:
+                c_a = tree_map(lambda a: a[ends[i]], cache["attn"])
+                x, _ = B.dense_decode(self.cfg, params["shared"],
+                                      (lora or {}).get("shared"), x, c_a, pos, ctx)
         return self.unembed(params, x), cache

@@ -63,7 +63,7 @@ def _f32(x):
 
 
 @pytest.mark.parametrize("b,s,h,kh,d", [(2, 128, 4, 4, 32), (1, 100, 8, 2, 64),
-                                        (2, 64, 4, 1, 32)])
+                                        (2, 64, 4, 1, 32), (1, 70, 2, 2, 112)])
 @pytest.mark.parametrize("causal,window", [(True, None), (False, None), (True, 64)])
 def test_flash_sweep_matches_reference(b, s, h, kh, d, causal, window):
     _, jnp, jops = _jax()
@@ -166,7 +166,8 @@ def _row_err(got, want):
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 1e-2)])
 @pytest.mark.parametrize("shape,causal,window", [((2, 100, 100, 8, 2, 64), True, None),
                                                  ((1, 70, 90, 4, 1, 32), False, None),
-                                                 ((1, 200, 200, 2, 1, 256), True, 64)])
+                                                 ((1, 200, 200, 2, 1, 256), True, 64),
+                                                 ((2, 150, 150, 4, 4, 112), True, None)])
 def test_cuda_kernel_matches_plain_version(cuda_device, dtype, tol, shape, causal, window):
     """On the card: the kernel launches (the counter moves), reads GQA heads
     and strides in place, and agrees with the plain version."""
@@ -180,14 +181,14 @@ def test_cuda_kernel_matches_plain_version(cuda_device, dtype, tol, shape, causa
     assert err <= tol, err
 
 
-@pytest.mark.parametrize("d", [32, 64, 128, 256])
+@pytest.mark.parametrize("d", [32, 64, 112, 128, 256])
 @pytest.mark.parametrize("shape,causal,window", [((1, 70, 150, 4, 2, None), False, None),
                                                  ((1, 150, 70, 4, 2, None), True, None),
                                                  ((1, 300, 300, 4, 1, None), True, 100),
                                                  ((1, 200, 200, 32, 8, None), True, None)])
 def test_cuda_bf16_tensor_core_path(cuda_device, d, shape, causal, window):
     """On the card, the bf16 path (wgmma products, TMA-fed K/V ring) at every
-    head dimension: ragged S != T (no tile multiple; S > T causal, where
+    head dimension (112 as the 128-wide tile, zero-filled past D): ragged S != T (no tile multiple; S > T causal, where
     the last rows see every key), a causal window, and
     GQA with 32 query heads on 8 kv heads; per-row error <= 1e-2 against
     the plain version, as chip_smoke.py's bf16 tolerance (p and the output

@@ -20,7 +20,8 @@ SRC = ROOT / "src"
 # modules of the later slices (decoder-LM serving; the memory model and
 # partitioning; the network and observability planes and the event engine;
 # the control plane; checkpointing; the schedules and the training
-# entry point; the other families' configs and the input shapes), which
+# entry point; the other families' configs and the input shapes; the
+# encoder-decoder), which
 # the walk below must reach
 _NEW_MODULES = ("repro_torch.configs.gemma_2b", "repro_torch.configs.rwkv6_3b",
                 "repro_torch.kernels.flash_attention", "repro_torch.kernels.wkv6",
@@ -40,7 +41,7 @@ _NEW_MODULES = ("repro_torch.configs.gemma_2b", "repro_torch.configs.rwkv6_3b",
                 "repro_torch.configs.granite_20b", "repro_torch.configs.qwen1_5_4b",
                 "repro_torch.configs.qwen3_moe_30b_a3b", "repro_torch.configs.grok_1_314b",
                 "repro_torch.configs.internvl2_26b", "repro_torch.configs.zamba2_7b",
-                "repro_torch.configs.whisper_large_v3")
+                "repro_torch.configs.whisper_large_v3", "repro_torch.models.encdec")
 
 _IMPORT_ALL = r"""
 import importlib, pkgutil, sys
