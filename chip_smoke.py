@@ -131,6 +131,23 @@ Phases (any failed check raises and the script exits non-zero):
    cuts in force at each; snapshot bytes beside the leaves' bytes from
    their shapes, save and load wall times and the resumed run's peak
    memory are printed;
+9b. population: FleetSpec fleets at bert-base's full width (fp32, fused
+   unless named): ``[population:sim]``, the Simulator on 24 clients of a
+   FleetSpec, sync FedAvg each round, Pareto cohorts of half the fleet,
+   stragglers at 0.3, three k-means edge cells, ragged chunks of up to 6,
+   int8 links, 2 rounds, fused and einsum (losses within 1e-3, timelines
+   equal); ``[population:exact]``, ``train_population`` against the
+   Simulator on one 12-client FleetSpec below the population threshold,
+   sync (Pareto 0.6, the vmap step, two cells) and buffered async (the
+   ragged step): loss events, history rows, every global-adapter leaf and
+   the makespan bit for bit; ``[population:scale]``, ``train_population``
+   on 10^4 clients (Pareto cohorts of 30, four k-means cells, vectorized
+   rounds, ragged chunks of 8 on four slots, 3 rounds and an evaluation):
+   finite losses, the resident slots at each commit at most a cohort, wall
+   s, peak bytes and resident bytes printed.  Every run's cohorts,
+   straggler draws, edge cells, simulated times, loss-event keys, chunks
+   and launches (``launch_rule``, also under vmap) equal the CPU
+   prediction (``--predict-population``, below);
 10. LM kernel check: the flash-attention kernel at the gemma-2b prefill
    shape (B 4, S = T 2048, H 8, K 1, D 256, causal) in bf16 and fp32 and
    at a GQA shape with a ragged T (2, 1000, 32 heads, 8 kv heads, 64;
@@ -272,6 +289,12 @@ needs no card either: it replays the ``[resume]`` phase's three kills and
 resumes on the CPU the same way (``kill_and_resume``) and prints
 ``PREDICTED_RESUME``.
 
+    python3 chip_smoke.py --predict-population
+
+replays the ``[population]`` phase's runs on the CPU (``population_runs``
+at width 64 under bert-base's full-width timing) and prints
+``PREDICTED_POPULATION``.
+
 Without either, exits non-zero without a result when no
 CUDA device is available, or when run from a directory that does not hold
 the repository's ``src/``.
@@ -302,10 +325,10 @@ PORT_ROOT = (Path(sys.argv[sys.argv.index("--ab-one") + 1]).resolve()
              if "--ab-one" in sys.argv[:-1] else ROOT)
 sys.path.insert(0, str(PORT_ROOT / "src"))
 
-# --predict-control and --predict-resume run on the CPU; everything else
-# needs the card
-if not torch.cuda.is_available() and not {"--predict-control",
-                                          "--predict-resume"} & set(sys.argv[1:]):
+# --predict-control, --predict-resume and --predict-population run on the
+# CPU; everything else needs the card
+if not torch.cuda.is_available() and not {"--predict-control", "--predict-resume",
+                                          "--predict-population"} & set(sys.argv[1:]):
     sys.exit("chip_smoke: no CUDA device is available")
 
 from repro_torch.numerics import set_fp32_policy  # noqa: E402
@@ -319,8 +342,10 @@ from repro_torch.core.cost_model import lora_upload_bytes, makespan  # noqa: E40
 from repro_torch.core import lora as lora_lib  # noqa: E402
 from repro_torch.core.memory_model import client_memory  # noqa: E402
 from repro_torch.fed import (PAPER_CLIENTS, PAPER_CUTS, AggConfig,  # noqa: E402
-                             ControlConfig, EngineConfig, FedRunConfig, NetConfig,
-                             ObsConfig, Simulator)
+                             ControlConfig, EngineConfig, FedRunConfig, FleetConfig,
+                             FleetSpec, NetConfig, ObsConfig, Simulator)
+from repro_torch.fed.population_training import (PopulationTrainer,  # noqa: E402
+                                                 train_population)
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention_plain  # noqa: E402
@@ -2951,9 +2976,11 @@ def event_run(policy: str, fused: bool, trace_dir=None) -> FedRunConfig:
         obs=ObsConfig(trace=True, metrics=True, memory_ledger=True, trace_dir=trace_dir))
 
 
-def launch_rule(cfg, serves, serve_cuts, n_evals: int, n_eval_batches: int) -> dict:
+def launch_rule(cfg, serves, serve_cuts, n_evals: int, n_eval_batches: int,
+                impl: str = "ragged") -> dict:
     """Kernel launches of a whole event-engine run, from the clock's served
-    ``ServeEvent``s at the cuts in force at each (``serve_cuts``) and the
+    ``ServeEvent``s (or a population round's ``ServiceRecord``s) at the cuts
+    in force at each (``serve_cuts``) and the
     evaluations.  With T adapted projections per layer and L layers, each
     client u of a serve event runs its forward and backward at its cut:
     2*T*cut_u - 3 ``lora_matmul`` (no dx into the frozen embedding) and,
@@ -2962,7 +2989,9 @@ def launch_rule(cfg, serves, serve_cuts, n_evals: int, n_eval_batches: int) -> d
     step, 2*T*(L - cut) ``lora_matmul`` (forward and dx); of a chunk, the
     ragged step, one ``grouped_lora`` chunk-mode launch forward and one for
     dx per projection of each distinct cut's layers, 2*T*(L - cut) per
-    distinct cut.  Each evaluation runs T*L ``lora_matmul`` per test batch,
+    distinct cut, or the vmap step (``impl="vmap"``), one launch forward and
+    one for dx per projection of every layer, 2*T*L a chunk whatever the
+    cuts.  Each evaluation runs T*L ``lora_matmul`` per test batch,
     whatever the cuts."""
     t, nl = len(cfg.lora.targets), cfg.n_layers
     lm = gl = q = 0
@@ -2970,6 +2999,8 @@ def launch_rule(cfg, serves, serve_cuts, n_evals: int, n_eval_batches: int) -> d
         lm += sum(2 * t * cuts[u] - 3 for u in ev.uids)
         if len(ev.uids) == 1:
             lm += 2 * t * (nl - cuts[ev.uids[0]])
+        elif impl == "vmap":
+            gl += 2 * t * nl
         else:
             gl += sum(2 * t * (nl - c) for c in {cuts[u] for u in ev.uids})
         q += 2 * len(ev.uids)
@@ -3334,13 +3365,17 @@ def cuts_at_serves(cuts0, serves, decisions) -> tuple:
 
 
 def full_width_timing() -> None:
-    """Point every quantity the control phase's timeline reads at
-    bert-base's full width, whatever the width of the model that runs: the
-    Simulator's ``client_step_times`` and ``lora_upload_bytes``, the int8
-    transport ratio at d 768, and the control loop's model."""
+    """Point every quantity the control, resume and population phases'
+    timelines read at bert-base's full width, whatever the width of the
+    model that runs: the Simulator's ``client_step_times`` and
+    ``lora_upload_bytes``, the int8 transport ratio at d 768, the control
+    loop's model, and the population clock's ``step_time_arrays`` and the
+    clock's and the trainer's ``lora_upload_bytes``."""
     from repro_torch.comm import transport_bytes
     from repro_torch.control import ControlLoop
     from repro_torch.core.cost_model import dtype_nbytes
+    from repro_torch.fed import population as pop_mod
+    from repro_torch.fed import population_training as pop_train_mod
     from repro_torch.fed import simulator as sim_mod
 
     full = REGISTRY["bert-base"]
@@ -3348,6 +3383,10 @@ def full_width_timing() -> None:
     sim_mod.client_step_times = lambda cfg, *a, **k: step_times(full, *a, **k)
     sim_mod.lora_upload_bytes = lambda cfg, *a, **k: upload_bytes(full, *a, **k)
     sim_mod.ControlLoop = lambda cfg, *a, **k: ControlLoop(full, *a, **k)
+    arrays = pop_mod.step_time_arrays
+    pop_mod.step_time_arrays = lambda cfg, *a, **k: arrays(full, *a, **k)
+    pop_mod.lora_upload_bytes = sim_mod.lora_upload_bytes
+    pop_train_mod.lora_upload_bytes = sim_mod.lora_upload_bytes
 
     def ratio(self) -> float:
         shape, nb = (BATCH, SEQ, full.d_model), dtype_nbytes(full.dtype)
@@ -3854,6 +3893,522 @@ PREDICTED_RESUME = {'event:buffered': {'snapshot_times': [0.21047053016949152, 0
                       'resume_launches': {'lora_matmul': 1629,
                                           'grouped_lora_chunk': 0,
                                           'quantize_rows': 2}}}
+
+
+# [population] phase: FleetSpec fleets, sampled cohorts, stragglers and edge
+# cells in the Simulator, and the cohort-resident PopulationTrainer
+# ---------------------------------------------------------------------------
+
+# the three fleets: the Simulator's sampled fleet, the exact trainer's twin
+# below the population threshold, and the scale fleet of 10^4 clients, each
+# holding POP_SCALE_PER_CLIENT examples (one batch)
+POP_SIM_SPEC = dict(n=24, seed=0, link_model="constant")
+POP_EXACT_SPEC = dict(n=12, seed=3, link_model="constant")
+POP_SCALE_SPEC = dict(n=10_000, seed=0, link_model="constant")
+POP_SCALE_ROUNDS, POP_SCALE_PER_CLIENT = 3, 16
+POP_KEYS = ("sim", "exact:sync", "exact:async", "scale")
+
+
+def population_run(key: str, fused: bool = True) -> FedRunConfig:
+    """The phase's runs, all fp32 at bert-base's path shapes (batch 16, seq
+    128) under the event clock.  ``sim``: the Simulator on POP_SIM_SPEC,
+    sync FedAvg each round, Pareto cohorts of half the fleet, stragglers at
+    0.3, three k-means edge cells, ragged chunks of up to 6, int8 links.
+    ``exact:sync``: Pareto cohorts of 0.6, the vmap step in chunks of up
+    to 3, two k-means cells; ``exact:async``: buffered commits of half the
+    fleet, two local rounds in flight, the ragged step; both on one server
+    slot, where arrivals queue into chunks.
+    ``scale``: Pareto cohorts of 0.003 (30 clients of 10^4) over four
+    k-means cells, ragged chunks of 8 on four slots, vectorized rounds
+    (threshold 20), an evaluation after the last round."""
+    base = dict(batch_size=BATCH, seq_len=SEQ, lr=LR, seed=0)
+    if key == "sim":
+        return FedRunConfig(
+            **base, rounds=ROUNDS,
+            engine=EngineConfig(mode="event", fused_lora=fused, cohort_chunk=6,
+                                cohort_impl="ragged"),
+            agg=AggConfig(policy="sync", interval=1),
+            net=NetConfig(link_model="custom", quantize=True),
+            fleet=FleetConfig(sampling="pareto", rate=0.5, straggler_prob=0.3,
+                              edge_cells=3, cell_assignment="kmeans"))
+    if key == "exact:sync":
+        return FedRunConfig(
+            **base, rounds=ROUNDS, eval_every=ROUNDS,
+            engine=EngineConfig(mode="event", fused_lora=fused, cohort_chunk=3,
+                                cohort_impl="vmap"),
+            agg=AggConfig(policy="sync", interval=1), net=NetConfig(link_model="custom"),
+            fleet=FleetConfig(sampling="pareto", rate=0.6, edge_cells=2,
+                              cell_assignment="kmeans"))
+    if key == "exact:async":
+        return FedRunConfig(
+            **base, rounds=ROUNDS, eval_every=ROUNDS,
+            engine=EngineConfig(mode="event", fused_lora=fused, cohort_chunk=3,
+                                cohort_impl="ragged"),
+            agg=AggConfig(policy="buffered", interval=1, max_inflight=2),
+            net=NetConfig(link_model="custom"))
+    return FedRunConfig(
+        **base, rounds=POP_SCALE_ROUNDS, eval_every=POP_SCALE_ROUNDS,
+        engine=EngineConfig(mode="event", fused_lora=fused, slots=4, cohort_chunk=8,
+                            cohort_impl="ragged"),
+        agg=AggConfig(policy="sync", interval=1),
+        fleet=FleetConfig(sampling="pareto", rate=0.003, edge_cells=4,
+                          cell_assignment="kmeans", population_threshold=20))
+
+
+def measured(fn, device):
+    """``fn()``'s result with its wall s, peak bytes and launches, every
+    counter set to 0 just before it and read just after."""
+    cuda = torch.device(device).type == "cuda"
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    out = fn()
+    if cuda:
+        torch.cuda.synchronize()
+    return out, {"wall_s": time.perf_counter() - t0, "launches": read_counts(),
+                 "max_mem_bytes": torch.cuda.max_memory_allocated() if cuda else None}
+
+
+def record_draws(sim) -> dict:
+    """Each round's straggling clients and sampled cohort, read from the
+    round stream's two draws (instance attributes: the wave planner and
+    the analytic loop look them up at each call)."""
+    rec = {"stragglers": [], "cohorts": []}
+    adjusted, sample = sim._adjusted_times, sim._sample_cohort
+
+    def adjusted_times():
+        out = adjusted()
+        rec["stragglers"].append([u for u, (st, base) in enumerate(zip(out, sim.times))
+                                  if st.t_f != base.t_f])
+        return out
+
+    def sample_cohort():
+        sample()
+        rec["cohorts"].append(list(sim._active))
+
+    sim._adjusted_times, sim._sample_cohort = adjusted_times, sample_cohort
+    return rec
+
+
+def pop_timeline(drv, serves, cuts, impl: str, cohorts) -> dict:
+    """What the card's run is held to: cohorts, simulated times, loss-event
+    keys, chunk sizes and the launches ``launch_rule`` gives at bert-base's
+    full width over the card's N_TEST examples (``quantize_rows`` under
+    int8 links only).  None of it reads a tensor."""
+    n_evals = sum(r.accuracy is not None for r in drv.history)
+    launches = launch_rule(REGISTRY["bert-base"], serves, [cuts] * len(serves), n_evals,
+                           min(32, N_TEST // BATCH), impl=impl)
+    if not drv.run.net.quantize:
+        launches["quantize_rows"] = 0
+    return {"cohorts": cohorts, "sim_times": [r.sim_time_s for r in drv.history],
+            "loss_event_keys": [list(e[:3]) for e in drv.loss_events],
+            "chunk_sizes": [len(ev.uids) for ev in serves], "launches": launches}
+
+
+def hist_rows(drv) -> list:
+    """History rows, a nan mean loss (a commit with no serve since the
+    last) as None so that equal rows compare equal."""
+    return [(r.round, r.sim_time_s, None if math.isnan(r.mean_loss) else r.mean_loss,
+             r.accuracy, r.f1) for r in drv.history]
+
+
+def pop_sim(cfg, train, test, device, fused: bool) -> dict:
+    """[population:sim]: the Simulator on a sampled fleet with stragglers
+    and k-means edge cells."""
+    sim = Simulator(cfg, fleet=FleetSpec(**POP_SIM_SPEC), train=train, test=test,
+                    run=population_run("sim", fused), device=device)
+    draws = record_draws(sim)
+    _, m = measured(sim.run_training, device)
+    serves = list(sim.clock_result.serves)
+    tl = pop_timeline(sim, serves, sim.cuts, "ragged", draws["cohorts"])
+    tl.update(stragglers=draws["stragglers"],
+              edge_cells=[list(c) for c in sim._edges.cells])
+    return {"timeline": tl, "losses": [e[3] for e in sim.loss_events],
+            "accuracy": sim.history[-1].accuracy, **m}
+
+
+def pop_exact(kind: str, cfg, train, test, device) -> dict:
+    """[population:exact]: ``train_population`` and the Simulator on one
+    fleet below the threshold, the same seeds: loss events, history rows,
+    every global-adapter leaf and the makespan bit for bit."""
+    spec, run = FleetSpec(**POP_EXACT_SPEC), population_run(f"exact:{kind}")
+    sim = Simulator(cfg, fleet=spec, train=train, test=test, run=run, device=device)
+    _, m_sim = measured(sim.run_training, device)
+    tr, m_tr = measured(lambda: train_population(cfg, spec.population(), run, train, test,
+                                                 device=device), device)
+    label = f"population:exact:{kind}"
+    checks = {"loss_events": tr.loss_events == sim.loss_events,
+              "history": hist_rows(tr) == hist_rows(sim),
+              "discarded": tr.discarded_updates == sim.discarded_updates,
+              "makespan": tr.clock_result.makespan == sim.sim_clock,
+              "global_full": all(torch.equal(a, b) for a, b in
+                                 zip(tree_leaves(tr.store.global_full),
+                                     tree_leaves(sim._global_full))),
+              "global_head": torch.equal(tr.store.global_head, sim._global_head)}
+    if not all(checks.values()):
+        first = next((i for i, (a, b) in enumerate(zip(tr.loss_events, sim.loss_events))
+                      if a != b), None)
+        raise AssertionError(f"{label}: trainer and Simulator differ: {checks}; first "
+                             f"loss event apart: {first}")
+    if m_tr["launches"] != m_sim["launches"]:
+        raise AssertionError(f"{label}: trainer and Simulator launch apart")
+    serves = list(sim.clock_result.serves)
+    cohorts = [sorted(u for rec in r.service for u in rec.uids)
+               for r in tr.clock_result.round_results]
+    tl = pop_timeline(sim, serves, sim.cuts, run.engine.cohort_impl, cohorts)
+    tl["discarded"] = [list(d) for d in sim.discarded_updates]
+    return {"timeline": tl, "checks": checks, "launches": m_tr["launches"],
+            "simulator": m_sim, "trainer": m_tr, "losses": [e[3] for e in tr.loss_events],
+            "accuracy": tr.history[-1].accuracy, "modes": tr.clock_result.modes}
+
+
+def pop_scale(cfg, test, device) -> dict:
+    """[population:scale]: ``train_population`` on a 10^4-client fleet,
+    every commit's cohort-resident slots and bytes read just before it; the
+    train set's sequences as long as the test set's."""
+    t0 = time.perf_counter()
+    train = make_emotion_dataset(POP_SCALE_SPEC["n"] * POP_SCALE_PER_CLIENT,
+                                 seq_len=test.tokens.shape[1], vocab_size=cfg.vocab_size,
+                                 seed=2)
+    fleet = FleetSpec(**POP_SCALE_SPEC).population()
+    data_s = time.perf_counter() - t0
+    seen = []
+    commit = PopulationTrainer.commit_sync
+
+    def watched(self):
+        seen.append((len(self.store.touched()), self.store.resident_nbytes()))
+        return commit(self)
+
+    PopulationTrainer.commit_sync = watched
+    try:
+        tr, m = measured(lambda: train_population(cfg, fleet, population_run("scale"),
+                                                  train, test, device=device), device)
+    finally:
+        PopulationTrainer.commit_sync = commit
+    res = tr.clock_result
+    services = [rec for r in res.round_results for rec in r.service]
+    cohorts = [sorted(u for rec in r.service for u in rec.uids) for r in res.round_results]
+    label = "population:scale"
+    losses = [e[3] for e in tr.loss_events]
+    if set(res.modes) != {"vectorized"} or not losses or \
+            not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"{label}: modes {res.modes}, losses {losses}")
+    if len(seen) != POP_SCALE_ROUNDS or max(n for n, _ in seen) > max(res.cohort_sizes):
+        raise AssertionError(f"{label}: resident slots {seen} beyond the largest cohort "
+                             f"{max(res.cohort_sizes)}")
+    tl = pop_timeline(tr, services, [int(c) for c in fleet.cuts], "ragged", cohorts)
+    return {"timeline": tl, "data_s": data_s, "slots": [n for n, _ in seen],
+            "resident_bytes": [b for _, b in seen], "cohort_sizes": res.cohort_sizes,
+            "losses": losses, "accuracy": tr.history[-1].accuracy,
+            "exact": tr.exact, **m}
+
+
+def population_runs(cfg, train, test, device, einsum: bool) -> dict:
+    """Every run of the phase (the sim run also on the einsum path where
+    ``einsum``), each freed before the next."""
+    out = {"sim": pop_sim(cfg, train, test, device, True)}
+    if einsum:
+        out["sim:einsum"] = pop_sim(cfg, train, test, device, False)
+    for kind in ("sync", "async"):
+        out[f"exact:{kind}"] = pop_exact(kind, cfg, train, test, device)
+        gc.collect()
+    out["scale"] = pop_scale(cfg, test, device)
+    return out
+
+
+# the keys of each run's timeline that the card's runs are held to
+PINNED_POPULATION_KEYS = ("cohorts", "stragglers", "edge_cells", "sim_times",
+                          "loss_event_keys", "chunk_sizes", "discarded", "launches")
+
+
+def predict_population_phase() -> None:
+    """``--predict-population``: the phase's runs on the CPU at bert-base's
+    full-width timing (as ``predict_control``: the model cut to width 64,
+    its depth and every simulated time bert-base's; the exact runs' trainer
+    held against the Simulator bit for bit here too).  No timeline reads a
+    tensor, so the replay also cuts the data: sequences of 16 tokens (the
+    runs' ``seq_len``, which the cost model reads, stays 128) and one test
+    batch.  Each timeline is printed as one ``[predict:population:KEY]``
+    line, then ``PREDICTED_POPULATION`` in the literal form this file
+    holds."""
+    from repro_torch.configs import reduced
+
+    torch.set_num_threads(1)      # small ops: more threads only contend
+    full_width_timing()
+    full = REGISTRY["bert-base"]
+    small = reduced(full, n_layers=full.n_layers, d_model=64).with_(
+        vocab_size=full.vocab_size, max_position=SEQ)
+    train = make_emotion_dataset(N_TRAIN, seq_len=16, vocab_size=full.vocab_size, seed=0)
+    test = make_emotion_dataset(BATCH, seq_len=16, vocab_size=full.vocab_size, seed=1)
+    runs = population_runs(small, train, test, "cpu", einsum=False)
+    pinned = {}
+    for key in POP_KEYS:
+        tl = runs[key]["timeline"]
+        print(f"[predict:population:{key}] {json.dumps(tl)}", flush=True)
+        pinned[key] = {k: tl[k] for k in PINNED_POPULATION_KEYS if k in tl}
+    print("PREDICTED_POPULATION = " + pprint.pformat(pinned, sort_dicts=False, compact=True),
+          flush=True)
+
+
+# the [population] phase's cohorts, straggler draws, edge cells, simulated
+# times, loss-event keys, chunks and launches, computed on the CPU by
+# ``python3 chip_smoke.py --predict-population`` before any chip run (no
+# tensor enters them).  A change to the runs' settings, the clock, the
+# sampler, the cost model or the topology changes them: rerun that command
+# and paste its last line
+PREDICTED_POPULATION = {'sim': {'cohorts': [[0, 1, 2, 3, 4, 5, 10, 14, 17, 21, 22, 23],
+                     [0, 1, 4, 5, 11, 14, 16, 17, 19, 21, 22, 23]],
+         'stragglers': [[4, 6, 10, 12, 19, 23], [4, 9, 10, 11, 13, 15, 21, 23]],
+         'edge_cells': [[3, 7, 8, 12, 13, 16, 19, 21, 22],
+                        [0, 1, 4, 5, 6, 14, 20],
+                        [2, 9, 10, 11, 15, 17, 18, 23]],
+         'sim_times': [1.7041345350059656, 3.4356021557045713],
+         'loss_event_keys': [[0.2055604183728335, 5, 0],
+                             [0.24031443917771037, 17, 0],
+                             [0.32024967765127355, 14, 0],
+                             [0.32024967765127355, 1, 0],
+                             [0.472507733890354, 0, 0],
+                             [0.472507733890354, 22, 0],
+                             [0.472507733890354, 3, 0],
+                             [0.472507733890354, 21, 0],
+                             [0.6133471590673655, 2, 0],
+                             [0.6133471590673655, 4, 0],
+                             [0.6133471590673655, 10, 0],
+                             [0.6133471590673655, 23, 0],
+                             [1.909694953378799, 5, 1],
+                             [1.944448974183676, 17, 1],
+                             [2.1005132407767793, 16, 1],
+                             [2.1005132407767793, 14, 1],
+                             [2.1005132407767793, 1, 1],
+                             [2.1005132407767793, 19, 1],
+                             [2.2109005726020667, 0, 1],
+                             [2.2109005726020667, 22, 1],
+                             [2.2109005726020667, 23, 1],
+                             [2.283223390367584, 4, 1],
+                             [2.283223390367584, 21, 1],
+                             [2.317481694073331, 11, 1]],
+         'chunk_sizes': [1, 1, 2, 4, 4, 1, 1, 4, 3, 2, 1],
+         'launches': {'lora_matmul': 2272,
+                      'grouped_lora_chunk': 1112,
+                      'quantize_rows': 48}},
+ 'exact:sync': {'cohorts': [[2, 3, 5, 7, 9, 10, 11], [0, 1, 3, 5, 7, 10, 11]],
+                'sim_times': [1.8993428936866188, 4.341557724928403],
+                'loss_event_keys': [[0.5665616391080164, 2, 0],
+                                    [0.6046261531677865, 3, 0],
+                                    [0.6388844568735336, 11, 0],
+                                    [0.6731427605792807, 5, 0],
+                                    [0.7195102966393513, 10, 0],
+                                    [0.7643084063950599, 7, 0],
+                                    [0.80237292045483, 9, 0],
+                                    [2.48587492978273, 3, 1],
+                                    [2.520133233488477, 11, 1],
+                                    [2.554391537194224, 5, 1],
+                                    [2.6249274273602214, 1, 1],
+                                    [2.701056455479762, 10, 1],
+                                    [2.701056455479762, 7, 1],
+                                    [2.8765304814959536, 0, 1]],
+                'chunk_sizes': [1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 2, 1],
+                'discarded': [],
+                'launches': {'lora_matmul': 2678,
+                             'grouped_lora_chunk': 96,
+                             'quantize_rows': 0}},
+ 'exact:async': {'cohorts': [],
+                 'sim_times': [1.7458058245903583, 2.374801065197937,
+                               3.3596824424134493, 4.741518424439722],
+                 'loss_event_keys': [[0.5665616391080164, 2, 0],
+                                     [0.6426906672275566, 8, 0],
+                                     [0.6426906672275566, 3, 0],
+                                     [0.7112072746390509, 5, 0],
+                                     [0.7112072746390509, 11, 0],
+                                     [0.7873363027585911, 10, 0],
+                                     [0.7873363027585911, 1, 0],
+                                     [0.9091422656459475, 6, 0],
+                                     [0.9091422656459475, 7, 0],
+                                     [0.9091422656459475, 9, 0],
+                                     [0.9434005693516946, 4, 0],
+                                     [0.9852712937654877, 0, 0],
+                                     [1.763854371140958, 2, 1],
+                                     [1.8464876695379495, 3, 1],
+                                     [1.8845521835977197, 8, 1],
+                                     [1.993052801958756, 11, 1],
+                                     [2.0559962363718496, 5, 1],
+                                     [2.338892680905696, 10, 1],
+                                     [2.471390358263961, 1, 1],
+                                     [2.5132610826777544, 7, 1],
+                                     [2.5513255967375246, 9, 1],
+                                     [2.6085548237235936, 6, 1],
+                                     [2.8308008311813095, 4, 1],
+                                     [3.3519886530072722, 0, 1]],
+                 'chunk_sizes': [1, 2, 2, 2, 3, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1,
+                                 1, 1, 1],
+                 'discarded': [[2, 1], [3, 1], [8, 1], [11, 1], [5, 1], [10, 1],
+                               [7, 1], [9, 1], [6, 1], [4, 1]],
+                 'launches': {'lora_matmul': 4584,
+                              'grouped_lora_chunk': 480,
+                              'quantize_rows': 0}},
+ 'scale': {'cohorts': [[77, 275, 335, 941, 1139, 2189, 2717, 2769, 2837, 3179,
+                        3425, 3587, 4397, 4973, 5649, 5747, 6605, 6761, 6803,
+                        6839, 6983, 8027, 8117, 8339, 8405, 8637, 9101, 9839,
+                        9862, 9929],
+                       [734, 1019, 1943, 2123, 2717, 2879, 2933, 3179, 3269,
+                        3587, 4133, 4175, 4367, 4805, 6839, 6893, 6944, 6983,
+                        7001, 7071, 7967, 8291, 8405, 8423, 8925, 8975, 9101,
+                        9327, 9923, 9987],
+                       [77, 497, 1247, 1763, 1931, 2057, 2123, 2181, 3029, 3171,
+                        3503, 3587, 4055, 4307, 4505, 4973, 5232, 5745, 6839,
+                        6983, 7565, 8027, 8405, 8459, 8849, 8973, 9149, 9305,
+                        9503, 9761]],
+           'sim_times': [1.7511224220756532, 3.7464163380581454,
+                         6.211425676102216],
+           'loss_event_keys': [[0.489093259614815, 3587, 0],
+                               [0.4891391356941319, 6983, 0],
+                               [0.4893517995140226, 8405, 0],
+                               [0.4895819530472367, 9929, 0],
+                               [0.7631596892607919, 6605, 0],
+                               [0.7631596892607919, 335, 0],
+                               [0.7631596892607919, 2717, 0],
+                               [0.7631596892607919, 8117, 0],
+                               [0.7631596892607919, 8339, 0],
+                               [0.7631596892607919, 6803, 0],
+                               [0.7631596892607919, 1139, 0],
+                               [0.7631596892607919, 4973, 0],
+                               [0.7632055653401089, 9839, 0],
+                               [0.7632055653401089, 9101, 0],
+                               [0.7632055653401089, 275, 0],
+                               [0.7632055653401089, 4397, 0],
+                               [0.7632055653401089, 2837, 0],
+                               [0.7632055653401089, 8027, 0],
+                               [0.7632055653401089, 3425, 0],
+                               [0.7632055653401089, 3179, 0],
+                               [0.6682557387508041, 77, 0],
+                               [0.6682557387508041, 6761, 0],
+                               [0.6682557387508041, 6839, 0],
+                               [0.6682557387508041, 8637, 0],
+                               [0.6682557387508041, 2769, 0],
+                               [0.5374411956665796, 5747, 0],
+                               [0.5716994993723267, 941, 0],
+                               [0.6439743112906643, 2189, 0],
+                               [0.6782326149964114, 9862, 0],
+                               [0.7210914994777161, 5649, 0],
+                               [2.240215681690468, 3587, 1],
+                               [2.2402615577697853, 6983, 1],
+                               [2.240474221589676, 8405, 1],
+                               [2.240685685493507, 2123, 1],
+                               [2.518088321690468, 734, 1],
+                               [2.518088321690468, 6893, 1],
+                               [2.518088321690468, 2717, 1],
+                               [2.518088321690468, 4175, 1],
+                               [2.518088321690468, 8423, 1],
+                               [2.518088321690468, 9923, 1],
+                               [2.518088321690468, 2933, 1],
+                               [2.518088321690468, 8291, 1],
+                               [2.445811380004268, 7001, 1],
+                               [2.445811380004268, 9101, 1],
+                               [2.445811380004268, 2879, 1],
+                               [2.445811380004268, 3179, 1],
+                               [2.445811380004268, 6839, 1],
+                               [2.445811380004268, 4367, 1],
+                               [2.2808366753088283, 8925, 1],
+                               [2.2807109800098044, 4133, 1],
+                               [2.387292101481069, 6944, 1],
+                               [2.387292101481069, 4805, 1],
+                               [2.387292101481069, 7967, 1],
+                               [2.3190436797929084, 1943, 1],
+                               [2.3533019834986555, 1019, 1],
+                               [2.3875602872044026, 3269, 1],
+                               [2.459614919246586, 8975, 1],
+                               [2.459614919246586, 9987, 1],
+                               [2.4593523575718605, 9327, 1],
+                               [2.5886400659977076, 7071, 1],
+                               [4.233799632349997, 2181, 2],
+                               [4.234539141648591, 8973, 2],
+                               [4.23550959767296, 3587, 2],
+                               [4.235555473752277, 6983, 2],
+                               [4.507866061995974, 9761, 2],
+                               [4.507866061995974, 1931, 2],
+                               [4.507866061995974, 8849, 2],
+                               [4.507866061995974, 3503, 2],
+                               [4.507866061995974, 4973, 2],
+                               [4.507866061995974, 3029, 2],
+                               [4.507866061995974, 7565, 2],
+                               [4.507866061995974, 1247, 2],
+                               [4.516217992002614, 497, 2],
+                               [4.516217992002614, 8027, 2],
+                               [4.516217992002614, 77, 2],
+                               [4.516217992002614, 6839, 2],
+                               [4.516217992002614, 2123, 2],
+                               [4.516217992002614, 8405, 2],
+                               [4.516217992002614, 3171, 2],
+                               [4.516217992002614, 5745, 2],
+                               [4.274379359353603, 9503, 2],
+                               [4.294507107839108, 9305, 2],
+                               [4.313352997233875, 9149, 2],
+                               [4.328765411544855, 1763, 2],
+                               [4.347611300939622, 4307, 2],
+                               [4.431540322662096, 4505, 2],
+                               [4.431540322662096, 4055, 2],
+                               [4.431540322662096, 8459, 2],
+                               [4.381869604645369, 2057, 2],
+                               [4.733789392955503, 5232, 2]],
+           'chunk_sizes': [1, 1, 1, 1, 8, 8, 5, 1, 1, 1, 1, 1, 1, 1, 1, 1, 8, 6,
+                           1, 1, 3, 1, 1, 1, 2, 1, 1, 1, 1, 1, 1, 8, 8, 1, 1, 1,
+                           1, 1, 3, 1, 1],
+           'launches': {'lora_matmul': 5602,
+                        'grouped_lora_chunk': 1120,
+                        'quantize_rows': 0}}}
+
+
+def population_phase(train, test) -> dict:
+    """[population]: the sim run fused and einsum (losses within
+    LOSS_RTOL, timelines equal), the exact runs (trainer against Simulator
+    bit for bit), the scale run; every run's timeline and launches against
+    PREDICTED_POPULATION."""
+    t0 = time.perf_counter()
+    runs = population_runs(REGISTRY["bert-base"], train, test, "cuda", einsum=True)
+    fused, plain = runs["sim"], runs["sim:einsum"]
+    if plain["timeline"] != fused["timeline"]:
+        raise AssertionError("population:sim: the einsum run's timeline differs")
+    gaps = [abs(a - b) / abs(b) for a, b in zip(fused["losses"], plain["losses"])]
+    if not max(gaps) <= LOSS_RTOL:
+        raise AssertionError(f"population:sim: fused and einsum losses apart by {max(gaps)}")
+    if any(plain["launches"][k] for k in ("lora_matmul", "grouped_lora_chunk")):
+        raise AssertionError("population:sim: the einsum run launched a LoRA kernel")
+    out = {}
+    for key in (*POP_KEYS, "sim:einsum"):
+        run = runs[key]
+        tl = run["timeline"]
+        want = PREDICTED_POPULATION[key.split(":einsum")[0]]
+        got = {k: tl[k] for k in want}
+        if got != want:
+            bad = [k for k in want if got[k] != want[k]]
+            raise AssertionError(f"population:{key}: {bad} differ from PREDICTED_POPULATION")
+        counts = run["launches"]
+        expect = dict(tl["launches"])
+        if key == "sim:einsum":
+            expect.update(lora_matmul=0, grouped_lora_chunk=0)
+        if {k: counts[k] for k in expect} != expect or \
+                any(v for k, v in counts.items() if k not in expect):
+            raise AssertionError(f"population:{key}: launches {counts}, expected {expect}")
+        out[key] = {k: v for k, v in run.items() if k not in ("timeline", "losses")}
+        out[key].update(n_loss_events=len(tl["loss_event_keys"]), sim_times=tl["sim_times"],
+                        loss_range=[min(run["losses"]), max(run["losses"])])
+        print(f"[population:{key}] {gpu_line()} {json.dumps(out[key])}", flush=True)
+    out["sim"]["fused_vs_einsum_max_rel_gap"] = max(gaps)
+    out["phase_s"] = time.perf_counter() - t0
+    print(f"[population] phase_s={out['phase_s']:.1f} "
+          f"sim fused_vs_einsum_max_rel_gap={max(gaps):.3e} "
+          f"scale wall_s={runs['scale']['wall_s']:.3f} "
+          f"max_mem_bytes={runs['scale']['max_mem_bytes']} "
+          f"resident_bytes={runs['scale']['resident_bytes']}", flush=True)
+    return out
+
+
+def population_launches(population: dict, name: str) -> dict:
+    """A kernel's launches in each run of the [population] phase."""
+    return {key: run["launches"][name] for key, run in population.items()
+            if isinstance(run, dict)}
 
 
 def vmap_phase(train, test, ragged: dict) -> dict:
@@ -4450,12 +5005,19 @@ def main() -> None:
                     help="compute the [resume] phase's snapshot instants, restored state "
                          "and launches on the CPU, print them and PREDICTED_RESUME, and "
                          "do nothing else")
+    ap.add_argument("--predict-population", action="store_true",
+                    help="compute the [population] phase's cohorts, straggler draws, "
+                         "simulated times and launches on the CPU, print them and "
+                         "PREDICTED_POPULATION, and do nothing else")
     args = ap.parse_args()
     if args.predict_control:
         predict_control_phase()
         return
     if args.predict_resume:
         predict_resume_phase()
+        return
+    if args.predict_population:
+        predict_population_phase()
         return
     if args.ab_one is not None:
         print("[ab]", json.dumps(ab_measure()), flush=True)
@@ -4660,6 +5222,8 @@ def main() -> None:
     control = phase("control", control_phase, train, test, finals)
     resume = phase("resume", resume_phase, train, test, finals)
     del finals
+    gc.collect()
+    population = phase("population", population_phase, train, test)
 
     del train, test
     gc.collect()
@@ -4713,6 +5277,7 @@ def main() -> None:
               event_launches=event_launches(event, "lora_matmul"),
               control_launches=control_launches(control, "lora_matmul"),
               resume_launches=resume_launches(resume, "lora_matmul"),
+              population_launches=population_launches(population, "lora_matmul"),
               base_matmul_ms=main_shape["base_matmul_ms"],
               moe_router={str(c["shape"]): {key: c.get(key) for key in
                                             ("fwd_err", "views_err", "dx_err", "da_err",
@@ -4741,6 +5306,7 @@ def main() -> None:
               event_launches=event_launches(event, "grouped_lora_chunk"),
               control_launches=control_launches(control, "grouped_lora_chunk"),
               resume_launches=resume_launches(resume, "grouped_lora_chunk"),
+              population_launches=population_launches(population, "grouped_lora_chunk"),
               bound_tf32x3_ms=grouped_path["bound_tf32x3_ms"],
               dx_call_device_ms=grouped_path["dx_call_device_ms"],
               views_err=grouped_path["views_err"],
@@ -4907,6 +5473,7 @@ def main() -> None:
               event_launches=event_launches(event, "quantize_rows"),
               control_launches=control_launches(control, "quantize_rows"),
               resume_launches=resume_launches(resume, "quantize_rows"),
+              population_launches=population_launches(population, "quantize_rows"),
               dtype="float32", body=quant["body"],
               bf16={key: quant["bfloat16"][key] for key in
                     ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "body",

@@ -77,3 +77,23 @@ def load_reference_state(sim, state: dict) -> None:
         if len(vals) != sim.u:
             raise ValueError(f"{key}: {len(vals)} entries for {sim.u} clients")
         setattr(sim, key, vals)
+
+
+TRAINER_KEYS = ("params", "global_full", "global_head")
+
+
+def load_reference_trainer_state(trainer, state: dict) -> None:
+    """Overwrite a port ``PopulationTrainer``'s initial state with the
+    reference trainer's, given as numpy under :data:`TRAINER_KEYS`: the
+    frozen params and the standing global adapters and head (the store's
+    ``global_full`` / ``global_head``, from which every slot
+    materializes).  Call it before the run, while no slot exists."""
+    missing = [k for k in TRAINER_KEYS if k not in state]
+    if missing:
+        raise KeyError(f"reference state lacks {missing}")
+    if trainer.store.touched() or trainer._client_params:
+        raise ValueError("load the reference state before any slot materializes")
+    dev = trainer.device
+    trainer.params = to_torch(state["params"], dev)
+    trainer.store.reset_global(to_torch(state["global_full"], dev),
+                               to_torch(state["global_head"], dev))

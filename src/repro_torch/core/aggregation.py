@@ -4,8 +4,8 @@ client's (heterogeneous) cut point.  Port of ``src/repro/core/aggregation.py``
 with the async policy layer of the event engine: polynomial staleness
 discounting of the Eq. 6-8 weights (:func:`staleness_weights`) and the
 anchored merge of a contributor buffer into the standing global adapters
-(:func:`merge_into_global`).  The hierarchical two-tier form comes with the
-population slice (ROADMAP Queue A, item 9).
+(:func:`merge_into_global`), and the two-tier edge/cloud forms of both
+(:func:`hierarchical_aggregate`, :func:`anchored_hierarchical_aggregate`).
 
 The weighted sum keeps the reference's operand order: it starts from the
 first client's weighted leaf and adds the others in client order, in f32.
@@ -83,6 +83,43 @@ def composed_staleness_discount(client_staleness: int, edge_staleness: int,
             * staleness_discount(edge_staleness, alpha))
 
 
+def hierarchical_aggregate(full_loras: Sequence[PyTree],
+                           weights: Sequence[float],
+                           cells: Sequence[Sequence[int]]):
+    """Two-tier Eq. 6-8: each edge cell partially merges its members'
+    full-depth adapters with the members' data-size weights, then the cloud
+    merges the edge summaries weighted by each cell's total data mass.
+
+    ``cells`` holds member INDICES into ``full_loras`` (a partition of the
+    contributors; cells with no contributing member may be omitted).  The
+    two-level weighted mean telescopes to the flat Eq. 6-8 weighted mean —
+    total client weight is conserved (to float tolerance, since each tier
+    normalizes in float32) — which the property tests pin down.
+
+    Returns ``(aggregated_full, edge_summaries, edge_weights)`` so callers
+    can keep per-edge partials (for staleness bookkeeping or edge-local
+    serving) alongside the cloud adapter.
+    """
+    if len(full_loras) != len(weights):
+        raise ValueError("one weight per adapter tree required")
+    idx_seen = [i for cell in cells for i in cell]
+    if len(set(idx_seen)) != len(idx_seen):
+        raise ValueError("edge cells must not share contributors")
+    if set(idx_seen) != set(range(len(full_loras))):
+        raise ValueError("edge cells must cover every contributor exactly "
+                         "once")
+    summaries, cell_masses = [], []
+    for cell in cells:
+        if not cell:
+            continue
+        cell_w = [float(weights[i]) for i in cell]
+        summaries.append(aggregate_full_weighted(
+            [full_loras[i] for i in cell], cell_w))
+        cell_masses.append(sum(cell_w))
+    agg = aggregate_full_weighted(summaries, cell_masses)
+    return agg, summaries, cell_masses
+
+
 def merge_into_global(global_full: PyTree, contrib_fulls: Sequence[PyTree],
                       contrib_weights: Sequence[float],
                       anchor_weight: float) -> PyTree:
@@ -120,3 +157,52 @@ def aggregation_round(client_loras: Sequence[PyTree],
         new_clients.append(c)
         new_servers.append(s)
     return new_clients, new_servers, agg
+
+
+def anchored_hierarchical_aggregate(global_full: PyTree,
+                                    contrib_fulls: Sequence[PyTree],
+                                    contrib_weights: Sequence[float],
+                                    cells: Sequence[Sequence[int]],
+                                    cell_absent_mass: Sequence[float]):
+    """Two-tier anchored merge for sampled cohorts at population scale.
+
+    Each edge cell merges its CONTRIBUTING members (indices into
+    ``contrib_fulls``) with the standing global anchoring that cell's
+    absent data mass, then the cloud merges the cell summaries by total
+    cell mass — the O(cohort) counterpart of folding every absent client's
+    (untouched == global) adapters through :func:`hierarchical_aggregate`.
+    Because each absent member's tree IS the global, both tiers telescope
+    to the same weighted mean; the aggregation property tests pin the
+    float-tolerance equivalence and the exact degenerate cases (no absent
+    mass, or no contributors at all).
+
+    Returns ``(aggregated_full, summaries, cell_masses)`` like
+    :func:`hierarchical_aggregate`; cells with neither contributors nor
+    absent mass are skipped.
+    """
+    if len(cells) != len(cell_absent_mass):
+        raise ValueError("one absent-mass entry per cell required")
+    idx_seen = [i for cell in cells for i in cell]
+    if len(set(idx_seen)) != len(idx_seen):
+        raise ValueError("edge cells must not share contributors")
+    if set(idx_seen) != set(range(len(contrib_fulls))):
+        raise ValueError("edge cells must cover every contributor exactly "
+                         "once")
+    summaries, cell_masses = [], []
+    for cell, absent in zip(cells, cell_absent_mass):
+        absent = float(absent)
+        if absent < 0:
+            raise ValueError("cell_absent_mass must be >= 0")
+        ws = [float(contrib_weights[i]) for i in cell]
+        if absent > 0:
+            summaries.append(aggregate_full_weighted(
+                [global_full] + [contrib_fulls[i] for i in cell],
+                [absent] + ws))
+        elif cell:
+            summaries.append(aggregate_full_weighted(
+                [contrib_fulls[i] for i in cell], ws))
+        else:
+            continue
+        cell_masses.append(absent + sum(ws))
+    agg = aggregate_full_weighted(summaries, cell_masses)
+    return agg, summaries, cell_masses

@@ -27,6 +27,10 @@ the grouped LoRA kernel when ``cfg.lora.impl == 'fused'``.
 
 Only adapters and the classifier head require grad; the frozen base
 weights never do, so no backward pass forms a weight gradient for them.
+
+``CohortAdapterStore`` holds the per-client adapter and optimizer state of
+the sampled clients only, materialized from one standing global: the
+population trainer's state at fleet scale.
 """
 from __future__ import annotations
 
@@ -36,6 +40,7 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from repro_torch.core import lora as lora_lib
 from repro_torch.core.lora import STACKED_KEYS
 from repro_torch.models import layers as L
 from repro_torch.optim.adamw import AdamW
@@ -444,3 +449,130 @@ def make_full_train_step(model, opt: AdamW, *, remat: bool = False, path: str = 
         return loss.detach(), new_lora, new_opt
 
     return step
+
+
+class CohortAdapterStore:
+    """Cohort-indexed per-client adapter + optimizer state for population-
+    scale federation: only the SAMPLED clients ever hold materialized
+    trees.
+
+    The per-object ``Simulator`` eagerly builds every client's
+    ``(client_lora, client_opt, server_lora, head, server_opt)`` tuple at
+    init and re-builds ALL of them from the aggregated global at each sync
+    commit.  At 10^4 clients that is the memory wall this store removes:
+    it keeps ONE standing global ``(full adapter, head)`` plus a dict of
+    slots for the clients a cohort actually touched, and materializes a
+    slot on first use from a per-cut TEMPLATE cache —
+
+        client_lora = split_lora(global_full, cut)[0]
+        server_lora = embed_in_full_shape(split[1], spec, cut, "server")
+        opt states  = opt.init(...) on those trees
+
+    ``split_lora`` slices and ``embed_in_full_shape`` copies into zeros,
+    and ``opt.init`` is deterministic, so a materialized slot holds the
+    values the eager Simulator holds for an untouched client, bit for
+    bit.  Distinct cuts share one template; slots are shallow copies, so
+    untouched trees alias until a training step replaces them (every step
+    returns new tensors: nothing is written through).
+
+    Two global-update modes mirror the two commit families:
+      * ``reset_global``  (sync barrier): every client re-enters from the
+        new global -> drop ALL slots and caches;
+      * ``set_global``    (async): non-contributors keep training on their
+        in-flight state -> keep slots, invalidate only the fresh-view
+        caches; callers re-materialize the contributors via ``drop``.
+    """
+
+    def __init__(self, lora_spec, opt: AdamW, global_full, global_head, cut_of):
+        self.lora_spec = lora_spec
+        self.opt = opt
+        self.global_full = global_full
+        self.global_head = global_head
+        self._cut_of = cut_of            # uid -> cut
+        self._slots: dict = {}           # uid -> slot dict
+        self._templates: dict = {}       # cut -> template slot
+        self._views: dict = {}           # cut -> (client_view, server_split)
+        self._slot_nbytes: dict = {}     # cut -> bytes one slot holds
+
+    # ----------------------------------------------------------- materialize
+    def _template(self, cut: int) -> dict:
+        tpl = self._templates.get(cut)
+        if tpl is None:
+            c, s = lora_lib.split_lora(self.global_full, cut)
+            full_shape = lora_lib.embed_in_full_shape(s, self.lora_spec, cut, "server")
+            tpl = {
+                "client_lora": c,
+                "client_opt": self.opt.init(c),
+                "server_lora": full_shape,
+                "head": self.global_head,
+                "server_opt": self.opt.init({"lora": full_shape,
+                                             "head": self.global_head}),
+            }
+            self._templates[cut] = tpl
+        return tpl
+
+    def materialize(self, u: int) -> dict:
+        """The slot for client ``u``, built from the standing global on
+        first touch (shallow copy of the cut's template)."""
+        u = int(u)
+        slot = self._slots.get(u)
+        if slot is None:
+            slot = dict(self._template(int(self._cut_of(u))))
+            self._slots[u] = slot
+        return slot
+
+    def slot(self, u: int) -> dict:
+        return self._slots[int(u)]
+
+    def peek(self, u: int):
+        """The slot if materialized, else None (no side effects)."""
+        return self._slots.get(int(u))
+
+    def touched(self):
+        """Materialized uids, ascending."""
+        return sorted(self._slots)
+
+    def fresh_views(self, cut: int):
+        """``(client_view, server_split_view)`` of the standing global at
+        ``cut`` — what an untouched client's state looks like, shared
+        across every absent client at that cut (cached slices, no
+        per-client copies)."""
+        pr = self._views.get(cut)
+        if pr is None:
+            pr = lora_lib.split_lora(self.global_full, cut)
+            self._views[cut] = pr
+        return pr
+
+    # ---------------------------------------------------------- global swaps
+    def drop(self, u: int) -> None:
+        self._slots.pop(int(u), None)
+
+    def set_global(self, full, head) -> None:
+        """Async commit: new standing global; in-flight slots survive."""
+        self.global_full = full
+        self.global_head = head
+        self._templates.clear()
+        self._views.clear()
+
+    def reset_global(self, full, head) -> None:
+        """Sync barrier commit: new global, every slot re-enters fresh."""
+        self.set_global(full, head)
+        self._slots.clear()
+
+    # ------------------------------------------------------------ accounting
+    def slot_nbytes(self, cut: int) -> float:
+        """Bytes one materialized slot at ``cut`` holds (adapters + heads +
+        optimizer state), counted on the template's leaves."""
+        nb = self._slot_nbytes.get(cut)
+        if nb is None:
+            tpl = self._template(cut)
+            nb = float(sum(leaf.numel() * leaf.element_size()
+                           for leaf in tree_leaves(tpl)))
+            self._slot_nbytes[cut] = nb
+        return nb
+
+    def resident_nbytes(self) -> float:
+        """Bytes all currently materialized slots hold — the cohort-resident
+        figure the obs ledger prices per round."""
+        return float(sum(self.slot_nbytes(int(self._cut_of(u)))
+                         for u in self._slots))

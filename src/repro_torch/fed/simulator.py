@@ -24,7 +24,12 @@ in one dispatch: the masked-scan step over every layer with a cut per lane
 (``"ragged"``);
 ``NetConfig.quantize`` sends the activations (with error feedback) and the
 gradients as int8; ``ObsConfig`` records spans, metrics and the memory
-ledger without touching the timeline.  Under the event engine a
+ledger without touching the timeline.  A ``FleetSpec`` (``fleet=``) builds
+the devices, cuts and (under ``link_model="custom"``) links of a seeded
+heterogeneous fleet; ``FleetConfig`` samples each round's cohort (uniform,
+or Pareto-biased towards capable clients), slows straggling clients'
+compute, and groups the clients into edge cells whose members aggregate
+at their edge before the cloud merges the cell summaries.  Under the event engine a
 ``ControlConfig`` policy other than ``static`` attaches the control loop
 (``repro_torch.control``), which may move clients' cuts at commit
 boundaries: the commit re-slices the migrated clients' frozen prefixes and
@@ -32,8 +37,9 @@ redistributes the aggregate at the new cuts.  ``snapshot_every`` /
 ``snapshot_dir`` write mid-flight snapshots from the clock's tick callback
 (``repro_torch.checkpointing``), ``preempt_at`` stops the clock at a
 simulated instant, and ``resume_from`` (or ``resume``) continues a snapshot
-in a fresh Simulator bit for bit.  Every knob outside the port raises
-``NotImplementedError`` naming the ROADMAP item that brings it.
+in a fresh Simulator bit for bit.  ``run_federated_training`` routes a
+fleet below ``fleet.population_threshold`` through the Simulator and one at
+or above it through the cohort-resident ``PopulationTrainer``.
 
 State updates are functional: every optimizer step and every aggregation
 returns new tensors, so state the reference shares between clients (one
@@ -71,9 +77,12 @@ from repro_torch.fed import metrics as M
 from repro_torch.fed.config import FedRunConfig, validate_run_config
 from repro_torch.fed.devices import LINK, SERVER
 from repro_torch.fed.engine import ClockConfig, FederationClock, RoundPlan, jobs_from_times
+from repro_torch.fed.fleet import FleetSpec
+from repro_torch.fed.population import sample_cohort
 from repro_torch.models import build_model
 from repro_torch.net import (ConstantLink, GilbertElliottLink, LinkModel,
                              NetworkPlane, TraceLink)
+from repro_torch.net.topology import EdgeTopology, edge_commit_legs
 from repro_torch.obs import MemoryLedger, MetricsRegistry, Observability, Tracer
 from repro_torch.optim import AdamW
 from repro_torch.tree import tree_map
@@ -96,19 +105,12 @@ class RoundRecord:
     f1: Optional[float] = None
 
 
-def _not_in_slice(knob: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{knob} is not ported yet (ROADMAP Queue A, "
-                               f"item {item})")
-
-
-def check_slice(run: FedRunConfig) -> None:
-    """Raise for every knob the port does not cover yet — none is ignored."""
-    if run.fleet.sampling != "full":
-        raise _not_in_slice(f"fleet sampling={run.fleet.sampling!r}", "9")
-    if run.fleet.edge_cells > 1:
-        raise _not_in_slice("fleet edge_cells > 1", "9")
-    if run.fleet.straggler_prob > 0:
-        raise _not_in_slice("fleet straggler_prob > 0", "9")
+def fedavg_heads(heads, data_sizes):
+    """Dataset-weighted FedAvg of the heads, summed from Python 0 in
+    client order as the reference does."""
+    w = np.array(data_sizes, np.float64)
+    w /= w.sum()
+    return sum(float(wi) * h for wi, h in zip(w, heads))
 
 
 def _like(live, saved):
@@ -123,16 +125,25 @@ class Simulator:
                  train: EmotionDataset = None,
                  test: EmotionDataset = None, run: FedRunConfig = None,
                  link: LinkProfile = LINK, server: DeviceProfile = SERVER,
-                 links: Optional[Sequence[LinkModel]] = None, fleet=None, *,
-                 device="cuda"):
+                 links: Optional[Sequence[LinkModel]] = None,
+                 fleet: Optional[FleetSpec] = None, *, device="cuda"):
         if fleet is not None:
-            raise _not_in_slice("FleetSpec fleets (fleet=)", "9")
+            # one seeded spec yields devices, cuts and (under
+            # link_model="custom") the per-client LinkModels
+            if devices is not None or cuts is not None:
+                raise ValueError("pass either fleet=FleetSpec(...) or "
+                                 "explicit devices/cuts, not both")
+            devices, cuts = fleet.devices(), fleet.cuts()
+            if links is None and run is not None and run.net.link_model == "custom":
+                links = fleet.links()
         if devices is None or cuts is None or run is None:
-            raise TypeError("Simulator needs devices+cuts and run=")
+            raise TypeError("Simulator needs devices+cuts (or fleet=) and run=")
         if len(devices) != len(cuts):
             raise ValueError("one cut per device required")
         validate_run_config(run, len(devices))
-        check_slice(run)
+        if run.fleet.size is not None and run.fleet.size != len(devices):
+            raise ValueError(f"run.fleet.size={run.fleet.size} but "
+                             f"{len(devices)} devices were materialized")
         self.device = resolve_device(device)
         if run.engine.fused_lora:
             # thread the kernel choice through config, as the reference does
@@ -149,6 +160,25 @@ class Simulator:
             raise ValueError("the closed-form engine needs constant-rate "
                              "links (custom LinkModels must be ConstantLink);"
                              " set engine mode='event' for time-varying ones")
+        # two-tier edge/cloud topology for hierarchical aggregation
+        self._edges: Optional[EdgeTopology] = None
+        if run.fleet.edge_cells > 1:
+            if run.fleet.cell_assignment == "kmeans":
+                if fleet is None:
+                    raise ValueError(
+                        "cell_assignment='kmeans' clusters per-client "
+                        "coordinates, which only a FleetSpec carries — "
+                        "pass fleet=FleetSpec(...) (or keep 'blocks')")
+                self._edges = EdgeTopology.kmeans(
+                    fleet.coords(), run.fleet.edge_cells, seed=run.seed,
+                    backhaul_mbps=run.fleet.backhaul_mbps,
+                    cell_capacity_mbps=run.fleet.edge_capacity_mbps)
+            else:
+                self._edges = EdgeTopology.grouped(
+                    self.u, run.fleet.edge_cells,
+                    backhaul_mbps=run.fleet.backhaul_mbps,
+                    cell_capacity_mbps=run.fleet.edge_capacity_mbps)
+        self._cap_ranks: Optional[np.ndarray] = None
         self.model = build_model(cfg, self.device)
         gen = torch.Generator(device=self.device)
         self.params = self.model.init_params(gen.manual_seed(run.seed))
@@ -234,11 +264,14 @@ class Simulator:
                 self._control.obs = self.obs    # reassign spans, accept/reject counters
         self.history: List[RoundRecord] = []
         self.sim_clock = 0.0
-        # the reference's participation and straggler streams: nothing in
-        # the port draws from them yet (they come with population scale),
-        # but a snapshot carries their positions as the reference's does
+        # the reference's two streams: _round_rng draws each round's
+        # stragglers over the whole fleet, then its cohort (the analytic
+        # loop and the sync barrier waves alike); _async_rng re-rolls a
+        # client's stragglers per local round under the async policies.
+        # A snapshot carries both positions.
         self._round_rng = np.random.default_rng(run.seed + 7777)
         self._async_rng = np.random.default_rng(run.seed + 4242)
+        self._active: List[int] = list(range(self.u))
         self._ef_residual: List[Optional[torch.Tensor]] = [None] * self.u  # uplink EF
         self._quant_ratio: Optional[float] = None
         self._times_this_round: List[StepTimes] = self.times
@@ -319,23 +352,60 @@ class Simulator:
                                    fc_bytes=st.fc_bytes * ratio,
                                    bc_bytes=st.bc_bytes * ratio)
 
+    def _straggled(self, st: StepTimes, rng: np.random.Generator) -> StepTimes:
+        """A straggler (one draw from ``rng`` when ``straggler_prob`` > 0)
+        runs its client compute ``straggler_slowdown`` times slower."""
+        fleet = self.run.fleet
+        if fleet.straggler_prob > 0 and rng.random() < fleet.straggler_prob:
+            return dataclasses.replace(st, t_f=st.t_f * fleet.straggler_slowdown,
+                                       t_b=st.t_b * fleet.straggler_slowdown)
+        return st
+
     def _adjusted_times(self) -> List[StepTimes]:
-        """Per-round Eq.10 terms (stragglers are outside the port)."""
-        return [self._shrunk(st) for st in self.times]
+        """Per-round Eq.10 terms: every client of the fleet rolls for a
+        straggler on the round stream, then int8+EF shrinks the links."""
+        return [self._shrunk(self._straggled(st, self._round_rng)) for st in self.times]
 
     def _async_times(self, u: int, rnd: int) -> StepTimes:
         """Eq.10 terms for ONE client's local round ``rnd`` — the async
-        clock's per-(client, round) counterpart of ``_adjusted_times``."""
-        return self._shrunk(self.times[u])
+        clock's per-(client, round) counterpart of ``_adjusted_times``
+        (stragglers re-roll per local round on the async stream)."""
+        return self._shrunk(self._straggled(self.times[u], self._async_rng))
 
     def _service_plan(self) -> List[List[int]]:
         """This round's server dispatch groups in order: chunks of
-        ``cohort_chunk`` clients of the scheduled order."""
+        ``cohort_chunk`` sampled clients of the scheduled order."""
         tfl = [d.tflops for d in self.devices]
         chunk = max(1, int(self.run.engine.cohort_chunk))
         order = resolve_order(self.run.engine.scheduler, self._times_this_round,
                               self.cuts, tfl)
+        order = [u for u in order if u in self._active]
         return [order[i:i + chunk] for i in range(0, len(order), chunk)]
+
+    def _sample_cohort(self) -> None:
+        """This round's cohort into ``self._active`` by the fleet sampling
+        policy: one draw from the round stream per sampled round, after
+        the round's straggler rolls.  ``uniform`` draws the legacy
+        participation fraction; ``pareto`` draws the same size with
+        rank-Pareto weights towards capable clients (Jung et al. 2024)."""
+        run = self.run
+        if run.fleet.sampling == "full" or run.scheme == "sl":
+            self._active = list(range(self.u))
+            return
+        self._active = sample_cohort(
+            self._round_rng, self.u, run.fleet.sampling, run.fleet.rate,
+            ranks=self._capability_ranks(), pareto_alpha=run.fleet.pareto_alpha)
+
+    def _capability_ranks(self) -> np.ndarray:
+        """Dense capability ranks (0 = fastest client, ties by uid) for the
+        Pareto sampler — cached; the fleet's TFLOPS never change."""
+        if self._cap_ranks is None:
+            tfl = np.array([d.tflops for d in self.devices])
+            order = np.lexsort((np.arange(self.u), -tfl))
+            ranks = np.empty(self.u, dtype=np.int64)
+            ranks[order] = np.arange(self.u)
+            self._cap_ranks = ranks
+        return self._cap_ranks
 
     def _round_time(self, order: Sequence[int]) -> float:
         t = self._times_this_round
@@ -343,11 +413,12 @@ class Simulator:
             span, _, _ = makespan(t, order)
             return span
         if self.run.scheme == "sfl":
-            # all server submodels train concurrently on one GPU: fair-share
-            # finish at max(arrival) + contended total work
-            start = max(st.ready for st in t)
-            busy = sum(st.t_s for st in t) * SFL_FRAGMENTATION
-            return start + busy + max(st.t_bc + st.t_b for st in t)
+            # all participating server submodels train concurrently on one
+            # GPU: fair-share finish at max(arrival) + contended total work
+            active = [t[u] for u in self._active]
+            start = max(st.ready for st in active)
+            busy = sum(st.t_s for st in active) * SFL_FRAGMENTATION
+            return start + busy + max(st.t_bc + st.t_b for st in active)
         if self.run.scheme == "sl":
             # strictly sequential + client-side model handoff between clients
             mb = memory_model.model_bytes(self.cfg)
@@ -366,6 +437,7 @@ class Simulator:
             raise RuntimeError("engine='event' rounds are owned by the "
                                "FederationClock; call run_training()")
         self._times_this_round = self._adjusted_times()
+        self._sample_cohort()
         if self.run.scheme == "sl":
             losses, order = self._round_sl()
         else:
@@ -385,6 +457,8 @@ class Simulator:
         cohort-chunked batched dispatches, per the service plan."""
         losses, order = [], []
         for grp in self._service_plan():
+            if not grp:
+                continue
             order.extend(grp)
             losses.extend(self._serve_group(grp))
         return losses, order
@@ -483,11 +557,7 @@ class Simulator:
         self.client_lora[u], self.client_opt[u] = bwd(tape, self.client_opt[u], dv)
 
     def _fedavg_head(self):
-        """Dataset-weighted FedAvg of the heads, summed from Python 0 in
-        client order as the reference does."""
-        w = np.array(self.data_sizes, np.float64)
-        w /= w.sum()
-        return sum(float(wi) * h for wi, h in zip(w, self.heads))
+        return fedavg_heads(self.heads, self.data_sizes)
 
     def _commit_sync(self, ev) -> Union[float, Dict[int, float]]:
         """Barrier aggregation (Alg. 1 l.17-30, Eqs. 5-9) over the whole
@@ -504,8 +574,25 @@ class Simulator:
         the NEW cuts."""
         servers_split = [lora_lib.split_lora(self.server_lora[u], self.cuts[u])[1]
                          for u in range(self.u)]
-        new_c, new_s, agg_full = agg_lib.aggregation_round(
-            self.client_lora, servers_split, self.cuts, self.data_sizes)
+        if self._edges is not None:
+            # two-tier Eq. 6-8: edge cells partially merge their members,
+            # the cloud merges the edge summaries (telescopes to the flat
+            # weighted mean; the edge partials are kept for inspection)
+            fulls = [lora_lib.assemble_full(self.client_lora[u], servers_split[u],
+                                            self.cuts[u])
+                     for u in range(self.u)]
+            agg_full, self.edge_summaries, self.edge_masses = \
+                agg_lib.hierarchical_aggregate(
+                    fulls, [float(s) for s in self.data_sizes],
+                    [list(cell) for cell in self._edges.cells])
+            new_c, new_s = [], []
+            for cut in self.cuts:
+                c, s = lora_lib.split_lora(agg_full, cut)
+                new_c.append(c)
+                new_s.append(s)
+        else:
+            new_c, new_s, agg_full = agg_lib.aggregation_round(
+                self.client_lora, servers_split, self.cuts, self.data_sizes)
         # the upload leg shipped the adapters the clients trained: price it
         # at the pre-migration cuts, before any decision applies
         up_old = max(self.link.transfer_s(lora_upload_bytes(self.cfg, cut))
@@ -534,24 +621,44 @@ class Simulator:
                 # the clock ships the adapters through the plane; only the
                 # migration charges are added, past each client's download
                 return mig
-            # the analytic engine runs the static controller: no cut moved
-            bytes_of = [lora_upload_bytes(self.cfg, cut) for cut in self.cuts]
-            up = max(self.network.uplinks[u].finish_time(0.0, bytes_of[u])
+            # the analytic engine runs the static controller: no cut moved;
+            # with edge cells, the two-tier cell/backhaul legs
+            bytes_of = lambda u: lora_upload_bytes(self.cfg, self.cuts[u])  # noqa: E731
+            if self._edges is not None:
+                _, up_bar = edge_commit_legs(
+                    self._edges, self.network, range(self.u), 0.0,
+                    bytes_of, self._summary_bytes(), "up")
+                _, down_bar = edge_commit_legs(
+                    self._edges, self.network, range(self.u), up_bar,
+                    bytes_of, self._summary_bytes(), "down")
+                return down_bar
+            up = max(self.network.uplinks[u].finish_time(0.0, bytes_of(u))
                      for u in range(self.u))
-            return max(self.network.downlinks[u].finish_time(up, bytes_of[u])
+            return max(self.network.downlinks[u].finish_time(up, bytes_of(u))
                        for u in range(self.u))
+        # the nominal link: upload at the old cuts, download (the
+        # redistribute) at the new ones; two-tier topologies add one
+        # summary per direction over the backhaul
+        hier = (2.0 * self._edges.backhaul_s(self._summary_bytes())
+                if self._edges is not None else 0.0)
         if changes:
             # upload at the old cuts, download (the redistribute) at the new
             down_new = max(self.link.transfer_s(lora_upload_bytes(self.cfg, cut))
                            for cut in self.cuts)
-            return {u: up_old + down_new + mig.get(u, 0.0) for u in range(self.u)}
-        return 2 * up_old
+            return {u: up_old + down_new + hier + mig.get(u, 0.0)
+                    for u in range(self.u)}
+        return 2 * up_old + hier
 
     # ------------------------------------------------------- event engine
     # Under engine="event" the FederationClock owns time and the simulator
     # supplies the math: the clock calls back into ``_serve_group`` at every
     # server dispatch and into a commit handler at every aggregation, and
     # the simulator folds the results into history/loss_events.
+
+    def _summary_bytes(self) -> float:
+        """One edge summary = the full-depth adapter set (every cell merges
+        its members into one full LoRA tree before the backhaul hop)."""
+        return lora_upload_bytes(self.cfg, self.cfg.n_layers)
 
     def _resolved_buffer_k(self) -> int:
         run = self.run
@@ -596,6 +703,10 @@ class Simulator:
         clock = FederationClock(self.u, run.rounds, ccfg,
                                 times_fn=self._async_times, priorities=pri,
                                 network=self.network, agg_bytes_fn=agg_bytes_fn,
+                                edges=(self._edges if agg_bytes_fn is not None
+                                       else None),
+                                summary_bytes=(self._summary_bytes()
+                                               if self._edges is not None else 0.0),
                                 obs=self.obs)
         self._clock = clock
         if self._pending_clock_state is not None:
@@ -680,19 +791,22 @@ class Simulator:
             self.loss_events.append((ev.end, u, r, ls))
 
     def _plan_wave(self, rnd: int) -> RoundPlan:
-        """One sync barrier wave: this round's jobs of the full cohort and
-        its discipline (or fixed order) — the analytic round's plan."""
+        """One sync barrier wave: re-roll stragglers, sample the cohort, and
+        hand the clock this round's jobs and discipline (or fixed order) —
+        the analytic round's plan."""
         run = self.run
         self._times_this_round = t = self._adjusted_times()
+        self._sample_cohort()
         tfl = [d.tflops for d in self.devices]
-        uids = list(range(self.u))
+        uids = sorted(self._active)
         if run.engine.scheduler in ONLINE_DISCIPLINES:
             policy, needs_pri = ONLINE_DISCIPLINES[run.engine.scheduler]
             pri = alg2_priorities(self.cuts, tfl) if needs_pri else None
             return RoundPlan(jobs=jobs_from_times(t, uids, priorities=pri),
                              policy=policy)
         # e.g. "optimal": no online form — replay its fixed order
-        order = resolve_order(run.engine.scheduler, t, self.cuts, tfl)
+        order = [u for u in resolve_order(run.engine.scheduler, t, self.cuts, tfl)
+                 if u in self._active]
         return RoundPlan(jobs=jobs_from_times(t, uids), order=order)
 
     def _on_round_end(self, rnd: int, res, verbose: bool) -> bool:
@@ -1096,3 +1210,24 @@ class Simulator:
             Path(path).parent.mkdir(parents=True, exist_ok=True)
         self.obs.tracer.write_chrome(path, other_data=self.obs_other_data())
         return path
+
+
+def run_federated_training(cfg: ModelConfig, fleet_spec: FleetSpec, run: FedRunConfig,
+                           train, test=None, *, verbose: bool = False, device="cuda"):
+    """Fleet-size router for real-math federated training.
+
+    Below ``run.fleet.population_threshold`` the per-object
+    :class:`Simulator` runs (every engine feature, eager per-client
+    state); at or above it the ``PopulationClock`` + ``PopulationTrainer``
+    pair, which holds state for sampled clients only — same seeds, same
+    sampling stream.  ``fleet_spec`` is a ``FleetSpec``; returns the
+    object that trained (``Simulator`` or ``PopulationTrainer``, both
+    carrying ``history``, ``loss_events`` and ``evaluate()``)."""
+    if fleet_spec.n < run.fleet.population_threshold:
+        sim = Simulator(cfg, fleet=fleet_spec, train=train, test=test, run=run,
+                        device=device)
+        sim.run_training(verbose=verbose)
+        return sim
+    from repro_torch.fed.population_training import train_population
+    return train_population(cfg, fleet_spec.population(), run, train, test,
+                            verbose=verbose, device=device)

@@ -1,6 +1,5 @@
-from repro_torch.models.api import (build_model, long_context_variant, supports_decode,
-                                    supports_long_context)
-from repro_torch.models.decoder import DecoderModel
+from repro_torch.models.api import (build_model, input_specs, long_context_variant,
+                                    supports_decode, supports_long_context)
 
-__all__ = ["DecoderModel", "build_model", "long_context_variant", "supports_decode",
+__all__ = ["build_model", "input_specs", "long_context_variant", "supports_decode",
            "supports_long_context"]

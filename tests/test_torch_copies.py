@@ -1,8 +1,10 @@
 """The port's copies of the JAX package's numpy-only modules (the eleven
 configs, ``reduced`` and the input shapes, data,
-cost model, scheduling, devices, metrics, run config, the wire-byte count of
-the transport compression, capacity-based partitioning) stay bit-equal to
-their originals on seeded inputs.  The copies of the network plane
+cost model, scheduling, devices with ``make_fleet`` and ``make_link_fleet``, metrics, run
+config, the wire-byte count of the transport compression, capacity-based
+partitioning, and the population scale: ``FleetSpec``, cohort sampling, the
+vectorized round, the ``PopulationClock`` without a trainer and the SoA
+async kernel) stay bit-equal to their originals on seeded inputs.  The copies of the network plane
 (``net/links``, ``net/plane``, ``net/topology``, the bundled trace), the
 observability plane (``obs/tracer``, ``obs/metrics``, ``obs/ledger``,
 ``obs/des``) and the federation clock (``fed/engine``) are pinned in
@@ -213,3 +215,214 @@ def test_partition_bit_equal(arch, batch, seq, kw):
                 == j_part.cut_bounds(jc, jdev, batch, seq, **kw))
         assert (t_part.max_cut_for_compute(tc, tdev, batch, seq)
                 == j_part.max_cut_for_compute(jc, jdev, batch, seq))
+
+
+# ---------------------------------------------------------------------------
+# the population-scale copies: fed/fleet, fed/population,
+# fed/population_async and make_fleet / make_link_fleet of fed/devices
+# ---------------------------------------------------------------------------
+
+from repro.fed import fleet as j_fleet  # noqa: E402
+from repro.fed import population as j_pop  # noqa: E402
+from repro.fed import population_async as j_pop_async  # noqa: E402
+from repro_torch.fed import fleet as t_fleet  # noqa: E402
+from repro_torch.fed import population as t_pop  # noqa: E402
+from repro_torch.fed import population_async as t_pop_async  # noqa: E402
+
+FLEET_SPECS = [dict(n=13, seed=0, link_model="constant"),
+               dict(n=9, seed=5, link_model="trace", jitter=0.1, link_jitter=0.2),
+               dict(n=7, seed=2, link_model="gilbert", bad_fraction=0.3)]
+
+
+def _same_links(jl, tl):
+    """Same process, same parameters: the same finish instants for the same
+    queries, in order (a Gilbert-Elliott link draws its states lazily)."""
+    assert [type(x).__name__ for x in jl] == [type(x).__name__ for x in tl]
+    for a, b in zip(jl, tl):
+        assert a.nominal_mbps == b.nominal_mbps and a.state_dict() == b.state_dict()
+        for t0, nbytes in ((0.0, 1e6), (0.7, 5e6), (3.1, 2e5), (40.0, 8e6)):
+            assert a.finish_time(t0, nbytes) == b.finish_time(t0, nbytes)
+
+
+@pytest.mark.parametrize("kw", FLEET_SPECS, ids=[s["link_model"] for s in FLEET_SPECS])
+def test_fleet_spec_bit_equal(kw):
+    js, ts = j_fleet.FleetSpec(**kw), t_fleet.FleetSpec(**kw)
+    assert [dataclasses.asdict(d) for d in js.devices()] == \
+        [dataclasses.asdict(d) for d in ts.devices()]
+    _same_links(js.links(), ts.links())
+    assert js.cuts() == ts.cuts() and js.memory_budgets() == ts.memory_budgets()
+    np.testing.assert_array_equal(js.coords(), ts.coords())
+    np.testing.assert_array_equal(js._nominal_rates(), ts._nominal_rates())
+    for override in (None, 42.0):
+        jp, tp = js.population(override), ts.population(override)
+        for field in ("tflops", "utilization", "mem_gb", "cuts", "rate_mbps", "coords"):
+            a, b = getattr(jp, field), getattr(tp, field)
+            assert a.dtype == b.dtype
+            np.testing.assert_array_equal(a, b)
+        np.testing.assert_array_equal(jp.capability_ranks(), tp.capability_ranks())
+
+
+def test_fleet_functions_and_tpu_profile_bit_equal():
+    """The deprecated fleet functions warn as the reference's do and delegate to
+    FleetSpec; the reference's modelled TPU server profile is copied as
+    cost-model data."""
+    assert dataclasses.asdict(t_devices.TPU_V5E) == dataclasses.asdict(j_devices.TPU_V5E)
+    for kw in ({}, {"jitter": 0.4}):
+        with pytest.warns(DeprecationWarning, match="make_fleet is deprecated"):
+            got = t_devices.make_fleet(11, 3, **kw)
+        with pytest.warns(DeprecationWarning):
+            want = j_devices.make_fleet(11, 3, **kw)
+        assert [dataclasses.asdict(d) for d in got] == [dataclasses.asdict(d) for d in want]
+    for kw in ({"model": "constant"}, {"model": "trace", "dwell_s": 0.25},
+               {"model": "gilbert", "p_gb": 0.3}):
+        with pytest.warns(DeprecationWarning, match="make_link_fleet is deprecated"):
+            got = t_devices.make_link_fleet(6, 2, **kw)
+        with pytest.warns(DeprecationWarning):
+            want = j_devices.make_link_fleet(6, 2, **kw)
+        _same_links(want, got)
+
+
+@pytest.mark.parametrize("sampling,rate,alpha", [("full", 1.0, 1.16), ("uniform", 0.3, 1.16),
+                                                 ("pareto", 0.25, 1.16),
+                                                 ("pareto", 0.6, 2.5)])
+def test_sample_cohort_streams_bit_equal(sampling, rate, alpha):
+    ranks = j_fleet.FleetSpec(n=40, seed=1).population().capability_ranks()
+    jr, tr = np.random.default_rng(9), np.random.default_rng(9)
+    for _ in range(5):
+        assert (t_pop.sample_cohort(tr, 40, sampling, rate, ranks=ranks, pareto_alpha=alpha)
+                == j_pop.sample_cohort(jr, 40, sampling, rate, ranks=ranks,
+                                       pareto_alpha=alpha))
+    assert tr.bit_generator.state == jr.bit_generator.state
+    np.testing.assert_array_equal(t_pop.pareto_weights(ranks, alpha),
+                                  j_pop.pareto_weights(ranks, alpha))
+
+
+def _round_fields(res):
+    return (res.round_time, res.completion, res.waits, res.dropped, res.events,
+            [(r.slot, r.uids, r.start, r.end) for r in res.service])
+
+
+def _job_arrays(mod, seed, n=30):
+    rng = np.random.default_rng(seed)
+    cols = {k: rng.uniform(lo, hi, n) for k, lo, hi in (
+        ("t_f", 0.2, 2.0), ("t_fc", 0.1, 1.0), ("t_s", 0.3, 1.5), ("t_bc", 0.1, 1.0),
+        ("t_b", 0.2, 1.0), ("arrival", 0.0, 0.5), ("priority", 0.0, 3.0),
+        ("fc_bytes", 1e5, 5e6), ("bc_bytes", 1e5, 5e6))}
+    return mod.JobArrays(uids=np.arange(n), **cols)
+
+
+@pytest.mark.parametrize("policy,fixed,plane", [("fifo", False, "none"),
+                                                ("wf", False, "constant"),
+                                                ("priority", False, "shared"),
+                                                ("bw", False, "constant"),
+                                                ("fifo", True, "constant")])
+def test_vectorized_round_bit_equal(policy, fixed, plane):
+    from repro.net import ConstantLink as JLink
+    from repro.net import NetworkPlane as JPlane
+    from repro_torch.net import ConstantLink as TLink
+    from repro_torch.net import NetworkPlane as TPlane
+
+    rates = np.random.default_rng(99).uniform(20.0, 120.0, 30)
+    planes = []
+    for Plane, Link in ((JPlane, JLink), (TPlane, TLink)):
+        planes.append(None if plane == "none" else Plane(
+            [Link(float(r)) for r in rates], shared=plane == "shared",
+            capacity_mbps=150.0 if plane == "shared" else None))
+    ja, ta = _job_arrays(j_pop, 7), _job_arrays(t_pop, 7)
+    order = [int(u) for u in np.argsort(-ja.t_s)] if fixed else None
+    kw = dict(policy=policy, order=order, slots=3, cohort_chunk=2, chunk_efficiency=0.8,
+              deadline=6.0, t_origin=37.5)
+    want = j_pop.vectorized_round(ja, network=planes[0], **kw)
+    got = t_pop.vectorized_round(ta, network=planes[1], **kw)
+    assert _round_fields(got) == _round_fields(want)
+
+
+def _pop_cfgs():
+    return (j_configs.reduced(j_configs.REGISTRY["bert-base"], n_layers=4, d_model=64),
+            t_configs.reduced(t_configs.REGISTRY["bert-base"], n_layers=4, d_model=64))
+
+
+def test_step_time_arrays_bit_equal():
+    jc, tc = _pop_cfgs()
+    fleet = j_fleet.FleetSpec(n=50, seed=2, link_model="trace").population()
+    want = j_pop.step_time_arrays(jc, fleet, j_devices.SERVER, 16, 128)
+    got = t_pop.step_time_arrays(tc, t_fleet.FleetSpec(n=50, seed=2, link_model="trace")
+                                 .population(), t_devices.SERVER, 16, 128)
+    assert set(got) == set(want)
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k])
+
+
+POP_RUNS = {
+    "sync-pareto-stragglers-kmeans": dict(
+        agg=("sync", 2, "nominal"), fleet=dict(sampling="pareto", rate=0.05,
+                                               straggler_prob=0.3, edge_cells=4,
+                                               cell_assignment="kmeans")),
+    "sync-uniform-plane-blocks": dict(
+        agg=("sync", 1, "plane"), fleet=dict(sampling="uniform", rate=0.04, edge_cells=3)),
+    "sync-optimal-order": dict(
+        agg=("sync", 1, "nominal"), fleet=dict(sampling="pareto", rate=0.03),
+        scheduler="optimal"),
+    "async-buffered": dict(agg=("buffered", 1, "nominal"), fleet={}, rounds=1),
+}
+
+
+def _pop_run(mod, spec):
+    policy, interval, transport = spec["agg"]
+    return mod.FedRunConfig(
+        rounds=spec.get("rounds", 3), batch_size=16, seq_len=128, seed=1,
+        engine=mod.EngineConfig(mode="event", scheduler=spec.get("scheduler", "ours"),
+                                slots=2, cohort_chunk=4, chunk_efficiency=0.9),
+        agg=mod.AggConfig(policy=policy, interval=interval, transport=transport,
+                          buffer_k=500 if policy != "sync" else None),
+        fleet=mod.FleetConfig(population_threshold=50, **spec["fleet"]))
+
+
+@pytest.mark.parametrize("name", list(POP_RUNS))
+def test_population_clock_bit_equal(name):
+    """The PopulationClock without a trainer over a 2000-client fleet: every
+    round's makespan, commit instant, cohort size, mode and service record
+    (sync, vectorized rounds), or the SoA async kernel's commits."""
+    jc, tc = _pop_cfgs()
+    jf = j_fleet.FleetSpec(n=2000, seed=4, link_model="constant").population()
+    tf = t_fleet.FleetSpec(n=2000, seed=4, link_model="constant").population()
+    want = j_pop.PopulationClock(jc, jf, _pop_run(j_fedcfg, POP_RUNS[name])).run()
+    got = t_pop.PopulationClock(tc, tf, _pop_run(t_fedcfg, POP_RUNS[name])).run()
+    for field in ("makespan", "round_makespans", "commit_times", "cohort_sizes",
+                  "events_processed", "modes"):
+        assert getattr(got, field) == getattr(want, field), field
+    assert set(got.modes) == {"vectorized"} and got.makespan > 0
+    assert [_round_fields(r) for r in got.round_results] == \
+        [_round_fields(r) for r in want.round_results]
+
+
+@pytest.mark.parametrize("policy,agg,k,inflight,slots,chunk",
+                         [("fifo", "buffered", 3, 1, 1, 1), ("wf", "buffered", 4, 2, 2, 2),
+                          ("priority", "staleness", 2, 2, 1, 2),
+                          ("bw", "staleness", 3, 2, 3, 2)])
+def test_run_async_vectorized_bit_equal(policy, agg, k, inflight, slots, chunk):
+    from repro.fed.engine import ClockConfig as JClockConfig
+    from repro_torch.fed.engine import ClockConfig as TClockConfig
+
+    rng = np.random.default_rng(100)
+    times = {key: rng.uniform(lo, hi, 10) for key, lo, hi in (
+        ("t_f", 0.2, 2.0), ("t_fc", 0.1, 1.0), ("t_s", 0.3, 1.5), ("t_bc", 0.1, 1.0),
+        ("t_b", 0.2, 1.0), ("fc_bytes", 1e5, 5e6), ("bc_bytes", 1e5, 5e6))}
+    times["fc_bytes"][::3] = 0.0          # rows billed at nominal seconds
+    rates = rng.uniform(20.0, 120.0, 10)
+    pri = rng.uniform(0.0, 3.0, 10) if policy == "priority" else None
+    kw = dict(policy=policy, slots=slots, cohort_chunk=chunk,
+              chunk_efficiency=0.9 if chunk > 1 else 1.0, agg_policy=agg, agg_interval=1,
+              buffer_k=k, max_inflight_rounds=inflight)
+    want, jn = j_pop_async.run_async_vectorized(times, 3, JClockConfig(**kw),
+                                                up_rate_mbps=rates, down_rate_mbps=rates,
+                                                priorities=pri)
+    got, tn = t_pop_async.run_async_vectorized(times, 3, TClockConfig(**kw),
+                                               up_rate_mbps=rates, down_rate_mbps=rates,
+                                               priorities=pri)
+    assert tn == jn and got.makespan == want.makespan
+    assert [dataclasses.astuple(e) for e in got.serves] == \
+        [dataclasses.astuple(e) for e in want.serves]
+    assert [dataclasses.astuple(e) for e in got.commits] == \
+        [dataclasses.astuple(e) for e in want.commits]
+    assert got.events == want.events and got.rounds_completed == want.rounds_completed

@@ -21,7 +21,7 @@ SRC = ROOT / "src"
 # partitioning; the network and observability planes and the event engine;
 # the control plane; checkpointing; the schedules and the training
 # entry point; the other families' configs and the input shapes; the
-# encoder-decoder), which
+# encoder-decoder; population scale), which
 # the walk below must reach
 _NEW_MODULES = ("repro_torch.configs.gemma_2b", "repro_torch.configs.rwkv6_3b",
                 "repro_torch.kernels.flash_attention", "repro_torch.kernels.wkv6",
@@ -41,7 +41,9 @@ _NEW_MODULES = ("repro_torch.configs.gemma_2b", "repro_torch.configs.rwkv6_3b",
                 "repro_torch.configs.granite_20b", "repro_torch.configs.qwen1_5_4b",
                 "repro_torch.configs.qwen3_moe_30b_a3b", "repro_torch.configs.grok_1_314b",
                 "repro_torch.configs.internvl2_26b", "repro_torch.configs.zamba2_7b",
-                "repro_torch.configs.whisper_large_v3", "repro_torch.models.encdec")
+                "repro_torch.configs.whisper_large_v3", "repro_torch.models.encdec",
+                "repro_torch.fed.fleet", "repro_torch.fed.population",
+                "repro_torch.fed.population_async", "repro_torch.fed.population_training")
 
 _IMPORT_ALL = r"""
 import importlib, pkgutil, sys
@@ -58,6 +60,9 @@ print(len(names), leaked)
 assert not leaked, leaked
 for name in NEW:
     assert name in names, name
+# nothing is built at import: a kernel builds at its first launch on the card
+from repro_torch.kernels import build
+assert not build._LIBS and not build.BUILD_LOG, (build._LIBS, build.BUILD_LOG)
 """
 
 
@@ -69,6 +74,28 @@ def test_imports_without_jax_and_without_reference_package():
     assert proc.returncode == 0, proc.stderr
     n_modules, leaked = proc.stdout.split(" ", 1)
     assert int(n_modules) >= 64 and leaked.strip() == "[]"
+
+
+# the reference's package names the port has not ported yet (ROADMAP
+# Queue A, A11: the launch layer's mesh and sharding tools)
+UNPORTED = {"launch": {"ShardingPolicy", "dp_axes", "dp_size", "make_debug_mesh",
+                       "make_production_mesh", "model_axis_size"}}
+PACKAGES = sorted(p.name for p in (SRC / "repro_torch").iterdir()
+                  if (p / "__init__.py").exists())
+
+
+@pytest.mark.parametrize("pkg", PACKAGES)
+def test_package_exports_match_reference(pkg):
+    """Each package of the port exports the reference package's names, less
+    the unported ones, and each name resolves."""
+    import importlib
+
+    pytest.importorskip("jax")
+    port = importlib.import_module(f"repro_torch.{pkg}")
+    ref = importlib.import_module(f"repro.{pkg}")
+    want = set(getattr(ref, "__all__", ())) - UNPORTED.get(pkg, set())
+    assert sorted(getattr(port, "__all__", ())) == sorted(want)
+    assert all(hasattr(port, name) for name in want)
 
 
 _FORBIDDEN = re.compile(r"^\s*(import jax|from jax|import repro\.|from repro\.|"

@@ -4,8 +4,9 @@ at reduced(bert-base, 4 layers, d 128), vocab 4096, seq 16, batch 4, the six
 paper clients at cuts (1,1,2,2,3,3), 2 rounds, aggregation every 2 — one
 aggregation and one evaluation — on the paper's sequential server and on
 the cohort-batched ragged server with int8+EF links (the vmap cohort step:
-tests/test_torch_vmap_simulator.py).  Also: every knob
-outside the port raises, and the numpy bridge round-trips.  The event
+tests/test_torch_vmap_simulator.py).  Also: the fleet knobs, which raised
+until the population slice (tests/test_torch_population.py), now build
+and act, and the numpy bridge round-trips.  The event
 engine's parity is tests/test_torch_event.py.
 """
 import os
@@ -16,7 +17,6 @@ import os
 os.environ["JAX_PLATFORMS"] = "cpu"
 
 import dataclasses
-import re
 
 import numpy as np
 import pytest
@@ -180,9 +180,9 @@ def _run(**groups):
 
 
 @pytest.mark.parametrize("run,knob", [
-    # the event engine, obs, plane transport, the snapshot, resume and
-    # preemption knobs, the control plane and the vmap cohort step are
-    # ported: beside each, a knob of a later item still raises
+    # each configuration pairs a knob ported by an earlier slice with a
+    # fleet knob that raised until the population slice ported it: every
+    # one now builds, and its fleet knob is live
     pytest.param(_run(engine=EngineConfig(mode="event", cohort_chunk=2), snapshot_every=1.0,
                       snapshot_dir="snapshots", fleet=FleetConfig(edge_cells=2)),
                  "edge_cells", id="event"),
@@ -205,22 +205,39 @@ def _run(**groups):
                  id="stragglers"),
     pytest.param(_run(fleet=FleetConfig(edge_cells=2)), "edge_cells", id="edge_cells"),
 ])
-def test_knobs_outside_the_slice_raise(run, knob):
+def test_knobs_outside_the_slice_raise(run, knob, tmp_path, monkeypatch):
+    """No knob of the Simulator is outside the port any more: each of
+    these configurations builds (the snapshot knobs' directory goes to a
+    temporary one), and its fleet knob acts — a sampled cohort of three,
+    a straggler roll on the round stream for every client, two edge cells
+    of three."""
+    monkeypatch.chdir(tmp_path)
     train, test = _datasets(make_emotion_dataset)
-    with pytest.raises(NotImplementedError, match=f"{re.escape(knob)}.*ROADMAP Queue A"):
-        Simulator(_port_cfg(), PAPER_CLIENTS, CUTS, train, test, run, device="cpu")
+    sim = Simulator(_port_cfg(), PAPER_CLIENTS, CUTS, train, test, run, device="cpu")
+    if knob == "sampling":
+        sim._sample_cohort()
+        assert len(sim._active) == 3 and set(sim._active) < set(range(6))
+    elif knob == "straggler_prob":
+        want = np.random.default_rng(run.seed + 7777).random(6) < 0.1
+        got = [st.t_f != base.t_f for st, base in zip(sim._adjusted_times(), sim.times)]
+        assert got == want.tolist()
+    else:
+        assert [list(c) for c in sim._edges.cells] == [[0, 1, 2], [3, 4, 5]]
 
 
 def test_memory_report_and_custom_links_raise():
-    """FleetSpec fleets still raise; links= outside link_model='custom' is
+    """A FleetSpec fleet builds the Simulator's devices and cuts (its
+    parity with the reference: tests/test_torch_population.py); links=
+    outside link_model='custom' is
     refused as in the reference; the memory report is ported (compared
     with the reference's in tests/test_torch_sl.py) and reports this run."""
     from repro_torch.core import memory_model
+    from repro_torch.fed import FleetSpec
 
     train, test = _datasets(make_emotion_dataset)
-    with pytest.raises(NotImplementedError, match="fleet=.*ROADMAP Queue A"):
-        Simulator(_port_cfg(), train=train, test=test, run=_run(), fleet=object(),
-                  device="cpu")
+    spec = FleetSpec(n=6, seed=1)
+    sim = Simulator(_port_cfg(), train=train, test=test, run=_run(), fleet=spec, device="cpu")
+    assert sim.cuts == list(CUTS) and sim.u == 6
     with pytest.raises(ValueError, match="link_model='custom'"):
         Simulator(_port_cfg(), PAPER_CLIENTS, CUTS, train, test, _run(),
                   links=[object()] * 6, device="cpu")
