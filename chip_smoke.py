@@ -248,7 +248,17 @@ Phases (any failed check raises and the script exits non-zero):
    granite-3-2b (its default arch) at full width for three steps in a
    process of its own, with
    the warmup-cosine schedule, weight decay and gradient clipping, which
-   must print the reference's lines with a finite loss;
+   must print the reference's lines with a finite loss; then, each in a
+   process of its own, ``launch.serve`` at the reference's defaults (its
+   two lines, a (4, 32) token array), ``launch.dryrun`` of gemma-2b's
+   prefill_32k at full width and depth under ``--attn-impl chunked
+   --execute --batch 1`` (18 flash launches, the peak under the card's
+   memory, ops.flops within 10 % of ``prefill_flops``; step s, roofline
+   terms and mfu_bound printed), flash at that attention shape (1 x 32768,
+   8 heads on 1 of 256) held on its last 1024 query rows against the
+   plain version's arithmetic and timed, and ``launch.dryrun
+   --server-resume --execute`` on granite-3-2b at full width, one step at
+   cuts 10 and 30 (finite losses, dv of the input's shape);
 16. summary: the phases' total wall time, one JSON line per ported
    kernel, then the device line last.
 
@@ -302,12 +312,14 @@ the repository's ``src/``.
 from __future__ import annotations
 
 import argparse
+import atexit
 import dataclasses
 import gc
 import json
 import math
 import os
 import pprint
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -315,8 +327,20 @@ import time
 from pathlib import Path
 from typing import Optional
 
-import numpy as np
-import torch
+# Where the interpreter is told to write no bytecode (PYTHONDONTWRITEBYTECODE)
+# and site-packages holds none, every process compiles torch's Python source
+# anew: 15-19 s of each launch process's set-up on a slow host.  This
+# process keeps the bytecode it compiles under a pycache prefix in a
+# temporary directory, removed at exit; the processes it starts inherit the
+# prefix, read what is there and add what they compile.
+PYCACHE = tempfile.mkdtemp(prefix="chip_smoke_pyc_")
+atexit.register(shutil.rmtree, PYCACHE, ignore_errors=True)
+sys.pycache_prefix = os.environ["PYTHONPYCACHEPREFIX"] = PYCACHE
+sys.dont_write_bytecode = False
+os.environ.pop("PYTHONDONTWRITEBYTECODE", None)
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
 
 ROOT = Path(__file__).resolve().parent
 # the checkout whose port this process runs: this one, or with --ab-one DIR
@@ -361,6 +385,7 @@ from repro_torch.kernels.quant import quantize_rows  # noqa: E402
 from repro_torch.kernels.ref import (grouped_lora_matmul_ref,  # noqa: E402
                                      lora_matmul_ref, quantize_rows_ref, wkv6_ref)
 from repro_torch.kernels.wkv6 import wkv6  # noqa: E402
+from repro_torch.kernels import work  # noqa: E402
 from repro_torch.models import blocks as blocks_module  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.models.layers import softmax_xent, torch_dtype  # noqa: E402
@@ -549,6 +574,22 @@ LM_TRAIN_BATCH, LM_TRAIN_SEQ, LM_TRAIN_STEPS = 2, 512, 3
 LAUNCH_ARGS = ("--mode", "central", "--arch", "granite-3-2b", "--steps", "3", "--batch", "2",
                "--seq", "512", "--log-every", "1", "--schedule", "warmup-cosine",
                "--warmup", "1", "--weight-decay", "0.01", "--grad-clip", "1.0")
+# the launch layer's other entry points, each in a process of its own:
+# serve.py at the reference's defaults (reduced gemma-2b, batch 4, 16
+# prompt tokens, 32 new ones); the dry-run's gemma-2b prefill_32k at full
+# width and depth through the flash kernel, executed at batch 1; the
+# server-resume step on granite-3-2b at full width, executed at two cuts
+DRYRUN_PREFILL_ARGS = ("--arch", "gemma-2b", "--shape", "prefill_32k", "--attn-impl",
+                       "chunked", "--execute", "--batch", "1", "--out", "")
+DRYRUN_RESUME_ARGS = ("--server-resume", "--arch", "granite-3-2b", "--batch", "4", "--seq",
+                      "1024", "--execute", "--cuts", "10", "30", "--out", "")
+# the dry-run's ops.flops against the analytic count of the prefill
+DRYRUN_FLOPS_TOL = 0.10
+# flash at gemma-2b's prefill_32k attention (B, S, H on K, D), held on its
+# last FLASH_HOLD_ROWS query rows against every key (the plain version's
+# scores for them are 1 x 8 x 1024 x 32768 f32, 1.07 GB)
+FLASH_LONG = (1, 32768, 8, 1, 256)
+FLASH_HOLD_ROWS = 1024
 N_TRAIN, N_TEST = 4000, 512
 SOURCES = ("lora_matmul", "grouped_lora", "quant", "flash_attention", "wkv6")
 WGMMA_SOURCES = ("lora_matmul", "grouped_lora", "flash_attention")
@@ -4933,30 +4974,220 @@ def lm_train_launches(run: dict, name: str) -> dict:
     return {step: counts[name] for step, counts in run["launches"].items()}
 
 
-def launch_phase() -> dict:
-    """``python -m repro_torch.launch.train`` in central mode on granite-3-2b
-    at full width and depth (LAUNCH_ARGS), in a process of its own: it prints
-    the reference's lines, and the loss it prints is finite."""
+def import_seconds(stderr: str) -> float:
+    """The seconds a process spent importing: the cumulative times of the
+    outermost imports that ``-X importtime`` printed, lazy ones included
+    (nested imports are indented under the one that asked for them)."""
+    total = 0
+    for line in stderr.splitlines():
+        parts = line.split("|")
+        if (line.startswith("import time:") and len(parts) == 3
+                and parts[1].strip().isdigit() and not parts[2].startswith("  ")):
+            total += int(parts[1])
+    return total / 1e6
+
+
+def run_launch_module(module: str, args, timeout: int = 600):
+    """``python -m repro_torch.launch.<module> *args`` in a process of its
+    own, under ``-X importtime``, its output printed under ``[launch]``:
+    (its stdout lines, wall s, import s).  A non-zero exit raises."""
     env = dict(os.environ, PYTHONPATH=str(PORT_ROOT / "src"))
     t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.train", *LAUNCH_ARGS],
+    proc = subprocess.run([sys.executable, "-X", "importtime", "-m",
+                           f"repro_torch.launch.{module}", *args],
                           cwd=PORT_ROOT, env=env, capture_output=True, text=True,
-                          timeout=600)
+                          timeout=timeout)
     wall = time.perf_counter() - t0
-    for line in proc.stdout.splitlines():
+    lines = proc.stdout.splitlines()
+    for line in lines:
         print(f"[launch] {line}", flush=True)
     if proc.returncode != 0:
-        raise AssertionError(f"launch/train.py exited {proc.returncode}: "
-                             f"{proc.stderr[-2000:]}")
-    final = [ln for ln in proc.stdout.splitlines() if ln.startswith("final loss ")]
-    steps = [ln for ln in proc.stdout.splitlines() if ln.startswith("step ")]
+        tail = "\n".join(ln for ln in proc.stderr.splitlines()
+                         if not ln.startswith("import time:"))
+        raise AssertionError(f"launch/{module}.py exited {proc.returncode}: {tail[-2000:]}")
+    return lines, wall, import_seconds(proc.stderr)
+
+
+def prefill_flops(cfg, b: int, t: int, square: bool = False) -> float:
+    """The analytic FLOPs of a decoder LM's prefill of b x t tokens through
+    flash (tied embeddings, dense blocks): 2*b*t*(P - V*d) for every weight
+    matrix once a token (P the parameter count; the tied table is gathered,
+    not multiplied; norms are within rounding), 2*b*d*V for the head on the
+    last token alone, and 4*b*L*H*D * t(t+1)/2 for Q K^T and P V over the
+    causal pairs the kernel computes; with ``square``, over all t*t pairs,
+    as the plain version forms them."""
+    body = cfg.param_count() - cfg.vocab_size * cfg.d_model
+    pairs = t * t if square else t * (t + 1) // 2
+    attn = 4 * b * cfg.n_layers * cfg.n_heads * cfg.head_dim * pairs
+    return 2.0 * b * t * body + 2.0 * b * cfg.d_model * cfg.vocab_size + attn
+
+
+def flash_rows_plain(q_rows, k, v, q0: int) -> torch.Tensor:
+    """The plain version's arithmetic (``ref.flash_attention_ref``: f32
+    scores, -1e30 past the causal mask, one softmax, bf16 probabilities
+    times v) for query rows at positions q0.. against every key."""
+    b, r, h, d = q_rows.shape
+    t, g = k.shape[1], h // k.shape[2]
+    qf = q_rows.float().movedim(2, 1)
+    kf = k.float().repeat_interleave(g, dim=2).movedim(2, 1)
+    scores = qf @ kf.transpose(-1, -2) / math.sqrt(d)
+    dev = q_rows.device
+    mask = (q0 + torch.arange(r, device=dev))[:, None] >= torch.arange(t, device=dev)[None, :]
+    scores = torch.where(mask, scores, torch.full_like(scores, -1e30))
+    probs = torch.softmax(scores, dim=-1)
+    out = probs.to(v.dtype) @ v.repeat_interleave(g, dim=2).movedim(2, 1)
+    return out.movedim(1, 2).to(q_rows.dtype)
+
+
+def check_flash_long(seed: int) -> dict:
+    """Flash at gemma-2b's prefill_32k attention (FLASH_LONG, bf16, causal):
+    its last FLASH_HOLD_ROWS query rows held per row against the plain
+    version's arithmetic over all 32768 keys; the kernel timed, beside its
+    bound and PyTorch's scaled_dot_product_attention (the yardstick, on
+    the kv head repeated; the port never calls it).  The plain version is
+    not timed here: its 1 x 8 x 32768 x 32768 f32 scores are 34 GB."""
+    b, s, h, kh, d = FLASH_LONG
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn(b, s, h, d, generator=gen, device=dev).to(torch.bfloat16)
+    k = torch.randn(b, s, kh, d, generator=gen, device=dev).to(torch.bfloat16)
+    v = torch.randn(b, s, kh, d, generator=gen, device=dev).to(torch.bfloat16)
+    out = flash_attention(q, k, v, causal=True)
+    q0 = s - FLASH_HOLD_ROWS
+    want = flash_rows_plain(q[:, q0:], k, v, q0)
+    torch.cuda.synchronize()
+    err = row_err(out[:, q0:].float(), want.float())
+    res = {"shape": [b, s, s, h, kh, d], "causal": True, "dtype": "bfloat16",
+           "held_rows": [q0, s], "err": err,
+           "max_abs_err": float((out[:, q0:].float() - want.float()).abs().max())}
+    if not err <= LM_KERNEL_TOL[torch.bfloat16]:
+        raise AssertionError(f"flash_attention at S {s} disagrees with its plain version: "
+                             f"{res} (tolerance {LM_KERNEL_TOL[torch.bfloat16]})")
+    flops = 4 * b * h * d * work.attention_pairs(s, s, True, None)
+    nbytes = q.element_size() * (2 * b * s * h * d + 2 * b * s * kh * d)
+    qt = q.transpose(1, 2)
+    kt, vt = (x.repeat_interleave(h // kh, dim=2).transpose(1, 2) for x in (k, v))
+
+    def sdpa():
+        return torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+
+    lib = sdpa()
+    res.update(ms=cuda_ms(lambda: flash_attention(q, k, v, causal=True), iters=5, warmup=1),
+               device_ms=device_ms(lambda: flash_attention(q, k, v, causal=True),
+                                   "flash_bf16_kernel", iters=3),
+               plain_ms=None, library_ms=cuda_ms(sdpa, iters=5, warmup=1),
+               library_err=row_err(lib.transpose(1, 2)[:, q0:].float(), want.float()),
+               **bf16_bound(flops, nbytes))
+    return res
+
+
+def setup_split(wall: float, imports: float, work: float) -> dict:
+    """A launch process's wall seconds beside its imports and the work it
+    reports (steps, generation, the dry-run's trace and runs).  The two
+    may overlap: imports made lazily during the work (the meta trace
+    imports ``torch._dynamo``) count in both."""
+    return {"wall_s": wall, "import_s": imports, "work_s": work,
+            "import_share": imports / wall, "work_share": work / wall}
+
+
+def launch_phase() -> dict:
+    """The launch layer's entry points, each in a process of its own:
+    ``launch.train`` in central mode on granite-3-2b at full width and
+    depth (LAUNCH_ARGS), which prints the reference's lines and a finite
+    loss; ``launch.serve`` at the reference's defaults, which prints its
+    two lines and a (4, 32) token array; the dry-run of gemma-2b's
+    prefill_32k at full width and depth through flash, executed at batch
+    1 (18 flash launches, the peak under the card's memory); flash at that
+    attention shape held against its plain version (``check_flash_long``);
+    the server-resume step on granite-3-2b at full width executed at two
+    cuts from one step, each with a finite loss and dv of the input's
+    shape.  Each process's wall seconds are printed beside its imports
+    and reported work (``setup_split``).
+
+    The dry-run's FLOPs are held twice against ``prefill_flops``: ops.flops
+    (flash counted as the kernel computes, ``kernels/work.py``) against
+    its causal pairs, and cost_analysis_raw's flops (the plain version's
+    ops as dispatched) against the full square.  The first alone would be
+    partly circular: ``work.attention_pairs`` and ``prefill_flops`` count
+    the causal pairs by the same formula, so it holds the matmuls; the
+    second holds the trace's attention products independently."""
+    lines, wall, imports = run_launch_module("train", LAUNCH_ARGS)
+    final = [ln for ln in lines if ln.startswith("final loss ")]
+    steps = [ln for ln in lines if ln.startswith("step ")]
     loss = float(final[-1].split()[2]) if final else float("nan")
-    out = {"args": list(LAUNCH_ARGS), "wall_s": wall, "final_loss": loss,
-           "step_lines": len(steps)}
-    print(f"[launch] {json.dumps(out)}", flush=True)
+    step_s = sum(float(ln.rsplit("(", 1)[1].split("s/step")[0]) for ln in steps)
+    train = {"args": list(LAUNCH_ARGS), "final_loss": loss, "step_lines": len(steps),
+             **setup_split(wall, imports, step_s)}
+    print(f"[launch] {json.dumps(train)}", flush=True)
     if not (math.isfinite(loss) and len(steps) == 3):
-        raise AssertionError(f"launch/train.py printed no finite loss: {proc.stdout}")
-    return out
+        raise AssertionError(f"launch/train.py printed no finite loss: {lines}")
+
+    lines, wall, imports = run_launch_module("serve", ())
+    if not (len(lines) == 2 and lines[0].startswith("[gemma-2b] generated (4, 32) tokens in ")
+            and lines[1].startswith("first sequence: ")
+            and len(json.loads(lines[1][len("first sequence: "):])) == 32):
+        raise AssertionError(f"launch/serve.py did not print the reference's lines: {lines}")
+    gen_s = float(lines[0].split(" tokens in ")[1].split("s ")[0])
+    serve = {"lines": lines, **setup_split(wall, imports, gen_s)}
+    print(f"[launch] serve {json.dumps(serve)}", flush=True)
+
+    lines, wall, imports = run_launch_module("dryrun", DRYRUN_PREFILL_ARGS)
+    rec = json.loads(lines[-1])
+    cfg = REGISTRY["gemma-2b"]
+    analytic = prefill_flops(cfg, 1, 32768)
+    analytic_square = prefill_flops(cfg, 1, 32768, square=True)
+    flops = rec["ops"]["flops_per_device"]
+    raw = rec["cost_analysis_raw"]["flops"]
+    prefill = {"step_s": rec["step_s"], "t_lower_s": rec["t_lower_s"],
+               "t_compile_s": rec["t_compile_s"],
+               "launches": rec["launches"], "memory": rec["memory"],
+               "flops": flops, "analytic_flops": analytic,
+               "flops_gap": flops / analytic - 1, "raw_flops": raw,
+               "analytic_square_flops": analytic_square,
+               "raw_flops_gap": raw / analytic_square - 1, "roofline": rec["roofline"],
+               "mfu_bound": rec["roofline"]["mfu_bound"],
+               "achieved_flops_per_s": flops / rec["step_s"],
+               **setup_split(wall, imports,
+                             rec["t_lower_s"] + rec["t_compile_s"] + rec["step_s"])}
+    print(f"[launch] dryrun gemma-2b prefill_32k: step {rec['step_s']:.4f} s, peak "
+          f"{rec['memory']['peak_bytes'] / 1e9:.2f} GB (temp "
+          f"{rec['memory']['temp_bytes'] / 1e9:.2f} GB), flash launches "
+          f"{rec['launches']['flash_attention']}, ops.flops {flops:.5g} against the analytic "
+          f"{analytic:.5g} ({prefill['flops_gap']:+.2%}), raw flops {raw:.5g} against the "
+          f"full square's {analytic_square:.5g} ({prefill['raw_flops_gap']:+.2%}), bound "
+          f"{rec['roofline']['step_time_lower_bound_s']:.4f} s "
+          f"({rec['roofline']['dominant']}), mfu_bound {rec['roofline']['mfu_bound']:.3f}; "
+          f"process {wall:.1f} s, imports {imports:.1f} s, trace {rec['t_lower_s']:.1f} s, "
+          f"warm {rec['t_compile_s']:.1f} s", flush=True)
+    if rec["launches"]["flash_attention"] != cfg.n_layers:
+        raise AssertionError(f"dryrun: {rec['launches']} flash launches, not {cfg.n_layers}")
+    if not rec["memory"]["peak_bytes"] < torch.cuda.get_device_properties(0).total_memory:
+        raise AssertionError(f"dryrun: peak {rec['memory']['peak_bytes']} past the card")
+    if not abs(prefill["flops_gap"]) <= DRYRUN_FLOPS_TOL:
+        raise AssertionError(f"dryrun: ops.flops {flops} is not within "
+                             f"{DRYRUN_FLOPS_TOL} of {analytic}")
+    if not abs(prefill["raw_flops_gap"]) <= DRYRUN_FLOPS_TOL:
+        raise AssertionError(f"dryrun: cost_analysis_raw flops {raw} is not within "
+                             f"{DRYRUN_FLOPS_TOL} of the full square's {analytic_square}")
+    prefill["flash_hold"] = check_flash_long(seed=90)
+    print(f"[launch] flash_attention S 32768 {json.dumps(prefill['flash_hold'])}", flush=True)
+
+    lines, wall, imports = run_launch_module("dryrun", DRYRUN_RESUME_ARGS)
+    rec = json.loads(lines[-1])
+    runs = rec.get("cuts", {})
+    if sorted(runs) != ["10", "30"] or not all(
+            math.isfinite(r["loss"]) and r["dv_shape"] == [4, 1024, 2048] and r["dv_finite"]
+            for r in runs.values()):
+        raise AssertionError(f"dryrun --server-resume did not run at cuts 10 and 30: {rec}")
+    work_s = rec["t_lower_s"] + sum(r["warm_s"] + r["step_s"] for r in runs.values())
+    resume = {"cuts": runs, "ops": rec["ops"], "roofline": rec["roofline"],
+              "memory": rec["memory"], "t_lower_s": rec["t_lower_s"],
+              **setup_split(wall, imports, work_s)}
+    print(f"[launch] dryrun server-resume: process {wall:.1f} s, imports {imports:.1f} s, "
+          f"trace {rec['t_lower_s']:.1f} s, warm and timed runs "
+          f"{work_s - rec['t_lower_s']:.1f} s", flush=True)
+    return {"train": train, "serve": serve, "dryrun_prefill": prefill,
+            "dryrun_resume": resume}
 
 
 def memory_lines(fused: dict, plain: dict, cohort: dict, sl: dict) -> dict:
@@ -5490,10 +5721,16 @@ def main() -> None:
                        ("err", "ms", "device_ms", "plain_ms", "library_ms", "bound_ms",
                         "bound_by")},
                  gqa_errs=[c["err"] for c in flash_gqa],
-                 launches_by_path={f"{arch} prefill ({all_lm[arch]['layers']} layers)":
-                                   all_lm[arch]["prefill"]["kernels"]["launches"][
-                                       "flash_attention"]
-                                   for arch in all_lm if all_lm[arch]["family"] != "ssm"},
+                 launches_by_path={**{f"{arch} prefill ({all_lm[arch]['layers']} layers)":
+                                      all_lm[arch]["prefill"]["kernels"]["launches"][
+                                          "flash_attention"]
+                                      for arch in all_lm if all_lm[arch]["family"] != "ssm"},
+                                   "launch dryrun gemma-2b prefill_32k (18 layers, 1 x 32768)":
+                                   launch["dryrun_prefill"]["launches"]["flash_attention"]},
+                 prefill_32k={key: launch["dryrun_prefill"]["flash_hold"][key] for key in
+                              ("shape", "held_rows", "err", "max_abs_err", "ms", "device_ms",
+                               "plain_ms", "library_ms", "library_err", "bound_ms",
+                               "bound_by")},
                  head_dim_128_gqa_8={key: flash_gqa128[key] for key in
                                      ("shape", "err", "ms", "device_ms", "plain_ms",
                                       "library_ms", "library_err", "bound_ms",

@@ -17,7 +17,7 @@ from typing import Any, Sequence
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import build_model
+from repro_torch import models  # a module: models imports core, which imports this
 from repro_torch.tree import tree_leaves
 
 PyTree = Any
@@ -60,7 +60,7 @@ def model_bytes(cfg: ModelConfig) -> ModelBytes:
     code reads a value, so nothing is allocated or computed.  Cached per
     (frozen, hashable) config: the partition solver probes it once per
     candidate cut and the sl round time once per round."""
-    model = build_model(cfg, device="meta")
+    model = models.build_model(cfg, device="meta")
     gen = torch.Generator()
     pspec = model.init_params(gen)
     lspec = model.init_lora(gen)

@@ -78,12 +78,14 @@ def client_forward(model, params_c: PyTree, lora_c: PyTree, batch: dict,
 
 
 def server_loss(model, params: PyTree, lora_s: PyTree, v: torch.Tensor,
-                batch: dict, cut, *, path: str = "sliced"):
+                batch: dict, cut, *, path: str = "sliced", remat: bool = False):
     """Eq. 4 + loss: resume the full model at the cut with R_s^u."""
-    return model.loss(params, lora_s, batch, cut=cut, side="server", path=path, x0=v)
+    return model.loss(params, lora_s, batch, cut=cut, side="server", path=path, x0=v,
+                      remat=remat)
 
 
-def _server_grads(model, params, trainable, v, batch, cut, path, with_head):
+def _server_grads(model, params, trainable, v, batch, cut, path, with_head,
+                  remat: bool = False):
     """The server's loss and its gradients with respect to the trainable
     tree ({"lora", "head"} or the bare adapters) and to ``v``."""
     tr = as_trainable(trainable)
@@ -94,23 +96,25 @@ def _server_grads(model, params, trainable, v, batch, cut, path, with_head):
             pp = dict(params)
             pp["cls_head"] = tr["head"]
         loss, _ = server_loss(model, pp, tr["lora"] if with_head else tr, vv, batch, cut,
-                              path=path)
+                              path=path, remat=remat)
         g_tr, (g_v,) = tree_grad(loss, tr, extra=(vv,))
     return loss.detach(), g_tr, g_v
 
 
 def make_server_step(model, opt: AdamW, *, path: str = "sliced",
-                     static_cut: Optional[int] = None):
+                     static_cut: Optional[int] = None, remat: bool = False):
     """The LM server step.
 
     signature: (params, lora_s, opt_state, v, batch, cut) ->
                (loss, new_lora_s, new_opt_state, dv)
     without ``cut`` when ``static_cut`` fixes it.  With path='scan' the cut
     may change from call to call (an int, or a 0-d tensor on the device),
-    and every call runs the same masked loop over all layers."""
+    and every call runs the same masked loop over all layers, each layer
+    recomputed in the backward under ``remat`` (the sliced path ignores
+    it, as the reference's does)."""
     def step(params, lora_s, opt_state, v, batch, cut=static_cut):
         loss, g_lora, g_v = _server_grads(model, params, lora_s, v, batch, cut, path,
-                                          with_head=False)
+                                          with_head=False, remat=remat)
         new_lora, new_opt = opt.update(g_lora, opt_state, _detached(lora_s))
         return loss, new_lora, new_opt, g_v
 

@@ -12,8 +12,9 @@ contiguous (bfloat16: 16-byte aligned, strides a multiple of 8, as TMA
 reads them).
 
 A CUDA tensor launches the kernel on the current stream or raises; a CPU
-tensor takes the plain version (``ref.flash_attention_ref`` on the heads
-laid out as (B*H, S, D)).  The counter ``flash_attention.launches`` grows
+or ``meta`` tensor takes the plain version (``ref.flash_attention_ref`` on
+the heads laid out as (B*H, S, D)), which a trace on ``meta`` counts as
+the kernel's work (``work.py``: the kept pairs alone).  The counter ``flash_attention.launches`` grows
 by one per kernel launch and by nothing else.
 """
 from __future__ import annotations
@@ -24,7 +25,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, work
 from repro_torch.kernels.ref import flash_attention_ref
 
 HEAD_DIMS = (32, 64, 112, 128, 256)
@@ -58,8 +59,8 @@ def _check(q, k, v, window) -> None:
         raise TypeError("flash_attention takes float32 or bfloat16 q, k, v of one type")
     if any(t.device != q.device for t in (k, v)):
         raise ValueError("flash_attention inputs must share one device")
-    if q.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"flash_attention runs on cuda or cpu, not {q.device}")
+    if q.device.type not in ("cpu", "cuda", "meta"):
+        raise ValueError(f"flash_attention runs on cuda, cpu or meta, not {q.device}")
     if window is not None and window < 1:
         raise ValueError(f"window must be a positive int or None, got {window}")
 
@@ -88,8 +89,9 @@ def flash_attention_plain(q, k, v, causal, window):
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool, window: Optional[int] = None) -> torch.Tensor:
     _check(q, k, v, window)
-    if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, causal, window)
+    if q.device.type in ("cpu", "meta"):          # the plain version: no launch
+        with work.counted(*work.flash_attention(q, k, v, causal, window)):
+            return flash_attention_plain(q, k, v, causal, window)
     b, s, h, d = q.shape
     t, kh = k.shape[1], k.shape[2]
     if d not in HEAD_DIMS:

@@ -31,8 +31,9 @@ scales live on the device, cached by (group sizes, scales, device), so a
 launch copies nothing from the host once the key has been seen.
 
 A CUDA tensor launches the kernel of its type on the current stream or
-raises; a CPU tensor takes the plain version
-(``ref.grouped_lora_matmul_ref``).  The body is chosen before the launch.
+raises; a CPU or ``meta`` tensor takes the plain version
+(``ref.grouped_lora_matmul_ref``), which a trace on ``meta`` counts as the
+kernel's work (``work.py``).  The body is chosen before the launch.
 The counters ``grouped_lora_chunk.launches`` and
 ``grouped_lora_direct.launches`` grow by one per kernel launch of their
 mode, of either type and body, and by nothing else; ``.launches_bf16`` of
@@ -49,7 +50,7 @@ from typing import List, Sequence, Tuple
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, work
 from repro_torch.kernels.lora_matmul import tma_ok
 from repro_torch.kernels.ref import grouped_lora_matmul_ref
 
@@ -162,16 +163,17 @@ def _check(x, w, a, b, group_sizes, scales, mode) -> None:
                          "tensor (w.t(), a.transpose(1, 2), b.transpose(1, 2))")
     if any(t.device != x.device for t in (w, a, b)):
         raise ValueError("grouped_lora inputs must share one device")
-    if x.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"grouped_lora runs on cuda or cpu, not {x.device}")
+    if x.device.type not in ("cpu", "cuda", "meta"):
+        raise ValueError(f"grouped_lora runs on cuda, cpu or meta, not {x.device}")
 
 
 def _run(x, w, a, b, group_sizes, scales, mode, counted) -> torch.Tensor:
     group_sizes = tuple(int(s) for s in group_sizes)
     scales = tuple(float(s) for s in scales)
     _check(x, w, a, b, group_sizes, scales, mode)
-    if x.device.type == "cpu":
-        return grouped_lora_matmul_ref(x, w, a, b, group_sizes, scales)
+    if x.device.type in ("cpu", "meta"):          # the plain version: no launch
+        with work.counted(*work.lora_matmul(x, w, a, b)):
+            return grouped_lora_matmul_ref(x, w, a, b, group_sizes, scales)
     m, k = x.shape
     n, r = b.shape[1], b.shape[2]
     y = torch.empty((m, n), dtype=x.dtype, device=x.device)

@@ -10,7 +10,9 @@ x is contiguous; w, a and b are each contiguous or the transposed view of
 a contiguous tensor (``t.t()``), the layouts the backward passes for
 ``dx = g @ W^T + s * (g @ B) @ A``; the kernel reads them where they are.
 A CUDA tensor launches the kernel of its type on the current stream or
-raises; a CPU tensor takes the plain version (``ref.lora_matmul_ref``).
+raises; a CPU or ``meta`` tensor takes the plain version
+(``ref.lora_matmul_ref``), which a trace on ``meta`` counts as the
+kernel's work (``work.py``).
 
 bf16 has two tiles, chosen before the launch by :func:`tma_ok`, a function
 of the operands' shapes, strides and pointers alone: where TMA can
@@ -32,7 +34,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, work
 from repro_torch.kernels.ref import lora_matmul_ref
 
 MAX_RANK = 64   # the kernel's shared tiles hold r <= 64
@@ -117,15 +119,16 @@ def _check(x, w, a, b) -> None:
                          "contiguous or the .t() view of a contiguous tensor")
     if any(t.device != x.device for t in ts):
         raise ValueError("lora_matmul inputs must share one device")
-    if x.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"lora_matmul runs on cuda or cpu, not {x.device}")
+    if x.device.type not in ("cpu", "cuda", "meta"):
+        raise ValueError(f"lora_matmul runs on cuda, cpu or meta, not {x.device}")
 
 
 def lora_matmul(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
                 b: torch.Tensor, *, scale: float) -> torch.Tensor:
     _check(x, w, a, b)
-    if x.device.type == "cpu":
-        return lora_matmul_ref(x, w, a, b, scale)
+    if x.device.type in ("cpu", "meta"):          # the plain version: no launch
+        with work.counted(*work.lora_matmul(x, w, a, b)):
+            return lora_matmul_ref(x, w, a, b, scale)
     m, k = x.shape
     n, r = b.shape
     y = torch.empty((m, n), dtype=x.dtype, device=x.device)

@@ -15,7 +15,8 @@ to ``32 * MAX_LOADS`` of them), and a block per row that reads it twice
 (every other row).
 
 A CUDA tensor launches the kernel on the current stream or raises; a CPU
-tensor takes the plain version (``ref.quantize_rows_ref``).  The counter
+or ``meta`` tensor takes the plain version (``ref.quantize_rows_ref``),
+which a trace on ``meta`` counts as the kernel's work (``work.py``).  The counter
 ``quantize_rows.launches`` grows by one per kernel launch, of either body
 and either type, and by nothing else.
 """
@@ -26,7 +27,7 @@ from typing import Tuple
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, work
 from repro_torch.kernels.ref import quantize_rows_ref
 
 MAX_LOADS = 16      # 16-byte loads a lane of the resident body holds
@@ -71,8 +72,8 @@ def _check(x: torch.Tensor) -> None:
         raise TypeError(f"quantize_rows takes a float32 or bfloat16 tensor, got {x.dtype}")
     if not x.is_contiguous():
         raise ValueError("quantize_rows takes a contiguous tensor")
-    if x.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"quantize_rows runs on cuda or cpu, not {x.device}")
+    if x.device.type not in ("cpu", "cuda", "meta"):
+        raise ValueError(f"quantize_rows runs on cuda, cpu or meta, not {x.device}")
     if x.shape[1] == 0 or x.shape[0] >= 2 ** 31 or x.shape[1] >= 2 ** 31:
         raise ValueError("quantize_rows takes 1 to 2**31 - 1 columns and "
                          "fewer than 2**31 rows")
@@ -80,8 +81,9 @@ def _check(x: torch.Tensor) -> None:
 
 def quantize_rows(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     _check(x)
-    if x.device.type == "cpu":
-        return quantize_rows_ref(x)
+    if x.device.type in ("cpu", "meta"):          # the plain version: no launch
+        with work.counted(*work.quantize_rows(x)):
+            return quantize_rows_ref(x)
     n, d = x.shape
     q = torch.empty((n, d), dtype=torch.int8, device=x.device)
     scale = torch.empty((n,), dtype=torch.float32, device=x.device)

@@ -10,7 +10,8 @@ dimension contiguous, so the model's bf16 r/k/v and f32 decay go in as
 they are.
 
 A CUDA tensor launches the kernel on the current stream or raises; a CPU
-tensor takes the plain version (``ref.wkv6_ref``).  The counter
+or ``meta`` tensor takes the plain version (``ref.wkv6_ref``), which a
+trace on ``meta`` counts as the kernel's work (``work.py``).  The counter
 ``wkv6.launches`` grows by one per kernel launch and by nothing else.
 """
 from __future__ import annotations
@@ -20,7 +21,7 @@ from typing import Tuple
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, work
 from repro_torch.kernels.ref import wkv6_ref
 
 HEAD_DIMS = (16, 32, 64, 128)
@@ -55,17 +56,18 @@ def _check(r, k, v, w, u) -> None:
         raise TypeError("wkv6 takes a float32 u")
     if any(t.device != r.device for t in (k, v, w, u)):
         raise ValueError("wkv6 inputs must share one device")
-    if r.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"wkv6 runs on cuda or cpu, not {r.device}")
+    if r.device.type not in ("cpu", "cuda", "meta"):
+        raise ValueError(f"wkv6 runs on cuda, cpu or meta, not {r.device}")
 
 
 def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
          u: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     _check(r, k, v, w, u)
     b, t, h, d = r.shape
-    if r.device.type == "cpu":
-        out, state = wkv6_ref(r, k, v, w, u,
-                              torch.zeros((b, h, d, d), dtype=torch.float32))
+    if r.device.type in ("cpu", "meta"):          # the plain version: no launch
+        with work.counted(*work.wkv6(r, k, v, w, u)):
+            out, state = wkv6_ref(r, k, v, w, u, torch.zeros(
+                (b, h, d, d), dtype=torch.float32, device=r.device))
         return out.to(r.dtype), state
     if d not in HEAD_DIMS:
         raise ValueError(f"wkv6 takes head_dim in {HEAD_DIMS}, got {d}")

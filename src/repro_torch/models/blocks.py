@@ -17,7 +17,8 @@ each with its own capacity, sort and aux loss), ``moe_dense_fallback``
 (every expert on every token, as decode runs) and ``moe_aux_rows`` (the
 aux loss returned per batch row, each row its group's, for groups that
 are whole rows: the port's form of a vmapped per-lane aux, which the
-masked scan sets for a per-row cut).  ``decode`` writes the
+masked scan sets for a per-row cut), and ``moe_mesh`` (a one-card mesh:
+the sharded form, ``moe_mlp_sharded``).  ``decode`` writes the
 new token's state into ``cache`` in place (a per-layer view of the
 model's stacked cache) and returns it: the reference returns an updated
 copy, which the caller then uses in place of the old one.
@@ -266,10 +267,11 @@ def moe_mlp(cfg: ModelConfig, p: dict, lora, x: Tensor, ctx: dict):
     over every token, so that a cohort-grouped (G, r, d) router adapter
     meets its own lane's rows (the tokens are lane-major); the groups then
     take their slices.  Returns (out, aux): aux the mean of the groups',
-    or with ``moe_aux_rows`` one per batch row, its group's.  The
-    reference's sharded form (``moe_mlp_sharded``, a ``shard_map`` over a
-    device mesh) is ROADMAP item 11's; without a mesh the reference runs
-    this one."""
+    or with ``moe_aux_rows`` one per batch row, its group's.  With
+    ``ctx["moe_mesh"]`` set (and the dense fallback off) the sharded form
+    runs instead (:func:`moe_mlp_sharded`), as in the reference."""
+    if ctx.get("moe_mesh") is not None and not ctx.get("moe_dense_fallback"):
+        return moe_mlp_sharded(cfg, p, lora, x, ctx)
     b, s, d = x.shape
     groups = max(1, ctx.get("moe_groups", 1))
     tokens = b * s
@@ -293,6 +295,21 @@ def moe_mlp(cfg: ModelConfig, p: dict, lora, x: Tensor, ctx: dict):
                              f"in {groups} groups")
         return out, aux.repeat_interleave(b // groups)
     return out, aux.mean()
+
+
+def moe_mlp_sharded(cfg: ModelConfig, p: dict, lora, x: Tensor, ctx: dict):
+    """The reference's ``shard_map`` MoE on the one-card mesh: its local
+    function over every token, which is :func:`moe_mlp` with
+    ``cfg.moe_token_chunks`` dispatch groups (one when the tokens do not
+    divide), each with its own capacity and drops, the aux loss averaged
+    over them (the reference scans the blocks so that one block's capacity
+    buffers are alive at a time).  Its ``psum`` over "model" and ``pmean``
+    over the dp axes are the identity at size 1; ``moe_groups`` and
+    ``moe_aux_rows`` are not read, as the reference's local function does
+    not read them."""
+    return moe_mlp(cfg, p, lora, x, {**ctx, "moe_mesh": None,
+                                     "moe_groups": max(1, cfg.moe_token_chunks),
+                                     "moe_aux_rows": False})
 
 
 def moe_prefill(cfg: ModelConfig, p: dict, lora, x: Tensor, ctx: dict):

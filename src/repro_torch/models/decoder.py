@@ -193,9 +193,12 @@ class DecoderModel:
         return x @ w.to(x.dtype)
 
     def make_ctx(self, seq_len: int, device, *, window: Optional[int] = None,
-                 positions: Optional[torch.Tensor] = None, moe_groups: int = 1) -> dict:
+                 positions: Optional[torch.Tensor] = None, moe_groups: int = 1,
+                 moe_mesh=None) -> dict:
         """The blocks' context (``blocks`` module docstring); ``moe_groups``
-        splits the MoE dispatch into that many equal groups of tokens."""
+        splits the MoE dispatch into that many equal groups of tokens;
+        ``moe_mesh`` (a one-card ``launch.mesh.Mesh``) routes the MoE block
+        to ``blocks.moe_mlp_sharded``."""
         cfg = self.cfg
         arange = positions is None
         if arange:
@@ -203,7 +206,7 @@ class DecoderModel:
         return {"positions": positions, "causal": cfg.causal,
                 "window": window if window is not None else cfg.sliding_window,
                 "arange": arange, "moe_groups": moe_groups or 1,
-                "moe_dense_fallback": False}
+                "moe_dense_fallback": False, "moe_mesh": moe_mesh}
 
     # -- the hybrid's segments ----------------------------------------------------
     def _segments(self) -> list:

@@ -21,7 +21,7 @@ SRC = ROOT / "src"
 # partitioning; the network and observability planes and the event engine;
 # the control plane; checkpointing; the schedules and the training
 # entry point; the other families' configs and the input shapes; the
-# encoder-decoder; population scale), which
+# encoder-decoder; population scale; the launch layer), which
 # the walk below must reach
 _NEW_MODULES = ("repro_torch.configs.gemma_2b", "repro_torch.configs.rwkv6_3b",
                 "repro_torch.kernels.flash_attention", "repro_torch.kernels.wkv6",
@@ -43,7 +43,11 @@ _NEW_MODULES = ("repro_torch.configs.gemma_2b", "repro_torch.configs.rwkv6_3b",
                 "repro_torch.configs.internvl2_26b", "repro_torch.configs.zamba2_7b",
                 "repro_torch.configs.whisper_large_v3", "repro_torch.models.encdec",
                 "repro_torch.fed.fleet", "repro_torch.fed.population",
-                "repro_torch.fed.population_async", "repro_torch.fed.population_training")
+                "repro_torch.fed.population_async", "repro_torch.fed.population_training",
+                "repro_torch.launch.mesh", "repro_torch.launch.sharding",
+                "repro_torch.launch.cost_analysis", "repro_torch.launch.steps",
+                "repro_torch.launch.dryrun", "repro_torch.launch.serve",
+                "repro_torch.kernels.work")
 
 _IMPORT_ALL = r"""
 import importlib, pkgutil, sys
@@ -76,10 +80,9 @@ def test_imports_without_jax_and_without_reference_package():
     assert int(n_modules) >= 64 and leaked.strip() == "[]"
 
 
-# the reference's package names the port has not ported yet (ROADMAP
-# Queue A, A11: the launch layer's mesh and sharding tools)
-UNPORTED = {"launch": {"ShardingPolicy", "dp_axes", "dp_size", "make_debug_mesh",
-                       "make_production_mesh", "model_axis_size"}}
+# the reference's package names the port has not ported yet: none since
+# the launch layer's mesh and sharding tools (ROADMAP A11)
+UNPORTED = {}
 PACKAGES = sorted(p.name for p in (SRC / "repro_torch").iterdir()
                   if (p / "__init__.py").exists())
 
