@@ -43,6 +43,7 @@ import torch
 from repro_torch.core import lora as lora_lib
 from repro_torch.core.lora import STACKED_KEYS
 from repro_torch.models import layers as L
+from repro_torch.obs import wall
 from repro_torch.optim.adamw import AdamW
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
@@ -95,9 +96,11 @@ def _server_grads(model, params, trainable, v, batch, cut, path, with_head,
         if with_head:
             pp = dict(params)
             pp["cls_head"] = tr["head"]
-        loss, _ = server_loss(model, pp, tr["lora"] if with_head else tr, vv, batch, cut,
-                              path=path, remat=remat)
-        g_tr, (g_v,) = tree_grad(loss, tr, extra=(vv,))
+        with wall.span("forward"):
+            loss, _ = server_loss(model, pp, tr["lora"] if with_head else tr, vv, batch, cut,
+                                  path=path, remat=remat)
+        with wall.span("backward"):
+            g_tr, (g_v,) = tree_grad(loss, tr, extra=(vv,))
     return loss.detach(), g_tr, g_v
 
 
@@ -113,9 +116,11 @@ def make_server_step(model, opt: AdamW, *, path: str = "sliced",
     recomputed in the backward under ``remat`` (the sliced path ignores
     it, as the reference's does)."""
     def step(params, lora_s, opt_state, v, batch, cut=static_cut):
-        loss, g_lora, g_v = _server_grads(model, params, lora_s, v, batch, cut, path,
-                                          with_head=False, remat=remat)
-        new_lora, new_opt = opt.update(g_lora, opt_state, _detached(lora_s))
+        with wall.span("server_step"):
+            loss, g_lora, g_v = _server_grads(model, params, lora_s, v, batch, cut, path,
+                                              with_head=False, remat=remat)
+            with wall.span("optimizer"):
+                new_lora, new_opt = opt.update(g_lora, opt_state, _detached(lora_s))
         return loss, new_lora, new_opt, g_v
 
     return step

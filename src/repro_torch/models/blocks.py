@@ -34,6 +34,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.ref import wkv6_ref
 from repro_torch.models import layers as L
+from repro_torch.obs import wall
 
 Tensor = torch.Tensor
 
@@ -58,14 +59,24 @@ def _attn_lora(lora):
 def dense_prefill(cfg: ModelConfig, p: dict, lora, x: Tensor, ctx: dict):
     """The training forward; also returns the roped K/V as the cache contents."""
     pos = ctx["positions"]
-    h = L.apply_norm(cfg, p["ln1"], x)
-    q, k, v = L.qkv_project(cfg, p["attn"], _attn_lora(lora), h, pos)
-    a = L.attention_full(q, k, v, causal=ctx["causal"], window=ctx.get("window"),
-                         q_pos=pos, k_pos=pos, impl=cfg.attn_impl,
-                         arange=ctx.get("arange", False), chunk=cfg.attn_chunk)
-    x = x + L.attn_out(cfg, p["attn"], _attn_lora(lora), a)
-    h = L.apply_norm(cfg, p["ln2"], x)
-    x = x + L.mlp_apply(cfg, p["mlp"], (lora or {}).get("mlp"), h)
+    with wall.span("norm") as sp:
+        h = sp.output(L.apply_norm(cfg, p["ln1"], sp.input(x)))
+    with wall.span("attention") as sp:
+        q, k, v = L.qkv_project(cfg, p["attn"], _attn_lora(lora), sp.input(h), pos)
+        a = L.attention_full(q, k, v, causal=ctx["causal"], window=ctx.get("window"),
+                             q_pos=pos, k_pos=pos, impl=cfg.attn_impl,
+                             arange=ctx.get("arange", False), chunk=cfg.attn_chunk)
+        o = sp.output(L.attn_out(cfg, p["attn"], _attn_lora(lora), a))
+    # each branch's output is freed once added, as a temporary would be: held
+    # to the return, it shifts the caching allocator's blocks and its peak
+    x = x + o
+    del o
+    with wall.span("norm") as sp:
+        h = sp.output(L.apply_norm(cfg, p["ln2"], sp.input(x)))
+    with wall.span("mlp") as sp:
+        o = sp.output(L.mlp_apply(cfg, p["mlp"], (lora or {}).get("mlp"), sp.input(h)))
+    x = x + o
+    del o
     return x, {"k": k, "v": v}, torch.zeros((), dtype=torch.float32, device=x.device)
 
 

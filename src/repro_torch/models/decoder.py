@@ -46,6 +46,7 @@ from repro_torch.core.lora import stack_trees
 from repro_torch.device import resolve_device
 from repro_torch.models import blocks as B
 from repro_torch.models import layers as L
+from repro_torch.obs import wall
 from repro_torch.tree import tree_leaves, tree_map
 
 PyTree = Any
@@ -341,12 +342,15 @@ class DecoderModel:
         rows where the cut is per row)."""
         h, aux = self.forward_hidden(params, lora, batch, cut=cut, side=side,
                                      remat=remat, path=path, x0=x0, ctx=ctx)
-        if self.cfg.n_classes:
-            logits = self.unembed(params, h)
-            loss = L.softmax_xent(logits[:, None, :], batch["label"][:, None])
-        else:
-            logits = self.lm_logits(params, h, batch["targets"])
-            loss = L.softmax_xent(logits, batch["targets"])
+        with wall.span("cls_head" if self.cfg.n_classes else "lm_head") as sp:
+            h = sp.input(h)
+            if self.cfg.n_classes:
+                logits = self.unembed(params, h)
+                loss = L.softmax_xent(logits[:, None, :], batch["label"][:, None])
+            else:
+                logits = self.lm_logits(params, h, batch["targets"])
+                loss = L.softmax_xent(logits, batch["targets"])
+            loss = sp.output(loss)
         return loss + (aux if aux.dim() == 0 else aux.mean()), logits
 
     # -- serving ---------------------------------------------------------------
