@@ -158,7 +158,14 @@ Phases (any failed check raises and the script exits non-zero):
    2048, 32 heads on 32, D 112: the 128-wide tile, zero past D; causal;
    bf16 and fp32, timed) and at whisper-large-v3's encoder (4 x 1500, 20
    heads, D 64, non-causal; timed), beside PyTorch's
-   scaled_dot_product_attention as the yardstick; the WKV6 kernel at the
+   scaled_dot_product_attention as the yardstick, in bf16 each shape also
+   through the normalise-first instance (held and, where timed, timed);
+   the kernel pair (``check_flash_pair``: the forward's lse and its online
+   and normalise-first instances, the backward's dq, dk, dv from each, per
+   row and over the tensor, beside a bf16-dS control that must fail, two
+   backward calls bit-equal) at granite-3-2b's server step (16 x 512, 32
+   heads on 8, D 64, causal; timed, SDPA's backward the yardstick) and at
+   ragged S and T, MQA and windows; the WKV6 kernel at the
    rwkv6-3b prefill shape (B 4, T 2048, H 40, D 64; bf16 r/k/v with an f32
    decay, and fp32) and at a ragged T of 1000, with slow decays and with
    fast ones (exp(-exp(z)), z ~ N(0, 1): many near 0), at T 37, and at
@@ -170,7 +177,9 @@ Phases (any failed check raises and the script exits non-zero):
    layers, ``LM_PHASE_LAYERS``) at full width in bf16 with random weights,
    4 prompts of 2048 tokens, under attn_impl / wkv_impl "chunked" (the
    kernels: 18 flash launches, 8 WKV6 launches) and under
-   "naive" / "scan" (plain PyTorch, no launch); then every layer of both
+   "naive" / "scan" in plain PyTorch (``PlainAttention``: no launch, though
+   "naive" runs the flash kernel's normalise-first instance on the card in
+   bf16); then every layer of both
    settings on the same input (the plain run's), so that each layer's
    output, its cache leaves and the last-token logits are held together
    (LM_TOL) without the depth amplifying one layer's bf16 rounding; the
@@ -200,7 +209,9 @@ Phases (any failed check raises and the script exits non-zero):
    (``Fp32Hold``), the einsum path's distance printed; the decode check also holds every Mamba2 layer's
    conv history and state and every segment's K/V against the prefill's);
    whisper-large-v3 on 4 x 1500 random frames and prompts of 448 tokens
-   (``lm_phase_encdec``: 32 flash launches, the encoder's; 384 fused and
+   (``lm_phase_encdec``: 96 flash launches, the encoder's 32 and the
+   decoder's 64 self- and cross-attentions, and none in the plain
+   setting; 384 fused and
    384 grouped bf16 LoRA launches; held encoder and decoder layer by
    layer; its decode from a fresh cache holding the prefill's
    cross-attention K/V, every step's logits against the teacher-forced
@@ -242,8 +253,11 @@ Phases (any failed check raises and the script exits non-zero):
    gradients, read from its optimizer state; zamba2-7b's dv and gradients
    held on the same steps run again in fp32); every call's bf16
    lora_matmul or grouped
-   launches asserted (all on the wgmma tile), its wall s, peak bytes and
-   device s printed;
+   launches asserted (all on the wgmma tile), and whisper-large-v3's flash
+   pair (its encoder, decoder self- and cross-attention train through the
+   forward with lse and the backward kernels: a forward launch per
+   attention a pass, two backward launches per attention differentiated),
+   its wall s, peak bytes and device s printed;
 15. launch: ``python -m repro_torch.launch.train`` in central mode on
    granite-3-2b (its default arch) at full width for three steps in a
    process of its own, with
@@ -373,6 +387,9 @@ from repro_torch.fed.population_training import (PopulationTrainer,  # noqa: E40
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention_plain  # noqa: E402
+from repro_torch.kernels.flash_attention import (BWD_HEAD_DIMS,  # noqa: E402
+                                                 flash_attention_bwd,
+                                                 flash_attention_bwd_plain)
 from repro_torch.kernels import grouped_lora as grouped_module  # noqa: E402
 from repro_torch.kernels.grouped_lora import (grouped_lora,  # noqa: E402
                                               grouped_lora_chunk,
@@ -387,6 +404,7 @@ from repro_torch.kernels.ref import (grouped_lora_matmul_ref,  # noqa: E402
 from repro_torch.kernels.wkv6 import wkv6  # noqa: E402
 from repro_torch.kernels import work  # noqa: E402
 from repro_torch.models import blocks as blocks_module  # noqa: E402
+from repro_torch.models import layers as layers_module  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.models.layers import softmax_xent, torch_dtype  # noqa: E402
 from repro_torch.net import ConstantLink, TraceLink  # noqa: E402
@@ -490,6 +508,16 @@ LOSS_RTOL = 1e-3
 # the probabilities, round to bf16 at other points (an ulp of bf16 is
 # 2**-8 of the value, relative, so the limit is relative to the row too)
 LM_KERNEL_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+# the flash backward's dq, dk and dv against its plain version over the
+# whole tensor (``rel2``): both keep dS in f32 precision (the kernel as hi +
+# lo bf16 terms) and round each gradient to bf16 once, so the two differ
+# only where an f32 value straddles a bf16 rounding edge; a backward that
+# rounded dS to bf16 alone parts from the plain one on most elements of dq
+# and dk.  Set between the two (``check_flash_pair``, which requires the
+# plain backward's bf16-dS control to read above it): on an H100, over
+# both instances and seven shapes at two seeds, the kernel read 2.1e-8 to
+# 1.7e-4 and the control 2.46e-3 to 2.74e-3
+FLASH_GRAD_REL_TOL = 5e-4
 # the LM paths in bf16, layer by layer from a shared input: kernel vs plain
 # (each layer's output and cache, the last-token logits) and decode vs
 # prefill.  The two sides differ by bf16 roundings of the attention or WKV
@@ -648,6 +676,7 @@ COUNTERS = {"lora_matmul": (lora_matmul, "launches"),
             "grouped_lora_direct_swept": (grouped_lora_direct, "launches_swept"),
             "quantize_rows": (quantize_rows, "launches"),
             "flash_attention": (flash_attention, "launches"),
+            "flash_attention_bwd": (flash_attention_bwd, "launches"),
             "wkv6": (wkv6, "launches")}
 
 
@@ -1529,9 +1558,12 @@ def attention_pairs(s: int, t: int, causal: bool, window) -> int:
 
 def check_flash(b, s, t, h, kh, d, causal, window, dtype, seed, timed=False) -> dict:
     """Flash kernel vs its plain version (model layout, kv heads repeated
-    for the plain one) at one shape; with ``timed`` the kernel, the plain
-    version and PyTorch's scaled_dot_product_attention (the yardstick,
-    which the port never calls) are timed."""
+    for the plain one) at one shape, in bf16 both instances (the online
+    one, ``err``, and the normalise-first one, ``nf_err``, whose rounding
+    of p the plain version shares); with ``timed`` the kernel (and in bf16
+    its normalise-first instance, ``nf_device_ms``), the plain version and
+    PyTorch's scaled_dot_product_attention (the yardstick, which the port
+    never calls) are timed."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(seed)
     q = torch.randn(b, s, h, d, generator=gen, device=dev).to(dtype)
@@ -1547,7 +1579,11 @@ def check_flash(b, s, t, h, kh, d, causal, window, dtype, seed, timed=False) -> 
            "err_global": norm_err(out.float(), want.float()),
            "max_abs_err": float((out.float() - want.float()).abs().max())}
     tol = LM_KERNEL_TOL[dtype]
-    if not err <= tol:
+    bf16 = dtype == torch.bfloat16
+    if bf16:
+        nf = flash_attention(q, k, v, causal=causal, window=window, normalize_first=True)
+        res["nf_err"] = row_err(nf.float(), want.float())
+    if not (err <= tol and res.get("nf_err", 0.0) <= tol):
         raise AssertionError(f"flash_attention disagrees with its plain version: {res} "
                              f"(tolerance {tol})")
     if timed:
@@ -1577,6 +1613,112 @@ def check_flash(b, s, t, h, kh, d, causal, window, dtype, seed, timed=False) -> 
             bound_ms=max(t_ops, t_bytes),
             bound_by="operations" if t_ops >= t_bytes else "bytes",
             gflop=flops / 1e9, mbytes=nbytes / 1e6)
+        if bf16:
+            res["nf_device_ms"] = device_ms(
+                lambda: flash_attention(q, k, v, causal=causal, window=window,
+                                        normalize_first=True), "flash_bf16_kernel", iters=10)
+    return res
+
+
+def grad_row_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    """``row_err`` of a gradient, but for the rows whose exact gradient
+    vanishes: the first query under a causal mask (P is one at its one
+    key, so dS = 0) and a key no query sees hold round-off alone, under a
+    thousandth of the median row's norm, and have no scale of their own;
+    their norm is taken as the median row's.  Every other row is held over
+    its own norm."""
+    diff = torch.linalg.vector_norm((got - want).float(), dim=-1)
+    norm = torch.linalg.vector_norm(want.float(), dim=-1)
+    med = norm.median()
+    norm = torch.where(norm < 1e-3 * med, med, norm)
+    return float((diff / norm.clamp_min(1e-30)).max())
+
+
+def check_flash_pair(b, s, t, h, kh, d, causal, window, seed, timed=False) -> dict:
+    """The flash kernel pair in bf16 against its plain versions at one
+    shape: the forward's lse (f32, within 1e-5) and output of both
+    instances (online, normalise-first; per row within LM_KERNEL_TOL),
+    then dq, dk and dv from each instance's lse against the plain backward
+    (``grad_row_err`` within LM_KERNEL_TOL, and ``rel2`` over the tensor
+    within FLASH_GRAD_REL_TOL, which the plain backward with dS rounded to
+    bf16 alone, the control, must exceed on dq and on dk); two backward
+    calls bit-equal;
+    the forward's counter one a call, the backward's two (its two
+    kernels).  With ``timed``, at the normalise-first instance: the
+    forward with its lse and the backward, each kernel's device ms
+    (``flash_bf16_kernel``; ``flash_bwd_dq_kernel`` + ``flash_bwd_dkdv_kernel``),
+    their bound at the bf16 peak (the forward's three products over the
+    kept pairs, the backward's nine: ``work.flash_attention_bwd``), the
+    plain backward's ms, and SDPA's backward as ``library_ms`` (the
+    yardstick, which the port never calls; kv heads read by enable_gqa)."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q, k, v, do = (torch.randn(shp, generator=gen, device=dev).to(torch.bfloat16)
+                   for shp in ((b, s, h, d), (b, t, kh, d), (b, t, kh, d), (b, s, h, d)))
+    want, lse_want = flash_attention_plain(q, k, v, causal, window, with_lse=True)
+    res = {"shape": [b, s, t, h, kh, d], "causal": causal, "window": window}
+    tol = LM_KERNEL_TOL[torch.bfloat16]
+    for label, nf in (("online", False), ("normalise_first", True)):
+        f0, b0 = flash_attention.launches, flash_attention_bwd.launches
+        out, lse = flash_attention(q, k, v, causal=causal, window=window,
+                                   normalize_first=nf, return_lse=True)
+        grads = flash_attention_bwd(q, k, v, out, do, lse, causal=causal, window=window)
+        again = flash_attention_bwd(q, k, v, out, do, lse, causal=causal, window=window)
+        plain = flash_attention_bwd_plain(q, k, v, out, do, lse, causal, window)
+        coarse = flash_attention_bwd_plain(q, k, v, out, do, lse, causal, window,
+                                           ds_dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        row = {"out_err": row_err(out.float(), want.float()),
+               "lse_max_abs_err": float((lse - lse_want).abs().max()),
+               **{f"d{n}_err": grad_row_err(g, w) for n, g, w in zip("qkv", grads, plain)},
+               **{f"d{n}_rel": rel2(g, w) for n, g, w in zip("qkv", grads, plain)},
+               "bf16_ds_rel": [rel2(c, w) for c, w in zip(coarse[:2], plain[:2])],
+               "bit_equal": all(torch.equal(x, y) for x, y in zip(grads, again)),
+               "launches": [flash_attention.launches - f0, flash_attention_bwd.launches - b0]}
+        res[label] = row
+        del coarse
+        if not (row["out_err"] <= tol and row["lse_max_abs_err"] <= 1e-5
+                and max(row[f"d{n}_err"] for n in "qkv") <= tol
+                and max(row[f"d{n}_rel"] for n in "qkv") <= FLASH_GRAD_REL_TOL
+                and min(row["bf16_ds_rel"]) > FLASH_GRAD_REL_TOL and row["bit_equal"]
+                and row["launches"] == [1, 4]):
+            raise AssertionError(f"the flash kernel pair disagrees with its plain versions: "
+                                 f"{res} (tolerances {tol}, {FLASH_GRAD_REL_TOL})")
+    if timed:
+        out, lse = flash_attention(q, k, v, causal=causal, window=window,
+                                   normalize_first=True, return_lse=True)
+        pairs = attention_pairs(s, t, causal, window)
+        fwd_ops = 6 * b * h * d * pairs / PEAK_BF16_FLOPS * 1e3
+        bwd_flops, bwd_bytes = work.flash_attention_bwd(q, k, v, causal, window)
+        bwd_ops, bwd_mem = bwd_flops / PEAK_BF16_FLOPS * 1e3, bwd_bytes / PEAK_HBM_BYTES * 1e3
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True) for x in (q, k, v))
+        lib_out = torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=causal, enable_gqa=True)
+        dot = do.transpose(1, 2)
+
+        def bwd():
+            return flash_attention_bwd(q, k, v, out, do, lse, causal=causal, window=window)
+
+        res.update(
+            forward_nf_device_ms=device_ms(
+                lambda: flash_attention(q, k, v, causal=causal, window=window,
+                                        normalize_first=True, return_lse=True),
+                "flash_bf16_kernel", iters=10),
+            forward_online_device_ms=device_ms(
+                lambda: flash_attention(q, k, v, causal=causal, window=window),
+                "flash_bf16_kernel", iters=10),
+            forward_nf_bound_ms=fwd_ops,
+            ms=cuda_ms(bwd, iters=20),
+            device_ms=(device_ms(bwd, "flash_bwd_dq_kernel", iters=10)
+                       + device_ms(bwd, "flash_bwd_dkdv_kernel", iters=10)),
+            dq_device_ms=device_ms(bwd, "flash_bwd_dq_kernel", iters=10),
+            plain_ms=cuda_ms(lambda: flash_attention_bwd_plain(q, k, v, out, do, lse, causal,
+                                                               window), iters=5, warmup=1),
+            library_ms=cuda_ms(lambda: torch.autograd.grad(lib_out, (qt, kt, vt), dot,
+                                                           retain_graph=True), iters=20),
+            bound_ms=max(bwd_ops, bwd_mem),
+            bound_by="operations" if bwd_ops >= bwd_mem else "bytes",
+            gflop=bwd_flops / 1e9, mbytes=bwd_bytes / 1e6)
     return res
 
 
@@ -1682,6 +1824,26 @@ class RouterLog:
         blocks_module._router = self._orig
 
 
+class PlainAttention:
+    """Inside (where ``on``), ``attention_full`` declines the flash kernels
+    (``layers._flash_domain`` answers None) and runs its plain PyTorch
+    forms: "naive" the materialised softmax, "chunked" the online one.  A
+    "plain" setting then holds the kernels against plain PyTorch, not
+    against another of their own instances."""
+
+    def __init__(self, on: bool = True):
+        self.on = on
+
+    def __enter__(self):
+        self._orig = layers_module._flash_domain
+        if self.on:
+            layers_module._flash_domain = lambda *args, **kwargs: None
+        return self
+
+    def __exit__(self, *exc):
+        layers_module._flash_domain = self._orig
+
+
 def kept_sets(cfg, eidx: torch.Tensor) -> torch.Tensor:
     """Each token's experts that keep a slot at the capacity (one dispatch
     group of ``eidx``'s tokens, the rule of ``blocks._moe_group_sorted``),
@@ -1759,7 +1921,8 @@ def layerwise_prefill(model_k, model_p, params, lora, batch, fp32: bool = False)
     the worst ``norm_err`` of an output; the encoder-decoder by
     ``layerwise_encdec``.  With ``fp32`` (the hybrid's LoRA prefills) the
     outputs are held against fp32 (``Fp32Hold``) and the kernel path's
-    distance to the einsum path's is printed as ``x_kernel_vs_plain``."""
+    distance to the einsum path's is printed as ``x_kernel_vs_plain``.
+    The plain model's attention runs in plain PyTorch (``PlainAttention``)."""
     cfg = model_p.cfg
     if cfg.family == "encdec":
         return layerwise_encdec(model_k, model_p, params, lora, batch)
@@ -1781,7 +1944,7 @@ def layerwise_prefill(model_k, model_p, params, lora, batch, fp32: bool = False)
         p_l, lo_l = _layer(params["layers"], i), _layer(lora.get("layers", {}), i)
         with RouterLog() as log_k:
             yk, ck, _ = model_k.block["prefill"](model_k.cfg, p_l, lo_l, x, ctx)
-        with RouterLog() as log_p:
+        with RouterLog() as log_p, PlainAttention():
             yp, cp, _ = model_p.block["prefill"](cfg, p_l, lo_l, x, ctx)
         held(model_p.block, p_l, lo_l, yk, ck, yp, cp)
         if cfg.family == "moe":
@@ -1792,7 +1955,8 @@ def layerwise_prefill(model_k, model_p, params, lora, batch, fp32: bool = False)
         if i in ends:       # the hybrid's shared block after the segment
             p_s, lo_s = params["shared"], lora.get("shared")
             yk, ck, _ = blocks_module.dense_prefill(model_k.cfg, p_s, lo_s, x, ctx)
-            yp, cp, _ = blocks_module.dense_prefill(cfg, p_s, lo_s, x, ctx)
+            with PlainAttention():
+                yp, cp, _ = blocks_module.dense_prefill(cfg, p_s, lo_s, x, ctx)
             held(blocks_module.DENSE, p_s, lo_s, yk, ck, yp, cp)
             x = yp
     worst["logits"] = layer_err(cfg, model_k.unembed(params, yk[:, -1:]),
@@ -1814,7 +1978,8 @@ def layerwise_encdec(model_k, model_p, params, lora, batch) -> dict:
     both models on the same input (the plain model's), then every decoder
     layer against the plain model's encoder output: worst error of the
     encoder's and the decoder's outputs, of the decoder's self- and
-    cross-attention K/V, and of the last-token logits."""
+    cross-attention K/V, and of the last-token logits.  The plain model's
+    attention runs in plain PyTorch (``PlainAttention``)."""
     cfg = model_p.cfg
     x = batch["frames"].to(torch_dtype(cfg.dtype)) + params["enc_pos"][:batch["frames"].shape[1]][None]
     ctx = _enc_ctx(x.shape[1], x.device)
@@ -1824,8 +1989,9 @@ def layerwise_encdec(model_k, model_p, params, lora, batch) -> dict:
         p_l = _layer(params["enc_layers"], i)
         yk, _ = blocks_module.dense_train(model_k.cfg.with_(causal=False), p_l,
                                           _layer(lo_enc, i), x, ctx)
-        yp, _ = blocks_module.dense_train(cfg.with_(causal=False), p_l, _layer(lo_enc, i),
-                                          x, ctx)
+        with PlainAttention():
+            yp, _ = blocks_module.dense_train(cfg.with_(causal=False), p_l,
+                                              _layer(lo_enc, i), x, ctx)
         worst["enc_x"] = max(worst["enc_x"], norm_err(yk.float(), yp.float()))
         x = yp
     from repro_torch.models.layers import apply_norm
@@ -1835,7 +2001,8 @@ def layerwise_encdec(model_k, model_p, params, lora, batch) -> dict:
     for i in range(cfg.n_layers):
         p_l, lo_l = _layer(params["dec_layers"], i), _layer(lo_dec, i)
         yk, ck = model_k._dec_layer(p_l, lo_l, h, enc, ctxd)
-        yp, cp = model_p._dec_layer(p_l, lo_l, h, enc, ctxd)
+        with PlainAttention():
+            yp, cp = model_p._dec_layer(p_l, lo_l, h, enc, ctxd)
         worst["dec_x"] = max(worst["dec_x"], norm_err(yk.float(), yp.float()))
         for key in cp:
             worst[key] = max(worst.get(key, 0.0), norm_err(ck[key].float(), cp[key].float()))
@@ -2069,7 +2236,7 @@ def lm_phase(arch: str, seed: int, layers: Optional[int] = None,
     runs, prefill_rows = {}, {}
     for label, cfg in (("kernels", kernels_cfg), ("plain", plain_cfg)):
         m = build_model(cfg)
-        with torch.no_grad():
+        with torch.no_grad(), PlainAttention(label == "plain"):
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             reset_counts()                              # just before the path runs
@@ -2272,8 +2439,11 @@ def lm_phase_encdec(base, seed: int) -> dict:
     """``lm_phase`` for the encoder-decoder (whisper-large-v3) at full width
     and depth in bf16, random weights from ``seed``, on ``encdec_batch``:
     the prefill under attn_impl "chunked" (the encoder's 32 non-causal
-    attentions through the flash kernel, launches asserted) and "naive"
-    (no launch), held layer by layer (``layerwise_encdec``); the fused and
+    attentions through the flash kernel's online instance, the decoder's
+    64 self- and cross-attentions, "naive" in the reference, through its
+    normalise-first one; launches asserted) and "naive" in plain PyTorch
+    (``PlainAttention``: no launch), held layer by layer
+    (``layerwise_encdec``); the fused and
     the two-tenant grouped LoRA prefills (``lm_lora_prefill``: one bf16
     launch per adapted projection, 4 an encoder layer and 8 a decoder
     layer, every one on the wgmma tile); and the decode check
@@ -2307,7 +2477,7 @@ def lm_phase_encdec(base, seed: int) -> dict:
     runs, rows = {}, {}
     for label, cfg in (("kernels", kernels_cfg), ("plain", plain_cfg)):
         m = build_model(cfg)
-        with torch.no_grad():
+        with torch.no_grad(), PlainAttention(label == "plain"):
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             reset_counts()                              # just before the path runs
@@ -2428,12 +2598,13 @@ def prefill_projections(cfg, lora) -> int:
 def seq_launches(cfg) -> int:
     """Launches of the sequence kernel in one prefill: one a layer; the
     hybrid's flash one a segment (its Mamba2 SSD has no kernel); the
-    encoder-decoder's one an encoder layer (the decoder's attention is
-    plain, as in the reference)."""
+    encoder-decoder's one an encoder layer and two a decoder layer (its
+    decoder's self- and cross-attention are "naive", which on the card in
+    bf16 runs the flash kernel's normalise-first instance)."""
     if cfg.family == "hybrid":
         return n_segments(cfg)
     if cfg.family == "encdec":
-        return cfg.n_encoder_layers
+        return cfg.n_encoder_layers + 2 * cfg.n_layers
     return cfg.n_layers
 
 
@@ -4697,16 +4868,41 @@ def lm_train(arch: str, seed: int) -> dict:
     def total(*apps):
         return tuple(map(sum, zip(*apps)))
 
+    # the flash kernel pair, where the attention is in its domain under a
+    # gradient (bf16 at a head dim the backward has: whisper-large-v3's
+    # encoder, "chunked", and its decoder's self- and cross-attention,
+    # "naive"): a forward launch per attention a pass makes, the backward's
+    # two kernels per attention differentiated
+    pair = cfg.dtype == "bfloat16" and cfg.head_dim in BWD_HEAD_DIMS and cfg.family != "ssm"
+    if pair and cfg.family != "encdec":
+        raise AssertionError(f"{arch}: no rule for the flash pair's launches in "
+                             f"family {cfg.family}")
+
+    def attn(side, c=0):
+        """attention calls of a pass over a side at cut c (encoder layers
+        held by the client) in the pair's domain"""
+        if not pair:
+            return 0
+        enc, dec = cfg.n_encoder_layers, 2 * cfg.n_layers
+        return {"client": c, "server": enc - c + dec, "full": enc + dec}[side]
+
+    def fl(counts, fwd, diffed):
+        return {**counts, "flash_attention": fwd, "flash_attention_bwd": 2 * diffed}
+
     def split(c):   # the client's forward and dx, and the server step
         both = total(proj("client", c), proj("server", c))
-        return lm(both, both, frozen["client"] + frozen["server"])
+        return fl(lm(both, both, frozen["client"] + frozen["server"]), attn("full"),
+                  attn("full"))
 
-    want = {"server_sliced": lambda c: lm(proj("server", c), proj("server", c),
-                                          frozen["server"]),
+    want = {"server_sliced": lambda c: fl(lm(proj("server", c), proj("server", c),
+                                             frozen["server"]),
+                                          attn("server", c), attn("server", c)),
             "server_scan": lambda c: lm(proj("full"), proj("full")),
             "split": split,
-            "full": lambda remat: lm(proj("full", times=2 if remat else 1), proj("full"),
-                                     frozen["client"] + frozen["server"]),
+            # remat: each layer's forward again in the backward
+            "full": lambda remat: fl(lm(proj("full", times=2 if remat else 1), proj("full"),
+                                        frozen["client"] + frozen["server"]),
+                                     attn("full") * (2 if remat else 1), attn("full")),
             "vmap": lambda cuts: gl(proj("full")),
             "ragged": lambda cuts: gl(total(*(proj("server", c_) for c_ in set(cuts))),
                                       len(set(cuts)) * frozen["server"]),
@@ -5073,8 +5269,11 @@ def check_flash_long(seed: int) -> dict:
 
     lib = sdpa()
     res.update(ms=cuda_ms(lambda: flash_attention(q, k, v, causal=True), iters=5, warmup=1),
+               # windows of 10 calls: windows of 3 recorded [0, 3] and [0, 0, 0]
+               # launches on two runs (the profiler drops records, most in
+               # short windows)
                device_ms=device_ms(lambda: flash_attention(q, k, v, causal=True),
-                                   "flash_bf16_kernel", iters=3),
+                                   "flash_bf16_kernel", iters=10),
                plain_ms=None, library_ms=cuda_ms(sdpa, iters=5, warmup=1),
                library_err=row_err(lib.transpose(1, 2)[:, q0:].float(), want.float()),
                **bf16_bound(flops, nbytes))
@@ -5415,6 +5614,18 @@ def main() -> None:
                                 seed=82, timed=True)
     flash_whisper = check_flash(4, 1500, 1500, 20, 20, 64, False, None, torch.bfloat16,
                                 seed=83, timed=True)
+    # the kernel pair (the forward's lse and both instances, the backward):
+    # granite-3-2b's server step, 16 x 512, 32 heads on 8, D 64, causal
+    # (timed); ragged S and T, MQA, windows with and without causality
+    flash_pair = check_flash_pair(16, 512, 512, 32, 8, 64, True, None, seed=84, timed=True)
+    flash_pair_more = [check_flash_pair(*shape, causal, window, seed=86 + i)
+                       for i, (shape, causal, window) in enumerate((
+                           ((2, 65, 65, 8, 2, 64), True, None),
+                           ((2, 48, 80, 8, 2, 64), True, None),
+                           ((2, 48, 80, 8, 1, 64), False, None),
+                           ((1, 300, 300, 4, 1, 64), True, 100),
+                           ((2, 200, 150, 8, 2, 64), False, 64),
+                           ((1, 150, 70, 4, 2, 64), True, None)))]
     wkv_path = check_wkv(4, 2048, 40, 64, torch.bfloat16, torch.float32, seed=10,
                          timed=True)
     wkv_f32 = check_wkv(4, 2048, 40, 64, torch.float32, torch.float32, seed=11, timed=True)
@@ -5433,6 +5644,8 @@ def main() -> None:
     for c in (flash_path, flash_f32, *flash_gqa, *flash_bf16_dims, flash_gqa128, flash_112,
               flash_112_f32, flash_whisper):
         print(f"[kernel] flash_attention {json.dumps(c)}", flush=True)
+    for c in (flash_pair, *flash_pair_more):
+        print(f"[kernel] flash_attention pair {json.dumps(c)}", flush=True)
     for c in (wkv_path, wkv_f32, *wkv_ragged, *wkv_fast, *wkv_dims):
         print(f"[kernel] wkv6 {json.dumps(c)}", flush=True)
 
@@ -5743,7 +5956,23 @@ def main() -> None:
                                      ("zamba2_head_dim_112_fp32", flash_112_f32),
                                      ("whisper_encoder", flash_whisper))},
                  library="torch.nn.functional.scaled_dot_product_attention",
-                 library_err=flash_path["library_err"]),
+                 library_err=flash_path["library_err"],
+                 granite_server_step_pair={
+                     **{key: flash_pair[key] for key in
+                        ("shape", "online", "normalise_first", "forward_nf_device_ms",
+                         "forward_online_device_ms", "forward_nf_bound_ms", "ms",
+                         "device_ms", "dq_device_ms", "plain_ms", "library_ms",
+                         "bound_ms", "bound_by")},
+                     "ragged_grad_errs": {str(c["shape"]): max(
+                         c[inst][f"d{n}_err"] for inst in ("online", "normalise_first")
+                         for n in "qkv") for c in flash_pair_more}},
+                 normalise_first={label: {key: c[key] for key in
+                                          ("shape", "nf_err", "nf_device_ms", "device_ms",
+                                           "bound_ms")}
+                                  for label, c in (("gemma_2b", flash_path),
+                                                   ("head_dim_128_gqa_8", flash_gqa128),
+                                                   ("zamba2_head_dim_112", flash_112),
+                                                   ("whisper_encoder", flash_whisper))}),
          "library_ms": flash_path["library_ms"]},
         entry("wkv6", csrc + "wkv6.cu", "src/repro/kernels/rwkv6_scan.py:71",
               lm["rwkv6-3b"]["prefill"]["kernels"]["launches"]["wkv6"], wkv_path,

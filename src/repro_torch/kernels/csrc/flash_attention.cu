@@ -1,4 +1,5 @@
-// Online-softmax (flash) attention forward for Hopper (sm_90a):
+// Flash attention for Hopper (sm_90a): the online-softmax forward, its
+// normalise-first instance, and (bfloat16, D = 64) the backward:
 //
 //     out[b, s, h] = softmax_t(q[b, s, h] . k[b, t, h / G] * scale + mask) . v[b, t, h / G]
 //
@@ -68,6 +69,32 @@
 // traffic: 0.069 ms at 989 TFLOP/s on the tensor cores, 0.023 ms at
 // 3.35 TB/s; in fp32 1.03 ms at the CUDA cores' 67 TFLOP/s.  Times are in
 // PERF.md.
+//
+// bfloat16 also stores, where asked, each row's log-sum-exp lse = m + log l
+// (f32, (B, H, S)), and has a normalise-first instance for
+// attention_full(impl="naive"): a first sweep over the visible key tiles
+// (K alone) keeps m and l, and the second forms p = exp(s - lse) in f32
+// and rounds it to bf16 before P V, where the materialised softmax rounds
+// its probabilities; the output is not divided after.
+//
+// The backward (flash_bwd_dq_kernel, flash_bwd_dkdv_kernel, below) replaces
+// no TPU kernel: the reference's Pallas kernel has no VJP, so its training
+// steps differentiate the materialised attention.  It was added so that
+// the port's server and train steps differentiate attention without
+// materialising the f32 scores and probabilities (on granite-3-2b's server
+// step those were 62 % of the step's device time and 57 % of the memory
+// live at its backward).  What bounds it: operations.  It recomputes S in
+// each of its two kernels, forms dP twice, and runs dQ and dK as two
+// products each (the hi and lo terms of dS): nine products over the kept
+// pairs against the forward's two, about 4.5 times the forward's work;
+// at granite's server step (16 x 512, 32 heads on 8, D 64, causal) 77.5
+// GFLOP, 0.078 ms at 989 TFLOP/s, against 170 MB of traffic (0.051 ms).
+// What the design does about it: every product is a wgmma from shared
+// memory fed by a TMA ring, nothing of size S x T leaves the registers,
+// the dK/dV block keeps K and V resident and walks the group's query
+// heads so their GQA sum never leaves its accumulators, and each kernel
+// visits only the tiles its mask keeps; the recompute and the split buy a
+// backward with no atomics (bit-equal run to run) and no S x T tape.
 
 #include <cuda_bf16.h>
 #include <stdint.h>
@@ -403,25 +430,36 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// the K and V panels of key tile ``jt`` into stage ``st``
+// the K (and, with ``with_v``, V) panels of key tile ``jt`` into one stage
 template <int D>
 __device__ __forceinline__ void load_kv(uint32_t k_s, uint32_t v_s, uint32_t bar,
                                         const CUtensorMap* tk, const CUtensorMap* tv, int jt,
-                                        int kh, int b) {
+                                        int kh, int b, bool with_v = true) {
   using C = Cfg<D>;
-  mbar_expect_tx(bar, 2 * C::KV_BYTES);
+  mbar_expect_tx(bar, (with_v ? 2 : 1) * C::KV_BYTES);
 #pragma unroll
   for (int p = 0; p < C::NP; ++p) {
     tma_load_4d(k_s + p * C::KV_PANEL, tk, p * C::PW, jt * BKV, kh, b, bar);
-    tma_load_4d(v_s + p * C::KV_PANEL, tv, p * C::PW, jt * BKV, kh, b, bar);
+    if (with_v) tma_load_4d(v_s + p * C::KV_PANEL, tv, p * C::PW, jt * BKV, kh, b, bar);
   }
 }
 
-template <int D>
-__global__ void __launch_bounds__(THREADS, 1)
+// NF (normalise first, the naive instance): a first sweep over the visible
+// key tiles keeps only m and l; the second forms p = exp(s - lse) with
+// lse = m + log l and rounds it to bf16 before P V, so the output is the
+// materialised softmax's, rounded where it rounds.  Otherwise one sweep of
+// the online form.  LSE: ``lse`` (fp32, (B, H, S)) receives m + log l of
+// every row (an instance of its own, so the instances that store none are
+// the one-sweep body as it was).  At D <= 64 a thread's registers are held
+// to 128, so that two blocks share an SM (the tile's shared memory, 49 KB at
+// D = 64, allows it): the one block an SM that 129 or more registers leave
+// ran the granite-3-2b and whisper-large-v3 shapes ~30 % slower.
+template <int D, bool NF, bool LSE>
+__global__ void __launch_bounds__(THREADS, D <= 64 ? 2 : 1)
 flash_bf16_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
-                  const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ o, int S,
-                  int Tn, int H, int KH, int causal, int window, float scale) {
+                  const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ o,
+                  float* __restrict__ lse, int S, int Tn, int H, int KH, int causal, int window,
+                  float scale) {
   using C = Cfg<D>;
   constexpr int NO = C::DP / 2;    // O accumulators a thread
   extern __shared__ unsigned char smem_raw[];
@@ -444,6 +482,8 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant_
   key_range(q0, min(q0 + BQ, S) - 1, Tn, causal, window, k_lo, k_hi);
   const int jt0 = k_lo / BKV;
   const int nt = (k_hi + BKV - 1) / BKV - jt0;
+  // NF sweeps the tiles twice, K alone the first time
+  const int nit = NF ? 2 * nt : nt;
 
   if (tid == 0) {
 #pragma unroll
@@ -457,7 +497,7 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant_
 #pragma unroll
     for (int p = 0; p < C::NP; ++p)
       tma_load_4d(q_s + p * C::Q_PANEL, &tq, p * C::PW, q0, h, b, bar0);
-    if (nt > 0) load_kv<D>(kv_s, kv_s + C::KV_BYTES, bar0 + 8, &tk, &tv, jt0, kh, b);
+    if (nt > 0) load_kv<D>(kv_s, kv_s + C::KV_BYTES, bar0 + 8, &tk, &tv, jt0, kh, b, !NF);
   }
 
   // this thread's rows: r0 and r0 + 8; its columns of a tile 8j + 2t4 + {0, 1}
@@ -466,18 +506,24 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant_
 #pragma unroll
   for (int i = 0; i < NO; ++i) acc[i] = 0.f;
   float m0 = NEG_INF, m1 = NEG_INF, l0 = 0.f, l1 = 0.f;
+  // NF: what the second sweep subtracts, lse (m for a row that sees no key,
+  // whose p = 1 entries are then averaged at the end)
+  float sub0 = 0.f, sub1 = 0.f;
   const uint32_t q_wg = q_s + wg * 64 * C::ROWB;   // this warpgroup's 64 rows
 
   mbar_wait(bar0, 0);
-  for (int it = 0; it < nt; ++it) {
+  for (int it = 0; it < nit; ++it) {
     const int st = it & 1;
+    const bool stats = NF && it < nt;               // the first sweep
+    const int jt = jt0 + (NF && it >= nt ? it - nt : it);
     const uint32_t k_s = kv_s + st * 2 * C::KV_BYTES, v_s = k_s + C::KV_BYTES;
-    if (tid == 0 && it + 1 < nt) {
+    if (tid == 0 && it + 1 < nit) {
       // the other stage held tile it - 1: wait until every thread is done with it
       if (it > 0) mbar_wait(bar0 + 8 * (3 + (st ^ 1)), ((it - 1) >> 1) & 1);
+      const int nx = it + 1;
       const uint32_t k_n = kv_s + (st ^ 1) * 2 * C::KV_BYTES;
-      load_kv<D>(k_n, k_n + C::KV_BYTES, bar0 + 8 * (1 + (st ^ 1)), &tk, &tv, jt0 + it + 1,
-                 kh, b);
+      load_kv<D>(k_n, k_n + C::KV_BYTES, bar0 + 8 * (1 + (st ^ 1)), &tk, &tv,
+                 jt0 + (NF && nx >= nt ? nx - nt : nx), kh, b, !(NF && nx < nt));
     }
     mbar_wait(bar0 + 8 * (1 + st), (it >> 1) & 1);
 
@@ -497,8 +543,9 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant_
     wgmma_wait_all();
     reg_fence(s);
 
-    // masks and the online softmax, rows r0 (s[4j], s[4j+1]) and r1 (s[4j+2], s[4j+3])
-    const int kbase = (jt0 + it) * BKV;
+    // masks and the tile's row maxima, rows r0 (s[4j], s[4j+1]) and r1
+    // (s[4j+2], s[4j+3])
+    const int kbase = jt * BKV;
     float mx0 = NEG_INF, mx1 = NEG_INF;
 #pragma unroll
     for (int j = 0; j < 8; ++j)
@@ -511,41 +558,65 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant_
         mx0 = fmaxf(mx0, s[4 * j + c]);
         mx1 = fmaxf(mx1, s[4 * j + 2 + c]);
       }
-#pragma unroll
-    for (int off = 1; off < 4; off <<= 1) {
-      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
-      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
-    }
-    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
-    const float corr0 = expf(m0 - mn0), corr1 = expf(m1 - mn1);
-    float rs0 = 0.f, rs1 = 0.f;
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int c = 0; c < 2; ++c) {
-        const bool in = kbase + 8 * j + 2 * t4 + c < Tn;
-        const float p0 = in ? expf(s[4 * j + c] - mn0) : 0.f;
-        const float p1 = in ? expf(s[4 * j + 2 + c] - mn1) : 0.f;
-        s[4 * j + c] = p0;
-        s[4 * j + 2 + c] = p1;
-        rs0 += p0;
-        rs1 += p1;
+    if constexpr (NF) {
+      if (it == nt) {
+        sub0 = m0 == NEG_INF ? m0 : m0 + logf(l0);
+        sub1 = m1 == NEG_INF ? m1 : m1 + logf(l1);
       }
-#pragma unroll
-    for (int off = 1; off < 4; off <<= 1) {
-      rs0 += __shfl_xor_sync(0xffffffffu, rs0, off);
-      rs1 += __shfl_xor_sync(0xffffffffu, rs1, off);
     }
-    l0 = l0 * corr0 + rs0;
-    l1 = l1 * corr1 + rs1;
-    m0 = mn0;
-    m1 = mn1;
+    if (!NF || stats) {
+      // the online softmax's running max and normalizer
 #pragma unroll
-    for (int j = 0; j < NO / 4; ++j) {
-      acc[4 * j] *= corr0;
-      acc[4 * j + 1] *= corr0;
-      acc[4 * j + 2] *= corr1;
-      acc[4 * j + 3] *= corr1;
+      for (int off = 1; off < 4; off <<= 1) {
+        mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+        mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+      }
+      const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+      const float corr0 = expf(m0 - mn0), corr1 = expf(m1 - mn1);
+      float rs0 = 0.f, rs1 = 0.f;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const bool in = kbase + 8 * j + 2 * t4 + c < Tn;
+          const float p0 = in ? expf(s[4 * j + c] - mn0) : 0.f;
+          const float p1 = in ? expf(s[4 * j + 2 + c] - mn1) : 0.f;
+          s[4 * j + c] = p0;
+          s[4 * j + 2 + c] = p1;
+          rs0 += p0;
+          rs1 += p1;
+        }
+#pragma unroll
+      for (int off = 1; off < 4; off <<= 1) {
+        rs0 += __shfl_xor_sync(0xffffffffu, rs0, off);
+        rs1 += __shfl_xor_sync(0xffffffffu, rs1, off);
+      }
+      l0 = l0 * corr0 + rs0;
+      l1 = l1 * corr1 + rs1;
+      m0 = mn0;
+      m1 = mn1;
+      if constexpr (NF) {
+        mbar_arrive(bar0 + 8 * (3 + st));   // the first sweep reads no V
+        continue;
+      } else {
+#pragma unroll
+        for (int j = 0; j < NO / 4; ++j) {
+          acc[4 * j] *= corr0;
+          acc[4 * j + 1] *= corr0;
+          acc[4 * j + 2] *= corr1;
+          acc[4 * j + 3] *= corr1;
+        }
+      }
+    } else {
+      // the normalised probabilities, exp(s - lse), f32
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const bool in = kbase + 8 * j + 2 * t4 + c < Tn;
+          s[4 * j + c] = in ? expf(s[4 * j + c] - sub0) : 0.f;
+          s[4 * j + 2 + c] = in ? expf(s[4 * j + 2 + c] - sub1) : 0.f;
+        }
     }
 
     // O += P V, P rounded to bf16 as the A fragment of each k16 slice; all
@@ -569,12 +640,16 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant_
     mbar_arrive(bar0 + 8 * (3 + st));
   }
 
-  const float den0 = fmaxf(l0, 1e-30f), den1 = fmaxf(l1, 1e-30f);
+  // NF divides only a row that sees no key (by its count of keys)
+  const float den0 = NF ? (m0 == NEG_INF ? l0 : 1.f) : fmaxf(l0, 1e-30f);
+  const float den1 = NF ? (m1 == NEG_INF ? l1 : 1.f) : fmaxf(l1, 1e-30f);
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
     const int qi = half ? r1 : r0;
     if (qi >= S) continue;
     const float den = half ? den1 : den0;
+    if (LSE && t4 == 0)
+      lse[((long long)b * H + h) * S + qi] = half ? m1 + logf(l1) : m0 + logf(l0);
     __nv_bfloat16* __restrict__ ob = o + (((long long)b * S + qi) * H + h) * D + 2 * t4;
 #pragma unroll
     for (int j = 0; j < NO / 4; ++j) {
@@ -610,9 +685,9 @@ bool encode(CUtensorMap* map, const void* ptr, int D, int rows, int heads, int b
   return rc == CUDA_SUCCESS;
 }
 
-template <int D>
-int launch(const void* q, const void* k, const void* v, void* o, int B, int S, int Tn, int H,
-           int KH, const long long* st, int causal, int window, float scale,
+template <int D, bool NF, bool LSE>
+int launch(const void* q, const void* k, const void* v, void* o, float* lse, int B, int S,
+           int Tn, int H, int KH, const long long* st, int causal, int window, float scale,
            cudaStream_t stream) {
   using C = Cfg<D>;
   CUtensorMap tq, tk, tv;
@@ -620,7 +695,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int S, i
       !encode(&tk, k, D, Tn, KH, B, st[4], st[5], st[3], C::PW, BKV, C::SWIZZLE) ||
       !encode(&tv, v, D, Tn, KH, B, st[7], st[8], st[6], C::PW, BKV, C::SWIZZLE))
     return (int)cudaErrorInvalidValue;
-  auto kern = flash_bf16_kernel<D>;
+  auto kern = flash_bf16_kernel<D, NF, LSE>;
   // the shared-memory opt-in acts on the current device only: made on every
   // launch, so a launch on another card has it too
   const cudaError_t err =
@@ -629,8 +704,445 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int S, i
   const int nq = (S + BQ - 1) / BQ;
   if (nq > 65535) return (int)cudaErrorInvalidValue;
   const dim3 grid(B * H, nq);      // y: the last query tiles first, over every head
-  kern<<<grid, THREADS, C::SMEM, stream>>>(tq, tk, tv, static_cast<__nv_bfloat16*>(o), S, Tn,
-                                           H, KH, causal, window, scale);
+  kern<<<grid, THREADS, C::SMEM, stream>>>(tq, tk, tv, static_cast<__nv_bfloat16*>(o), lse, S,
+                                           Tn, H, KH, causal, window, scale);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------- backward --
+//
+// Two kernels, launched in turn on one stream; neither uses atomics, so
+// every gradient is summed in one fixed order and two calls are bit-equal.
+// Both recompute S by wgmma and P = exp(S scale - lse) in f32 from the
+// forward's lse (keys and queries past T and S, and masked pairs, give
+// P = 0), and form dP = dO V^T in f32 and dS = P (dP - Delta).  dS enters
+// dQ and dK as two bf16 terms, hi = bf16(dS) and lo = bf16(dS - hi), each
+// a register-A wgmma against the same tile, so the products keep about 16
+// bits of dS (the plain backward's are f32).  P enters dV as bf16(P), the
+// rounding the forward's P V made.
+
+constexpr int BKB = 128;           // keys of a dK/dV block, 64 a warpgroup
+constexpr int BQB = 64;            // query rows of a dK/dV step
+
+template <int D> struct BwdCfg {
+  using C = Cfg<D>;
+  static_assert(C::NP == 1 && C::DP == D, "the backward takes one swizzled panel");
+  static constexpr int KB_BYTES = BKB * C::ROWB;      // the block's K or V tile
+  static constexpr int QB_BYTES = BQB * C::ROWB;      // one step's Q or dO tile
+  // dQ: Q and dO resident, two stages of K and V; dK/dV: K and V resident,
+  // two stages of Q and dO; each with 1024 bytes to align the base
+  static constexpr size_t SMEM_DQ = (size_t)2 * C::Q_BYTES + 4 * C::KV_BYTES + 1024;
+  static constexpr size_t SMEM_DKV = (size_t)2 * KB_BYTES + 4 * QB_BYTES + 1024;
+};
+
+// hi = bf16(x), lo = bf16(x - hi), as register-A fragments of a k16 slice
+__device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi, uint32_t& lo) {
+  const __nv_bfloat162 h2 = __floats2bfloat162_rn(x0, x1);
+  const float2 hf = __bfloat1622float2(h2);
+  hi = *reinterpret_cast<const uint32_t*>(&h2);
+  lo = pack_bf16(x0 - hf.x, x1 - hf.y);
+}
+
+// dQ = scale dS K and Delta = rowsum(dO o O).  One block of two warpgroups
+// owns 128 query rows of one (batch, head), as the forward's does, and
+// walks the key tiles they see through a two-stage TMA ring of K and V.
+// Per key tile of 64:
+//   S  = Q K^T    wgmma m64n64k16, both K-major in shared memory
+//   dP = dO V^T   the same with dO and V
+//   dQ += dS K    two register-A wgmma m64nDk16 (hi, lo), K N-major
+// Delta comes first, from global dO and O (16 columns a thread, summed
+// over the quad), and is stored for the dK/dV kernel, which runs next.
+template <int D>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                    const __grid_constant__ CUtensorMap tv,
+                    const __grid_constant__ CUtensorMap tdo,
+                    const __nv_bfloat16* __restrict__ o, const __nv_bfloat16* __restrict__ dout,
+                    const float* __restrict__ lse, float* __restrict__ delta,
+                    __nv_bfloat16* __restrict__ dq, int S, int Tn, int H, int KH, int causal,
+                    int window, float scale) {
+  using C = Cfg<D>;
+  extern __shared__ unsigned char smem_raw[];
+  // Q and dO; K/V stage 0 and 1 full; stage 0 and 1 empty
+  __shared__ __align__(8) uint64_t bars[5];
+
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t q_s = base, do_s = base + C::Q_BYTES;
+  const uint32_t kv_s = base + 2 * C::Q_BYTES;   // stage st: K at + 2 st KV_BYTES, V after
+  const uint32_t bar0 = smem_u32(&bars[0]);
+
+  const int tid = threadIdx.x;
+  const int wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int b = (int)blockIdx.x / H, h = (int)blockIdx.x % H;
+  const int kh = h / (H / KH);
+  const int q0 = ((int)gridDim.y - 1 - (int)blockIdx.y) * BQ;
+  int k_lo, k_hi;
+  key_range(q0, min(q0 + BQ, S) - 1, Tn, causal, window, k_lo, k_hi);
+  const int jt0 = k_lo / BKV;
+  const int nt = (k_hi + BKV - 1) / BKV - jt0;
+
+  if (tid == 0) {
+#pragma unroll
+    for (int i = 0; i < 5; ++i) mbar_init(bar0 + 8 * i, i < 3 ? 1 : THREADS);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (tid == 0) {
+    mbar_expect_tx(bar0, 2 * C::Q_BYTES);
+    tma_load_4d(q_s, &tq, 0, q0, h, b, bar0);
+    tma_load_4d(do_s, &tdo, 0, q0, h, b, bar0);
+    if (nt > 0) load_kv<D>(kv_s, kv_s + C::KV_BYTES, bar0 + 8, &tk, &tv, jt0, kh, b);
+  }
+
+  const int r0 = q0 + wg * 64 + warp * 16 + g, r1 = r0 + 8;
+  // Delta and lse of rows r0 and r1
+  float dl[2], ls[2];
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int qi = half ? r1 : r0;
+    float sum = 0.f;
+    ls[half] = 0.f;
+    if (qi < S) {
+      const long long off = (((long long)b * S + qi) * H + h) * D + t4 * (D / 4);
+#pragma unroll
+      for (int c = 0; c < D / 4; c += 8) {
+        const uint4 a = *reinterpret_cast<const uint4*>(dout + off + c);
+        const uint4 z = *reinterpret_cast<const uint4*>(o + off + c);
+        const __nv_bfloat162* pa = reinterpret_cast<const __nv_bfloat162*>(&a);
+        const __nv_bfloat162* pz = reinterpret_cast<const __nv_bfloat162*>(&z);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float2 fa = __bfloat1622float2(pa[e]), fz = __bfloat1622float2(pz[e]);
+          sum = fmaf(fa.x, fz.x, sum);
+          sum = fmaf(fa.y, fz.y, sum);
+        }
+      }
+      ls[half] = lse[((long long)b * H + h) * S + qi];
+    }
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+    dl[half] = sum;
+    if (t4 == 0 && qi < S) delta[((long long)b * H + h) * S + qi] = sum;
+  }
+
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  const uint32_t q_wg = q_s + wg * 64 * C::ROWB, do_wg = do_s + wg * 64 * C::ROWB;
+
+  mbar_wait(bar0, 0);
+  for (int it = 0; it < nt; ++it) {
+    const int st = it & 1;
+    const uint32_t k_s = kv_s + st * 2 * C::KV_BYTES, v_s = k_s + C::KV_BYTES;
+    if (tid == 0 && it + 1 < nt) {
+      if (it > 0) mbar_wait(bar0 + 8 * (3 + (st ^ 1)), ((it - 1) >> 1) & 1);
+      const uint32_t k_n = kv_s + (st ^ 1) * 2 * C::KV_BYTES;
+      load_kv<D>(k_n, k_n + C::KV_BYTES, bar0 + 8 * (1 + (st ^ 1)), &tk, &tv, jt0 + it + 1,
+                 kh, b);
+    }
+    mbar_wait(bar0 + 8 * (1 + st), (it >> 1) & 1);
+
+    float s[32], dp[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      s[i] = 0.f;
+      dp[i] = 0.f;
+    }
+    reg_fence(s);
+    reg_fence(dp);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_qk(s, make_desc(q_wg + kk * 32, 16, C::SBO, C::LAYOUT),
+               make_desc(k_s + kk * 32, 16, C::SBO, C::LAYOUT), kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_qk(dp, make_desc(do_wg + kk * 32, 16, C::SBO, C::LAYOUT),
+               make_desc(v_s + kk * 32, 16, C::SBO, C::LAYOUT), kk > 0);
+    wgmma_commit();
+    wgmma_wait_all();
+    reg_fence(s);
+    reg_fence(dp);
+
+    // P and dS in place of S, rows r0 (s[4j], s[4j+1]) and r1 (s[4j+2], s[4j+3])
+    const int kbase = (jt0 + it) * BKV;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int kj = kbase + 8 * j + 2 * t4 + c;
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int i = 4 * j + 2 * half + c;
+          const int qi = half ? r1 : r0;
+          const float p = qi < S && visible(qi, kj, Tn, causal, window)
+                              ? expf(s[i] * scale - ls[half])
+                              : 0.f;
+          s[i] = p * (dp[i] - dl[half]);
+        }
+      }
+    uint32_t hi[BKV / 16][4], lo[BKV / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < BKV / 16; ++kk)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        split_bf16(s[8 * kk + 2 * e], s[8 * kk + 2 * e + 1], hi[kk][e], lo[kk][e]);
+    reg_fence(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BKV / 16; ++kk)
+      wgmma_pv<D>(acc, lo[kk],
+                  make_desc(k_s + kk * 16 * C::ROWB, C::KV_PANEL, C::SBO, C::LAYOUT));
+#pragma unroll
+    for (int kk = 0; kk < BKV / 16; ++kk)
+      wgmma_pv<D>(acc, hi[kk],
+                  make_desc(k_s + kk * 16 * C::ROWB, C::KV_PANEL, C::SBO, C::LAYOUT));
+    wgmma_commit();
+    wgmma_wait_all();
+    reg_fence(acc);
+    mbar_arrive(bar0 + 8 * (3 + st));
+  }
+
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int qi = half ? r1 : r0;
+    if (qi >= S) continue;
+    __nv_bfloat16* __restrict__ out = dq + (((long long)b * S + qi) * H + h) * D + 2 * t4;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(out + 8 * j) = __floats2bfloat162_rn(
+          acc[4 * j + 2 * half] * scale, acc[4 * j + 2 * half + 1] * scale);
+  }
+}
+
+// dK = scale dS^T Q and dV = bf16(P)^T dO.  One block of two warpgroups
+// owns 128 keys of one (batch, kv head), 64 a warpgroup, with K and V
+// resident; it walks the group's G query heads and, for each, the query
+// tiles of 64 that see its keys, through a two-stage TMA ring of Q and dO.
+// Transposed, so that the keys are the rows of every accumulator and P^T
+// and dS^T are register-A fragments:
+//   S^T  = K Q^T     wgmma m64n64k16, both K-major in shared memory
+//   dP^T = V dO^T    the same with V and dO
+//   dV  += P^T dO    register-A wgmma m64nDk16, dO N-major
+//   dK  += dS^T Q    two register-A wgmma m64nDk16 (hi, lo), Q N-major
+// The sum over the G heads stays in the accumulators; dK and dV are stored
+// once, in bf16.  lse and Delta of a step's 16 query columns a thread come
+// from global memory (L2) before the step's products.
+template <int D>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tq,
+                      const __grid_constant__ CUtensorMap tk,
+                      const __grid_constant__ CUtensorMap tv,
+                      const __grid_constant__ CUtensorMap tdo, const float* __restrict__ lse,
+                      const float* __restrict__ delta, __nv_bfloat16* __restrict__ dk,
+                      __nv_bfloat16* __restrict__ dv, int S, int Tn, int H, int KH, int causal,
+                      int window, float scale) {
+  using C = Cfg<D>;
+  using BC = BwdCfg<D>;
+  extern __shared__ unsigned char smem_raw[];
+  // K and V; Q/dO stage 0 and 1 full; stage 0 and 1 empty
+  __shared__ __align__(8) uint64_t bars[5];
+
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t k_s = base, v_s = base + BC::KB_BYTES;
+  const uint32_t qd_s = base + 2 * BC::KB_BYTES;   // stage st: Q at + 2 st QB_BYTES, dO after
+  const uint32_t bar0 = smem_u32(&bars[0]);
+
+  const int tid = threadIdx.x;
+  const int wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int b = (int)blockIdx.x / KH, kh = (int)blockIdx.x % KH;
+  const int G = H / KH;
+  const int k0 = (int)blockIdx.y * BKB;
+  const int k1 = min(k0 + BKB, Tn) - 1;
+  // the query rows that see a key of [k0, k1]
+  const int q_lo = causal ? k0 : 0;
+  const int q_hi = window > 0 ? min(S, k1 + window) : S;
+  const int qt0 = q_lo / BQB;
+  const int nqt = q_hi > q_lo ? (q_hi + BQB - 1) / BQB - qt0 : 0;
+  const int nit = G * nqt;
+
+  if (tid == 0) {
+#pragma unroll
+    for (int i = 0; i < 5; ++i) mbar_init(bar0 + 8 * i, i < 3 ? 1 : THREADS);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (tid == 0) {
+    mbar_expect_tx(bar0, 2 * BC::KB_BYTES);
+    tma_load_4d(k_s, &tk, 0, k0, kh, b, bar0);
+    tma_load_4d(v_s, &tv, 0, k0, kh, b, bar0);
+    if (nit > 0) {
+      mbar_expect_tx(bar0 + 8, 2 * BC::QB_BYTES);
+      tma_load_4d(qd_s, &tq, 0, qt0 * BQB, kh * G, b, bar0 + 8);
+      tma_load_4d(qd_s + BC::QB_BYTES, &tdo, 0, qt0 * BQB, kh * G, b, bar0 + 8);
+    }
+  }
+
+  // this thread's keys: kr0 and kr0 + 8; its query columns of a step 8j + 2t4 + {0, 1}
+  const int kr0 = k0 + wg * 64 + warp * 16 + g, kr1 = kr0 + 8;
+  float dka[D / 2], dva[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) {
+    dka[i] = 0.f;
+    dva[i] = 0.f;
+  }
+  const uint32_t k_wg = k_s + wg * 64 * C::ROWB, v_wg = v_s + wg * 64 * C::ROWB;
+
+  mbar_wait(bar0, 0);
+  for (int it = 0; it < nit; ++it) {
+    const int st = it & 1;
+    const int h = kh * G + it / nqt;
+    const int qbase = (qt0 + it % nqt) * BQB;
+    const uint32_t q_st = qd_s + st * 2 * BC::QB_BYTES, do_st = q_st + BC::QB_BYTES;
+    if (tid == 0 && it + 1 < nit) {
+      if (it > 0) mbar_wait(bar0 + 8 * (3 + (st ^ 1)), ((it - 1) >> 1) & 1);
+      const uint32_t q_n = qd_s + (st ^ 1) * 2 * BC::QB_BYTES;
+      const uint32_t bar = bar0 + 8 * (1 + (st ^ 1));
+      const int hn = kh * G + (it + 1) / nqt, qn = (qt0 + (it + 1) % nqt) * BQB;
+      mbar_expect_tx(bar, 2 * BC::QB_BYTES);
+      tma_load_4d(q_n, &tq, 0, qn, hn, b, bar);
+      tma_load_4d(q_n + BC::QB_BYTES, &tdo, 0, qn, hn, b, bar);
+    }
+    // lse and Delta of this thread's 16 query columns
+    float ls[16], dl[16];
+    const long long row0 = ((long long)b * H + h) * S;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int qi = qbase + 8 * j + 2 * t4 + c;
+        ls[2 * j + c] = qi < S ? __ldg(lse + row0 + qi) : 0.f;
+        dl[2 * j + c] = qi < S ? __ldg(delta + row0 + qi) : 0.f;
+      }
+    mbar_wait(bar0 + 8 * (1 + st), (it >> 1) & 1);
+
+    float s[32], dp[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      s[i] = 0.f;
+      dp[i] = 0.f;
+    }
+    reg_fence(s);
+    reg_fence(dp);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_qk(s, make_desc(k_wg + kk * 32, 16, C::SBO, C::LAYOUT),
+               make_desc(q_st + kk * 32, 16, C::SBO, C::LAYOUT), kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_qk(dp, make_desc(v_wg + kk * 32, 16, C::SBO, C::LAYOUT),
+               make_desc(do_st + kk * 32, 16, C::SBO, C::LAYOUT), kk > 0);
+    wgmma_commit();
+    wgmma_wait_all();
+    reg_fence(s);
+    reg_fence(dp);
+
+    // P^T in place of S^T and dS^T in place of dP^T, keys kr0 (s[4j],
+    // s[4j+1]) and kr1 (s[4j+2], s[4j+3]) against columns 8j + 2t4 + c
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int qi = qbase + 8 * j + 2 * t4 + c;
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int i = 4 * j + 2 * half + c;
+          const float p = qi < S && visible(qi, half ? kr1 : kr0, Tn, causal, window)
+                              ? expf(s[i] * scale - ls[2 * j + c])
+                              : 0.f;
+          s[i] = p;
+          dp[i] = p * (dp[i] - dl[2 * j + c]);
+        }
+      }
+    uint32_t pa[BQB / 16][4], hi[BQB / 16][4], lo[BQB / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < BQB / 16; ++kk)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        pa[kk][e] = pack_bf16(s[8 * kk + 2 * e], s[8 * kk + 2 * e + 1]);
+        split_bf16(dp[8 * kk + 2 * e], dp[8 * kk + 2 * e + 1], hi[kk][e], lo[kk][e]);
+      }
+    reg_fence(dva);
+    reg_fence(dka);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BQB / 16; ++kk)
+      wgmma_pv<D>(dva, pa[kk],
+                  make_desc(do_st + kk * 16 * C::ROWB, BC::QB_BYTES, C::SBO, C::LAYOUT));
+#pragma unroll
+    for (int kk = 0; kk < BQB / 16; ++kk)
+      wgmma_pv<D>(dka, lo[kk],
+                  make_desc(q_st + kk * 16 * C::ROWB, BC::QB_BYTES, C::SBO, C::LAYOUT));
+#pragma unroll
+    for (int kk = 0; kk < BQB / 16; ++kk)
+      wgmma_pv<D>(dka, hi[kk],
+                  make_desc(q_st + kk * 16 * C::ROWB, BC::QB_BYTES, C::SBO, C::LAYOUT));
+    wgmma_commit();
+    wgmma_wait_all();
+    reg_fence(dva);
+    reg_fence(dka);
+    mbar_arrive(bar0 + 8 * (3 + st));
+  }
+
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int kj = half ? kr1 : kr0;
+    if (kj >= Tn) continue;
+    const long long off = (((long long)b * Tn + kj) * KH + kh) * D + 2 * t4;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      *reinterpret_cast<__nv_bfloat162*>(dk + off + 8 * j) = __floats2bfloat162_rn(
+          dka[4 * j + 2 * half] * scale, dka[4 * j + 2 * half + 1] * scale);
+      *reinterpret_cast<__nv_bfloat162*>(dv + off + 8 * j) =
+          __floats2bfloat162_rn(dva[4 * j + 2 * half], dva[4 * j + 2 * half + 1]);
+    }
+  }
+}
+
+template <int D>
+int launch_bwd(const void* q, const void* k, const void* v, const void* o, const void* dout,
+               const float* lse, float* delta, void* dq, void* dk, void* dv, int B, int S,
+               int Tn, int H, int KH, const long long* st, int causal, int window, float scale,
+               cudaStream_t stream) {
+  using C = Cfg<D>;
+  using BC = BwdCfg<D>;
+  // dO, dQ and O contiguous (B, S, H, D); dK and dV contiguous (B, T, KH, D)
+  const long long dss = (long long)H * D, dsb = (long long)S * H * D;
+  CUtensorMap tq, tk, tv, tdo, tq2, tk2, tv2, tdo2;
+  if (!encode(&tq, q, D, S, H, B, st[1], st[2], st[0], C::PW, BQ, C::SWIZZLE) ||
+      !encode(&tdo, dout, D, S, H, B, dss, D, dsb, C::PW, BQ, C::SWIZZLE) ||
+      !encode(&tk, k, D, Tn, KH, B, st[4], st[5], st[3], C::PW, BKV, C::SWIZZLE) ||
+      !encode(&tv, v, D, Tn, KH, B, st[7], st[8], st[6], C::PW, BKV, C::SWIZZLE) ||
+      !encode(&tq2, q, D, S, H, B, st[1], st[2], st[0], C::PW, BQB, C::SWIZZLE) ||
+      !encode(&tdo2, dout, D, S, H, B, dss, D, dsb, C::PW, BQB, C::SWIZZLE) ||
+      !encode(&tk2, k, D, Tn, KH, B, st[4], st[5], st[3], C::PW, BKB, C::SWIZZLE) ||
+      !encode(&tv2, v, D, Tn, KH, B, st[7], st[8], st[6], C::PW, BKB, C::SWIZZLE))
+    return (int)cudaErrorInvalidValue;
+  const int nq = (S + BQ - 1) / BQ, nk = (Tn + BKB - 1) / BKB;
+  if (nq > 65535 || nk > 65535) return (int)cudaErrorInvalidValue;
+  auto kq = flash_bwd_dq_kernel<D>;
+  auto kkv = flash_bwd_dkdv_kernel<D>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kq, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)BC::SMEM_DQ);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaFuncSetAttribute(kkv, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)BC::SMEM_DKV);
+  if (err != cudaSuccess) return (int)err;
+  kq<<<dim3(B * H, nq), THREADS, BC::SMEM_DQ, stream>>>(
+      tq, tk, tv, tdo, static_cast<const __nv_bfloat16*>(o),
+      static_cast<const __nv_bfloat16*>(dout), lse, delta, static_cast<__nv_bfloat16*>(dq), S,
+      Tn, H, KH, causal, window, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  // Delta is in place when this one starts: the same stream
+  kkv<<<dim3(B * KH, nk), THREADS, BC::SMEM_DKV, stream>>>(
+      tq2, tk2, tv2, tdo2, lse, delta, static_cast<__nv_bfloat16*>(dk),
+      static_cast<__nv_bfloat16*>(dv), S, Tn, H, KH, causal, window, scale);
   return (int)cudaGetLastError();
 }
 
@@ -642,41 +1154,72 @@ extern "C" {
 
 // dtype 0: float32, 1: bfloat16.  strides (elements): q (b, s, h),
 // k (b, t, h), v (b, t, h).  window <= 0: none.  bfloat16 needs q, k, v
-// 16-byte aligned with strides a multiple of 8 (TMA).  Launches on
+// 16-byte aligned with strides a multiple of 8 (TMA).  bfloat16 only:
+// ``lse`` (f32 (B, H, S), or null) receives each row's log-sum-exp, and
+// ``norm_first`` picks the normalise-first instance.  Launches on
 // ``stream`` and returns cudaGetLastError() (0 on success).
 int flash_attention_fwd(const void* q, const void* k, const void* v, void* o, int dtype, int B,
                         int S, int Tn, int H, int KH, int D, long long qsb, long long qss,
                         long long qsh, long long ksb, long long kst, long long ksh,
                         long long vsb, long long vst, long long vsh, int causal, int window,
-                        float scale, void* stream) {
+                        float scale, void* lse, int norm_first, void* stream) {
   if (B <= 0 || S <= 0 || Tn <= 0 || KH <= 0 || H % KH != 0) return (int)cudaErrorInvalidValue;
   const long long st[9] = {qsb, qss, qsh, ksb, kst, ksh, vsb, vst, vsh};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define FLASH_CASE(NS, DD) \
-  case DD:                 \
-    return NS::launch<DD>(q, k, v, o, B, S, Tn, H, KH, st, causal, window, scale, s);
+  float* l = static_cast<float*>(lse);
   if (dtype == 0) {
+    if (l != nullptr || norm_first) return (int)cudaErrorInvalidValue;
+#define FLASH_CASE(DD) \
+  case DD:             \
+    return f32::launch<DD>(q, k, v, o, B, S, Tn, H, KH, st, causal, window, scale, s);
     switch (D) {
-      FLASH_CASE(f32, 32)
-      FLASH_CASE(f32, 64)
-      FLASH_CASE(f32, 112)
-      FLASH_CASE(f32, 128)
-      FLASH_CASE(f32, 256)
+      FLASH_CASE(32)
+      FLASH_CASE(64)
+      FLASH_CASE(112)
+      FLASH_CASE(128)
+      FLASH_CASE(256)
       default: return (int)cudaErrorInvalidValue;
     }
+#undef FLASH_CASE
   }
   if (dtype == 1) {
+#define FLASH_LAUNCH(DD, NF, LSE) \
+  bf16::launch<DD, NF, LSE>(q, k, v, o, l, B, S, Tn, H, KH, st, causal, window, scale, s)
+#define FLASH_CASE(DD)                                                             \
+  case DD:                                                                         \
+    return norm_first ? (l ? FLASH_LAUNCH(DD, true, true) : FLASH_LAUNCH(DD, true, false)) \
+                      : (l ? FLASH_LAUNCH(DD, false, true) : FLASH_LAUNCH(DD, false, false));
     switch (D) {
-      FLASH_CASE(bf16, 32)
-      FLASH_CASE(bf16, 64)
-      FLASH_CASE(bf16, 112)
-      FLASH_CASE(bf16, 128)
-      FLASH_CASE(bf16, 256)
+      FLASH_CASE(32)
+      FLASH_CASE(64)
+      FLASH_CASE(112)
+      FLASH_CASE(128)
+      FLASH_CASE(256)
       default: return (int)cudaErrorInvalidValue;
     }
-  }
 #undef FLASH_CASE
+#undef FLASH_LAUNCH
+  }
   return (int)cudaErrorInvalidValue;
+}
+
+// The backward, bfloat16 at D = 64: dq (B, S, H, D), dk and dv (B, T, KH,
+// D), contiguous, from q, k, v (strides as above), the forward's output o
+// and the incoming gradient dout (both contiguous (B, S, H, D)) and its
+// lse; delta is f32 (B, H, S) scratch.  Two kernels on ``stream`` (dQ with
+// Delta, then dK/dV); returns cudaGetLastError() (0 on success).
+int flash_attention_bwd(const void* q, const void* k, const void* v, const void* o,
+                        const void* dout, const void* lse, void* delta, void* dq, void* dk,
+                        void* dv, int B, int S, int Tn, int H, int KH, int D, long long qsb,
+                        long long qss, long long qsh, long long ksb, long long kst,
+                        long long ksh, long long vsb, long long vst, long long vsh, int causal,
+                        int window, float scale, void* stream) {
+  if (B <= 0 || S <= 0 || Tn <= 0 || KH <= 0 || H % KH != 0 || D != 64)
+    return (int)cudaErrorInvalidValue;
+  const long long st[9] = {qsb, qss, qsh, ksb, kst, ksh, vsb, vst, vsh};
+  return bf16::launch_bwd<64>(q, k, v, o, dout, static_cast<const float*>(lse),
+                              static_cast<float*>(delta), dq, dk, dv, B, S, Tn, H, KH, st,
+                              causal, window, scale, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

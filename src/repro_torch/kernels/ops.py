@@ -1,7 +1,8 @@
 """Model-layout wrappers around the port's kernels — the port of
 ``src/repro/kernels/ops.py``: ``fused_lora_matmul`` and
-``grouped_lora_matmul`` with their custom VJPs, and the forward-only
-``flash_attention_apply`` and ``wkv6_apply``.
+``grouped_lora_matmul`` with their custom VJPs, ``flash_attention_apply``
+(the flash forward and, where a gradient is asked for, its backward
+kernel) and the forward-only ``wkv6_apply``.
 
 Forward is the kernel, in float32 or bfloat16.  The backward computes
 ``dx = g @ W^T + s*(g @ B) @ A`` with the SAME kernel on (g, W^T, B^T, A^T)
@@ -21,7 +22,8 @@ from typing import Optional, Sequence
 
 import torch
 
-from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.flash_attention import (BWD_HEAD_DIMS, flash_attention,
+                                                 flash_attention_bwd)
 from repro_torch.kernels.grouped_lora import grouped_lora
 from repro_torch.kernels.lora_matmul import lora_matmul
 from repro_torch.kernels.wkv6 import wkv6
@@ -147,26 +149,61 @@ def grouped_lora_matmul(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
 
 
 def _forward_only(name: str, *tensors: torch.Tensor) -> None:
-    """The flash and WKV6 kernels have no backward, as the reference's have
-    no VJP: a CUDA tensor that asks for a gradient raises rather than
-    leaving autograd without a path.  The models never get here under
-    grad: ``attn_impl`` / ``wkv_impl="chunked"`` take the plain chunked
-    forms there (``layers.attention_full``, ``blocks.wkv_apply``)."""
+    """The WKV6 kernel has no backward, as the reference's has no VJP: a
+    CUDA tensor that asks for a gradient raises rather than leaving
+    autograd without a path.  The models never get here under grad:
+    ``wkv_impl="chunked"`` takes the plain chunked form there
+    (``blocks.wkv_apply``)."""
     if torch.is_grad_enabled() and any(t.is_cuda and t.requires_grad for t in tensors):
         raise NotImplementedError(
             f"{name} is forward-only, as the reference's kernel has no VJP; "
             "differentiate the plain chunked form instead")
 
 
+class _FlashAttention(torch.autograd.Function):
+    """The flash forward, which also returns each row's log-sum-exp, and the
+    backward kernel pair.  Saves q, k, v, the output and lse alone: the
+    backward recomputes the probabilities."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, window, normalize_first: bool):
+        out, lse = flash_attention(q, k, v, causal=causal, window=window,
+                                   normalize_first=normalize_first, return_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.window = causal, window
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, dout, lse,
+                                         causal=ctx.causal, window=ctx.window)
+        return dq, dk, dv, None, None, None
+
+
 def flash_attention_apply(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                          causal: bool = True,
-                          window: Optional[int] = None) -> torch.Tensor:
+                          causal: bool = True, window: Optional[int] = None,
+                          normalize_first: bool = False) -> torch.Tensor:
     """q (B,S,H,D), k/v (B,T,K,D) with K | H  ->  (B,S,H*D) in q.dtype.
     GQA reads the shared kv head in the kernel; nothing is repeated, moved
-    or padded."""
-    _forward_only("flash_attention_apply", q, k, v)
+    or padded.  ``normalize_first``: the instance that rounds the
+    normalised probabilities to bf16 before P V (``impl="naive"``).
+    Differentiable: where a gradient is asked for, the forward saves its
+    lse and the backward runs :func:`flash_attention_bwd` (on the card
+    bfloat16 at ``BWD_HEAD_DIMS`` only: other CUDA inputs raise here, before
+    any launch)."""
     b, s, h, d = q.shape
-    return flash_attention(q, k, v, causal=causal, window=window).reshape(b, s, h * d)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        if q.is_cuda and (q.dtype != torch.bfloat16 or d not in BWD_HEAD_DIMS):
+            raise NotImplementedError(
+                f"flash_attention_apply has a backward kernel for bfloat16 at head_dim "
+                f"in {BWD_HEAD_DIMS}, not {q.dtype} at {d}; differentiate the plain "
+                "forms instead")
+        out = _FlashAttention.apply(q, k, v, causal, window, normalize_first)
+    else:
+        out = flash_attention(q, k, v, causal=causal, window=window,
+                              normalize_first=normalize_first)
+    return out.reshape(b, s, h * d)
 
 
 def wkv6_apply(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,

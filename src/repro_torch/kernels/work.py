@@ -74,6 +74,17 @@ def flash_attention(q, k, v, causal: bool, window) -> tuple:
     return 4.0 * b * h * d * pairs, 2 * _nbytes(q) + _nbytes(k, v)
 
 
+def flash_attention_bwd(q, k, v, causal: bool, window) -> tuple:
+    """The backward's nine products over the kept pairs, every query head:
+    S and dP in each of its two kernels, dV, and dQ and dK as two (the hi
+    and lo terms of dS); q, k, v, o, dO and lse read once, dq, dk, dv and
+    Delta written once."""
+    b, s, h, d = q.shape
+    pairs = attention_pairs(s, k.shape[1], causal, window)
+    return (18.0 * b * h * d * pairs,
+            4 * _nbytes(q) + 2 * _nbytes(k, v) + 2 * 4 * b * h * s)
+
+
 def wkv6(r, k, v, w, u) -> tuple:
     """Per step and head, the D x D state's outer product, decay, bonus and
     read-out (7 operations an element, as the kernel's bound counts them);

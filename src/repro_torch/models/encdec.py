@@ -11,10 +11,11 @@ The encoder runs each layer of its stored stack masked at the cut, as the
 reference's masked scan does: at a Python int cut an owned layer runs and
 a layer that is not owned is skipped, at a tensor cut its output is kept
 where owned (``torch.where``).  The decoder's self- and cross-attention
-are plain (``attention_full`` without ``impl``), as in the reference; the
-encoder's attention follows ``attn_impl`` (the flash kernel under
-"chunked").  ``serve_step`` writes the step's self-attention K/V into the
-cache it is given.
+are "naive" (``attention_full`` without ``impl``), as in the reference
+(on the card in bf16 the flash kernels' normalise-first instance and
+their backward); the encoder's attention follows ``attn_impl`` (the flash
+kernel under "chunked").  ``serve_step`` writes the step's self-attention
+K/V into the cache it is given.
 """
 from __future__ import annotations
 
@@ -56,7 +57,7 @@ def _cross_attend(cfg: ModelConfig, p: dict, lora, x: torch.Tensor,
     t = xk.shape[1]
     out = L.attention_full(q, xk, xv, causal=False, window=None,
                            q_pos=torch.arange(s, device=x.device),
-                           k_pos=torch.arange(t, device=x.device))
+                           k_pos=torch.arange(t, device=x.device), arange=True)
     return L.lora_apply(out, p["wo"], lget("wo"), scale, impl=cfg.lora.impl)
 
 
@@ -169,7 +170,8 @@ class EncDecModel:
         pos = ctx["positions"]
         hh = L.apply_norm(cfg, p_l["ln1"], h)
         q, k, v = L.qkv_project(cfg, p_l["attn"], lo_l.get("attn"), hh, pos)
-        a = L.attention_full(q, k, v, causal=True, window=None, q_pos=pos, k_pos=pos)
+        a = L.attention_full(q, k, v, causal=True, window=None, q_pos=pos, k_pos=pos,
+                             arange=ctx.get("arange", False))
         h = h + L.attn_out(cfg, p_l["attn"], lo_l.get("attn"), a)
         hh = L.apply_norm(cfg, p_l["lnx"], h)
         xk, xv = _cross_kv(cfg, p_l["xattn"], lo_l.get("xattn"), enc)

@@ -200,10 +200,14 @@ def apply_rope(x: Tensor, positions: Tensor, theta: float) -> Tensor:
 # ---------------------------------------------------------------------------
 
 # how full-sequence attention executes (ModelConfig.attn_impl):
-#   naive   — materialized probabilities, plain PyTorch (the reference's default);
+#   naive   — materialized probabilities, plain PyTorch (the reference's
+#             default); on the card, inside the kernel pair's domain
+#             (:func:`_flash_domain`), the flash kernels' normalise-first
+#             instance and their backward, which round where it rounds;
 #   chunked — online softmax over key chunks: the hand-written flash kernel
 #             (kernels/flash_attention.py, whose wrapper takes the plain
-#             version for CPU tensors) where its domain allows, else the
+#             version for CPU tensors) where its domain allows, with its
+#             backward kernel inside the pair's domain, else the
 #             reference's plain chunked form (:func:`_attention_chunked`).
 ATTN_IMPLS = ("naive", "chunked")
 
@@ -228,19 +232,33 @@ def needs_grad(*tensors: Tensor) -> bool:
 
 
 def _flash_domain(q: Tensor, k: Tensor, v: Tensor, q_pos: Tensor, k_pos: Tensor,
-                  arange: bool) -> bool:
-    """The flash kernel's domain, decided before any launch: no gradient
-    asked for (the kernel is forward-only, as the reference's has no VJP)
-    and queries and keys at positions 0..S-1 and 0..T-1 (the kernel places
-    them so).  Reading the positions waits for the device; ``arange=True``
-    (a model context whose positions the model built as an arange) spares
-    that read."""
-    if needs_grad(q, k, v):
-        return False
-    s, t = q.shape[1], k.shape[1]
-    if arange and q_pos.shape == (s,) and k_pos.shape == (t,):
-        return True
-    return _is_arange(q_pos, s) and _is_arange(k_pos, t)
+                  window: Optional[int], arange: bool, impl: str) -> Optional[str]:
+    """Where the flash kernels take this attention, decided before any
+    launch: "pair", "forward" or None (the plain forms of ``impl``).
+
+    "pair" (both impls): CUDA bf16 tensors TMA can read in place; a
+    head_dim the backward kernel has (``BWD_HEAD_DIMS``), or no gradient
+    asked for and one the forward has; positions the model built as an
+    arange (``arange``: nothing is read back from the card); and no query
+    row that sees no key (no window, or one of at least S - T + 1).
+    "forward" (``impl="chunked"`` alone): outside the pair, no gradient
+    asked for and queries and keys at positions 0..S-1 and 0..T-1, where
+    the kernel places them (read back from the device unless ``arange``);
+    a CPU tensor runs the kernel's plain version there."""
+    from repro_torch.kernels import flash_attention as fa
+    s, t, d = q.shape[1], k.shape[1], q.shape[3]
+    shaped = arange and q_pos.shape == (s,) and k_pos.shape == (t,)
+    grad = needs_grad(q, k, v)
+    if (shaped and q.is_cuda and all(x.dtype == torch.bfloat16 for x in (q, k, v))
+            and s > 0 and t > 0 and (window is None or s - t < window)
+            and all(fa.tma_ok(x) and x.stride(3) == 1 for x in (q, k, v))
+            and d in (fa.BWD_HEAD_DIMS if grad else fa.HEAD_DIMS)):
+        return "pair"
+    if grad or impl != "chunked":
+        return None
+    if shaped or (_is_arange(q_pos, s) and _is_arange(k_pos, t)):
+        return "forward"
+    return None
 
 
 def attention_full(q: Tensor, k: Tensor, v: Tensor, *, causal: bool,
@@ -249,20 +267,24 @@ def attention_full(q: Tensor, k: Tensor, v: Tensor, *, causal: bool,
                    chunk: int = 1024) -> Tensor:
     """Full-sequence attention. q:(B,S,H,Dh) k,v:(B,T,K,Dh) -> (B,S,H*Dh).
 
+    Where :func:`_flash_domain` says "pair" (on the card, bf16, arange
+    positions) both impls run the flash kernels, forward and backward:
+    "naive" the normalise-first instance, "chunked" the online one; where
+    it says "forward", "chunked" runs the forward kernel, with its own key
+    tiles.  Elsewhere:
     impl="naive": materialized (B,K,G,S,T) probabilities.
-    impl="chunked": online softmax over key chunks.  Inside the flash
-    kernel's domain (:func:`_flash_domain`: no gradient, arange positions)
-    the kernel runs, with its own key tiles; outside it the reference's
-    plain form (:func:`_attention_chunked`) runs over ``chunk``-key chunks,
-    differentiable and at any positions."""
+    impl="chunked": the reference's plain online softmax
+    (:func:`_attention_chunked`) over ``chunk``-key chunks, differentiable
+    and at any positions."""
+    if impl not in ATTN_IMPLS:
+        raise KeyError(f"unknown attention impl {impl!r}; choose from {ATTN_IMPLS}")
+    if _flash_domain(q, k, v, q_pos, k_pos, window, arange, impl) is not None:
+        from repro_torch.kernels.ops import flash_attention_apply
+        return flash_attention_apply(q, k, v, causal=causal, window=window,
+                                     normalize_first=impl == "naive")
     if impl == "chunked":
-        if _flash_domain(q, k, v, q_pos, k_pos, arange):
-            from repro_torch.kernels.ops import flash_attention_apply
-            return flash_attention_apply(q, k, v, causal=causal, window=window)
         return _attention_chunked(q, k, v, causal=causal, window=window,
                                   q_pos=q_pos, k_pos=k_pos, chunk=chunk)
-    if impl != "naive":
-        raise KeyError(f"unknown attention impl {impl!r}; choose from {ATTN_IMPLS}")
     b, s, h, dh = q.shape
     kheads = k.shape[2]
     q = q.reshape(b, s, kheads, h // kheads, dh)
