@@ -2530,7 +2530,7 @@ def lm_phase_encdec(base, seed: int) -> dict:
 
 
 def build_phase() -> dict:
-    """Every registered config (all eleven, of every family) through
+    """Every registered config (all twelve, of every family) through
     ``build_model`` on the card at full width and BUILD_LAYERS layers (the
     encoder-decoder: that many encoder and decoder layers) in their
     published types, random weights, one forward without grad of BUILD_SEQ
@@ -2538,8 +2538,11 @@ def build_phase() -> dict:
     "full"), whose hidden states must be finite."""
     out = {}
     for name, cfg in REGISTRY.items():
+        # the per-layer hybrid keeps both of its mixers
         cut = cfg.with_(n_layers=min(cfg.n_layers, BUILD_LAYERS),
-                        n_encoder_layers=min(cfg.n_encoder_layers, BUILD_LAYERS))
+                        n_encoder_layers=min(cfg.n_encoder_layers, BUILD_LAYERS),
+                        layer_types=("mamba", "attention")[:BUILD_LAYERS] if cfg.layer_types
+                        else ())
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()

@@ -41,6 +41,10 @@ class LoRAConfig:
     impl: str = "einsum"
 
 
+# the mixers of the per-layer hybrid (ModelConfig.layer_types)
+LAYER_TYPES = ("mamba", "attention")
+
+
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
@@ -88,6 +92,18 @@ class ModelConfig:
     # MoE dispatch groups (0 -> one group per data shard, set at lowering time)
     moe_groups: int = 0
     source: str = ""         # citation for the assigned config
+    # the per-layer hybrid (granite-4.0-h): each layer's mixer, one of
+    # LAYER_TYPES, in order; () for every other config (one block kind)
+    layer_types: Tuple[str, ...] = ()
+    # Granite's multipliers: the token embeddings times
+    # ``embedding_multiplier``, each residual branch times
+    # ``residual_multiplier``, the LM head's logits over ``logits_scaling``,
+    # and ``attention_multiplier`` as the softmax scale (None: 1/sqrt(head_dim)).
+    # At these defaults nothing is multiplied.
+    embedding_multiplier: float = 1.0
+    attention_multiplier: Optional[float] = None
+    residual_multiplier: float = 1.0
+    logits_scaling: float = 1.0
 
     def __post_init__(self):
         if self.n_heads:
@@ -95,6 +111,14 @@ class ModelConfig:
             object.__setattr__(self, "head_dim", hd)
             if self.n_heads % max(self.n_kv_heads, 1):
                 raise ValueError(f"{self.name}: n_heads={self.n_heads} not divisible by n_kv_heads={self.n_kv_heads}")
+        if self.layer_types:
+            object.__setattr__(self, "layer_types", tuple(self.layer_types))
+            bad = set(self.layer_types) - set(LAYER_TYPES)
+            if self.family != "hybrid" or len(self.layer_types) != self.n_layers or bad:
+                raise ValueError(
+                    f"{self.name}: layer_types needs the hybrid family and one entry of "
+                    f"{LAYER_TYPES} a layer ({self.n_layers}), got {len(self.layer_types)}"
+                    f"{f' with {sorted(bad)}' if bad else ''}")
 
     # ---- derived quantities -------------------------------------------------
     @property
@@ -143,6 +167,15 @@ class ModelConfig:
             s = self.ssm
             n += L * (5 * d * d + 5 * s.ddlerp_rank * 2 * d + 2 * s.decay_rank * d
                       + 2 * d * int(3.5 * d) + 4 * d)
+        elif self.layer_types:      # the per-layer hybrid: each layer by its mixer
+            s = self.ssm
+            d_in = s.expand * d
+            nh, conv_ch = d_in // s.head_dim, d_in + 2 * s.d_state
+            mamba = (d * (2 * d_in + 2 * s.d_state + nh) + s.d_conv * conv_ch + conv_ch
+                     + 3 * nh + d_in + d_in * d)
+            n_mamba = self.layer_types.count("mamba")
+            n += n_mamba * mamba + (L - n_mamba) * attn_block()
+            n += L * (mlp_block(ff) + 2 * d) + d     # every layer's MLP and norms, final norm
         elif self.family == "hybrid":
             s = self.ssm
             d_in = s.expand * d
@@ -191,6 +224,9 @@ def reduced(cfg: ModelConfig, *, n_layers: int = 2, d_model: int = 256,
         kw["ssm"] = dataclasses.replace(cfg.ssm, d_state=16, head_dim=32, ddlerp_rank=8, decay_rank=16)
     if cfg.shared_attn_every:
         kw["shared_attn_every"] = 2
+    if cfg.layer_types:     # both mixers: attention in the middle layer, Mamba2 elsewhere
+        kw["layer_types"] = tuple("attention" if i == n_layers // 2 else "mamba"
+                                  for i in range(n_layers))
     if cfg.n_encoder_layers:
         kw["n_encoder_layers"] = n_layers
         kw["encoder_seq"] = 16

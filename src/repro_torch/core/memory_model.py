@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Any, Sequence
+from typing import Any, Sequence, Tuple
 
 import torch
 
@@ -46,11 +46,38 @@ class ModelBytes:
 
     def params(self, n_layers: int | None = None) -> int:
         n = self.n_layers if n_layers is None else n_layers
-        return self.embed + n * self.per_layer + self.head
+        return self.embed + self.layers(self.n_layers - n, self.n_layers) + self.head
+
+    def layers(self, lo: int, hi: int) -> int:
+        """The parameters of layers [lo, hi)."""
+        return (hi - lo) * self.per_layer
 
     def lora(self, n_layers: int | None = None) -> int:
         n = self.n_layers if n_layers is None else n_layers
-        return n * self.lora_per_layer + self.lora_extra
+        return self.lora_layers(self.n_layers - n, self.n_layers) + self.lora_extra
+
+    def lora_layers(self, lo: int, hi: int) -> int:
+        """The adapters of layers [lo, hi)."""
+        return (hi - lo) * self.lora_per_layer
+
+
+@dataclasses.dataclass(frozen=True)
+class LayeredModelBytes(ModelBytes):
+    """The per-layer hybrid's bytes: its layers differ by mixer, so each
+    layer's weights and adapters are counted by its own kind
+    (``per_layer`` and ``lora_per_layer`` are their means, rounded down).
+    A subclass, so that ``ModelBytes``'s fields stay the reference's.  The
+    adapters counted are a layer's own mixer's targets; the program's
+    stacks hold both mixers' on every layer (``models/decoder.py``), rows
+    the model leaves out."""
+    layer_bytes: Tuple[int, ...] = ()
+    lora_bytes: Tuple[int, ...] = ()
+
+    def layers(self, lo: int, hi: int) -> int:
+        return sum(self.layer_bytes[lo:hi])
+
+    def lora_layers(self, lo: int, hi: int) -> int:
+        return sum(self.lora_bytes[lo:hi])
 
 
 @functools.lru_cache(maxsize=32)
@@ -78,6 +105,17 @@ def model_bytes(cfg: ModelConfig) -> ModelBytes:
     lora_extra_b = tree_bytes({k: v for k, v in lspec.items()
                                if k not in lora_stacked})
     n_lora_stack = cfg.n_layers if "layers" in lspec else cfg.n_encoder_layers
+    if cfg.layer_types:     # each layer's norms and MLP, its mixer and its adapters by kind
+        common = layer_b // cfg.n_layers
+        keys = [models.decoder.MIXER_KEYS[t] for t in cfg.layer_types]
+        mixer = {k: tree_bytes(pspec[k]) // keys.count(k) for k in set(keys)}
+        ada = {k: tree_bytes(lspec["layers"][k]) // cfg.n_layers for k in set(keys)}
+        per = tuple(common + mixer[k] for k in keys)
+        per_lora = tuple(ada[k] for k in keys)
+        return LayeredModelBytes(
+            embed=embed_b, per_layer=sum(per) // cfg.n_layers, head=head_b,
+            lora_per_layer=sum(per_lora) // cfg.n_layers, lora_extra=lora_extra_b,
+            n_layers=cfg.n_layers, layer_bytes=per, lora_bytes=per_lora)
     return ModelBytes(
         embed=embed_b,
         per_layer=layer_b // max(n_total, 1),
@@ -93,8 +131,11 @@ def activation_bytes_training(cfg: ModelConfig, n_layers: int, batch: int,
     """Stored activations for LoRA backprop over n_layers blocks."""
     tok = float(batch) * seq_len
     act = n_layers * tok * cfg.d_model * ACT_FACTOR_BLOCK * dtype_bytes
-    if cfg.n_heads:  # attention probabilities (B, H, S, S) per layer
-        act += n_layers * float(batch) * cfg.n_heads * seq_len * seq_len * dtype_bytes
+    if cfg.n_heads:  # attention probabilities (B, H, S, S) per attention layer
+        n_attn = n_layers
+        if cfg.layer_types:     # the per-layer hybrid: its share of attention layers
+            n_attn = n_layers * cfg.layer_types.count("attention") / cfg.n_layers
+        act += n_attn * float(batch) * cfg.n_heads * seq_len * seq_len * dtype_bytes
     # logits + final norm buffer
     out_dim = cfg.n_classes if cfg.n_classes else cfg.vocab_size
     act += float(batch) * (seq_len if not cfg.n_classes else 1) * out_dim * dtype_bytes
@@ -145,14 +186,13 @@ def server_memory(cfg: ModelConfig, scheme: str, cuts: Sequence[int],
                    for nl in server_layers)
         ada = u * lora_full + optimizer_bytes(lora_full)   # U stored, 1 training
     elif scheme == "sfl":
-        params = sum(mb.embed * 0 + nl * mb.per_layer + mb.head
-                     for nl in server_layers)
+        params = sum(mb.layers(c, n_total) + mb.head for c in cuts)
         acts = sum(activation_bytes_training(cfg, nl, batch, seq_len, dtype_bytes)
                    for nl in server_layers)
         ada = u * (lora_full + optimizer_bytes(lora_full))
     elif scheme == "sl":
         nl = max(server_layers)
-        params = nl * mb.per_layer + mb.head
+        params = mb.layers(n_total - nl, n_total) + mb.head
         acts = activation_bytes_training(cfg, nl, batch, seq_len, dtype_bytes)
         ada = lora_full + optimizer_bytes(lora_full)
     else:
@@ -169,8 +209,8 @@ def client_memory(cfg: ModelConfig, cut: int, batch: int, seq_len: int,
     rebuilding the model shapes per query."""
     if mb is None:
         mb = model_bytes(cfg)
-    params = mb.embed + cut * mb.per_layer
-    lora_b = cut * mb.lora_per_layer
+    params = mb.embed + mb.layers(0, cut)
+    lora_b = mb.lora_layers(0, cut)
     acts = activation_bytes_training(cfg, cut, batch, seq_len, dtype_bytes)
     # remove the head/logits term (client has no head)
     out_dim = cfg.n_classes if cfg.n_classes else cfg.vocab_size

@@ -424,7 +424,7 @@ class Simulator:
             mb = memory_model.model_bytes(self.cfg)
             total = 0.0
             for u, st in enumerate(t):
-                handoff = self.link.transfer_s(mb.embed + self.cuts[u] * mb.per_layer)
+                handoff = self.link.transfer_s(mb.embed + mb.layers(0, self.cuts[u]))
                 total += st.ready + st.t_s + st.t_bc + st.t_b + handoff
             return total
         raise KeyError(self.run.scheme)

@@ -2,7 +2,7 @@
 (``csrc/flash_attention.cu``), forward and backward, with their launch
 counters.
 
-    out = softmax(q . k^T / sqrt(D) + mask) . v
+    out = softmax(q . k^T * scale + mask) . v      (scale 1/sqrt(D) unless given)
     q (B,S,H,D), k/v (B,T,K,D) with K | H  ->  (B,S,H,D) in q.dtype
 
 Query i and key j sit at positions i and j; the masks are causal
@@ -96,13 +96,18 @@ def tma_ok(x: torch.Tensor) -> bool:
         st % 8 == 0 for st, n in zip(x.stride()[:3], x.shape[:3]) if n > 1)
 
 
-def _scores(q, k, causal, window):
+def _scaled(x, d, scale):
+    """``x`` times the softmax scale: over sqrt(d), or times ``scale``."""
+    return x / math.sqrt(d) if scale is None else x * scale
+
+
+def _scores(q, k, causal, window, scale=None):
     """The masked f32 scores (B,K,G,S,T), masked ones -1e30, as the
     materialised softmax forms them."""
     b, s, h, d = q.shape
     t, kh = k.shape[1], k.shape[2]
     qq = q.float().reshape(b, s, kh, h // kh, d)
-    sc = torch.einsum("bskgd,btkd->bkgst", qq, k.float()) / math.sqrt(d)
+    sc = _scaled(torch.einsum("bskgd,btkd->bkgst", qq, k.float()), d, scale)
     rel = (torch.arange(s, device=q.device)[:, None]
            - torch.arange(t, device=q.device)[None, :])
     mask = torch.ones((s, t), dtype=torch.bool, device=q.device)
@@ -113,7 +118,7 @@ def _scores(q, k, causal, window):
     return torch.where(mask, sc, torch.full_like(sc, -1e30)), mask
 
 
-def flash_attention_plain(q, k, v, causal, window, with_lse: bool = False):
+def flash_attention_plain(q, k, v, causal, window, with_lse: bool = False, scale=None):
     """The plain version in model layout: what a CPU tensor runs.  With
     ``with_lse`` also each row's log-sum-exp, f32 (B,H,S)."""
     b, s, h, d = q.shape
@@ -126,16 +131,16 @@ def flash_attention_plain(q, k, v, causal, window, with_lse: bool = False):
         return x.movedim(2, 1).reshape(b * h, n, d)
 
     out = flash_attention_ref(heads(q, s), heads(k, t), heads(v, t),
-                              causal=causal, window=window)
+                              causal=causal, window=window, scale=scale)
     out = out.reshape(b, h, s, d).movedim(1, 2)
     if not with_lse:
         return out
-    sc, _ = _scores(q, k, causal, window)
+    sc, _ = _scores(q, k, causal, window, scale)
     return out, torch.logsumexp(sc, dim=-1).reshape(b, h, s)
 
 
 def flash_attention_bwd_plain(q, k, v, out, dout, lse, causal, window,
-                              ds_dtype: Optional[torch.dtype] = None):
+                              ds_dtype: Optional[torch.dtype] = None, scale=None):
     """The backward's plain version: what a CPU tensor runs.  P is
     recomputed from ``lse`` in f32; dV from P rounded to v's type (the
     rounding of the forward's P V), dP, dS, dQ and dK in f32; the GQA
@@ -146,19 +151,24 @@ def flash_attention_bwd_plain(q, k, v, out, dout, lse, causal, window,
     b, s, h, d = q.shape
     t, kh = k.shape[1], k.shape[2]
     g = h // kh
-    sc, mask = _scores(q, k, causal, window)
+    sc, mask = _scores(q, k, causal, window, scale)
     p = torch.where(mask, torch.exp(sc - lse.float().reshape(b, kh, g, s, 1)),
                     torch.zeros_like(sc))
     do = dout.float().reshape(b, s, kh, g, d)
     dv = torch.einsum("bkgst,bskgd->btkd", p.to(v.dtype).float(), do)
     dp = torch.einsum("bskgd,btkd->bkgst", do, v.float())
     delta = (do * out.float().reshape(b, s, kh, g, d)).sum(-1)      # (B,S,K,G)
-    ds = p * (dp - delta.permute(0, 2, 3, 1)[..., None]) / math.sqrt(d)
+    ds = _scaled(p * (dp - delta.permute(0, 2, 3, 1)[..., None]), d, scale)
     if ds_dtype is not None:
         ds = ds.to(ds_dtype).float()
     dq = torch.einsum("bkgst,btkd->bskgd", ds, k.float()).reshape(b, s, h, d)
     dk = torch.einsum("bkgst,bskgd->btkd", ds, q.float().reshape(b, s, kh, g, d))
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _softmax_scale(d: int, scale: Optional[float]) -> float:
+    """The kernels' ``scale`` argument: 1/sqrt(D) unless one is given."""
+    return 1.0 / math.sqrt(d) if scale is None else float(scale)
 
 
 def _check_cuda(q, k, v) -> None:
@@ -176,12 +186,15 @@ def _check_cuda(q, k, v) -> None:
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool, window: Optional[int] = None,
-                    normalize_first: bool = False, return_lse: bool = False):
-    """The forward; with ``return_lse`` returns (out, lse)."""
+                    normalize_first: bool = False, return_lse: bool = False,
+                    scale: Optional[float] = None):
+    """The forward; with ``return_lse`` returns (out, lse).  ``scale``: the
+    softmax scale (None: 1/sqrt(D))."""
     _check(q, k, v, window)
     if q.device.type in ("cpu", "meta"):          # the plain version: no launch
         with work.counted(*work.flash_attention(q, k, v, causal, window)):
-            return flash_attention_plain(q, k, v, causal, window, with_lse=return_lse)
+            return flash_attention_plain(q, k, v, causal, window, with_lse=return_lse,
+                                         scale=scale)
     b, s, h, d = q.shape
     t, kh = k.shape[1], k.shape[2]
     _check_cuda(q, k, v)
@@ -201,7 +214,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                 _DTYPES[q.dtype], b, s, t, h, kh, d,
                 *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                 int(bool(causal)), 0 if window is None else int(window),
-                1.0 / math.sqrt(d), None if lse is None else lse.data_ptr(),
+                _softmax_scale(d, scale), None if lse is None else lse.data_ptr(),
                 int(bool(normalize_first)), stream)
     if rc != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA error {rc}")
@@ -214,9 +227,11 @@ flash_attention.launches = 0
 
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         out: torch.Tensor, dout: torch.Tensor, lse: torch.Tensor, *,
-                        causal: bool, window: Optional[int] = None):
+                        causal: bool, window: Optional[int] = None,
+                        scale: Optional[float] = None):
     """(dq, dk, dv) of the forward's ``out`` = attention(q, k, v), given
-    the gradient ``dout`` of ``out`` and the forward's ``lse``."""
+    the gradient ``dout`` of ``out`` and the forward's ``lse``; ``scale``
+    the forward's."""
     _check(q, k, v, window)
     b, s, h, d = q.shape
     t = k.shape[1]
@@ -226,7 +241,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"{tuple(q.shape)}")
     if q.device.type in ("cpu", "meta"):
         with work.counted(*work.flash_attention_bwd(q, k, v, causal, window)):
-            return flash_attention_bwd_plain(q, k, v, out, dout, lse, causal, window)
+            return flash_attention_bwd_plain(q, k, v, out, dout, lse, causal, window,
+                                             scale=scale)
     _check_cuda(q, k, v)
     if q.dtype != torch.bfloat16 or d not in BWD_HEAD_DIMS:
         raise ValueError(f"flash_attention_bwd takes bfloat16 at head_dim in "
@@ -253,7 +269,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 dv.data_ptr(), b, s, t, h, k.shape[2], d,
                 *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                 int(bool(causal)), 0 if window is None else int(window),
-                1.0 / math.sqrt(d), stream)
+                _softmax_scale(d, scale), stream)
     if rc != 0:
         raise RuntimeError(f"flash_attention_bwd kernel launch failed: CUDA error {rc}")
     flash_attention_bwd.launches += 2            # dQ (with Delta), then dK/dV

@@ -166,28 +166,31 @@ class _FlashAttention(torch.autograd.Function):
     backward recomputes the probabilities."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal: bool, window, normalize_first: bool):
+    def forward(ctx, q, k, v, causal: bool, window, normalize_first: bool, scale):
         out, lse = flash_attention(q, k, v, causal=causal, window=window,
-                                   normalize_first=normalize_first, return_lse=True)
+                                   normalize_first=normalize_first, return_lse=True,
+                                   scale=scale)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.causal, ctx.window = causal, window
+        ctx.causal, ctx.window, ctx.scale = causal, window, scale
         return out
 
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
-        dq, dk, dv = flash_attention_bwd(q, k, v, out, dout, lse,
-                                         causal=ctx.causal, window=ctx.window)
-        return dq, dk, dv, None, None, None
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, dout, lse, causal=ctx.causal,
+                                         window=ctx.window, scale=ctx.scale)
+        return dq, dk, dv, None, None, None, None
 
 
 def flash_attention_apply(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                           causal: bool = True, window: Optional[int] = None,
-                          normalize_first: bool = False) -> torch.Tensor:
+                          normalize_first: bool = False,
+                          scale: Optional[float] = None) -> torch.Tensor:
     """q (B,S,H,D), k/v (B,T,K,D) with K | H  ->  (B,S,H*D) in q.dtype.
     GQA reads the shared kv head in the kernel; nothing is repeated, moved
     or padded.  ``normalize_first``: the instance that rounds the
     normalised probabilities to bf16 before P V (``impl="naive"``).
+    ``scale``: the softmax scale, forward and backward (None: 1/sqrt(D)).
     Differentiable: where a gradient is asked for, the forward saves its
     lse and the backward runs :func:`flash_attention_bwd` (on the card
     bfloat16 at ``BWD_HEAD_DIMS`` only: other CUDA inputs raise here, before
@@ -199,10 +202,10 @@ def flash_attention_apply(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                 f"flash_attention_apply has a backward kernel for bfloat16 at head_dim "
                 f"in {BWD_HEAD_DIMS}, not {q.dtype} at {d}; differentiate the plain "
                 "forms instead")
-        out = _FlashAttention.apply(q, k, v, causal, window, normalize_first)
+        out = _FlashAttention.apply(q, k, v, causal, window, normalize_first, scale)
     else:
         out = flash_attention(q, k, v, causal=causal, window=window,
-                              normalize_first=normalize_first)
+                              normalize_first=normalize_first, scale=scale)
     return out.reshape(b, s, h * d)
 
 

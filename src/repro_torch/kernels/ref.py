@@ -79,13 +79,15 @@ def wkv6_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                        causal: bool = True, window=None) -> torch.Tensor:
+                        causal: bool = True, window=None, scale=None) -> torch.Tensor:
     """What the flash kernel computes, with materialized probabilities.
     q/k/v: (BH, S|T, D), keys already expanded to the query heads; query i
-    and key j sit at positions i and j.  Output in q.dtype."""
+    and key j sit at positions i and j; the scores times ``scale`` (None:
+    over sqrt(D)).  Output in q.dtype."""
     s, d = q.shape[1], q.shape[2]
     t = k.shape[1]
-    scores = torch.einsum("bsd,btd->bst", q.float(), k.float()) / math.sqrt(d)
+    scores = torch.einsum("bsd,btd->bst", q.float(), k.float())
+    scores = scores / math.sqrt(d) if scale is None else scores * scale
     rel = (torch.arange(s, device=q.device)[:, None]
            - torch.arange(t, device=q.device)[None, :])
     mask = torch.ones((s, t), dtype=torch.bool, device=q.device)

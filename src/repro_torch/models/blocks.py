@@ -1,8 +1,10 @@
 """Per-family residual blocks: the dense attention block (encoder, dense
 decoder LM and the VLM's language model, with an optional int8 KV cache),
 the MoE block (dense attention and a capacity-based top-k expert
-dispatch), the RWKV6 "Finch" block and the Mamba2 (SSD) block of the
-hybrid family's backbone.  Port of ``src/repro/models/blocks.py``.
+dispatch), the RWKV6 "Finch" block, the Mamba2 (SSD) block of the
+hybrid family's backbone, and the per-layer hybrid's layer (a Mamba2 or
+an attention mixer, then an MLP; ``ModelConfig.layer_types``).  Port of
+``src/repro/models/blocks.py``, with the per-layer hybrid the port's own.
 
     init(gen, cfg, device)                   -> params for ONE layer (unstacked)
     train(cfg, p, lora, x, ctx)              -> (x, aux_loss)
@@ -25,11 +27,13 @@ copy, which the caller then uses in place of the old one.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.ref import wkv6_ref
@@ -56,8 +60,15 @@ def _attn_lora(lora):
     return (lora or {}).get("attn")
 
 
-def dense_prefill(cfg: ModelConfig, p: dict, lora, x: Tensor, ctx: dict):
-    """The training forward; also returns the roped K/V as the cache contents."""
+def _residual(cfg: ModelConfig, x: Tensor, o: Tensor) -> Tensor:
+    """x plus the branch ``o``, times ``residual_multiplier`` where that is not 1."""
+    m = cfg.residual_multiplier
+    return x + o if m == 1.0 else x + o * m
+
+
+def _attention_branch(cfg: ModelConfig, p: dict, lora, x: Tensor, ctx: dict):
+    """norm, then attention (the softmax scale ``attention_multiplier``):
+    the branch's output and the roped K/V."""
     pos = ctx["positions"]
     with wall.span("norm") as sp:
         h = sp.output(L.apply_norm(cfg, p["ln1"], sp.input(x)))
@@ -65,18 +76,29 @@ def dense_prefill(cfg: ModelConfig, p: dict, lora, x: Tensor, ctx: dict):
         q, k, v = L.qkv_project(cfg, p["attn"], _attn_lora(lora), sp.input(h), pos)
         a = L.attention_full(q, k, v, causal=ctx["causal"], window=ctx.get("window"),
                              q_pos=pos, k_pos=pos, impl=cfg.attn_impl,
-                             arange=ctx.get("arange", False), chunk=cfg.attn_chunk)
+                             arange=ctx.get("arange", False), chunk=cfg.attn_chunk,
+                             scale=cfg.attention_multiplier)
         o = sp.output(L.attn_out(cfg, p["attn"], _attn_lora(lora), a))
-    # each branch's output is freed once added, as a temporary would be: held
-    # to the return, it shifts the caching allocator's blocks and its peak
-    x = x + o
-    del o
+    return o, k, v
+
+
+def _mlp_residual(cfg: ModelConfig, p: dict, lora, x: Tensor) -> Tensor:
+    """norm, then the MLP, added to the residual."""
     with wall.span("norm") as sp:
         h = sp.output(L.apply_norm(cfg, p["ln2"], sp.input(x)))
     with wall.span("mlp") as sp:
         o = sp.output(L.mlp_apply(cfg, p["mlp"], (lora or {}).get("mlp"), sp.input(h)))
-    x = x + o
+    return _residual(cfg, x, o)
+
+
+def dense_prefill(cfg: ModelConfig, p: dict, lora, x: Tensor, ctx: dict):
+    """The training forward; also returns the roped K/V as the cache contents."""
+    o, k, v = _attention_branch(cfg, p, lora, x, ctx)
+    # each branch's output is freed once added, as a temporary would be: held
+    # to the return, it shifts the caching allocator's blocks and its peak
+    x = _residual(cfg, x, o)
     del o
+    x = _mlp_residual(cfg, p, lora, x)
     return x, {"k": k, "v": v}, torch.zeros((), dtype=torch.float32, device=x.device)
 
 
@@ -137,16 +159,16 @@ def _decode_attn(cfg: ModelConfig, p: dict, lora, h: Tensor, cache: dict,
         k_read, v_read = cache["k"], cache["v"]
     idx = torch.arange(cache_len, device=h.device)
     valid = idx < min(pos + 1, cache_len) if window is not None else idx <= pos
-    return L.attention_decode(q, k_read, v_read, valid), cache
+    return L.attention_decode(q, k_read, v_read, valid, cfg.attention_multiplier), cache
 
 
 def dense_decode(cfg: ModelConfig, p: dict, lora, x: Tensor, cache: dict,
                  pos: int, ctx: dict):
     h = L.apply_norm(cfg, p["ln1"], x)
     a, cache = _decode_attn(cfg, p["attn"], _attn_lora(lora), h, cache, pos, ctx)
-    x = x + L.attn_out(cfg, p["attn"], _attn_lora(lora), a)
+    x = _residual(cfg, x, L.attn_out(cfg, p["attn"], _attn_lora(lora), a))
     h = L.apply_norm(cfg, p["ln2"], x)
-    x = x + L.mlp_apply(cfg, p["mlp"], (lora or {}).get("mlp"), h)
+    x = _residual(cfg, x, L.mlp_apply(cfg, p["mlp"], (lora or {}).get("mlp"), h))
     return x, cache
 
 
@@ -620,8 +642,8 @@ def _mamba_dims(cfg: ModelConfig):
     return d_in, nh, conv_ch
 
 
-def mamba_init(gen: torch.Generator, cfg: ModelConfig, device) -> dict:
-    """The Mamba2 layer: in/out projections in the model's type; the conv,
+def mamba_mixer_init(gen: torch.Generator, cfg: ModelConfig, device) -> dict:
+    """The Mamba2 mixer: in/out projections in the model's type; the conv,
     decay, skip and dt-bias leaves in f32, as in the reference."""
     s = cfg.ssm
     d = cfg.d_model
@@ -629,7 +651,6 @@ def mamba_init(gen: torch.Generator, cfg: ModelConfig, device) -> dict:
     dt = L.torch_dtype(cfg.dtype)
     f32 = torch.float32
     return {
-        "ln": L.init_norm(cfg, device),
         "in_proj": L.dense_init(gen, d, 2 * d_in + 2 * s.d_state + nh, dt, device),
         "conv_w": L._normal(gen, (s.d_conv, conv_ch), device) / math.sqrt(s.d_conv),
         "conv_b": torch.zeros((conv_ch,), dtype=f32, device=device),
@@ -639,6 +660,11 @@ def mamba_init(gen: torch.Generator, cfg: ModelConfig, device) -> dict:
         "norm": L.init_norm(cfg, device, d_in),
         "out_proj": L.dense_init(gen, d_in, d, dt, device),
     }
+
+
+def mamba_init(gen: torch.Generator, cfg: ModelConfig, device) -> dict:
+    """The Mamba2 layer: its norm and the mixer."""
+    return {"ln": L.init_norm(cfg, device), **mamba_mixer_init(gen, cfg, device)}
 
 
 def _mamba_split(cfg: ModelConfig, p: dict, lora, x: Tensor):
@@ -740,42 +766,57 @@ def ssd_chunked(xh: Tensor, bmat: Tensor, cmat: Tensor, dt: Tensor, a_log: Tenso
 def ssd_apply(cfg: ModelConfig, xh, bmat, cmat, dt, a_log, d_skip, state):
     """The SSD over a sequence: ``wkv_impl`` governs both recurrent
     families.  Plain PyTorch either way; the reference's SSD is plain JAX
-    too (no TPU kernel)."""
+    too (no TPU kernel).  Where any input asks for a gradient, the SSD is
+    recomputed in the backward from its inputs, which are all autograd
+    keeps of it (``torch.utils.checkpoint``): the per-chunk tensors of a
+    layer, several GB at a server step's size, are never held across the
+    step.  The recompute runs the same operations again, so outputs and
+    gradients are those of the plain form, bit for bit."""
     if cfg.wkv_impl not in WKV_IMPLS:
         raise KeyError(f"unknown wkv impl {cfg.wkv_impl!r}; choose from {WKV_IMPLS}")
-    if cfg.wkv_impl == "chunked":
-        return ssd_chunked(xh, bmat, cmat, dt, a_log, d_skip, state, chunk=cfg.wkv_chunk)
-    return ssd_scan(xh, bmat, cmat, dt, a_log, d_skip, state)
+    fn = (functools.partial(ssd_chunked, chunk=cfg.wkv_chunk) if cfg.wkv_impl == "chunked"
+          else ssd_scan)
+    args = (xh, bmat, cmat, dt, a_log, d_skip, state)
+    if L.needs_grad(*args):
+        return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False)
+    return fn(*args)
 
 
 def _mamba_core(cfg: ModelConfig, p: dict, lora, x: Tensor,
                 conv_hist: Optional[Tensor] = None, state: Optional[Tensor] = None):
     """in_proj, the causal conv over (x, B, C), the SSD from ``state``
     (None: zeros), the gated RMSNorm (``norm``'s scale, in the model's
-    type) and out_proj.  Returns (out, the conv history f32, the state)."""
+    type) and out_proj.  Returns (out, the conv history f32, the state).
+    Records the ``mamba`` span, and inside it the ``ssd`` span (from the
+    conv's output to the SSD's)."""
     s = cfg.ssm
     d_in, nh, _ = _mamba_dims(cfg)
     b, sq, _ = x.shape
-    z, xc, bmat, cmat, dt_raw = _mamba_split(cfg, p, lora, x)
-    conv_in = torch.cat([xc, bmat, cmat], dim=-1)
-    conv_out, new_hist = _causal_conv(conv_in, p["conv_w"], p["conv_b"], conv_hist)
-    xc, bmat, cmat = torch.split(conv_out, [d_in, s.d_state, s.d_state], dim=-1)
-    dt = _softplus(dt_raw.float() + p["dt_bias"])
-    xh = xc.reshape(b, sq, nh, s.head_dim)
-    if state is None:
-        state = torch.zeros((b, nh, s.head_dim, s.d_state), dtype=torch.float32,
-                            device=x.device)
-    y, state = ssd_apply(cfg, xh, bmat, cmat, dt, p["a_log"], p["d_skip"], state)
-    y = y.reshape(b, sq, d_in).to(x.dtype)
-    y = L.rms_norm(y * F.silu(z), p["norm"]["scale"])
-    scale = cfg.lora.alpha / cfg.lora.rank
-    out = L.lora_apply(y, p["out_proj"], (lora or {}).get("out_proj"), scale,
-                       impl=cfg.lora.impl)
+    with wall.span("mamba") as sp_mixer:
+        z, xc, bmat, cmat, dt_raw = _mamba_split(cfg, p, lora, sp_mixer.input(x))
+        conv_in = torch.cat([xc, bmat, cmat], dim=-1)
+        conv_out, new_hist = _causal_conv(conv_in, p["conv_w"], p["conv_b"], conv_hist)
+        dt = _softplus(dt_raw.float() + p["dt_bias"])
+        if state is None:
+            state = torch.zeros((b, nh, s.head_dim, s.d_state), dtype=torch.float32,
+                                device=x.device)
+        with wall.span("ssd") as sp:
+            xc, bmat, cmat = torch.split(sp.input(conv_out), [d_in, s.d_state, s.d_state],
+                                         dim=-1)
+            xh = xc.reshape(b, sq, nh, s.head_dim)
+            y, state = ssd_apply(cfg, xh, bmat, cmat, dt, p["a_log"], p["d_skip"], state)
+            y = sp.output(y)
+        y = y.reshape(b, sq, d_in).to(x.dtype)
+        y = L.rms_norm(y * F.silu(z), p["norm"]["scale"])
+        scale = cfg.lora.alpha / cfg.lora.rank
+        out = sp_mixer.output(L.lora_apply(y, p["out_proj"], (lora or {}).get("out_proj"),
+                                           scale, impl=cfg.lora.impl))
     return out, new_hist, state
 
 
 def mamba_train(cfg: ModelConfig, p: dict, lora, x: Tensor, ctx: dict):
-    h = L.apply_norm(cfg, p["ln"], x)
+    with wall.span("norm") as sp:
+        h = sp.output(L.apply_norm(cfg, p["ln"], sp.input(x)))
     out, _, _ = _mamba_core(cfg, p, lora, h)
     return x + out, torch.zeros((), dtype=torch.float32, device=x.device)
 
@@ -811,9 +852,41 @@ def mamba_decode(cfg: ModelConfig, p: dict, lora, x: Tensor, cache: dict,
 MAMBA = {"init": mamba_init, "train": mamba_train, "prefill": mamba_prefill,
          "decode": mamba_decode, "init_cache": mamba_init_cache}
 
+# ===========================================================================
+# the per-layer hybrid's layer (granite-4.0-h): norm -> mixer (Mamba2 or
+# attention) -> residual, norm -> MLP -> residual, each branch times
+# ``residual_multiplier``
+# ===========================================================================
+
+
+def hybrid_layer_init(gen: torch.Generator, cfg: ModelConfig, device) -> dict:
+    """What every layer has: its two norms and its MLP.  The mixers are
+    stacked by kind beside the layers (``models/decoder.py``)."""
+    return {"ln1": L.init_norm(cfg, device), "ln2": L.init_norm(cfg, device),
+            "mlp": L.mlp_init(gen, cfg, device)}
+
+
+def hybrid_layer_train(cfg: ModelConfig, p: dict, lora, x: Tensor, ctx: dict):
+    """One layer: ``p`` holds its norms and MLP and its mixer's weights
+    under ``"mamba"`` or ``"attn"``; ``lora`` its mixer's adapters under the
+    same key."""
+    if "mamba" in p:
+        with wall.span("norm") as sp:
+            h = sp.output(L.apply_norm(cfg, p["ln1"], sp.input(x)))
+        o, _, _ = _mamba_core(cfg, p["mamba"], (lora or {}).get("mamba"), h)
+    else:
+        o, _, _ = _attention_branch(cfg, p, lora, x, ctx)
+    x = _residual(cfg, x, o)
+    del o
+    return (_mlp_residual(cfg, p, lora, x),
+            torch.zeros((), dtype=torch.float32, device=x.device))
+
+
+HYBRID_LAYER = {"init": hybrid_layer_init, "train": hybrid_layer_train}
+
 BLOCKS = {"dense": DENSE, "moe": MOE, "ssm": RWKV, "hybrid": MAMBA,
           "vlm": DENSE, "encoder": DENSE, "encdec": DENSE}
 
 
 def get_block(cfg: ModelConfig) -> dict:
-    return BLOCKS[cfg.family]
+    return HYBRID_LAYER if cfg.layer_types else BLOCKS[cfg.family]

@@ -1,10 +1,12 @@
 """Single-stack model with the paper's split execution built in — the
 encoder family (BERT), the dense decoder LMs (gemma, granite, qwen1.5),
 the MoE LMs (qwen3-moe, grok-1), the VLM (internvl2: a projector from
-precomputed vision embeddings into the dense LM), the RWKV6 LM and the
+precomputed vision embeddings into the dense LM), the RWKV6 LM, the
 hybrid (zamba2: a Mamba2 stack with one shared attention block applied
-after each segment of ``shared_attn_every`` layers).  Port of
-``src/repro/models/decoder.py``.
+after each segment of ``shared_attn_every`` layers) and the per-layer
+hybrid (granite-4.0-h: each layer a Mamba2 or an attention mixer, as
+``cfg.layer_types`` lists, and its own MLP).  Port of
+``src/repro/models/decoder.py``; the per-layer hybrid is the port's own.
 
 ``side="full" | "client" | "server"`` with a ``cut`` selects which layers
 run, by one of the reference's two paths (identical semantics, tested
@@ -33,6 +35,23 @@ Params layout (as in the reference, layers stacked on a leading axis):
 Caches stack the per-layer caches on a leading (L,) axis, as the
 reference's scan does (the hybrid's: {"mamba": (L,...), "attn": (n_seg,
 ...)}); ``serve_step`` updates them in place.
+
+The per-layer hybrid's two kinds of layer differ in their weights, so
+its mixers are stacked by kind, beside the layers:
+    "layers": {"ln1", "ln2", "mlp"} of every layer, stacked (L,...);
+    "mamba":  the Mamba2 mixers, stacked (n_mamba,...) in layer order
+              (``blocks.mamba_mixer_init``: in_proj, conv, a_log, d_skip,
+              dt_bias, the gate's norm, out_proj);
+    "attn":   the attention mixers (wq, wk, wv, wo), stacked (n_attn,...).
+Layer i takes the next mixer of its kind (``self.mixers[i]``).  Its
+adapters stay stacked on the layer axis, so that a cut splits them as it
+splits every other family's (Eq. 9): ``lora["layers"]`` holds
+{"mamba": {"in_proj", "out_proj"}, "attn": {"wq", "wk", "wv", "wo"}} for
+every layer, and a layer reads those of its own mixer (the others' rows
+are never read, and their gradients are zeros).  A client's truncated
+``"layers"`` stack indexes the same mixers.  Prefill and decode, which
+would keep a Mamba2 state and a K/V cache side by side, are not built
+(ROADMAP F.5).
 """
 from __future__ import annotations
 
@@ -52,6 +71,10 @@ from repro_torch.tree import tree_leaves, tree_map
 PyTree = Any
 
 FAMILIES = ("encoder", "dense", "moe", "vlm", "ssm", "hybrid")
+# the per-layer hybrid's mixer stacks, by ModelConfig.layer_types entry
+MIXER_KEYS = {"mamba": "mamba", "attention": "attn"}
+NO_CACHE = ("the per-layer hybrid ({}) has no prefill or decode: a Mamba2 state and a K/V "
+            "cache side by side are ROADMAP F.5")
 
 
 def build_lora_tree(gen: torch.Generator, params_one_layer: PyTree, targets,
@@ -123,6 +146,9 @@ class DecoderModel:
         self.cfg = cfg
         self.device = model_device(device)
         self.block = B.get_block(cfg)
+        # per-layer hybrid: layer i's (mixer stack key, index in that stack)
+        self.mixers = [(MIXER_KEYS[t], cfg.layer_types[:i].count(t))
+                       for i, t in enumerate(cfg.layer_types)]
 
     # -- init ---------------------------------------------------------------
     def init_params(self, gen: torch.Generator) -> PyTree:
@@ -132,7 +158,12 @@ class DecoderModel:
         if cfg.positional == "learned":
             p["pos_embed"] = L.embed_init(gen, cfg.max_position, cfg.d_model, dt, dev)
         p["layers"] = init_stacked(lambda: self.block["init"](gen, cfg, dev), cfg.n_layers)
-        if cfg.family == "hybrid":
+        if cfg.layer_types:
+            p["mamba"] = init_stacked(lambda: B.mamba_mixer_init(gen, cfg, dev),
+                                      cfg.layer_types.count("mamba"))
+            p["attn"] = init_stacked(lambda: L.attn_init(gen, cfg, dev),
+                                     cfg.layer_types.count("attention"))
+        if cfg.shared_attn_every:
             p["shared"] = B.dense_init(gen, cfg, dev)
         if cfg.family == "vlm":
             p["proj"] = L.dense_init(gen, cfg.vision_embed_dim, cfg.d_model, dt, dev)
@@ -146,13 +177,17 @@ class DecoderModel:
 
     def init_lora(self, gen: torch.Generator) -> PyTree:
         cfg = self.cfg
-        # a single-layer skeleton on the meta device gives the shapes
+        # a single-layer skeleton on the meta device gives the shapes; the
+        # per-layer hybrid's layers carry both mixers' adapters
         one = self.block["init"](None, cfg, "meta")
+        if cfg.layer_types:
+            one = {"mamba": B.mamba_mixer_init(None, cfg, "meta"),
+                   "attn": L.attn_init(None, cfg, "meta")}
         per_layer = [build_lora_tree(gen, one, cfg.lora.targets, cfg.lora.rank,
                                      self.device)
                      for _ in range(cfg.n_layers)]
         lora = {"layers": stack_trees(per_layer)}
-        if cfg.family == "hybrid":
+        if cfg.shared_attn_every:
             lora["shared"] = build_lora_tree(gen, B.dense_init(None, cfg, "meta"),
                                              cfg.lora.targets, cfg.lora.rank, self.device)
         return lora
@@ -178,6 +213,8 @@ class DecoderModel:
             x = oh @ params["embed"]
         else:
             x = params["embed"][tokens]
+        if cfg.embedding_multiplier != 1.0:
+            x = x * cfg.embedding_multiplier
         if cfg.family == "vlm" and "vision_embeds" in batch:
             vis = batch["vision_embeds"].to(x.dtype) @ params["proj"].to(x.dtype)
             x = torch.cat([vis, x], dim=1)
@@ -191,7 +228,8 @@ class DecoderModel:
         if cfg.n_classes:
             return x[:, 0, :].float() @ params["cls_head"]   # CLS pool
         w = params["embed"].t() if cfg.tie_embeddings else params["head"]
-        return x @ w.to(x.dtype)
+        logits = x @ w.to(x.dtype)
+        return logits if cfg.logits_scaling == 1.0 else logits / cfg.logits_scaling
 
     def make_ctx(self, seq_len: int, device, *, window: Optional[int] = None,
                  positions: Optional[torch.Tensor] = None, moe_groups: int = 1,
@@ -223,10 +261,23 @@ class DecoderModel:
         return segs
 
     def _segment_ends(self) -> dict:
-        """{last layer of a segment: segment index}; empty outside the hybrid."""
-        if self.cfg.family != "hybrid":
+        """{last layer of a segment: segment index}; empty without a shared
+        block."""
+        if not self.cfg.shared_attn_every:
             return {}
         return {s1 - 1: si for si, (_, s1) in enumerate(self._segments())}
+
+    def _layer(self, params, lora_layers, i: int):
+        """Layer i's weights and adapters: slices of the stacks; in the
+        per-layer hybrid its norms and MLP with its mixer from the stack of
+        its kind, and that mixer's adapters."""
+        p_l = tree_map(lambda a: a[i], params["layers"])
+        if not self.mixers:
+            return p_l, tree_map(lambda a: a[i], lora_layers)
+        key, j = self.mixers[i]
+        p_l[key] = tree_map(lambda a: a[j], params[key])
+        lo = lora_layers.get(key)
+        return p_l, ({key: tree_map(lambda a: a[i], lo)} if lo else {})
 
     # -- backbone: sliced (static-cut) path -------------------------------------
     def sliced_forward(self, params, lora, x, ctx, layer_range) -> torch.Tensor:
@@ -238,8 +289,7 @@ class DecoderModel:
         ends = self._segment_ends()
         lo, hi = layer_range
         for i in range(lo, hi):
-            p_l = tree_map(lambda a: a[i], params["layers"])
-            lo_l = tree_map(lambda a: a[i], lora_layers)
+            p_l, lo_l = self._layer(params, lora_layers, i)
             x, _ = self.block["train"](self.cfg, p_l, lo_l, x, ctx)
             if i in ends:   # segment boundary -> shared attention
                 x, _ = B.dense_train(self.cfg, params["shared"],
@@ -289,8 +339,7 @@ class DecoderModel:
             run = _run_mask(side, i, cut)
             if run is False:
                 continue
-            p_l = tree_map(lambda a: a[i], params["layers"])
-            lo_l = tree_map(lambda a: a[i], lora_layers)
+            p_l, lo_l = self._layer(params, lora_layers, i)
             if remat:
                 x, aux = checkpoint(self._masked_layer, p_l, lo_l, x, aux, ctx, run,
                                     use_reentrant=False)
@@ -362,9 +411,11 @@ class DecoderModel:
             return tree_map(lambda a: a[None].repeat(n, *([1] * a.dim())), one)
 
         cfg = self.cfg
+        if cfg.layer_types:
+            raise NotImplementedError(NO_CACHE.format(cfg.name))
         layers = stacked(self.block["init_cache"](cfg, batch_size, cache_len, self.device),
                          cfg.n_layers)
-        if cfg.family != "hybrid":
+        if not cfg.shared_attn_every:
             return layers
         attn = B.dense_init_cache(cfg, batch_size, cache_len, self.device)
         return {"mamba": layers, "attn": stacked(attn, len(self._segments()))}
@@ -376,6 +427,8 @@ class DecoderModel:
     def prefill(self, params, lora, batch, *, ctx=None):
         """Run the prompt through every layer; returns (logits of the last
         position (B,1,V), the stacked caches)."""
+        if self.cfg.layer_types:
+            raise NotImplementedError(NO_CACHE.format(self.cfg.name))
         x = self.embed(params, batch)
         if ctx is None:
             ctx = self.make_ctx(x.shape[1], x.device)
@@ -401,6 +454,8 @@ class DecoderModel:
         """One decode step: token (B,1) int, pos an int (or a 0-d tensor,
         read on the host) shared by the batch.  Writes the step into
         ``cache`` and returns (logits (B,1,V), cache)."""
+        if self.cfg.layer_types:
+            raise NotImplementedError(NO_CACHE.format(self.cfg.name))
         pos = int(pos)
         x = params["embed"][token.long()]
         if self.cfg.positional == "learned":

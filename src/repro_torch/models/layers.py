@@ -212,10 +212,13 @@ def apply_rope(x: Tensor, positions: Tensor, theta: float) -> Tensor:
 ATTN_IMPLS = ("naive", "chunked")
 
 
-def _gqa_scores_softmax_out(q: Tensor, k: Tensor, v: Tensor, mask: Tensor) -> Tensor:
-    """q: (B,S,K,G,Dh)  k,v: (B,T,K,Dh)  mask: broadcastable to (B,K,G,S,T)."""
+def _gqa_scores_softmax_out(q: Tensor, k: Tensor, v: Tensor, mask: Tensor,
+                            scale: Optional[float] = None) -> Tensor:
+    """q: (B,S,K,G,Dh)  k,v: (B,T,K,Dh)  mask: broadcastable to (B,K,G,S,T);
+    the scores times ``scale`` (None: over sqrt(Dh))."""
     dh = q.shape[-1]
-    scores = torch.einsum("bskgd,btkd->bkgst", q.float(), k.float()) / math.sqrt(dh)
+    scores = torch.einsum("bskgd,btkd->bkgst", q.float(), k.float())
+    scores = scores / math.sqrt(dh) if scale is None else scores * scale
     scores = torch.where(mask, scores, torch.full_like(scores, -1e30))
     probs = torch.softmax(scores, dim=-1)
     return torch.einsum("bkgst,btkd->bskgd", probs.to(v.dtype), v)
@@ -264,8 +267,10 @@ def _flash_domain(q: Tensor, k: Tensor, v: Tensor, q_pos: Tensor, k_pos: Tensor,
 def attention_full(q: Tensor, k: Tensor, v: Tensor, *, causal: bool,
                    window: Optional[int], q_pos: Tensor, k_pos: Tensor,
                    impl: str = "naive", arange: bool = False,
-                   chunk: int = 1024) -> Tensor:
-    """Full-sequence attention. q:(B,S,H,Dh) k,v:(B,T,K,Dh) -> (B,S,H*Dh).
+                   chunk: int = 1024, scale: Optional[float] = None) -> Tensor:
+    """Full-sequence attention. q:(B,S,H,Dh) k,v:(B,T,K,Dh) -> (B,S,H*Dh);
+    the softmax over the scores times ``scale`` (None: 1/sqrt(Dh); a
+    config's ``attention_multiplier``), on every path below.
 
     Where :func:`_flash_domain` says "pair" (on the card, bf16, arange
     positions) both impls run the flash kernels, forward and backward:
@@ -281,10 +286,10 @@ def attention_full(q: Tensor, k: Tensor, v: Tensor, *, causal: bool,
     if _flash_domain(q, k, v, q_pos, k_pos, window, arange, impl) is not None:
         from repro_torch.kernels.ops import flash_attention_apply
         return flash_attention_apply(q, k, v, causal=causal, window=window,
-                                     normalize_first=impl == "naive")
+                                     normalize_first=impl == "naive", scale=scale)
     if impl == "chunked":
         return _attention_chunked(q, k, v, causal=causal, window=window,
-                                  q_pos=q_pos, k_pos=k_pos, chunk=chunk)
+                                  q_pos=q_pos, k_pos=k_pos, chunk=chunk, scale=scale)
     b, s, h, dh = q.shape
     kheads = k.shape[2]
     q = q.reshape(b, s, kheads, h // kheads, dh)
@@ -295,13 +300,13 @@ def attention_full(q: Tensor, k: Tensor, v: Tensor, *, causal: bool,
         mask = torch.ones((s, k.shape[1]), dtype=torch.bool, device=q.device)
     if window is not None:
         mask = mask & (rel < window)
-    out = _gqa_scores_softmax_out(q, k, v, mask)
+    out = _gqa_scores_softmax_out(q, k, v, mask, scale)
     return out.reshape(b, s, h * dh)
 
 
 def _attention_chunked(q: Tensor, k: Tensor, v: Tensor, *, causal: bool,
                        window: Optional[int], q_pos: Tensor, k_pos: Tensor,
-                       chunk: int) -> Tensor:
+                       chunk: int, scale: Optional[float] = None) -> Tensor:
     """Online-softmax attention over ``chunk``-key chunks in plain PyTorch
     (the reference's pure-JAX flash), f32 running max, sum and output; keys
     past T are padded at position -1 and masked."""
@@ -310,7 +315,8 @@ def _attention_chunked(q: Tensor, k: Tensor, v: Tensor, *, causal: bool,
     g = h // kheads
     t = k.shape[1]
     qq = q.reshape(b, s, kheads, g, dh).float()
-    scale = 1.0 / math.sqrt(dh)
+    if scale is None:
+        scale = 1.0 / math.sqrt(dh)
     pad = (-t) % chunk
     if pad:
         k = F.pad(k, (0, 0, 0, 0, 0, pad))
@@ -344,14 +350,15 @@ def _attention_chunked(q: Tensor, k: Tensor, v: Tensor, *, causal: bool,
 
 
 def attention_decode(q: Tensor, k_cache: Tensor, v_cache: Tensor,
-                     valid: Tensor) -> Tensor:
-    """One-token decode. q:(B,1,H,Dh) caches:(B,T,K,Dh) valid:(T,) or (B,T)."""
+                     valid: Tensor, scale: Optional[float] = None) -> Tensor:
+    """One-token decode. q:(B,1,H,Dh) caches:(B,T,K,Dh) valid:(T,) or (B,T);
+    ``scale`` as in :func:`attention_full`."""
     b, s, h, dh = q.shape
     kheads = k_cache.shape[2]
     q = q.reshape(b, s, kheads, h // kheads, dh)
     mask = valid[None, None, None, None, :] if valid.dim() == 1 \
         else valid[:, None, None, None, :]
-    out = _gqa_scores_softmax_out(q, k_cache, v_cache, mask)
+    out = _gqa_scores_softmax_out(q, k_cache, v_cache, mask, scale)
     return out.reshape(b, s, h * dh)
 
 

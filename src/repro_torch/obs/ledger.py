@@ -77,8 +77,8 @@ class MemoryLedger:
         client_act = np.empty(n)
         server_act = np.empty(n)
         for i, cut in enumerate(cuts):
-            lora_b = cut * mb.lora_per_layer
-            client_base[i] = (mb.embed + cut * mb.per_layer + lora_b
+            lora_b = mb.lora_layers(0, cut)
+            client_base[i] = (mb.embed + mb.layers(0, cut) + lora_b
                               + optimizer_bytes(lora_b))
             # client activations exclude the head/logits term (it lives
             # server-side), mirroring memory_model.client_memory
@@ -104,8 +104,8 @@ class MemoryLedger:
                    local_baseline=local)
 
         def _cut_bytes(cut: int):
-            lora_b = cut * mb.lora_per_layer
-            base = (mb.embed + cut * mb.per_layer + lora_b
+            lora_b = mb.lora_layers(0, cut)
+            base = (mb.embed + mb.layers(0, cut) + lora_b
                     + optimizer_bytes(lora_b))
             act = (activation_bytes_training(cfg, cut, batch, seq_len,
                                              dtype_bytes)

@@ -252,7 +252,7 @@ def test_families_outside_the_slice_raise(family):
 
 
 def test_supports_decode_matches_reference():
-    for name in REGISTRY:
+    for name in J_REGISTRY:
         assert supports_decode(REGISTRY[name]) == j_supports_decode(J_REGISTRY[name])
 
 
